@@ -1,0 +1,99 @@
+"""FluentSpeech masked-conditional mel DDPM, inference.
+
+Conditioning: FastSpeech states expanded to frame rate (with the masked
+duration/pitch conditioning) plus ``MelEncoder(ref_mels * (1 - mask))``.
+The reverse process runs ``timesteps`` steps of the x0-predicting DiffNet;
+its noise is drawn from a ``torch.Generator`` on the device, or passed in.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Sequence
+
+import torch
+from torch import nn
+
+from speech_editing_tpu_torch.models.fs import FastSpeech
+from speech_editing_tpu_torch.modules.predictors import MelEncoder
+from speech_editing_tpu_torch.modules.wavenet import DiffNet
+from speech_editing_tpu_torch.ops import diffusion as diff_ops
+
+
+class GaussianDiffusion(nn.Module):
+    def __init__(self, vocab_size: int, hp: Any, out_dims: int = 80):
+        super().__init__()
+        for key in ("no_diffusion", "ref_pad_compat"):
+            if hp.get(key):
+                raise NotImplementedError(f"hp[{key!r}] is not ported")
+        if not hp.get("use_masked_cond", True):
+            raise NotImplementedError("hp['use_masked_cond']=False is not ported")
+        self.hp = hp
+        self.out_dims = out_dims
+        self.fs = FastSpeech(vocab_size, hp)
+        self.mel_encoder = MelEncoder(out_dims, hp["hidden_size"])
+        self.denoise_fn = DiffNet(out_dims, hp["hidden_size"], hp["residual_layers"],
+                                  hp["residual_channels"], hp["dilation_cycle_length"])
+        self.num_timesteps = hp["timesteps"]
+        self._sched: dict = {}
+
+    def schedule(self, device) -> diff_ops.DiffusionSchedule:
+        key = str(device)
+        if key not in self._sched:
+            self._sched[key] = diff_ops.DiffusionSchedule.create(
+                self.hp.get("schedule_type", "vpsde"), self.num_timesteps,
+                device=device)
+        return self._sched[key]
+
+    def predict_durations(self, txt_tokens, time_mel_masks, masked_mel2ph,
+                          masked_dur, spk_embed=None):
+        """Encoder + style on the edited tokens, duration predictor conditioned
+        on the masked ground-truth durations, regulated to a predicted mel2ph."""
+        encoder_out = self.fs.encoder(txt_tokens)
+        src_nonpadding = (txt_tokens > 0)[:, :, None].to(encoder_out.dtype)
+        style_embed = self.fs.forward_style_embed(spk_embed, None)
+        ret: dict = {}
+        mel2ph = self.fs.forward_dur((encoder_out + style_embed) * src_nonpadding,
+                                     time_mel_masks, masked_mel2ph, txt_tokens, ret,
+                                     masked_dur=masked_dur, use_pred_mel2ph=True)
+        return {"mel2ph": mel2ph, "dur": ret["dur"]}
+
+    def compute_cond(self, txt_tokens, time_mel_masks, mel2ph, spk_embed,
+                     ref_mels, f0, uv, use_pred_mel2ph=False, use_pred_pitch=False):
+        """Conditioner only: FastSpeech states + the masked-mel encoding."""
+        ret = self.fs(txt_tokens, time_mel_masks, mel2ph, spk_embed, f0, uv,
+                      use_pred_mel2ph=use_pred_mel2ph, use_pred_pitch=use_pred_pitch)
+        tgt_nonpadding = (ret["mel2ph"] > 0)[:, :, None].to(ret["decoder_inp"].dtype)
+        ret["cond"] = ret["decoder_inp"] + self.mel_encoder(
+            ref_mels * (1 - time_mel_masks)) * tgt_nonpadding
+        return ret
+
+    def forward(self, txt_tokens, time_mel_masks, mel2ph, spk_embed, ref_mels,
+                f0, uv, use_pred_mel2ph: bool = False, use_pred_pitch: bool = False,
+                generator: torch.Generator | None = None,
+                noise: Sequence[torch.Tensor] | None = None):
+        """Inference. txt_tokens [B,S]; time_mel_masks [B,T,1]; mel2ph [B,T];
+        ref_mels [B,T,M]; f0/uv [B,T]. ``noise``: timesteps+1 tensors
+        [B,T,M], the initial noise (step T) and then the noise of steps
+        T-1 .. 0; drawn from ``generator`` when None. Returns the
+        conditioner's dict with ``mel_out`` [B,T,M]."""
+        ret = self.compute_cond(txt_tokens, time_mel_masks, mel2ph, spk_embed,
+                                ref_mels, f0, uv, use_pred_mel2ph, use_pred_pitch)
+        cond = ret["cond"]
+        nonpad = (ret["mel2ph"] > 0).to(cond.dtype)             # [B, T]
+        b, t_mel = cond.shape[:2]
+        big_t = self.num_timesteps
+        if noise is None:
+            noise = [torch.randn(b, t_mel, self.out_dims, device=cond.device,
+                                 generator=generator) for _ in range(big_t + 1)]
+        if len(noise) != big_t + 1:
+            raise ValueError(f"noise: {len(noise)} tensors, expected {big_t + 1}")
+        sched = self.schedule(cond.device)
+        weights = self.denoise_fn.kernel_weights()
+        x = noise[0] * nonpad[..., None]
+        for i in range(big_t - 1, -1, -1):
+            t = torch.full((b,), i, dtype=torch.long, device=cond.device)
+            x0_pred = self.denoise_fn(x, t, cond, nonpad, weights)
+            x = diff_ops.q_posterior_sample(sched, x0_pred, x, t,
+                                            noise[big_t - i]) * nonpad[..., None]
+        ret["mel_out"] = x
+        return ret

@@ -1,0 +1,90 @@
+"""DiffNet: the x0-predicting WaveNet denoiser of FluentSpeech.
+
+Spec ``[B, T, M]`` -> ``[B, T, M]``. Every gated residual block runs through
+kernel K1 (``ops/cuda/diffnet_block.py``). Parameter names follow the
+reference torch DiffNet (``residual_layers.{i}.dilated_conv`` and so on).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from speech_editing_tpu_torch.ops.cuda.diffnet_block import diffnet_block
+
+
+def diffusion_step_embedding(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """[B] integer steps -> [B, dim] sinusoidal embedding [sin | cos]."""
+    half = dim // 2
+    freq = torch.exp(torch.arange(half, device=t.device)
+                     * -(math.log(10000) / (half - 1)))
+    ang = t.float()[:, None] * freq[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+class DiffNetResidualBlock(nn.Module):
+    def __init__(self, encoder_hidden: int, residual_channels: int, dilation: int):
+        super().__init__()
+        c = residual_channels
+        self.dilation = dilation
+        self.dilated_conv = nn.Conv1d(c, 2 * c, 3, padding=dilation, dilation=dilation)
+        self.diffusion_projection = nn.Linear(c, c)
+        self.conditioner_projection = nn.Conv1d(encoder_hidden, 2 * c, 1)
+        self.output_projection = nn.Conv1d(c, 2 * c, 1)
+
+    def kernel_weights(self) -> tuple[torch.Tensor, ...]:
+        """(wd [3C, 2C], bd, wc [H, 2C], bc, wo [C, 2C], bo): the conv weights
+        in the layout K1 takes (row tap*C + c_in of wd)."""
+        c2 = self.dilated_conv.out_channels
+        return (self.dilated_conv.weight.permute(2, 1, 0).reshape(-1, c2).contiguous(),
+                self.dilated_conv.bias,
+                self.conditioner_projection.weight[:, :, 0].t().contiguous(),
+                self.conditioner_projection.bias,
+                self.output_projection.weight[:, :, 0].t().contiguous(),
+                self.output_projection.bias)
+
+    def forward(self, x, cond, step_emb, nonpadding=None, weights=None):
+        """x [B,T,C]; cond [B,T,H]; step_emb [B,C]; nonpadding [B,T] or None;
+        ``weights`` from :meth:`kernel_weights` (computed here if None)."""
+        step = self.diffusion_projection(step_emb)
+        w = self.kernel_weights() if weights is None else weights
+        return diffnet_block(x, cond, step, nonpadding, *w, dilation=self.dilation)
+
+
+class DiffNet(nn.Module):
+    def __init__(self, in_dims: int = 80, encoder_hidden: int = 192,
+                 residual_layers: int = 20, residual_channels: int = 256,
+                 dilation_cycle_length: int = 1):
+        super().__init__()
+        c = residual_channels
+        self.input_projection = nn.Conv1d(in_dims, c, 1)
+        self.mlp = nn.Sequential(nn.Linear(c, 4 * c), nn.Mish(), nn.Linear(4 * c, c))
+        self.residual_layers = nn.ModuleList(
+            DiffNetResidualBlock(encoder_hidden, c, 2 ** (i % dilation_cycle_length))
+            for i in range(residual_layers))
+        self.skip_projection = nn.Conv1d(c, c, 1)
+        self.output_projection = nn.Conv1d(c, in_dims, 1)
+
+    def kernel_weights(self) -> list[tuple[torch.Tensor, ...]]:
+        """Every block's K1 weights; compute once per sampling run."""
+        return [layer.kernel_weights() for layer in self.residual_layers]
+
+    def forward(self, spec, diffusion_step, cond, nonpadding=None, weights=None):
+        """spec [B,T,M]; diffusion_step [B]; cond [B,T,H]; nonpadding [B,T]."""
+        x = F.relu(F.linear(spec, self.input_projection.weight[:, :, 0],
+                            self.input_projection.bias))
+        c = x.shape[-1]
+        step = self.mlp(diffusion_step_embedding(diffusion_step, c))
+        weights = self.kernel_weights() if weights is None else weights
+        skip_sum = torch.zeros_like(x)
+        for layer, w in zip(self.residual_layers, weights):
+            x, skip = layer(x, cond, step, nonpadding, w)
+            skip_sum = skip_sum + skip
+        x = skip_sum / math.sqrt(len(self.residual_layers))
+        x = F.relu(F.linear(x, self.skip_projection.weight[:, :, 0],
+                            self.skip_projection.bias))
+        return F.linear(x, self.output_projection.weight[:, :, 0],
+                        self.output_projection.bias)

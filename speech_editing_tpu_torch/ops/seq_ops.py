@@ -1,0 +1,52 @@
+"""Sequence and alignment ops on [B, T] id maps and [B, T, H] states."""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def make_positions(tokens: torch.Tensor, padding_idx: int = 0) -> torch.Tensor:
+    """Position ids starting at padding_idx+1, padding_idx at padding."""
+    mask = (tokens != padding_idx).long()
+    return torch.cumsum(mask, dim=1) * mask + padding_idx
+
+
+def length_regulator(dur: torch.Tensor, max_frames: int,
+                     dur_padding: torch.Tensor | None = None,
+                     alpha: float = 1.0) -> torch.Tensor:
+    """Per-token durations [B, S] -> 1-based frame->token map [B, max_frames]
+    (0 beyond the total length). Durations round half to even."""
+    dur = torch.round(dur.float() * alpha).long()
+    if dur_padding is not None:
+        dur = dur * (~dur_padding).long()
+    cum = torch.cumsum(dur, dim=1)                              # [B, S]
+    pos = torch.arange(max_frames, device=dur.device)[None, :]  # [1, T]
+    count = (cum[:, None, :] <= pos[:, :, None]).sum(-1)        # [B, T]
+    return (count + 1) * (pos < cum[:, -1:]).long()
+
+
+def expand_states(h: torch.Tensor, mel2token: torch.Tensor) -> torch.Tensor:
+    """Token states to frame rate: [B, S, H], [B, T] -> [B, T, H].
+
+    Id 0 maps to a zero row; ids past the last token clamp to it."""
+    h = F.pad(h, (0, 0, 1, 0))
+    ids = mel2token.long().clamp(0, h.shape[1] - 1)
+    return torch.gather(h, 1, ids[:, :, None].expand(-1, -1, h.shape[2]))
+
+
+def mel2token_to_dur(mel2token: torch.Tensor, T_txt: int) -> torch.Tensor:
+    """Per-token durations [B, T_txt] from a 1-based frame->token map.
+    Ids outside [0, T_txt] are dropped."""
+    ids = mel2token.long()
+    valid = (ids >= 0) & (ids <= T_txt)
+    dur = torch.zeros(ids.shape[0], T_txt + 1, dtype=torch.long,
+                      device=ids.device)
+    dur.scatter_add_(1, ids.clamp(0, T_txt), valid.long())
+    return dur[:, 1:]
+
+
+def clip_mel2token_to_multiple(mel2token: torch.Tensor,
+                               frames_multiple: int) -> torch.Tensor:
+    max_frames = mel2token.shape[1] // frames_multiple * frames_multiple
+    return mel2token[:, :max_frames]

@@ -1,0 +1,41 @@
+"""The PyTorch port stands alone: importing every module of
+``speech_editing_tpu_torch`` loads neither JAX nor the JAX package, and its
+entry point refuses to fall back to the CPU on its own."""
+
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = r"""
+import importlib, pkgutil, sys
+import torch
+import speech_editing_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+assert len(names) >= 20, names
+leaked = sorted(m for m in sys.modules
+                if m in ("jax", "flax") or m.startswith(("jax.", "flax."))
+                or m == "speech_editing_tpu" or m.startswith("speech_editing_tpu."))
+assert not leaked, leaked
+if not torch.cuda.is_available():
+    from speech_editing_tpu_torch.infer.edit import EditPipeline
+    try:
+        EditPipeline({}, {})
+    except RuntimeError as e:
+        assert "no CUDA device" in str(e), e
+    else:
+        raise AssertionError("EditPipeline() ran without a GPU")
+print("ISOLATED", len(names))
+"""
+
+
+def test_port_imports_no_jax_and_needs_a_gpu_by_default():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    res = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "ISOLATED" in res.stdout
