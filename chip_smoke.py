@@ -9,14 +9,24 @@ Phases, each of which exits non-zero on a failed check:
 2. build: ``nvcc`` builds every kernel from ``speech_editing_tpu_torch/csrc``
    for ``sm_90a``, one compiler per source, in parallel;
 3. kernels: each CUDA kernel against its plain PyTorch version at the
-   shapes of the edit path, with the error against the stated tolerance,
-   the kernel's, the plain version's and (for attention) SDPA's time;
-4. main path: ``EditPipeline`` at the flagship width (seeded random
+   shapes of the edit and train paths, with the error against the stated
+   tolerance, the kernel's, the plain version's and (for attention) SDPA's
+   time; the backward kernels K5 and K4 also against autograd of the plain
+   forward, through the autograd Functions that pair them with K1 and K3;
+4. edit path: ``EditPipeline`` at the flagship width (seeded random
    weights) answers edit requests of 512 (``bench.py``'s utterance), 300
    and 700 frames; every launch counter must move by exactly its expected
    amount per request; outputs are finite, frames outside the edit equal
    the source mel, and one request re-run on the CPU (plain versions, same
-   weights and noise) agrees; the edit's real-time factor is timed.
+   weights and noise) agrees; the edit's real-time factor is timed;
+5. train path: ``Trainer`` at the flagship width takes 3 warm-up and 10
+   timed steps on a seeded synthetic batch at the flagship token budget
+   (78 utterances x 512 frames); every loss term and the gradient norm are
+   finite and every launch counter moves by exactly its expected amount
+   per step; one step on a 2-utterance slice, re-run on the CPU (plain
+   versions, same weights, optimizer state, diffusion draw, dropout off),
+   agrees in losses, gradients, parameters and Adam moments; step time,
+   frames per second, peak memory and a profiled step are printed.
 
 Float32 throughout, with TF32 off for matrix products and cuDNN
 convolutions, so the card and the CPU compute the same function. The
@@ -39,20 +49,41 @@ from speech_editing_tpu_torch.config.flagship import FLAGSHIP_HP, HIFIGAN_V1_HP
 from speech_editing_tpu_torch.infer.edit import EditPipeline
 from speech_editing_tpu_torch.ops.cuda import build
 from speech_editing_tpu_torch.ops.cuda.diffnet_block import (diffnet_block,
-                                                             diffnet_block_plain)
+                                                             diffnet_block_bwd,
+                                                             diffnet_block_bwd_plain,
+                                                             diffnet_block_plain,
+                                                             diffnet_block_train)
 from speech_editing_tpu_torch.ops.cuda.mel_kernel import mel_spectrogram
-from speech_editing_tpu_torch.ops.flash_attention import attention_plain, flash_mha
+from speech_editing_tpu_torch.ops.flash_attention import (attention_bwd_plain,
+                                                          attention_lse_plain,
+                                                          attention_plain, flash_mha,
+                                                          flash_mha_bwd,
+                                                          flash_mha_train)
 from speech_editing_tpu_torch.ops.mel import MelConfig
 from speech_editing_tpu_torch.ops.mel import mel_spectrogram as mel_plain
+from speech_editing_tpu_torch.training.trainer import Trainer
 
 PEAK_FP32_FLOPS = 67e12     # H100 SXM, float32 outside the tensor cores
 PEAK_HBM_BYTES = 3.35e12    # H100 SXM, bytes/s
 SR, HOP = 22050, 256
 REQUEST_FRAMES = (512, 300, 700)
 EXPECTED_PER_REQUEST = {"diffnet_block": FLAGSHIP_HP["residual_layers"] * FLAGSHIP_HP["timesteps"],
-                        "mel_spectrogram": 1,
-                        "flash_mha": FLAGSHIP_HP["enc_layers"]}
+                        "diffnet_block_bwd": 0, "mel_spectrogram": 1,
+                        "flash_mha": FLAGSHIP_HP["enc_layers"], "flash_mha_bwd": 0}
+EXPECTED_PER_STEP = {"diffnet_block": FLAGSHIP_HP["residual_layers"],
+                     "diffnet_block_bwd": FLAGSHIP_HP["residual_layers"],
+                     "mel_spectrogram": 0, "flash_mha": FLAGSHIP_HP["enc_layers"],
+                     "flash_mha_bwd": FLAGSHIP_HP["enc_layers"]}
 CPU_MEL_TOL = 2e-2
+# the train path: 78 x 512 = 39,936 frames, under the flagship's
+# max_tokens of 40,000 frames per step; 48 text tokens
+TRAIN_B, TRAIN_T, TRAIN_S = 78, 512, 48
+TRAIN_MIN_T, TRAIN_MIN_S = 300, 24     # utterance lengths drawn from these up
+TRAIN_WARMUP, TRAIN_TIMED = 3, 10
+SIL_IDS = (1, 2)          # the synthetic batch's silence tokens
+BWD_TOL = 1e-4            # backward kernels, relative to the reference's max
+STEP_LOSS_RTOL, STEP_GRAD_TOL = 1e-4, 1e-3
+STEP_PARAM_TOL, STEP_MOMENT_TOL = 1e-4, 1e-3
 
 
 def fail(msg: str) -> None:
@@ -89,38 +120,104 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
+def rel_err(got, ref) -> float:
+    """Largest |got - ref| over the pairs, each relative to the largest
+    magnitude of its reference."""
+    return max(float((g - e).abs().max() / e.abs().max().clamp(min=1e-30))
+               for g, e in zip(got, ref))
+
+
 # -- kernel phases ---------------------------------------------------------------
+
+def block_inputs(gen, b: int, t: int = 512):
+    """A DiffNet block's inputs at the flagship width, the last row with a
+    37-frame padded tail: (x, cond, step, mask, weights)."""
+    c, h = FLAGSHIP_HP["residual_channels"], FLAGSHIP_HP["hidden_size"]
+    r = lambda *s, scale=1.0: torch.randn(*s, device="cuda", generator=gen) * scale
+    x, cond, step = r(b, t, c), r(b, t, h, scale=0.5), r(b, c, scale=0.3)
+    mask = torch.ones(b, t, device="cuda")
+    mask[-1, t - 37:] = 0.0
+    w = (r(3 * c, 2 * c, scale=0.05), r(2 * c, scale=0.1), r(h, 2 * c, scale=0.05),
+         r(2 * c, scale=0.1), r(c, 2 * c, scale=0.05), r(2 * c, scale=0.1))
+    return x, cond, step, mask, w
+
 
 def phase_diffnet_block(gen) -> dict:
     c, h, t = FLAGSHIP_HP["residual_channels"], FLAGSHIP_HP["hidden_size"], 512
     tol, out = 1e-4, {}
-    for b in (1, 4):
-        r = lambda *s, scale=1.0: torch.randn(*s, device="cuda", generator=gen) * scale
-        x, cond, step = r(b, t, c), r(b, t, h, scale=0.5), r(b, c, scale=0.3)
-        mask = torch.ones(b, t, device="cuda")
-        mask[-1, t - 37:] = 0.0      # a padded tail
-        w = (r(3 * c, 2 * c, scale=0.05), r(2 * c, scale=0.1), r(h, 2 * c, scale=0.05),
-             r(2 * c, scale=0.1), r(c, 2 * c, scale=0.05), r(2 * c, scale=0.1))
-        got = diffnet_block(x, cond, step, mask, *w)
-        ref = diffnet_block_plain(x, cond, step, mask, *w)
+    for b in (1, 4, TRAIN_B):
+        x, cond, step, mask, w = block_inputs(gen, b, t)
+        train = b == TRAIN_B      # the train path's form: h written too
+        got = diffnet_block(x, cond, step, mask, *w, return_h=train)
+        ref = diffnet_block_plain(x, cond, step, mask, *w, return_h=train)
         torch.cuda.synchronize()
         err = max(float((g - e).abs().max()) for g, e in zip(got, ref))
-        ms = time_ms(lambda: diffnet_block(x, cond, step, mask, *w))
-        plain_ms = time_ms(lambda: diffnet_block_plain(x, cond, step, mask, *w))
+        ms = time_ms(lambda: diffnet_block(x, cond, step, mask, *w, return_h=train))
+        plain_ms = time_ms(lambda: diffnet_block_plain(x, cond, step, mask, *w,
+                                                       return_h=train))
         flops = 2 * b * t * 2 * c * (3 * c + h + c)
-        bound_ms, bound_by = bound(flops, nbytes(x, cond, step, mask, *w) + 2 * nbytes(x))
-        print(f"[kernel] diffnet_block B={b} T={t} C={c} H={h}: max_abs_err={err:.3e} "
+        bound_ms, bound_by = bound(flops, nbytes(x, cond, step, mask, *w, *got))
+        print(f"[kernel] diffnet_block B={b} T={t} C={c} H={h}"
+              f"{' (with h)' if train else ''}: max_abs_err={err:.3e} "
               f"(tol {tol}) kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"bound {bound_ms:.4f} ms ({bound_by})", flush=True)
         check(err <= tol, f"diffnet_block B={b}: error {err} > {tol}")
-        out.setdefault("max_abs_err", 0.0)
-        out["max_abs_err"] = max(out["max_abs_err"], err)
+        out["max_abs_err"] = max(out.get("max_abs_err", 0.0), err)
         if b == 1:   # the edit path's shape
             out.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+        if train:
+            out.update(train_ms=ms, train_bound_ms=bound_ms)
     return dict(out, name="diffnet_block", route="cuda",
                 source="speech_editing_tpu_torch/csrc/diffnet_block.cu",
                 replaces="speech_editing_tpu/ops/pallas/diffnet_block.py:139",
                 tol=tol, library_ms=None)
+
+
+def phase_diffnet_block_bwd(gen) -> dict:
+    """K5 against its plain version, and K1 + K5 (the autograd Function)
+    against autograd of the plain forward, at B=4 with dilation 1 and 2
+    (and 3 at T=509, a ragged last tile); timed at B=4 and at the train
+    path's B=78."""
+    c, out = FLAGSHIP_HP["residual_channels"], {"max_abs_err": 0.0}
+    for b, t, dilation in ((4, 512, 1), (4, 512, 2), (4, 509, 3), (TRAIN_B, 512, 1)):
+        x, cond, step, mask, w = block_inputs(gen, b, t)
+        dxo, dsk = (torch.randn(b, t, c, device="cuda", generator=gen) for _ in range(2))
+        _, _, h = diffnet_block(x, cond, step, mask, *w, dilation=dilation,
+                                return_h=True)
+        args = (h, dxo, dsk, mask, w[0], w[4], dilation)
+        got, ref = diffnet_block_bwd(*args), diffnet_block_bwd_plain(*args)
+        torch.cuda.synchronize()
+        err = rel_err(got, ref)
+        msg = f"[kernel] diffnet_block_bwd B={b} T={t} C={c} dilation={dilation}: " \
+              f"max err vs plain {err:.3e}"
+        if b == 4:
+            leaves = [a.detach().requires_grad_() for a in (x, cond, step, *w)]
+
+            def grads(block):
+                lx, lc, ls, *lw = leaves
+                outs = block(lx, lc, ls, mask, *lw, dilation=dilation)
+                return torch.autograd.grad(outs, leaves, (dxo, dsk))
+            err_ag = rel_err(grads(diffnet_block_train), grads(diffnet_block_plain))
+            msg += f", vs autograd of the plain forward {err_ag:.3e}"
+            check(err_ag <= BWD_TOL, f"diffnet_block_bwd autograd d={dilation}: "
+                                     f"error {err_ag} > {BWD_TOL}")
+            err = max(err, err_ag)
+        check(err <= BWD_TOL, f"diffnet_block_bwd B={b} d={dilation}: error {err}")
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        if dilation == 1:
+            ms = time_ms(lambda: diffnet_block_bwd(*args))
+            plain_ms = time_ms(lambda: diffnet_block_bwd_plain(*args))
+            bound_ms, bound_by = bound(16 * b * t * c * c,
+                                       nbytes(h, dxo, dsk, mask, w[0], w[4], *got))
+            msg += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                    f"bound {bound_ms:.4f} ms ({bound_by})")
+            if b == TRAIN_B:
+                out.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+        print(msg + f" (tol {BWD_TOL}, relative to the reference's max)", flush=True)
+    return dict(out, name="diffnet_block_bwd", route="cuda",
+                source="speech_editing_tpu_torch/csrc/diffnet_block_bwd.cu",
+                replaces="speech_editing_tpu/ops/pallas/diffnet_block.py:231",
+                tol=BWD_TOL, library_ms=None)
 
 
 def phase_mel() -> dict:
@@ -154,11 +251,8 @@ def phase_attention(gen) -> dict:
     d = FLAGSHIP_HP["hidden_size"] // h
     tol, out = 1e-4, {}
     for b, s in ((1, 48), (3, 130)):
-        q = torch.randn(b, s, h, d, device="cuda", generator=gen) * d ** -0.5
-        k = torch.randn(b, s, h, d, device="cuda", generator=gen)
-        v = torch.randn(b, s, h, d, device="cuda", generator=gen)
         lengths = [s] + [s - 1 - 29 * i for i in range(1, b)]
-        pad = torch.arange(s, device="cuda")[None, :] >= torch.tensor(lengths, device="cuda")[:, None]
+        q, k, v, pad = attention_inputs(gen, b, s, lengths)
         got, ref = flash_mha(q, k, v, pad), attention_plain(q, k, v, pad)
         torch.cuda.synchronize()
         err = float((got - ref).abs().max())     # every row has a valid key
@@ -179,15 +273,102 @@ def phase_attention(gen) -> dict:
         if s == 48:  # the edit path's shape
             out.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                        bound_ms=bound_ms, bound_by=bound_by)
+    # the train path's shape, with the logsumexp output its backward reads
+    lengths = train_lengths()
+    q, k, v, pad = attention_inputs(gen, TRAIN_B, TRAIN_S, lengths)
+    got, lse = flash_mha(q, k, v, pad, return_lse=True)
+    err = rel_err([got, lse], [attention_plain(q, k, v, pad),
+                               attention_lse_plain(q, k, pad)])
+    ms = time_ms(lambda: flash_mha(q, k, v, pad, return_lse=True))
+    plain_ms = time_ms(lambda: (attention_plain(q, k, v, pad),
+                                attention_lse_plain(q, k, pad)))
+    qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=(~pad)[:, None, None, :], scale=1.0))
+    bound_ms, _ = bound(4 * h * TRAIN_S * d * sum(lengths), nbytes(q, k, v, pad, got, lse))
+    print(f"[kernel] flash_mha B={TRAIN_B} S={TRAIN_S} with logsumexp, valid keys "
+          f"{min(lengths)}..{max(lengths)}: max err {err:.3e} relative to the "
+          f"reference's max (tol {tol}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"sdpa {lib_ms:.4f} ms, bound {bound_ms:.6f} ms", flush=True)
+    check(err <= tol, f"flash_mha with logsumexp: error {err} > {tol}")
     return dict(out, name="flash_mha", route="cuda",
                 source="speech_editing_tpu_torch/csrc/flash_attention.cu",
                 replaces="speech_editing_tpu/ops/flash_attention.py:85", tol=tol)
 
 
-# -- main path -------------------------------------------------------------------
+def attention_inputs(gen, b: int, s: int, lengths):
+    h = FLAGSHIP_HP["num_heads"]
+    d = FLAGSHIP_HP["hidden_size"] // h
+    q = torch.randn(b, s, h, d, device="cuda", generator=gen) * d ** -0.5
+    k = torch.randn(b, s, h, d, device="cuda", generator=gen)
+    v = torch.randn(b, s, h, d, device="cuda", generator=gen)
+    pad = (torch.arange(s, device="cuda")[None, :]
+           >= torch.tensor(lengths, device="cuda")[:, None])
+    return q, k, v, pad
 
-COUNTERS = {"diffnet_block": diffnet_block, "mel_spectrogram": mel_spectrogram,
-            "flash_mha": flash_mha}
+
+def train_lengths() -> list[int]:
+    """The token counts of the train path's batch."""
+    tokens = train_batch(TRAIN_B, TRAIN_T, TRAIN_S, seed=0)["txt_tokens"]
+    return [int(n) for n in (tokens > 0).sum(1)]
+
+
+def phase_attention_bwd(gen) -> dict:
+    """K3's logsumexp and K4 against their plain versions, and K3 + K4 (the
+    autograd Function) against autograd of the plain forward, with key
+    padding; timed beside SDPA's backward, at the train path's shape too."""
+    out = {"max_abs_err": 0.0}
+    for b, s, lengths in ((1, 48, [43]), (3, 130, [130, 100, 71]),
+                          (TRAIN_B, TRAIN_S, train_lengths())):
+        q, k, v, pad = attention_inputs(gen, b, s, lengths)
+        do = torch.randn_like(q)
+        o, lse = flash_mha(q, k, v, pad, return_lse=True)
+        args = (q, k, v, o, lse, do, pad)
+        got, ref = flash_mha_bwd(*args), attention_bwd_plain(*args)
+        torch.cuda.synchronize()
+        err_lse = rel_err([lse], [attention_lse_plain(q, k, pad)])
+        err = rel_err(got, ref)
+        leaves = [a.detach().requires_grad_() for a in (q, k, v)]
+        grads = lambda attend: torch.autograd.grad(attend(*leaves, pad), leaves, do)
+        err_ag = rel_err(grads(flash_mha_train), grads(attention_plain))
+        pad_zero = bool((got[1][pad] == 0).all() and (got[2][pad] == 0).all())
+        ms = time_ms(lambda: flash_mha_bwd(*args))
+        plain_ms = time_ms(lambda: attention_bwd_plain(*args))
+        qt, kt, vt = (a.detach().transpose(1, 2).requires_grad_() for a in (q, k, v))
+        sdpa = F.scaled_dot_product_attention(qt, kt, vt, scale=1.0,
+                                              attn_mask=(~pad)[:, None, None, :])
+        do_t = do.transpose(1, 2)
+        lib_ms = time_ms(lambda: torch.autograd.grad(sdpa, (qt, kt, vt), do_t,
+                                                     retain_graph=True))
+        h, d = q.shape[2], q.shape[3]
+        flops = 10 * h * s * d * sum(lengths)   # five products over valid keys
+        bound_ms, bound_by = bound(flops, nbytes(q, k, v, o, lse, do, pad, *got))
+        print(f"[kernel] flash_mha_bwd B={b} S={s} valid keys "
+              f"{lengths if b <= 3 else f'{min(lengths)}..{max(lengths)}'}: "
+              f"max err vs plain {err:.3e}, vs autograd of the plain forward "
+              f"{err_ag:.3e}, logsumexp {err_lse:.3e} (tol {BWD_TOL}, relative to the "
+              f"reference's max); pad keys' dk, dv exactly 0: {pad_zero}; kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa backward {lib_ms:.4f} ms, "
+              f"bound {bound_ms:.6f} ms ({bound_by})", flush=True)
+        worst = max(err, err_ag, err_lse)
+        check(worst <= BWD_TOL, f"flash_mha_bwd B={b} S={s}: error {worst} > {BWD_TOL}")
+        check(pad_zero, f"flash_mha_bwd B={b} S={s}: pad keys got nonzero dk or dv")
+        out["max_abs_err"] = max(out["max_abs_err"], worst)
+        if b == TRAIN_B:
+            out.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                       bound_ms=bound_ms, bound_by=bound_by)
+    return dict(out, name="flash_mha_bwd", route="cuda",
+                source="speech_editing_tpu_torch/csrc/flash_attention_bwd.cu",
+                replaces="speech_editing_tpu/ops/flash_attention.py:85 (the bundled "
+                         "kernel's _flash_attention_bwd_dkv :941 and _bwd_dq :1287)",
+                tol=BWD_TOL)
+
+
+# -- edit path -------------------------------------------------------------------
+
+COUNTERS = {"diffnet_block": diffnet_block, "diffnet_block_bwd": diffnet_block_bwd,
+            "mel_spectrogram": mel_spectrogram, "flash_mha": flash_mha,
+            "flash_mha_bwd": flash_mha_bwd}
 
 
 def reset_counts() -> None:
@@ -222,7 +403,7 @@ def edit_request(t: int, seed: int, device: str):
     return tuple(torch.tensor(a, device=device) for a in (wav[None], txt, mel2ph, mask))
 
 
-def main_path(gen) -> tuple[dict, dict]:
+def edit_path(gen) -> tuple[dict, dict]:
     pipe = EditPipeline(FLAGSHIP_HP, HIFIGAN_V1_HP, device="cuda", vocab_size=80, seed=0)
     big_t = FLAGSHIP_HP["timesteps"]
     requests = {t: edit_request(t, seed=i, device="cuda")
@@ -240,7 +421,7 @@ def main_path(gen) -> tuple[dict, dict]:
         torch.cuda.synchronize()
         per_request[t] = {k: counts()[k] - before[k] for k in COUNTERS}
     totals = counts()
-    print(f"[main] launches per request {per_request}; totals {totals}", flush=True)
+    print(f"[edit] launches per request {per_request}; totals {totals}", flush=True)
     for t, moved in per_request.items():
         check(moved == EXPECTED_PER_REQUEST,
               f"request {t}: launches {moved} != expected {EXPECTED_PER_REQUEST}")
@@ -257,7 +438,7 @@ def main_path(gen) -> tuple[dict, dict]:
         check(torch.equal(mel_out[0, keep], source[0, keep]),
               f"request {t}: frames outside the edit differ from the source mel")
         edited = (mel_out[0, ~keep] - source[0, ~keep]).abs().mean()
-        print(f"[main] request T={t}: finite, outside-edit frames exact, "
+        print(f"[edit] request T={t}: finite, outside-edit frames exact, "
               f"mean |edit - source| {float(edited):.4f}", flush=True)
 
     # the 512-frame request again on the CPU: plain versions, same weights and noise
@@ -270,7 +451,7 @@ def main_path(gen) -> tuple[dict, dict]:
     cpu_s = time.perf_counter() - t0
     mel_err = float((results[512][1].cpu() - mel_cpu).abs().max())
     wav_err = float((results[512][0].cpu() - wav_cpu).abs().max())
-    print(f"[main] CPU re-run of T=512 ({cpu_s:.1f} s): mel_out max_abs_err "
+    print(f"[edit] CPU re-run of T=512 ({cpu_s:.1f} s): mel_out max_abs_err "
           f"{mel_err:.3e} (tol {CPU_MEL_TOL}), wav max_abs_err {wav_err:.3e}", flush=True)
     check(mel_err <= CPU_MEL_TOL, f"GPU vs CPU mel_out error {mel_err} > {CPU_MEL_TOL}")
 
@@ -305,11 +486,21 @@ def time_edits(pipe, req, gen, n: int = 40, warmup: int = 3) -> dict:
            "event_ms_p50": q(ev_ms, 50), "event_ms_p75": q(ev_ms, 75),
            "host_ms_p50": q(host_ms, 50), "host_ms_p75": q(host_ms, 75)}
     rtf["rtf_p50"] = rtf["event_ms_p50"] / 1e3 / audio_s
-    print(f"[main] edit T=512 ({audio_s:.3f} s audio), {n} edits one at a time: "
+    print(f"[edit] edit T=512 ({audio_s:.3f} s audio), {n} edits one at a time: "
           f"CUDA events p50 {rtf['event_ms_p50']:.3f} ms, p75 {rtf['event_ms_p75']:.3f} ms; "
           f"host clock p50 {rtf['host_ms_p50']:.3f} ms, p75 {rtf['host_ms_p75']:.3f} ms; "
           f"RTF p50 {rtf['rtf_p50']:.6f}", flush=True)
     return rtf
+
+
+def device_ops(prof) -> list:
+    """The profile's device operations by name, without the spans of
+    annotations (the profiler step, the optimizer step), whose device time
+    is that of the kernels inside them."""
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and not e.key.startswith(("ProfilerStep", "Optimizer."))]
 
 
 def profile_edit(pipe, req, gen, edit_ms: float, top: int = 12) -> None:
@@ -323,9 +514,7 @@ def profile_edit(pipe, req, gen, edit_ms: float, top: int = 12) -> None:
             pipe(*req, generator=gen)
             torch.cuda.synchronize()
             prof.step()
-    kernels = [e for e in prof.key_averages()   # the step's own span is no kernel
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and not e.key.startswith("ProfilerStep")]
+    kernels = device_ops(prof)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if busy_ms == 0:
         print("[profile] the profiler saw no device time: not measured", flush=True)
@@ -337,6 +526,161 @@ def profile_edit(pipe, req, gen, edit_ms: float, top: int = 12) -> None:
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         print(f"[profile] {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d}x "
               f"{e.key[:90]}", flush=True)
+
+
+# -- train path ------------------------------------------------------------------
+
+def train_batch(b: int, t: int, s: int, seed: int) -> dict:
+    """A collated FluentSpeech batch (numpy, the keys of ``make_loss_fn``):
+    frame lengths 300..t and token counts 24..s (TRAIN_MIN_T, TRAIN_MIN_S;
+    the first row full), a silence token (id 1) at about one token in four
+    as a word boundary, each utterance's tokens spread monotonically over
+    its frames, log-mel-like values on real frames and zeros on padding,
+    log2 f0 with 20 % unvoiced frames, and the middle third of each
+    utterance masked."""
+    rs = np.random.RandomState(seed)
+    frames = rs.randint(TRAIN_MIN_T, t + 1, b)
+    n_tok = rs.randint(TRAIN_MIN_S, s + 1, b)
+    frames[0], n_tok[0] = t, s
+    batch = dict(txt_tokens=np.zeros((b, s), np.int64), mel2ph=np.zeros((b, t), np.int64),
+                 mels=np.zeros((b, t, 80), np.float32), f0=np.zeros((b, t), np.float32),
+                 uv=np.zeros((b, t), np.float32), time_mel_masks=np.zeros((b, t), np.float32))
+    for i, (f, n) in enumerate(zip(frames, n_tok)):
+        tokens = rs.randint(3, 80, n)
+        tokens[rs.rand(n) < 0.25] = SIL_IDS[0]
+        batch["txt_tokens"][i, :n] = tokens
+        bounds = np.sort(rs.choice(np.arange(1, f), n - 1, replace=False))
+        batch["mel2ph"][i, :f] = np.searchsorted(bounds, np.arange(f), side="right") + 1
+        batch["mels"][i, :f] = rs.randn(f, 80) * 0.5 - 1.0
+        uv = (rs.rand(f) < 0.2).astype(np.float32)
+        batch["uv"][i, :f] = uv
+        batch["f0"][i, :f] = (rs.rand(f) * 2 + 6.5) * (1 - uv)
+        batch["time_mel_masks"][i, f // 3: 2 * f // 3] = 1.0
+    return batch
+
+
+def train_path() -> tuple[dict, dict]:
+    batch = train_batch(TRAIN_B, TRAIN_T, TRAIN_S, seed=0)
+    real_frames = int((batch["mel2ph"] > 0).sum())
+    trainer = Trainer(dict(FLAGSHIP_HP, tb_log_interval=TRAIN_WARMUP + TRAIN_TIMED),
+                      device="cuda", seed=0, vocab_size=80, sil_token_ids=SIL_IDS)
+    reset_counts()
+    per_step, ev_ms, host_ms = [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(TRAIN_WARMUP + TRAIN_TIMED):
+        before = counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        metrics = trainer.step(batch)
+        end.record()
+        end.synchronize()
+        if i >= TRAIN_WARMUP:
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+            ev_ms.append(start.elapsed_time(end))
+        per_step.append({k: counts()[k] - before[k] for k in COUNTERS})
+        m = {k: float(v) for k, v in metrics.items()}
+        check(all(np.isfinite(v) for v in m.values()) and m["nan_grads"] == 0,
+              f"train step {i}: non-finite metrics {m}")
+    totals = counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"[train] launches per step {per_step[-1]}; totals {totals}", flush=True)
+    for i, moved in enumerate(per_step):
+        check(moved == EXPECTED_PER_STEP,
+              f"train step {i}: launches {moved} != expected {EXPECTED_PER_STEP}")
+    print("[train] last step: " + " ".join(f"{k}={v:.5f}" for k, v in sorted(m.items())),
+          flush=True)
+    q = lambda xs, p: float(np.percentile(xs, p))
+    stats = {"batch": [TRAIN_B, TRAIN_T], "frames": TRAIN_B * TRAIN_T,
+             "real_frames": real_frames, "timed_steps": TRAIN_TIMED,
+             "event_ms_p50": q(ev_ms, 50), "event_ms_p75": q(ev_ms, 75),
+             "host_ms_p50": q(host_ms, 50), "host_ms_p75": q(host_ms, 75),
+             "peak_gib": peak_gib}
+    stats["frames_per_s"] = stats["frames"] / (stats["event_ms_p50"] / 1e3)
+    stats["real_frames_per_s"] = real_frames / (stats["event_ms_p50"] / 1e3)
+    print(f"[train] B={TRAIN_B} x T={TRAIN_T} ({real_frames} real frames), "
+          f"{TRAIN_TIMED} steps after {TRAIN_WARMUP} warm-up: CUDA events p50 "
+          f"{stats['event_ms_p50']:.3f} ms, p75 {stats['event_ms_p75']:.3f} ms; host "
+          f"clock p50 {stats['host_ms_p50']:.3f} ms, p75 {stats['host_ms_p75']:.3f} ms; "
+          f"{stats['frames_per_s']:.0f} frames/s ({stats['real_frames_per_s']:.0f} real); "
+          f"peak memory {peak_gib:.3f} GiB", flush=True)
+    profile_step(trainer, batch, stats["host_ms_p50"])
+    compare_step_with_cpu(trainer, batch)
+    return totals, stats
+
+
+def profile_step(trainer, batch, step_ms: float, top: int = 15) -> None:
+    """Device time by kernel over one train step (``torch.profiler``, after
+    one profiled warm-up step), and its share of ``step_ms``, the step's
+    host-clock time without the profiler."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1), acc_events=True) as prof:
+        for _ in range(2):
+            trainer.step(batch)
+            torch.cuda.synchronize()
+            prof.step()
+    kernels = device_ops(prof)
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    if busy_ms == 0:
+        print("[profile] the profiler saw no device time: not measured", flush=True)
+        return
+    print(f"[profile] train step: {sum(e.count for e in kernels)} device operations, "
+          f"busy {busy_ms:.3f} ms, {busy_ms / step_ms:.3f} of the unprofiled step's "
+          f"{step_ms:.3f} ms host clock", flush=True)
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
+        print(f"[profile] {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d}x "
+              f"{e.key[:90]}", flush=True)
+
+
+def compare_step_with_cpu(trainer, batch) -> None:
+    """One step on a 2-utterance slice of the batch, on the card and on the
+    CPU (plain versions), from the trained state with the same diffusion
+    draw and dropout off: losses, gradients, updated parameters and Adam
+    moments must agree."""
+    import copy
+    sub = {k: v[:2] for k, v in batch.items()}
+    gen = torch.Generator().manual_seed(7)
+    t_draw = torch.randint(0, FLAGSHIP_HP["timesteps"] + 1, (2,), generator=gen)
+    noise = torch.randn(2, TRAIN_T, 80, generator=gen)
+    state = trainer.train_step.state_dict()
+
+    def run(dev: str) -> dict:
+        twin = Trainer(FLAGSHIP_HP, device=dev, seed=1, vocab_size=80,
+                       sil_token_ids=SIL_IDS, dropout=False)
+        twin.train_step.load_state_dict(copy.deepcopy(state))
+        t0 = time.perf_counter()
+        metrics = twin.train_step(twin.to_device(sub), t=t_draw.to(dev),
+                                  noise=noise.to(dev))
+        secs = time.perf_counter() - t0
+        step = twin.train_step
+        named = dict(step.model.named_parameters())
+        moment = lambda key: {n: step.optimizer.state[p][key].cpu()
+                              for n, p in named.items()}
+        return dict(secs=secs, metrics={k: float(v) for k, v in metrics.items()},
+                    grads={n: p.grad.cpu() for n, p in named.items()},
+                    params={n: p.detach().cpu() for n, p in named.items()},
+                    exp_avg=moment("exp_avg"), exp_avg_sq=moment("exp_avg_sq"))
+
+    gpu, cpu = (run(dev) for dev in ("cuda", "cpu"))
+    loss_err = max(abs(gpu["metrics"][k] - v) / max(abs(v), 1e-12)
+                   for k, v in cpu["metrics"].items() if k != "nan_grads")
+    worst = {key: max((rel_err([gpu[key][n]], [cpu[key][n]]), n) for n in cpu[key])
+             for key in ("grads", "params", "exp_avg", "exp_avg_sq")}
+    print(f"[train] B=2 step on the card vs the CPU ({cpu['secs']:.1f} s): loss terms "
+          f"max rel err {loss_err:.3e} (tol {STEP_LOSS_RTOL}); gradients "
+          f"{worst['grads'][0]:.3e} of each tensor's max (tol {STEP_GRAD_TOL}, worst "
+          f"{worst['grads'][1]}); updated params {worst['params'][0]:.3e} (tol "
+          f"{STEP_PARAM_TOL}); Adam moments {worst['exp_avg'][0]:.3e} / "
+          f"{worst['exp_avg_sq'][0]:.3e} (tol {STEP_MOMENT_TOL}); loss "
+          f"{gpu['metrics']['total_loss']:.6f} vs {cpu['metrics']['total_loss']:.6f}",
+          flush=True)
+    check(loss_err <= STEP_LOSS_RTOL, f"B=2 step: loss error {loss_err}")
+    check(worst["grads"][0] <= STEP_GRAD_TOL, f"B=2 step: gradient error {worst['grads']}")
+    check(worst["params"][0] <= STEP_PARAM_TOL, f"B=2 step: param error {worst['params']}")
+    for key in ("exp_avg", "exp_avg_sq"):
+        check(worst[key][0] <= STEP_MOMENT_TOL, f"B=2 step: {key} error {worst[key]}")
 
 
 def main() -> None:
@@ -362,15 +706,20 @@ def main() -> None:
                 print(f"[build] {name}: {line.strip()}", flush=True)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    kernels = [phase_diffnet_block(gen), phase_mel(), phase_attention(gen)]
-    launches, rtf = main_path(gen)
+    kernels = [phase_diffnet_block(gen), phase_diffnet_block_bwd(gen), phase_mel(),
+               phase_attention(gen), phase_attention_bwd(gen)]
+    edit_launches, rtf = edit_path(gen)
+    train_launches, train = train_path()
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        k["launches_by_path"] = {"edit": edit_launches[k["name"]],
+                                 "train": train_launches[k["name"]]}
+        k["launches"] = sum(k["launches_by_path"].values())
         k["kernel_ms"] = k["ms"]
-        check(k["launches"] > 0, f"{k['name']} was not launched on the main path")
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "tol",
-            "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"edit_rtf": rtf, "card": smi}))
+        check(k["launches"] > 0, f"{k['name']} was not launched on a main path")
+    keys = ("name", "route", "source", "replaces", "launches", "launches_by_path",
+            "max_abs_err", "tol", "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    print(json.dumps({"edit_rtf": rtf, "train_step": train, "card": smi}))
     print(smi)
     print(json.dumps({"kernels": [{key: k[key] for key in keys} for k in kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,5 +1,6 @@
-"""The flagship FluentSpeech configuration (``egs/spec_denoiser.yaml`` sizes)
-and the HiFi-GAN V1 generator that vocodes it."""
+"""The flagship FluentSpeech configuration (``egs/spec_denoiser.yaml`` sizes,
+with the training keys of ``egs/base.yaml``) and the HiFi-GAN V1 generator
+that vocodes it."""
 
 from __future__ import annotations
 
@@ -11,6 +12,15 @@ FLAGSHIP_HP = {
     "residual_channels": 256, "dilation_cycle_length": 1, "timesteps": 8,
     "schedule_type": "vpsde", "frames_multiple": 1, "use_uv": True,
     "pitch_type": "frame",
+    # training: predictors, losses, optimizer (float32; the JAX package's
+    # flagship trains in bf16)
+    "predictor_dropout": 0.2, "predictor_grad": 0.1, "timescale": 1,
+    "lambda_ph_dur": 0.1, "lambda_word_dur": 1.0, "lambda_sent_dur": 0.0,
+    "lambda_uv": 1.0, "lambda_f0": 1.0, "mel_losses": "l1:0.5|ssim:0.5",
+    "lr": 2e-4, "scheduler": "warmup", "warmup_updates": 8000,
+    "clip_grad_norm": 1, "clip_grad_value": 0,
+    "optimizer_adam_beta1": 0.9, "optimizer_adam_beta2": 0.98, "weight_decay": 0,
+    "max_tokens": 40000,
 }
 
 HIFIGAN_V1_HP = {

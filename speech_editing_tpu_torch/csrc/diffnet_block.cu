@@ -8,6 +8,8 @@
 //   g     = sigmoid(h[:, :C]) * tanh(h[:, C:])
 //   o     = g @ Wo + bo
 //   x'    = (x + o[:, :C]) / sqrt(2),  skip = o[:, C:]
+// and, when the caller passes an output for it, h [B, T, 2C] (the saved
+// pre-activation the backward kernel K5, diffnet_block_bwd.cu, reads).
 // The k=3 conv is the product of the [TT, 3C] row-shifted tile with
 // Wd [3C, 2C] (row tap*C + c_in), the layout _fwd_call receives.
 //
@@ -21,13 +23,13 @@
 //    any dilation d works, and the nonpadding mask multiplies y before the
 //    conv as the plain branch of modules/wavenet.py does.
 //  * Thread j owns output columns j and j + C of h for all TT rows, so the
-//    gate is thread-local; h stays in registers and is never written
-//    (only the backward pass would need it). Each weight value read from
+//    gate is thread-local; h stays in registers and is written only when
+//    a gradient is needed (hout non-null). Each weight value read from
 //    L2 feeds TT rows; each float4 of A read from shared memory (a
 //    broadcast) feeds eight FMAs.
 //  * g [TT, C] goes to shared memory; the second product keeps the same
 //    column ownership, so the residual/skip epilogue is thread-local too.
-// Nothing but x' and skip is written to device memory.
+// Nothing but x', skip and (for training) h is written to device memory.
 
 #include <cuda_runtime.h>
 
@@ -42,8 +44,8 @@ __global__ void diffnet_block_kernel(
     const float* __restrict__ wd, const float* __restrict__ bd,
     const float* __restrict__ wc, const float* __restrict__ bc,
     const float* __restrict__ wo, const float* __restrict__ bo,
-    float* __restrict__ xout, float* __restrict__ skip, int T, int C, int H,
-    int dil) {
+    float* __restrict__ xout, float* __restrict__ skip,
+    float* __restrict__ hout, int T, int C, int H, int dil) {
   extern __shared__ float4 smem4[];
   const int ka = 3 * C + H;
   float* a_s = reinterpret_cast<float*>(smem4);  // [TT][3C + H]
@@ -102,8 +104,13 @@ __global__ void diffnet_block_kernel(
   const float bias0 = bd[j] + bc[j], bias1 = bd[C + j] + bc[C + j];
 #pragma unroll
   for (int r = 0; r < TT; ++r) {
-    const float gate = 1.f / (1.f + expf(-(h0[r] + bias0)));
-    g_s[r * C + j] = gate * tanhf(h1[r] + bias1);
+    const float ha = h0[r] + bias0, hb = h1[r] + bias1;
+    g_s[r * C + j] = 1.f / (1.f + expf(-ha)) * tanhf(hb);
+    if (hout != nullptr && t0 + r < T) {
+      const size_t idx = ((size_t)b * T + t0 + r) * C2;
+      hout[idx + j] = ha;
+      hout[idx + C + j] = hb;
+    }
   }
   __syncthreads();
 
@@ -143,15 +150,17 @@ __global__ void diffnet_block_kernel(
 }  // namespace
 
 // x, xout, skip [B, T, C]; cond [B, T, H]; step [B, C]; mask [B, T] or null;
-// wd [3C, 2C]; wc [H, 2C]; wo [C, 2C]; biases [2C]. Requires C a multiple
+// hout [B, T, 2C] or null; wd [3C, 2C]; wc [H, 2C]; wo [C, 2C]; biases [2C].
+// Requires C a multiple
 // of 32 and at most 1024, H a multiple of 4 (the wrapper checks).
 extern "C" int diffnet_block_fwd_f32(const float* x, const float* cond,
                                      const float* step, const float* mask,
                                      const float* wd, const float* bd,
                                      const float* wc, const float* bc,
                                      const float* wo, const float* bo,
-                                     float* xout, float* skip, int B, int T,
-                                     int C, int H, int dil, void* stream) {
+                                     float* xout, float* skip, float* hout,
+                                     int B, int T, int C, int H, int dil,
+                                     void* stream) {
   const size_t smem = (size_t)TT * (3 * C + H + C) * sizeof(float);
   if (smem > 48 * 1024) {
     cudaFuncSetAttribute(diffnet_block_kernel,
@@ -159,6 +168,6 @@ extern "C" int diffnet_block_fwd_f32(const float* x, const float* cond,
   }
   const dim3 grid((T + TT - 1) / TT, B);
   diffnet_block_kernel<<<grid, C, smem, static_cast<cudaStream_t>(stream)>>>(
-      x, cond, step, mask, wd, bd, wc, bc, wo, bo, xout, skip, T, C, H, dil);
+      x, cond, step, mask, wd, bd, wc, bc, wo, bo, xout, skip, hout, T, C, H, dil);
   return (int)cudaGetLastError();
 }

@@ -4,7 +4,11 @@
 // speech_editing_tpu/ops/flash_attention.py (flash_mha -> _flash_bhtd)
 // drives: out = softmax(q k^T) v over [B, T, h, d], q pre-scaled
 // (sm_scale = 1), pad keys excluded exactly (zero weight). A query row
-// whose keys are all padding gets zeros; callers mask such rows.
+// whose keys are all padding gets zeros; callers mask such rows. When the
+// caller passes an output for it, each row's logsumexp over its valid keys
+// ([B, h, Tq], -inf for a row with none) is written too: the softmax
+// statistic the backward kernel K4 (flash_attention_bwd.cu) reads, as the
+// Pallas forward saves its l and m residuals in training.
 //
 // Bound on the H100: at the encoder's sizes (T = 48 tokens, h = 2, d = 96)
 // the work is 4*T^2*h*d = 0.9 MFLOP against 4*T*h*d*4 = 147 KB, far below
@@ -42,7 +46,8 @@ __global__ void attention_kernel(const float* __restrict__ q,
                                  const float* __restrict__ k,
                                  const float* __restrict__ v,
                                  const unsigned char* __restrict__ key_pad,
-                                 float* __restrict__ out, int Tq, int Tk,
+                                 float* __restrict__ out,
+                                 float* __restrict__ lse, int Tq, int Tk,
                                  int H, int D) {
   extern __shared__ float4 smem4[];
   float* k_s = reinterpret_cast<float*>(smem4);  // [KT][D + 1]
@@ -118,15 +123,20 @@ __global__ void attention_kernel(const float* __restrict__ q,
     const int c = lane + 32 * i;
     if (c < D) dst[c] = o[i] * inv;
   }
+  if (lse != nullptr && lane == 0) {
+    lse[((size_t)b * H + hh) * Tq + row] = l > 0.f ? m + logf(l) : -INFINITY;
+  }
 }
 
 }  // namespace
 
 // q, out [B, Tq, H, D]; k, v [B, Tk, H, D]; key_pad [B, Tk] bytes (nonzero =
-// pad) or null. Requires D <= 128 (the wrapper checks).
+// pad) or null; lse [B, H, Tq] or null. Requires D <= 128 (the wrapper
+// checks).
 extern "C" int attention_fwd_f32(const float* q, const float* k, const float* v,
-                                 const unsigned char* key_pad, float* out, int B,
-                                 int Tq, int Tk, int H, int D, void* stream) {
+                                 const unsigned char* key_pad, float* out,
+                                 float* lse, int B, int Tq, int Tk, int H, int D,
+                                 void* stream) {
   const size_t smem =
       (size_t)(KT * (D + 1) + KT * D + ROWS * D + KT) * sizeof(float);
   if (smem > 48 * 1024) {
@@ -135,6 +145,6 @@ extern "C" int attention_fwd_f32(const float* q, const float* k, const float* v,
   }
   const dim3 grid((Tq + ROWS - 1) / ROWS, H, B);
   attention_kernel<<<grid, ROWS * 32, smem, static_cast<cudaStream_t>(stream)>>>(
-      q, k, v, key_pad, out, Tq, Tk, H, D);
+      q, k, v, key_pad, out, lse, Tq, Tk, H, D);
   return (int)cudaGetLastError();
 }

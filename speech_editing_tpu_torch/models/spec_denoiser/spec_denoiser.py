@@ -1,9 +1,12 @@
-"""FluentSpeech masked-conditional mel DDPM, inference.
+"""FluentSpeech masked-conditional mel DDPM: inference and the training
+forward.
 
 Conditioning: FastSpeech states expanded to frame rate (with the masked
 duration/pitch conditioning) plus ``MelEncoder(ref_mels * (1 - mask))``.
 The reverse process runs ``timesteps`` steps of the x0-predicting DiffNet;
 its noise is drawn from a ``torch.Generator`` on the device, or passed in.
+Training (:meth:`GaussianDiffusion.forward_train`) diffuses the target mel
+to a random step and predicts x0 from it in one DiffNet pass.
 """
 
 from __future__ import annotations
@@ -58,13 +61,44 @@ class GaussianDiffusion(nn.Module):
         return {"mel2ph": mel2ph, "dur": ret["dur"]}
 
     def compute_cond(self, txt_tokens, time_mel_masks, mel2ph, spk_embed,
-                     ref_mels, f0, uv, use_pred_mel2ph=False, use_pred_pitch=False):
-        """Conditioner only: FastSpeech states + the masked-mel encoding."""
+                     ref_mels, f0, uv, use_pred_mel2ph=False, use_pred_pitch=False,
+                     train=False, generator=None):
+        """Conditioner only: FastSpeech states + the masked-mel encoding.
+        ``train`` turns predictor dropout on, masks from ``generator``."""
         ret = self.fs(txt_tokens, time_mel_masks, mel2ph, spk_embed, f0, uv,
-                      use_pred_mel2ph=use_pred_mel2ph, use_pred_pitch=use_pred_pitch)
+                      use_pred_mel2ph=use_pred_mel2ph, use_pred_pitch=use_pred_pitch,
+                      train=train, generator=generator)
         tgt_nonpadding = (ret["mel2ph"] > 0)[:, :, None].to(ret["decoder_inp"].dtype)
         ret["cond"] = ret["decoder_inp"] + self.mel_encoder(
             ref_mels * (1 - time_mel_masks)) * tgt_nonpadding
+        return ret
+
+    def forward_train(self, txt_tokens, time_mel_masks, mel2ph, spk_embed,
+                      ref_mels, f0, uv, t: torch.Tensor | None = None,
+                      noise: torch.Tensor | None = None,
+                      generator: torch.Generator | None = None,
+                      train: bool = True):
+        """The training branch: ``t`` [B] in [0, timesteps] and ``noise``
+        [B,T,M] are drawn from ``generator`` when None (JAX's threefry draws
+        cannot be reproduced, so tests pass them in); ``x_t`` is the
+        q-sample of ``ref_mels``, masked to the frames of ``mel2ph``, and
+        DiffNet predicts x0. ``train`` turns predictor dropout on. Returns
+        the conditioner's dict with ``mel_out`` [B,T,M] (the x0 prediction)."""
+        ret = self.compute_cond(txt_tokens, time_mel_masks, mel2ph, spk_embed,
+                                ref_mels, f0, uv, train=train, generator=generator)
+        cond = ret["cond"]
+        tgt_nonpadding = (ret["mel2ph"] > 0)[:, :, None].to(cond.dtype)
+        b = txt_tokens.shape[0]
+        if t is None:
+            t = torch.randint(0, self.num_timesteps + 1, (b,), device=cond.device,
+                              generator=generator)
+        if noise is None:
+            noise = torch.randn(ref_mels.shape, device=cond.device,
+                                dtype=ref_mels.dtype, generator=generator)
+        x_t = diff_ops.diffuse(self.schedule(cond.device), ref_mels, t,
+                               noise) * tgt_nonpadding
+        ret["mel_out"] = self.denoise_fn(x_t, t, cond,
+                                         tgt_nonpadding[..., 0]) * tgt_nonpadding
         return ret
 
     def forward(self, txt_tokens, time_mel_masks, mel2ph, spk_embed, ref_mels,

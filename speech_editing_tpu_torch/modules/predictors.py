@@ -9,27 +9,41 @@ import torch.nn.functional as F
 from torch import nn
 
 
+def dropout(x: torch.Tensor, rate: float,
+            generator: torch.Generator | None = None) -> torch.Tensor:
+    """Inverted dropout whose keep mask comes from ``generator`` (flax
+    ``nn.Dropout``: keep with probability 1 - rate, scale by its inverse)."""
+    keep = 1.0 - rate
+    mask = torch.bernoulli(torch.full_like(x, keep), generator=generator)
+    return x * mask / keep
+
+
 class _ConvStack(nn.Module):
-    """conv (SAME) -> ReLU -> LayerNorm, re-masked after each layer, then a
-    linear head."""
+    """conv (SAME) -> ReLU -> LayerNorm -> dropout (training only),
+    re-masked after each layer, then a linear head."""
 
     def __init__(self, idim: int, n_chans: int, n_layers: int, kernel_size: int,
-                 head: nn.Module):
+                 head: nn.Module, dropout_rate: float = 0.0):
         super().__init__()
         self.kernel_size = kernel_size
+        self.dropout_rate = dropout_rate
         self.conv = nn.ModuleList(
             nn.Sequential(nn.Conv1d(idim if i == 0 else n_chans, n_chans, kernel_size),
                           nn.ReLU(), nn.LayerNorm(n_chans, eps=1e-5))
             for i in range(n_layers))
         self.linear = head
 
-    def forward(self, x: torch.Tensor,
-                x_padding: torch.Tensor | None = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, x_padding: torch.Tensor | None = None,
+                train: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """``train`` turns dropout on, its masks drawn from ``generator``."""
         k = self.kernel_size
         keep = None if x_padding is None else (~x_padding)[:, :, None].to(x.dtype)
         for conv, _, ln in self.conv:
             y = F.pad(x.transpose(1, 2), ((k - 1) // 2, k // 2))
             x = ln(torch.relu(conv(y)).transpose(1, 2))
+            if train and self.dropout_rate > 0:
+                x = dropout(x, self.dropout_rate, generator)
             if keep is not None:
                 x = x * keep
         x = self.linear(x)
@@ -40,21 +54,22 @@ class DurationPredictor(_ConvStack):
     """[B, S, H] -> durations [B, S] (Softplus head)."""
 
     def __init__(self, idim: int, n_chans: int = 384, n_layers: int = 2,
-                 kernel_size: int = 3):
+                 kernel_size: int = 3, dropout_rate: float = 0.1):
         super().__init__(idim, n_chans, n_layers, kernel_size,
-                         nn.Sequential(nn.Linear(n_chans, 1), nn.Softplus()))
+                         nn.Sequential(nn.Linear(n_chans, 1), nn.Softplus()),
+                         dropout_rate)
 
-    def forward(self, x, x_padding=None):
-        return super().forward(x, x_padding)[..., 0]
+    def forward(self, x, x_padding=None, train=False, generator=None):
+        return super().forward(x, x_padding, train, generator)[..., 0]
 
 
 class PitchPredictor(_ConvStack):
     """[B, T, H] -> [B, T, odim] (f0, uv logit)."""
 
     def __init__(self, idim: int, n_chans: int = 384, n_layers: int = 5,
-                 odim: int = 2, kernel_size: int = 5):
+                 odim: int = 2, kernel_size: int = 5, dropout_rate: float = 0.1):
         super().__init__(idim, n_chans, n_layers, kernel_size,
-                         nn.Linear(n_chans, odim))
+                         nn.Linear(n_chans, odim), dropout_rate)
 
 
 class MelEncoder(nn.Module):

@@ -13,7 +13,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from speech_editing_tpu_torch.ops.flash_attention import flash_mha
+from speech_editing_tpu_torch.ops.flash_attention import flash_mha, flash_mha_train
 from speech_editing_tpu_torch.ops.seq_ops import make_positions
 
 
@@ -60,7 +60,8 @@ def sinusoidal_positional_embedding(tokens: torch.Tensor, dim: int,
 
 class MultiheadAttention(nn.Module):
     """Bias-free self-attention with packed q/k/v projections; the softmax
-    attention itself is kernel K3 (``flash_mha``)."""
+    attention itself is kernel K3 (``flash_mha``), and its backward, when
+    autograd records, kernel K4 (``flash_mha_train``)."""
 
     def __init__(self, dim: int, num_heads: int):
         super().__init__()
@@ -77,7 +78,8 @@ class MultiheadAttention(nn.Module):
         q = F.linear(x, w[:e]).view(b, t, h, d) * d ** -0.5
         k = F.linear(x, w[e:2 * e]).view(b, t, h, d)
         v = F.linear(x, w[2 * e:]).view(b, t, h, d)
-        out = flash_mha(q, k, v, key_padding_mask)
+        attend = flash_mha_train if torch.is_grad_enabled() else flash_mha
+        out = attend(q, k, v, key_padding_mask)
         return self.out_proj(out.reshape(b, t, e))
 
 

@@ -1,7 +1,8 @@
 """DiffNet: the x0-predicting WaveNet denoiser of FluentSpeech.
 
 Spec ``[B, T, M]`` -> ``[B, T, M]``. Every gated residual block runs through
-kernel K1 (``ops/cuda/diffnet_block.py``). Parameter names follow the
+kernel K1 (``ops/cuda/diffnet_block.py``), and, when autograd records, its
+backward through kernel K5. Parameter names follow the
 reference torch DiffNet (``residual_layers.{i}.dilated_conv`` and so on).
 """
 
@@ -13,7 +14,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from speech_editing_tpu_torch.ops.cuda.diffnet_block import diffnet_block
+from speech_editing_tpu_torch.ops.cuda.diffnet_block import (diffnet_block,
+                                                             diffnet_block_train)
 
 
 def diffusion_step_embedding(t: torch.Tensor, dim: int) -> torch.Tensor:
@@ -48,10 +50,13 @@ class DiffNetResidualBlock(nn.Module):
 
     def forward(self, x, cond, step_emb, nonpadding=None, weights=None):
         """x [B,T,C]; cond [B,T,H]; step_emb [B,C]; nonpadding [B,T] or None;
-        ``weights`` from :meth:`kernel_weights` (computed here if None)."""
+        ``weights`` from :meth:`kernel_weights` (computed here if None).
+        With grad enabled the block is K1 + K5 (``diffnet_block_train``);
+        gradients reach the conv weights through ``kernel_weights``."""
         step = self.diffusion_projection(step_emb)
         w = self.kernel_weights() if weights is None else weights
-        return diffnet_block(x, cond, step, nonpadding, *w, dilation=self.dilation)
+        block = diffnet_block_train if torch.is_grad_enabled() else diffnet_block
+        return block(x, cond, step, nonpadding, *w, dilation=self.dilation)
 
 
 class DiffNet(nn.Module):
@@ -69,7 +74,7 @@ class DiffNet(nn.Module):
         self.output_projection = nn.Conv1d(c, in_dims, 1)
 
     def kernel_weights(self) -> list[tuple[torch.Tensor, ...]]:
-        """Every block's K1 weights; compute once per sampling run."""
+        """Every block's K1 weights; compute once per sampling run or step."""
         return [layer.kernel_weights() for layer in self.residual_layers]
 
     def forward(self, spec, diffusion_step, cond, nonpadding=None, weights=None):

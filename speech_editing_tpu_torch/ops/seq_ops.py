@@ -12,6 +12,13 @@ def make_positions(tokens: torch.Tensor, padding_idx: int = 0) -> torch.Tensor:
     return torch.cumsum(mask, dim=1) * mask + padding_idx
 
 
+def weights_nonzero_speech(target: torch.Tensor) -> torch.Tensor:
+    """Weight 1 on frames whose mel row is not all-zero, broadcast to
+    ``target``'s shape."""
+    w = (target.abs().sum(-1, keepdim=True) != 0).to(target.dtype)
+    return w.expand_as(target)
+
+
 def length_regulator(dur: torch.Tensor, max_frames: int,
                      dur_padding: torch.Tensor | None = None,
                      alpha: float = 1.0) -> torch.Tensor:
@@ -50,3 +57,11 @@ def clip_mel2token_to_multiple(mel2token: torch.Tensor,
                                frames_multiple: int) -> torch.Tensor:
     max_frames = mel2token.shape[1] // frames_multiple * frames_multiple
     return mel2token[:, :max_frames]
+
+
+def predictor_grad_scale(x: torch.Tensor, grad_scale: float) -> torch.Tensor:
+    """Identity forward; scales the gradient flowing back into ``x`` by
+    ``grad_scale`` (the predictors' ``predictor_grad``)."""
+    if grad_scale == 1.0:
+        return x
+    return x.detach() + grad_scale * (x - x.detach())

@@ -1,0 +1,49 @@
+"""FluentSpeech (spec_denoiser) task: the training loss.
+
+Masked-region mel losses (l1 + ssim on ``mel_out * mask`` against
+``mels * mask``), the duration losses and the pitch loss, over one
+training forward of :class:`GaussianDiffusion`.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Sequence
+
+from speech_editing_tpu_torch.models.spec_denoiser.spec_denoiser import GaussianDiffusion
+from speech_editing_tpu_torch.training.losses import (add_mel_loss, dur_loss,
+                                                      pitch_loss, sil_token_mask)
+
+
+def build_model(vocab_size: int, hp: Any) -> GaussianDiffusion:
+    return GaussianDiffusion(vocab_size, hp, hp.get("audio_num_mel_bins", 80))
+
+
+def make_loss_fn(model: GaussianDiffusion, hp: Any,
+                 sil_token_ids: Sequence[int] = (), train: bool = True):
+    """``loss_fn(batch, generator=None, t=None, noise=None) -> (total,
+    losses)``. Batch keys: txt_tokens [B,S], mels [B,T,80], mel2ph [B,T],
+    f0 [B,T], uv [B,T], time_mel_masks [B,T], optional spk_embed [B,256].
+    ``train`` turns predictor dropout on; ``t`` and ``noise`` fix the
+    diffusion draw (see ``GaussianDiffusion.forward_train``)."""
+    mel_spec = hp.get("mel_losses", "l1:0.5|ssim:0.5")
+    use_pitch = hp.get("use_pitch_embed", True)
+    sil_ids = tuple(sil_token_ids)
+
+    def loss_fn(batch, generator=None, t=None, noise=None):
+        tm = batch["time_mel_masks"][..., None].to(batch["mels"].dtype)
+        out = model.forward_train(
+            batch["txt_tokens"], tm, batch["mel2ph"], batch.get("spk_embed"),
+            batch["mels"], batch["f0"], batch["uv"], t=t, noise=noise,
+            generator=generator, train=train)
+        losses: dict = {}
+        add_mel_loss(losses, out["mel_out"] * tm, batch["mels"] * tm, mel_spec,
+                     postfix="_coarse")
+        is_sil = sil_token_mask(batch["txt_tokens"], sil_ids)
+        dur_loss(losses, out["dur"], batch["mel2ph"], batch["txt_tokens"],
+                 is_sil, hp)
+        if use_pitch:
+            pitch_loss(losses, out["pitch_pred"], batch["f0"], batch["uv"],
+                       batch["mel2ph"], hp)
+        return sum(losses.values()), losses
+
+    return loss_fn

@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: importing every module of
 ``speech_editing_tpu_torch`` loads neither JAX nor the JAX package, and its
-entry point refuses to fall back to the CPU on its own."""
+entry points refuse to fall back to the CPU on their own."""
 
 import os
 import subprocess
@@ -22,12 +22,14 @@ leaked = sorted(m for m in sys.modules
 assert not leaked, leaked
 if not torch.cuda.is_available():
     from speech_editing_tpu_torch.infer.edit import EditPipeline
-    try:
-        EditPipeline({}, {})
-    except RuntimeError as e:
-        assert "no CUDA device" in str(e), e
-    else:
-        raise AssertionError("EditPipeline() ran without a GPU")
+    from speech_editing_tpu_torch.training.trainer import Trainer
+    for entry, args in ((EditPipeline, ({}, {})), (Trainer, ({},))):
+        try:
+            entry(*args)
+        except RuntimeError as e:
+            assert "no CUDA device" in str(e), e
+        else:
+            raise AssertionError(f"{entry.__name__}() ran without a GPU")
 print("ISOLATED", len(names))
 """
 
