@@ -11,8 +11,12 @@ Phases, each of which exits non-zero on a failed check:
 3. kernels: each CUDA kernel against its plain PyTorch version at the
    shapes of the edit and train paths, with the error against the stated
    tolerance, the kernel's, the plain version's and (for attention) SDPA's
-   time; the backward kernels K5 and K4 also against autograd of the plain
-   forward, through the autograd Functions that pair them with K1 and K3;
+   time, its achieved TFLOP/s and its share of the bound; K1 at the edit's
+   three request lengths, at dilations 1-3 and at the train shape, and
+   timed L2-cold at the edit shape (20 weight sets cycled, as the edit's 20
+   blocks find them); the backward kernels K5 and K4 also against autograd
+   of the plain forward, through the autograd Functions that pair them with
+   K1 and K3;
 4. edit path: ``EditPipeline`` at the flagship width (seeded random
    weights) answers edit requests of 512 (``bench.py``'s utterance), 300
    and 700 frames; every launch counter must move by exactly its expected
@@ -36,6 +40,7 @@ second-to-last line is ``{"kernels": [...]}``, the last
 
 from __future__ import annotations
 
+import itertools
 import json
 import subprocess
 import sys
@@ -48,7 +53,8 @@ import torch.nn.functional as F
 from speech_editing_tpu_torch.config.flagship import FLAGSHIP_HP, HIFIGAN_V1_HP
 from speech_editing_tpu_torch.infer.edit import EditPipeline
 from speech_editing_tpu_torch.ops.cuda import build
-from speech_editing_tpu_torch.ops.cuda.diffnet_block import (diffnet_block,
+from speech_editing_tpu_torch.ops.cuda.diffnet_block import (_fits64, _tile_plan,
+                                                             diffnet_block,
                                                              diffnet_block_bwd,
                                                              diffnet_block_bwd_plain,
                                                              diffnet_block_plain,
@@ -64,6 +70,9 @@ from speech_editing_tpu_torch.ops.mel import mel_spectrogram as mel_plain
 from speech_editing_tpu_torch.training.trainer import Trainer
 
 PEAK_FP32_FLOPS = 67e12     # H100 SXM, float32 outside the tensor cores
+# H100 SXM, float32-accurate products on the tensor cores: three TF32
+# products each (3xTF32, as K1 and K5 run them) at 495 TFLOP/s dense
+PEAK_3XTF32_FLOPS = 495e12 / 3
 PEAK_HBM_BYTES = 3.35e12    # H100 SXM, bytes/s
 SR, HOP = 22050, 256
 REQUEST_FRAMES = (512, 300, 700)
@@ -111,9 +120,36 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def host_us(fn, iters: int = 200, warmup: int = 3) -> float:
+    """Host time of one call in us: the host clock around ``iters`` calls
+    issued back to back, read before the synchronise after them, so it
+    counts the Python and the launch, not the device's work."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    us = (time.perf_counter() - t0) * 1e6 / iters
+    torch.cuda.synchronize()
+    return us
+
+
 def bound(flops: float, n_bytes: float) -> tuple[float, str]:
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, n_bytes / PEAK_HBM_BYTES
+    """The least time for the work: its float32 FLOP at the 3xTF32 tensor-core
+    rate (the fastest float32-accurate rate of the card) or its bytes at the
+    HBM rate, whichever is longer, in ms."""
+    t_ops, t_bytes = flops / PEAK_3XTF32_FLOPS, n_bytes / PEAK_HBM_BYTES
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def rate(flops: float, ms: float, bound_ms: float) -> str:
+    """Achieved TFLOP/s, as a share of the 3xTF32 and the fp32 CUDA-core
+    rates, and the share of the bound."""
+    tflops = flops / ms / 1e9
+    return (f"{tflops:.1f} TFLOP/s ({tflops * 1e12 / PEAK_3XTF32_FLOPS:.3f} of 3xTF32, "
+            f"{tflops * 1e12 / PEAK_FP32_FLOPS:.3f} of fp32 CUDA cores), "
+            f"{bound_ms / ms:.3f} of the bound")
 
 
 def nbytes(*tensors) -> int:
@@ -142,31 +178,64 @@ def block_inputs(gen, b: int, t: int = 512):
     return x, cond, step, mask, w
 
 
+def check_wide_dilation(name: str, b: int, t: int, dilation: int) -> None:
+    """At [b, t] 64-row tiles fill the card; at ``dilation`` their halo must
+    not fit in shared memory, so the plan takes 16-row tiles there."""
+    wide = _tile_plan(b, t, _fits64(name, dilation))[0]
+    check(_tile_plan(b, t, _fits64(name, 1))[0] == 64 and wide == 16,
+          f"{name}: 64-row tiles expected at dilation 1 and 16-row tiles at {dilation}")
+
+
 def phase_diffnet_block(gen) -> dict:
-    c, h, t = FLAGSHIP_HP["residual_channels"], FLAGSHIP_HP["hidden_size"], 512
-    tol, out = 1e-4, {}
-    for b in (1, 4, TRAIN_B):
+    """K1 against its plain version at the edit's requests (B=1, T = 512,
+    300, 700), at B=4 with dilation 1, 2 and 3 (3 at T=509, a ragged last
+    tile), at B=16 with dilation 8 (whose 64-row tiles do not fit) and at
+    the train shape with h; timed at the edit shape warm and L2-cold, and at
+    the train shape, with the host time of one call at the edit shape."""
+    c, h = FLAGSHIP_HP["residual_channels"], FLAGSHIP_HP["hidden_size"]
+    tol, out = 1e-4, {"max_abs_err": 0.0}
+    flops = lambda b, t: 2 * b * t * 2 * c * (3 * c + h + c)
+    check_wide_dilation("diffnet_block", 16, 512, 8)
+    for b, t, dilation in ((1, 512, 1), (1, 300, 1), (1, 700, 1), (4, 512, 1), (4, 512, 2),
+                           (4, 509, 3), (16, 512, 8), (TRAIN_B, 512, 1)):
         x, cond, step, mask, w = block_inputs(gen, b, t)
         train = b == TRAIN_B      # the train path's form: h written too
-        got = diffnet_block(x, cond, step, mask, *w, return_h=train)
-        ref = diffnet_block_plain(x, cond, step, mask, *w, return_h=train)
+        call = lambda fn: fn(x, cond, step, mask, *w, dilation=dilation, return_h=train)
+        got, ref = call(diffnet_block), call(diffnet_block_plain)
         torch.cuda.synchronize()
         err = max(float((g - e).abs().max()) for g, e in zip(got, ref))
-        ms = time_ms(lambda: diffnet_block(x, cond, step, mask, *w, return_h=train))
-        plain_ms = time_ms(lambda: diffnet_block_plain(x, cond, step, mask, *w,
-                                                       return_h=train))
-        flops = 2 * b * t * 2 * c * (3 * c + h + c)
-        bound_ms, bound_by = bound(flops, nbytes(x, cond, step, mask, *w, *got))
-        print(f"[kernel] diffnet_block B={b} T={t} C={c} H={h}"
-              f"{' (with h)' if train else ''}: max_abs_err={err:.3e} "
-              f"(tol {tol}) kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"bound {bound_ms:.4f} ms ({bound_by})", flush=True)
-        check(err <= tol, f"diffnet_block B={b}: error {err} > {tol}")
-        out["max_abs_err"] = max(out.get("max_abs_err", 0.0), err)
-        if b == 1:   # the edit path's shape
-            out.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
-        if train:
-            out.update(train_ms=ms, train_bound_ms=bound_ms)
+        msg = (f"[kernel] diffnet_block B={b} T={t} C={c} H={h} dilation={dilation}"
+               f"{' (with h)' if train else ''}: max_abs_err={err:.3e} (tol {tol})")
+        check(err <= tol, f"diffnet_block B={b} T={t} d={dilation}: error {err} > {tol}")
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        if (b, t) in ((1, 512), (TRAIN_B, 512)):
+            ms = time_ms(lambda: call(diffnet_block))
+            plain_ms = time_ms(lambda: call(diffnet_block_plain))
+            bound_ms, bound_by = bound(flops(b, t), nbytes(x, cond, step, mask, *w, *got))
+            msg += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                    f"({bound_by}); {rate(flops(b, t), ms, bound_ms)}")
+            if train:
+                out.update(train_ms=ms, train_plain_ms=plain_ms, train_bound_ms=bound_ms)
+            else:
+                us = host_us(lambda: call(diffnet_block))
+                msg += f"; host {us:.1f} us a call"
+                out.update(warm_ms=ms, warm_plain_ms=plain_ms, bound_ms=bound_ms,
+                           bound_by=bound_by, host_us=us)
+        print(msg, flush=True)
+    # the edit shape as the edit finds it: its 20 blocks' weights (50 MB)
+    # do not stay in the 50 MB L2, so cycle through 20 weight sets
+    x, cond, step, mask, _ = block_inputs(gen, 1, 512)
+    sets = [block_inputs(gen, 1, 512)[4] for _ in range(FLAGSHIP_HP["residual_layers"])]
+    turn = itertools.count()
+    cold = lambda fn: fn(x, cond, step, mask, *sets[next(turn) % len(sets)])
+    ms = time_ms(lambda: cold(diffnet_block), iters=2 * len(sets))
+    plain_ms = time_ms(lambda: cold(diffnet_block_plain), iters=2 * len(sets))
+    print(f"[kernel] diffnet_block B=1 T=512 L2-cold ({len(sets)} weight sets, "
+          f"{nbytes(*(t for ws in sets for t in ws)) / 2 ** 20:.0f} MiB): kernel {ms:.4f} ms "
+          f"(warm {out['warm_ms']:.4f}), plain {plain_ms:.4f} ms (warm "
+          f"{out['warm_plain_ms']:.4f}), bound {out['bound_ms']:.4f} ms; "
+          f"{rate(flops(1, 512), ms, out['bound_ms'])}", flush=True)
+    out.update(ms=ms, plain_ms=plain_ms)
     return dict(out, name="diffnet_block", route="cuda",
                 source="speech_editing_tpu_torch/csrc/diffnet_block.cu",
                 replaces="speech_editing_tpu/ops/pallas/diffnet_block.py:139",
@@ -177,9 +246,12 @@ def phase_diffnet_block_bwd(gen) -> dict:
     """K5 against its plain version, and K1 + K5 (the autograd Function)
     against autograd of the plain forward, at B=4 with dilation 1 and 2
     (and 3 at T=509, a ragged last tile); timed at B=4 and at the train
-    path's B=78."""
+    path's B=78; against its plain version also at B=16 with dilation 8,
+    whose 64-row tiles do not fit."""
     c, out = FLAGSHIP_HP["residual_channels"], {"max_abs_err": 0.0}
-    for b, t, dilation in ((4, 512, 1), (4, 512, 2), (4, 509, 3), (TRAIN_B, 512, 1)):
+    check_wide_dilation("diffnet_block_bwd", 16, 512, 8)
+    for b, t, dilation in ((4, 512, 1), (4, 512, 2), (4, 509, 3), (16, 512, 8),
+                           (TRAIN_B, 512, 1)):
         x, cond, step, mask, w = block_inputs(gen, b, t)
         dxo, dsk = (torch.randn(b, t, c, device="cuda", generator=gen) for _ in range(2))
         _, _, h = diffnet_block(x, cond, step, mask, *w, dilation=dilation,
@@ -207,10 +279,10 @@ def phase_diffnet_block_bwd(gen) -> dict:
         if dilation == 1:
             ms = time_ms(lambda: diffnet_block_bwd(*args))
             plain_ms = time_ms(lambda: diffnet_block_bwd_plain(*args))
-            bound_ms, bound_by = bound(16 * b * t * c * c,
-                                       nbytes(h, dxo, dsk, mask, w[0], w[4], *got))
+            flops = 16 * b * t * c * c
+            bound_ms, bound_by = bound(flops, nbytes(h, dxo, dsk, mask, w[0], w[4], *got))
             msg += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                    f"bound {bound_ms:.4f} ms ({bound_by})")
+                    f"bound {bound_ms:.4f} ms ({bound_by}); {rate(flops, ms, bound_ms)}")
             if b == TRAIN_B:
                 out.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
         print(msg + f" (tol {BWD_TOL}, relative to the reference's max)", flush=True)
@@ -236,7 +308,8 @@ def phase_mel() -> dict:
     bound_ms, bound_by = bound(flops, nbytes(wav, got) + basis_bytes)
     print(f"[kernel] mel_spectrogram N={n}: max_abs_err={err:.3e} (tol {tol}), "
           f"mean_abs_err={mean_err:.3e} (tol {mean_tol}) kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+          f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
+          f"{rate(flops, ms, bound_ms)}", flush=True)
     check(err <= tol, f"mel_spectrogram: error {err} > {tol}")
     check(mean_err <= mean_tol, f"mel_spectrogram: mean error {mean_err} > {mean_tol}")
     return dict(name="mel_spectrogram", route="cuda",
@@ -267,7 +340,7 @@ def phase_attention(gen) -> dict:
         print(f"[kernel] flash_mha B={b} S={s} h={h} d={d} valid keys {lengths}: "
               f"max_abs_err={err:.3e} (tol {tol}) kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bound_ms:.6f} ms "
-              f"({bound_by})", flush=True)
+              f"({bound_by}); {rate(flops, ms, bound_ms)}", flush=True)
         check(err <= tol, f"flash_mha S={s}: error {err} > {tol}")
         out["max_abs_err"] = max(out.get("max_abs_err", 0.0), err)
         if s == 48:  # the edit path's shape
@@ -285,11 +358,13 @@ def phase_attention(gen) -> dict:
     qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
     lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=(~pad)[:, None, None, :], scale=1.0))
-    bound_ms, _ = bound(4 * h * TRAIN_S * d * sum(lengths), nbytes(q, k, v, pad, got, lse))
+    flops = 4 * h * TRAIN_S * d * sum(lengths)
+    bound_ms, _ = bound(flops, nbytes(q, k, v, pad, got, lse))
     print(f"[kernel] flash_mha B={TRAIN_B} S={TRAIN_S} with logsumexp, valid keys "
           f"{min(lengths)}..{max(lengths)}: max err {err:.3e} relative to the "
           f"reference's max (tol {tol}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"sdpa {lib_ms:.4f} ms, bound {bound_ms:.6f} ms", flush=True)
+          f"sdpa {lib_ms:.4f} ms, bound {bound_ms:.6f} ms; {rate(flops, ms, bound_ms)}",
+          flush=True)
     check(err <= tol, f"flash_mha with logsumexp: error {err} > {tol}")
     return dict(out, name="flash_mha", route="cuda",
                 source="speech_editing_tpu_torch/csrc/flash_attention.cu",
@@ -349,7 +424,8 @@ def phase_attention_bwd(gen) -> dict:
               f"{err_ag:.3e}, logsumexp {err_lse:.3e} (tol {BWD_TOL}, relative to the "
               f"reference's max); pad keys' dk, dv exactly 0: {pad_zero}; kernel "
               f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa backward {lib_ms:.4f} ms, "
-              f"bound {bound_ms:.6f} ms ({bound_by})", flush=True)
+              f"bound {bound_ms:.6f} ms ({bound_by}); {rate(flops, ms, bound_ms)}",
+              flush=True)
         worst = max(err, err_ag, err_lse)
         check(worst <= BWD_TOL, f"flash_mha_bwd B={b} S={s}: error {worst} > {BWD_TOL}")
         check(pad_zero, f"flash_mha_bwd B={b} S={s}: pad keys got nonzero dk or dv")
@@ -721,7 +797,10 @@ def main() -> None:
             "library_ms")
     print(json.dumps({"edit_rtf": rtf, "train_step": train, "card": smi}))
     print(smi)
-    print(json.dumps({"kernels": [{key: k[key] for key in keys} for k in kernels]}))
+    extra = ("warm_ms", "warm_plain_ms", "host_us", "train_ms", "train_plain_ms",
+             "train_bound_ms")
+    print(json.dumps({"kernels": [{key: k[key] for key in keys + extra if key in k}
+                                  for k in kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))
 

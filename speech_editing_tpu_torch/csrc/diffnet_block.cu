@@ -10,164 +10,335 @@
 //   x'    = (x + o[:, :C]) / sqrt(2),  skip = o[:, C:]
 // and, when the caller passes an output for it, h [B, T, 2C] (the saved
 // pre-activation the backward kernel K5, diffnet_block_bwd.cu, reads).
-// The k=3 conv is the product of the [TT, 3C] row-shifted tile with
-// Wd [3C, 2C] (row tap*C + c_in), the layout _fwd_call receives.
+// Wd is [3C, 2C] (row tap*C + c_in), the layout _fwd_call receives.
 //
-// Bound on the H100: operations. A block does 2*T*2C*(3C + H + C) FLOP
-// (0.64 GFLOP at B=1, T=512, C=256, H=192) against about 4.4 MB of
-// activations and weights, on the float32 CUDA cores (67 TFLOP/s).
+// Bound on the H100: operations. 2*T*2C*(3C + H + C) FLOP per batch row
+// (49.7 GFLOP at B=78, T=512, C=256, H=192), float32-accurate on the tensor
+// cores as 3xTF32 (tf32x3.cuh) at 495 / 3 = 165 TFLOP/s: 0.301 ms.
 //
-// Design: one block of C threads per (tile of TT time rows, batch row).
-//  * The block stages its im2col tile A = [y(t-d) | y(t) | y(t+d) | cond(t)]
-//    ([TT, 3C + H]) in shared memory: the halo is read straight from x, so
-//    any dilation d works, and the nonpadding mask multiplies y before the
-//    conv as the plain branch of modules/wavenet.py does.
-//  * Thread j owns output columns j and j + C of h for all TT rows, so the
-//    gate is thread-local; h stays in registers and is written only when
-//    a gradient is needed (hout non-null). Each weight value read from
-//    L2 feeds TT rows; each float4 of A read from shared memory (a
-//    broadcast) feeds eight FMAs.
-//  * g [TT, C] goes to shared memory; the second product keeps the same
-//    column ownership, so the residual/skip epilogue is thread-local too.
+// Design: one CTA of 8 warps per tile of M time rows (64 at the train
+// shape, 16 at the edit's), the tile plan picked by the wrapper.
+//  * Both products run on the tensor cores (tf32x3.cuh): mma.sync m16n8k8
+//    TF32, each operand split into hi + lo, three products a step.
+//  * The weights stream through a ring of S stages of BK rows in shared
+//    memory, filled by cp.async and guarded by a "full" and an "empty"
+//    mbarrier a stage, so that warps drift apart and one warp's copies
+//    overlap another's products. Each weight byte is read from L2 once per
+//    M rows: 1.55 GB a call at B=78.
+//  * y is staged once for the rows [t0 - d, t0 + M + d) (zero outside
+//    [0, T)); the k=3 conv is three accumulating products over row-shifted
+//    views of that one tile (offsets 0, d, 2d) against the Wd rows of taps
+//    0, 1, 2, then cond @ Wc accumulates into the same h. No im2col copy.
+//  * h is computed NC gate columns at a time: gate columns n and n + C sit
+//    in the same thread's accumulator fragments, so the gate is
+//    register-local. h is written only when hout is non-null; g goes to
+//    shared memory and the second product, g @ Wo, ends in the same
+//    thread-local residual/skip epilogue.
+//  * At the edit's B=1 a thread-block cluster of 2 or 4 CTAs splits the
+//    gate columns: each CTA streams its share of Wd, Wc and Wo, computes its
+//    share of g, then after a cluster barrier copies its peers' shares of g
+//    through distributed shared memory and computes its share of x' and
+//    skip. That puts 128 CTAs on the card at T=512 instead of 32.
 // Nothing but x', skip and (for training) h is written to device memory.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include "tf32x3.cuh"
+
+namespace cg = cooperative_groups;
+using namespace tf32x3;
 
 namespace {
 
-constexpr int TT = 8;  // time rows per block
+// The DiffNet widths of every configuration (config/flagship.py,
+// egs/*.yaml): residual channels C, conditioner hidden size H. Compiled in,
+// so that every stride and chunk index is a constant.
+constexpr int C = 256, H = 192;
+constexpr int NTHREADS = 256;    // 8 warps
 constexpr float RSQRT2 = 0.70710678118654752440f;
 
-__global__ void diffnet_block_kernel(
+// A CTA computes NC gate columns at a time (h columns n and n + C): the
+// warps of Tiling<M, NC> (tf32x3.cuh) tile M x NC, and each warp's
+// accumulator tiles n < NW are its columns, n >= NW their + C partners. A
+// ring row holds a weight row's NC columns n, NC columns C + n and 8 floats
+// of padding (a row stride of 8 mod 32).
+template <int NC>
+__host__ __device__ constexpr int ring_ld() {
+  return 2 * NC + 8;
+}
+
+// The plan of a tile of M rows: gate columns a chunk, weight rows a ring
+// stage, stages, CTAs an SM.
+template <int M>
+struct Plan;
+template <>
+struct Plan<64> {
+  static constexpr int NC = 128, BK = 16, S = 2, MINB = 1;
+};
+template <>
+struct Plan<16> {
+  static constexpr int NC = 64, BK = 32, S = 3, MINB = 2;
+};
+
+// The weight ring and the y window, cond and g tiles, rows padded by 8 or 4
+// floats.
+template <int M>
+size_t smem_bytes(int dil) {
+  using P = Plan<M>;
+  const int span = dil < M ? dil : M;
+  return sizeof(float) * ((size_t)P::S * P::BK * ring_ld<P::NC>() +
+                          (size_t)(M + 2 * span) * (C + 4) + (size_t)M * (H + 4) +
+                          (size_t)M * (C + 4));
+}
+
+template <int M, int NC, int BK, int S, int MINB>
+__global__ void __launch_bounds__(NTHREADS, MINB) diffnet_block_kernel(
     const float* __restrict__ x, const float* __restrict__ cond,
     const float* __restrict__ step, const float* __restrict__ mask,
     const float* __restrict__ wd, const float* __restrict__ bd,
     const float* __restrict__ wc, const float* __restrict__ bc,
     const float* __restrict__ wo, const float* __restrict__ bo,
     float* __restrict__ xout, float* __restrict__ skip,
-    float* __restrict__ hout, int T, int C, int H, int dil) {
+    float* __restrict__ hout, int T, int dil) {
+  using Tl = Tiling<M, NC>;
+  constexpr int MW = Tl::MW, WN = Tl::WN, NW = Tl::NW, WLD = ring_ld<NC>();
   extern __shared__ float4 smem4[];
-  const int ka = 3 * C + H;
-  float* a_s = reinterpret_cast<float*>(smem4);  // [TT][3C + H]
-  float* g_s = a_s + TT * ka;                    // [TT][C]
-  const int b = blockIdx.y;
-  const int t0 = blockIdx.x * TT;
-  const int j = threadIdx.x;
-  const int C2 = 2 * C;
+  __shared__ Ring<S, NTHREADS / 32> bars;
+  const int span = min(dil, M);
+  constexpr int ldy = C + 4, ldc = H + 4;            // 4 mod 32
+  float* ring = reinterpret_cast<float*>(smem4);     // [S][BK][WLD]
+  float* ys = ring + S * BK * WLD;                   // [M + 2 span][C + 4]
+  float* cs = ys + (M + 2 * span) * ldy;             // [M][H + 4]
+  float* gs = cs + M * ldc;                          // [M][C + 4]
 
-  const float step_j = step[(size_t)b * C + j];
-  for (int r = 0; r < TT; ++r) {
-    const int t = t0 + r;
-#pragma unroll
-    for (int tap = 0; tap < 3; ++tap) {
-      const int s = t + (tap - 1) * dil;
-      float v = 0.f;
-      if (t < T && s >= 0 && s < T) {
-        v = x[((size_t)b * T + s) * C + j] + step_j;
-        if (mask != nullptr) v *= mask[(size_t)b * T + s];
-      }
-      a_s[r * ka + tap * C + j] = v;
+  const int csize = gridDim.x, rank = blockIdx.x;    // cluster (csize, 1, 1)
+  const int b = blockIdx.z, t0 = blockIdx.y * M;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int row0 = warp / WN * MW * 16;              // the warp's first row
+  const int col0 = warp % WN * NW * 8;               // its first gate column in a chunk
+  constexpr int C2 = 2 * C, K1 = 3 * C + H;         // K of the first product
+  constexpr int q1 = K1 / BK, q2 = C / BK;           // ring chunks per N-chunk
+  const int cq = C / csize;                          // this CTA's gate columns
+  const int n1 = cq / NC * q1, n_all = n1 + cq / NC * q2;
+  const int yrows = M + 2 * span;
+  constexpr int cv = C / 4, hv = H / 4;
+
+  // chunk i -> (N-chunk, first weight row); true for the second product
+  auto chunk = [&](int i, int& nc, int& k0) {
+    if (i < n1) {
+      nc = i / q1;
+      k0 = i % q1 * BK;
+      return false;
     }
-    for (int c = j; c < H; c += C) {
-      a_s[r * ka + 3 * C + c] = t < T ? cond[((size_t)b * T + t) * H + c] : 0.f;
+    nc = (i - n1) / q2;
+    k0 = (i - n1) % q2 * BK;
+    return true;
+  };
+  // chunk i's BK weight rows from column n (null past the last chunk); its
+  // stage holds columns [n, n + NC) and [C + n, C + n + NC) of each row
+  auto source = [&](int i) -> const float* {
+    if (i >= n_all) return nullptr;
+    int nc, k0;
+    const bool p2 = chunk(i, nc, k0);
+    const float* w = p2 ? wo + (size_t)k0 * C2
+                        : k0 < 3 * C ? wd + (size_t)k0 * C2 : wc + (size_t)(k0 - 3 * C) * C2;
+    return w + rank * cq + nc * NC;
+  };
+  // this thread's BK / 8 16-byte copies of chunk c into its stage
+  auto fill = [&](int c) {
+    const float* w = source(c);
+    if (w == nullptr) return;
+    bars.acquire(c);
+    float* dst = ring + c % S * BK * WLD;
+    for (int e = tid; e < BK * NC / 2; e += NTHREADS) {
+      const int r = e / (NC / 2), half = e / (NC / 4) % 2, col = e % (NC / 4) * 4;
+      cp_async16(dst + r * WLD + half * NC + col, w + (size_t)r * C2 + half * C + col);
     }
+    bars.commit(c);
+  };
+
+  if (tid == 0) bars.init();
+  __syncthreads();
+
+  // first group: x over the window and cond over the tile, rows outside
+  // [0, T) zeroed; y = (x + step) * mask is formed in place once it lands
+  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int e = tid; e < yrows * cv; e += NTHREADS) {
+    const int w = e / cv, c = e % cv * 4, t = window_time(w, t0, M, dil);
+    if (t >= 0 && t < T)
+      cp_async16(ys + w * ldy + c, x + ((size_t)b * T + t) * C + c);
+    else
+      *reinterpret_cast<float4*>(ys + w * ldy + c) = zero4;
+  }
+  for (int e = tid; e < M * hv; e += NTHREADS) {
+    const int r = e / hv, c = e % hv * 4, t = t0 + r;
+    if (t < T)
+      cp_async16(cs + r * ldc + c, cond + ((size_t)b * T + t) * H + c);
+    else
+      *reinterpret_cast<float4*>(cs + r * ldc + c) = zero4;
+  }
+  cp_async_commit();
+  for (int c = 0; c < S - 1; ++c) fill(c);
+  cp_async_wait_all();       // the activations (the ring's copies are not in a group)
+  __syncthreads();
+  for (int e = tid; e < yrows * cv; e += NTHREADS) {
+    const int w = e / cv, c = e % cv * 4, t = window_time(w, t0, M, dil);
+    if (t < 0 || t >= T) continue;
+    float4* v = reinterpret_cast<float4*>(ys + w * ldy + c);
+    const float4 sv = *reinterpret_cast<const float4*>(step + (size_t)b * C + c);
+    const float m = mask != nullptr ? mask[(size_t)b * T + t] : 1.f;
+    *v = make_float4((v->x + sv.x) * m, (v->y + sv.y) * m, (v->z + sv.z) * m, (v->w + sv.w) * m);
   }
   __syncthreads();
 
-  float h0[TT], h1[TT];
-#pragma unroll
-  for (int r = 0; r < TT; ++r) h0[r] = h1[r] = 0.f;
-  // h += A[:, 0:3C] @ Wd, then A[:, 3C:] @ Wc
-  for (int part = 0; part < 2; ++part) {
-    const float* wmat = part == 0 ? wd : wc;
-    const int k_len = part == 0 ? 3 * C : H;
-    const int a_off = part == 0 ? 0 : 3 * C;
-    for (int k = 0; k < k_len; k += 4) {
-      float w0[4], w1[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        w0[i] = wmat[(size_t)(k + i) * C2 + j];
-        w1[i] = wmat[(size_t)(k + i) * C2 + C + j];
-      }
-#pragma unroll
-      for (int r = 0; r < TT; ++r) {
-        const float4 a4 = *reinterpret_cast<const float4*>(a_s + r * ka + a_off + k);
-        const float as[4] = {a4.x, a4.y, a4.z, a4.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          h0[r] = fmaf(as[i], w0[i], h0[r]);
-          h1[r] = fmaf(as[i], w1[i], h1[r]);
+  float acc[MW][2 * NW][4];
+  zero(acc);
+  const auto bofs = [](int n) { return n / NW * NC + n % NW * 8; };
+
+  for (int i = 0; i < n_all; ++i) {
+    if (i == n1) __syncthreads();  // g is complete
+    if (i == n1 && csize > 1) {
+      // every CTA of the cluster has its share of g: copy the peers' shares
+      cg::cluster_group cluster = cg::this_cluster();
+      cluster.sync();
+      const int qv = cq / 4;
+      for (int p = 0; p < csize; ++p) {
+        if (p == rank) continue;
+        const float* peer = cluster.map_shared_rank(gs, p);
+        for (int e = tid; e < M * qv; e += NTHREADS) {
+          const int off = e / qv * ldy + p * cq + e % qv * 4;
+          *reinterpret_cast<float4*>(gs + off) = *reinterpret_cast<const float4*>(peer + off);
         }
       }
+      cluster.sync();        // no CTA leaves while a peer still reads its g
     }
-  }
-  const float bias0 = bd[j] + bc[j], bias1 = bd[C + j] + bc[C + j];
-#pragma unroll
-  for (int r = 0; r < TT; ++r) {
-    const float ha = h0[r] + bias0, hb = h1[r] + bias1;
-    g_s[r * C + j] = 1.f / (1.f + expf(-ha)) * tanhf(hb);
-    if (hout != nullptr && t0 + r < T) {
-      const size_t idx = ((size_t)b * T + t0 + r) * C2;
-      hout[idx + j] = ha;
-      hout[idx + C + j] = hb;
-    }
-  }
-  __syncthreads();
 
-  float o0[TT], o1[TT];
-#pragma unroll
-  for (int r = 0; r < TT; ++r) o0[r] = o1[r] = 0.f;
-  for (int k = 0; k < C; k += 4) {
-    float w0[4], w1[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      w0[i] = wo[(size_t)(k + i) * C2 + j];
-      w1[i] = wo[(size_t)(k + i) * C2 + C + j];
+    int nc, k0;
+    const bool p2 = chunk(i, nc, k0);
+    const float* a;
+    int lda = ldy;
+    if (p2) {
+      a = gs + k0;
+    } else if (k0 < 3 * C) {
+      const int tap = k0 / C;
+      a = ys + tap * span * ldy + (k0 - tap * C);
+    } else {
+      a = cs + (k0 - 3 * C);
+      lda = ldc;
     }
+    bars.wait(i);
+    // in its last k8 step the warp's threads start chunk i + S - 1 into the
+    // stage chunk i - 1 leaves
+    chunk_mma<BK, Tl::SEP, true>(acc, a + row0 * lda, lda, ring + i % S * BK * WLD + col0, WLD,
+                                 bofs, lane, [&](int j) {
+                                   if (j == BK / 8 - 1) fill(i + S - 1);
+                                 });
+    bars.release(i, lane);
+    if (k0 + BK != (p2 ? C : K1)) continue;
+
+    // end of an N-chunk: thread-local epilogue over its fragment
+    const int gc = rank * cq + nc * NC + col0;
 #pragma unroll
-    for (int r = 0; r < TT; ++r) {
-      const float4 g4 = *reinterpret_cast<const float4*>(g_s + r * C + k);
-      const float gs[4] = {g4.x, g4.y, g4.z, g4.w};
+    for (int mi = 0; mi < MW; ++mi)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        o0[r] = fmaf(gs[i], w0[i], o0[r]);
-        o1[r] = fmaf(gs[i], w1[i], o1[r]);
-      }
-    }
+      for (int ni = 0; ni < NW; ++ni)
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int r = row0 + mi * 16 + (lane >> 2) + hr * 8, t = t0 + r;
+          const int j = gc + ni * 8 + 2 * (lane & 3);
+          // columns j, j + 1 (lo) and C + j, C + j + 1 (hi)
+          const float lo0 = acc[mi][ni][2 * hr], lo1 = acc[mi][ni][2 * hr + 1];
+          const float hi0 = acc[mi][NW + ni][2 * hr], hi1 = acc[mi][NW + ni][2 * hr + 1];
+          if (!p2) {
+            const float2 b0 = ld2(bd + j), b1 = ld2(bc + j);
+            const float2 b2 = ld2(bd + C + j), b3 = ld2(bc + C + j);
+            const float ha0 = lo0 + (b0.x + b1.x), ha1 = lo1 + (b0.y + b1.y);
+            const float hb0 = hi0 + (b2.x + b3.x), hb1 = hi1 + (b2.y + b3.y);
+            st2(gs + r * ldy + j, 1.f / (1.f + expf(-ha0)) * tanhf(hb0),
+                1.f / (1.f + expf(-ha1)) * tanhf(hb1));
+            if (hout != nullptr && t < T) {
+              float* hrow = hout + ((size_t)b * T + t) * C2;
+              st2(hrow + j, ha0, ha1);
+              st2(hrow + C + j, hb0, hb1);
+            }
+          } else if (t < T) {
+            const size_t idx = ((size_t)b * T + t) * C + j;
+            const float2 xv = ld2(x + idx), o0 = ld2(bo + j), o1 = ld2(bo + C + j);
+            st2(xout + idx, (xv.x + (lo0 + o0.x)) * RSQRT2, (xv.y + (lo1 + o0.y)) * RSQRT2);
+            st2(skip + idx, hi0 + o1.x, hi1 + o1.y);
+          }
+        }
+    zero(acc);
   }
-  const float bo0 = bo[j], bo1 = bo[C + j];
-#pragma unroll
-  for (int r = 0; r < TT; ++r) {
-    const int t = t0 + r;
-    if (t < T) {
-      const size_t idx = ((size_t)b * T + t) * C + j;
-      xout[idx] = (x[idx] + (o0[r] + bo0)) * RSQRT2;
-      skip[idx] = o1[r] + bo1;
-    }
-  }
+}
+
+template <int M>
+auto kernel_of() {
+  using P = Plan<M>;
+  return diffnet_block_kernel<M, P::NC, P::BK, P::S, P::MINB>;
+}
+
+template <int M>
+int launch(const float* x, const float* cond, const float* step, const float* mask,
+           const float* wd, const float* bd, const float* wc, const float* bc,
+           const float* wo, const float* bo, float* xout, float* skip, float* hout,
+           int B, int T, int dil, int cluster, cudaStream_t stream) {
+  const size_t smem = smem_bytes<M>(dil);
+  auto kernel = kernel_of<M>();
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, (T + M - 1) / M, B);
+  cfg.blockDim = dim3(NTHREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, x, cond, step, mask, wd, bd, wc, bc, wo, bo, xout,
+                           skip, hout, T, dil);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// 1 if the plan of m rows a tile (64 or 16) fits in a block's shared memory
+// on the current device at dilation dil, else 0. The wrapper's tile plan
+// asks this before it takes 64-row tiles.
+extern "C" int diffnet_block_fwd_fits(int m, int dil) {
+  if (m == 64) return smem_bytes<64>(dil) <= max_dynamic_smem(kernel_of<64>());
+  if (m == 16) return smem_bytes<16>(dil) <= max_dynamic_smem(kernel_of<16>());
+  return 0;
+}
+
 // x, xout, skip [B, T, C]; cond [B, T, H]; step [B, C]; mask [B, T] or null;
-// hout [B, T, 2C] or null; wd [3C, 2C]; wc [H, 2C]; wo [C, 2C]; biases [2C].
-// Requires C a multiple
-// of 32 and at most 1024, H a multiple of 4 (the wrapper checks).
+// hout [B, T, 2C] or null; wd [3C, 2C]; wc [H, 2C]; wo [C, 2C]; biases [2C];
+// every pointer 16-byte aligned. The tile plan: m rows per CTA (64 or 16) and
+// cluster CTAs splitting the gate columns (1 at 64 rows; 1, 2 or 4 at 16).
+// Requires C = 256 and H = 192 (the wrapper checks both); returns
+// cudaErrorInvalidValue otherwise, and the launch's error where the plan's
+// shared memory does not fit (diffnet_block_fwd_fits).
 extern "C" int diffnet_block_fwd_f32(const float* x, const float* cond,
                                      const float* step, const float* mask,
                                      const float* wd, const float* bd,
                                      const float* wc, const float* bc,
                                      const float* wo, const float* bo,
                                      float* xout, float* skip, float* hout,
-                                     int B, int T, int C, int H, int dil,
-                                     void* stream) {
-  const size_t smem = (size_t)TT * (3 * C + H + C) * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaFuncSetAttribute(diffnet_block_kernel,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  }
-  const dim3 grid((T + TT - 1) / TT, B);
-  diffnet_block_kernel<<<grid, C, smem, static_cast<cudaStream_t>(stream)>>>(
-      x, cond, step, mask, wd, bd, wc, bc, wo, bo, xout, skip, hout, T, C, H, dil);
-  return (int)cudaGetLastError();
+                                     int B, int T, int c, int h, int dil,
+                                     int m, int cluster, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (c != C || h != H) return (int)cudaErrorInvalidValue;
+  if (m == 64 && cluster == 1)
+    return launch<64>(x, cond, step, mask, wd, bd, wc, bc, wo, bo, xout, skip, hout, B, T, dil,
+                      1, s);
+  if (m == 16 && (cluster == 1 || cluster == 2 || cluster == 4))
+    return launch<16>(x, cond, step, mask, wd, bd, wc, bc, wo, bo, xout, skip, hout, B, T, dil,
+                      cluster, s);
+  return (int)cudaErrorInvalidValue;
 }

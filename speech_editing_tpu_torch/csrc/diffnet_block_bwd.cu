@@ -9,9 +9,8 @@
 //   s   = sigmoid(h[:, :C]),  th = tanh(h[:, C:])
 //   g   = s * th                                           (for dWo)
 //   dh  = [dg * th * s * (1 - s) | dg * s * (1 - th^2)]    [T, 2C]
-//   dy3 = dh @ Wd^T                                        [T, 3C]
-//   dy[t] = dy3[t + d, 0:C] + dy3[t, C:2C] + dy3[t - d, 2C:3C]   (zero rows
-//           outside [0, T))
+//   dy[t] = dh[t + d] @ Wd^T[:, 0:C] + dh[t] @ Wd^T[:, C:2C]
+//           + dh[t - d] @ Wd^T[:, 2C:3C]        (zero rows outside [0, T))
 //   dx  = dy * mask + dx' / sqrt(2)
 // The weight, bias, cond and step gradients are plain products of dh, g and
 // do with the inputs, left to cuBLAS by the caller, as _vjp_bwd leaves them
@@ -19,171 +18,280 @@
 // [B, T] nonpadding mask of the forward (y = (x + step) * mask) and any
 // dilation d, so the denoiser's default masked path trains through it.
 //
-// Bound on the H100: operations. 2*T*2C*C (dg) + 2*T*2C*3C (dy3) =
-// 16*T*C^2 FLOP per batch row (41.9 GFLOP at B=78, T=512, C=256) against
-// 4*T*7C bytes of activations, on the float32 CUDA cores (67 TFLOP/s).
+// Bound on the H100: operations. 2*T*2C*C (dg) + 2*T*2C*3C (dy) = 16*T*C^2
+// FLOP per batch row (41.9 GFLOP at B=78, T=512, C=256), float32-accurate
+// on the tensor cores as 3xTF32 (tf32x3.cuh) at 495 / 3 = 165 TFLOP/s:
+// 0.254 ms.
 //
-// Design: two kernels, one block of C threads per (tile of TT time rows,
-// batch row) each, as K1 is built.
-//  1. Row-local: the block stages do [TT, 2C] in shared memory; thread j
-//     owns column j of dg for the TT rows, reading Wo^T [2C, C] (transposed
-//     by the wrapper, so a warp's loads are coalesced), then does the gate
-//     backward in registers and writes dh and g.
-//  2. Shift-scatter: the block stages the dh rows [t0 - d, t0 + TT + d)
-//     ([TT + 2d, 2C], zero outside [0, T)) in shared memory; thread j owns
-//     column j of dx and sums the three taps against Wd^T [2C, 3C]. dh has
-//     to reach device memory anyway (dWd and dWc read it), so the second
-//     pass replaces the Pallas kernel's halo-row recompute by a re-read.
+// Design: two passes, built as K1 is: one CTA of 8 warps per tile of M time
+// rows (64 at the train shape, 16 at small B·T), mma.sync m16n8k8 TF32 with
+// each operand split into hi + lo (tf32x3.cuh), the weights streamed through
+// a ring of S cp.async stages in shared memory guarded by mbarriers and
+// read from L2 once per M rows.
+//  1. Row-local: do [M, 2C] is staged in shared memory; dg = do @ Wo^T
+//     takes Wo in its natural [C, 2C] layout, which is the n-major
+//     (".col") B operand. The epilogue reads h, does the gate backward in
+//     registers and writes dh and g.
+//  2. Shift-scatter: the dh rows [t0 - d, t0 + M + d) are staged once (zero
+//     outside [0, T)); dy is three accumulating products over row-shifted
+//     views of that tile (offsets 2d, d, 0 for taps 0, 1, 2) against Wd's
+//     rows tap*C + c, again its natural [3C, 2C] layout read n-major. The
+//     epilogue writes dx = dy * mask + dx' / sqrt(2). dh has to reach device
+//     memory anyway (dWd and dWc read it), so the second pass replaces the
+//     Pallas kernel's halo-row recompute by a re-read.
 
 #include <cuda_runtime.h>
 
+#include "tf32x3.cuh"
+
+using namespace tf32x3;
+
 namespace {
 
-constexpr int TT = 16;  // time rows per block
+// The DiffNet residual channels of every configuration (config/flagship.py,
+// egs/*.yaml), compiled in so that every stride and chunk index is a
+// constant.
+constexpr int C = 256;
+constexpr int NTHREADS = 256;  // 8 warps
+constexpr int BK = 32;         // weight columns (the K of both products) per stage
+constexpr int NC = 128;        // output columns per N-chunk
+constexpr int WLD = BK + 4;    // ring row stride in floats (4 mod 32), n-major
+constexpr int S = 4;           // ring stages
 constexpr float RSQRT2 = 0.70710678118654752440f;
 
-__global__ void gate_bwd_kernel(const float* __restrict__ h,
-                                const float* __restrict__ dxout,
-                                const float* __restrict__ dskip,
-                                const float* __restrict__ woT,
-                                float* __restrict__ dh, float* __restrict__ g,
-                                int T, int C) {
-  extern __shared__ float4 smem4[];
-  float* do_s = reinterpret_cast<float*>(smem4);  // [TT][2C]
-  const int b = blockIdx.y;
-  const int t0 = blockIdx.x * TT;
-  const int j = threadIdx.x;
-  const int C2 = 2 * C;
+// This thread's 16-byte copies of chunk c, the NC x BK weight block at w
+// (row stride ldw floats; null past the last chunk), into its ring stage.
+__device__ __forceinline__ void fill(Ring<S, NTHREADS / 32>& bars, float* ring, int c,
+                                     const float* w, int ldw, int tid) {
+  if (w == nullptr) return;
+  bars.acquire(c);
+  float* dst = ring + c % S * NC * WLD;
+  for (int e = tid; e < NC * BK / 4; e += NTHREADS) {
+    const int r = e / (BK / 4), col = e % (BK / 4) * 4;
+    cp_async16(dst + r * WLD + col, w + (size_t)r * ldw + col);
+  }
+  bars.commit(c);
+}
 
-  for (int r = 0; r < TT; ++r) {
-    const int t = t0 + r;
-    const size_t idx = ((size_t)b * T + t) * C + j;
-    do_s[r * C2 + j] = t < T ? dxout[idx] * RSQRT2 : 0.f;
-    do_s[r * C2 + C + j] = t < T ? dskip[idx] : 0.f;
+template <int M>
+__global__ void __launch_bounds__(NTHREADS, 1) gate_bwd_kernel(
+    const float* __restrict__ h, const float* __restrict__ dxout,
+    const float* __restrict__ dskip, const float* __restrict__ wo,
+    float* __restrict__ dh, float* __restrict__ g, int T) {
+  using Tl = Tiling<M, NC>;
+  constexpr int MW = Tl::MW, WN = Tl::WN, NW = Tl::NW;
+  extern __shared__ float4 smem4[];
+  __shared__ Ring<S, NTHREADS / 32> bars;
+  constexpr int C2 = 2 * C, ldd = C2 + 4;           // 4 mod 32
+  float* ring = reinterpret_cast<float*>(smem4);    // [S][NC][WLD]
+  float* ds = ring + S * NC * WLD;                  // [M][2C + 4]
+  const int b = blockIdx.y, t0 = blockIdx.x * M;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int row0 = warp / WN * MW * 16, col0 = warp % WN * NW * 8;
+  constexpr int q = C2 / BK, n_all = C / NC * q, cv = C / 4;
+  // chunk i: Wo rows [nc * NC, +NC), columns [k0, k0 + BK) (null past the last)
+  auto source = [&](int i) -> const float* {
+    return i < n_all ? wo + (size_t)(i / q * NC) * C2 + i % q * BK : nullptr;
+  };
+  if (tid == 0) bars.init();
+  __syncthreads();
+
+  // first group: do = [dx' | dskip] over the tile, rows outside [0, T)
+  // zeroed; dx' is scaled by 1/sqrt(2) in place once it lands
+  for (int e = tid; e < 2 * M * cv; e += NTHREADS) {
+    const int r = e / (2 * cv), c = e % (2 * cv) * 4, t = t0 + r;
+    float* dst = ds + r * ldd + c;
+    if (t >= T)
+      *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+    else if (c < C)
+      cp_async16(dst, dxout + ((size_t)b * T + t) * C + c);
+    else
+      cp_async16(dst, dskip + ((size_t)b * T + t) * C + c - C);
+  }
+  cp_async_commit();
+  for (int c = 0; c < S - 1; ++c) fill(bars, ring, c, source(c), C2, tid);
+  cp_async_wait_all();      // the activations (the ring's copies are not in a group)
+  __syncthreads();
+  for (int e = tid; e < M * cv; e += NTHREADS) {
+    float4* v = reinterpret_cast<float4*>(ds + e / cv * ldd + e % cv * 4);
+    *v = make_float4(v->x * RSQRT2, v->y * RSQRT2, v->z * RSQRT2, v->w * RSQRT2);
   }
   __syncthreads();
 
-  float dg[TT];
+  float acc[MW][NW][4];
+  zero(acc);
+  const auto bofs = [](int n) { return n * 8 * WLD; };
+  for (int i = 0; i < n_all; ++i) {
+    const int nc = i / q, k0 = i % q * BK;
+    bars.wait(i);
+    // in its last k8 step the warp's threads start chunk i + S - 1 into the
+    // stage chunk i - 1 leaves
+    chunk_mma<BK, Tl::SEP, false>(
+        acc, ds + row0 * ldd + k0, ldd, ring + i % S * NC * WLD + col0 * WLD, WLD, bofs, lane,
+        [&](int j) {
+          if (j == BK / 8 - 1) fill(bars, ring, i + S - 1, source(i + S - 1), C2, tid);
+        });
+    bars.release(i, lane);
+    if (k0 + BK != C2) continue;
+
 #pragma unroll
-  for (int r = 0; r < TT; ++r) dg[r] = 0.f;
-  for (int k = 0; k < C2; k += 4) {
-    float w[4];
+    for (int mi = 0; mi < MW; ++mi)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) w[i] = woT[(size_t)(k + i) * C + j];
+      for (int ni = 0; ni < NW; ++ni)
 #pragma unroll
-    for (int r = 0; r < TT; ++r) {
-      const float4 d4 = *reinterpret_cast<const float4*>(do_s + r * C2 + k);
-      dg[r] = fmaf(d4.x, w[0], dg[r]);
-      dg[r] = fmaf(d4.y, w[1], dg[r]);
-      dg[r] = fmaf(d4.z, w[2], dg[r]);
-      dg[r] = fmaf(d4.w, w[3], dg[r]);
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < TT; ++r) {
-    const int t = t0 + r;
-    if (t < T) {
-      const size_t row = (size_t)b * T + t;
-      const float ha = h[row * C2 + j], hb = h[row * C2 + C + j];
-      const float s = 1.f / (1.f + expf(-ha));
-      const float th = tanhf(hb);
-      g[row * C + j] = s * th;
-      dh[row * C2 + j] = dg[r] * th * s * (1.f - s);
-      dh[row * C2 + C + j] = dg[r] * s * (1.f - th * th);
-    }
+        for (int hr = 0; hr < 2; ++hr) {
+          const int t = t0 + row0 + mi * 16 + (lane >> 2) + hr * 8;
+          if (t >= T) continue;
+          const int j = nc * NC + col0 + ni * 8 + 2 * (lane & 3);
+          const size_t row = (size_t)b * T + t;
+          const float2 ha = ld2(h + row * C2 + j), hb = ld2(h + row * C2 + C + j);
+          const float s0 = 1.f / (1.f + expf(-ha.x)), s1 = 1.f / (1.f + expf(-ha.y));
+          const float th0 = tanhf(hb.x), th1 = tanhf(hb.y);
+          const float dg0 = acc[mi][ni][2 * hr], dg1 = acc[mi][ni][2 * hr + 1];
+          st2(g + row * C + j, s0 * th0, s1 * th1);
+          st2(dh + row * C2 + j, dg0 * th0 * s0 * (1.f - s0), dg1 * th1 * s1 * (1.f - s1));
+          st2(dh + row * C2 + C + j, dg0 * s0 * (1.f - th0 * th0), dg1 * s1 * (1.f - th1 * th1));
+        }
+    zero(acc);
   }
 }
 
-__global__ void shift_scatter_kernel(const float* __restrict__ dh,
-                                     const float* __restrict__ dxout,
-                                     const float* __restrict__ mask,
-                                     const float* __restrict__ wdT,
-                                     float* __restrict__ dx, int T, int C,
-                                     int dil) {
+template <int M>
+__global__ void __launch_bounds__(NTHREADS, 1) shift_scatter_kernel(
+    const float* __restrict__ dh, const float* __restrict__ dxout,
+    const float* __restrict__ mask, const float* __restrict__ wd,
+    float* __restrict__ dx, int T, int dil) {
+  using Tl = Tiling<M, NC>;
+  constexpr int MW = Tl::MW, WN = Tl::WN, NW = Tl::NW;
   extern __shared__ float4 smem4[];
-  float* win = reinterpret_cast<float*>(smem4);  // [TT + 2d][2C]
-  const int b = blockIdx.y;
-  const int t0 = blockIdx.x * TT;
-  const int j = threadIdx.x;
-  const int C2 = 2 * C, C3 = 3 * C;
-  const int rows = TT + 2 * dil;
-
-  // window row w holds dh at time t0 - d + w
-  for (int w = 0; w < rows; ++w) {
-    const int t = t0 - dil + w;
-    const bool in = t >= 0 && t < T;
-    const size_t src = ((size_t)b * T + t) * C2;
-    win[w * C2 + j] = in ? dh[src + j] : 0.f;
-    win[w * C2 + C + j] = in ? dh[src + C + j] : 0.f;
-  }
+  __shared__ Ring<S, NTHREADS / 32> bars;
+  constexpr int C2 = 2 * C, ldd = C2 + 4;           // 4 mod 32
+  const int span = min(dil, M);
+  float* ring = reinterpret_cast<float*>(smem4);    // [S][NC][WLD]
+  float* win = ring + S * NC * WLD;                 // [M + 2 span][2C + 4]
+  const int b = blockIdx.y, t0 = blockIdx.x * M;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int row0 = warp / WN * MW * 16, col0 = warp % WN * NW * 8;
+  constexpr int q = C2 / BK, n_all = C / NC * 3 * q, cv = C2 / 4;
+  // chunk i: N-chunk nc, tap, columns [k0, k0 + BK) of Wd rows tap*C + nc*NC + r
+  auto source = [&](int i) -> const float* {
+    if (i >= n_all) return nullptr;
+    const int nc = i / (3 * q), tap = i % (3 * q) / q, k0 = i % q * BK;
+    return wd + (size_t)(tap * C + nc * NC) * C2 + k0;
+  };
+  if (tid == 0) bars.init();
   __syncthreads();
 
-  // output row r (time t0 + r): tap 0 reads window row r + 2d (time t + d),
-  // tap 1 row r + d (time t), tap 2 row r (time t - d)
-  float acc[TT];
-#pragma unroll
-  for (int r = 0; r < TT; ++r) acc[r] = 0.f;
-  for (int n = 0; n < C2; n += 4) {
-    float w0[4], w1[4], w2[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float* wr = wdT + (size_t)(n + i) * C3;
-      w0[i] = wr[j];
-      w1[i] = wr[C + j];
-      w2[i] = wr[2 * C + j];
-    }
-#pragma unroll
-    for (int r = 0; r < TT; ++r) {
-      const float4 a = *reinterpret_cast<const float4*>(win + (r + 2 * dil) * C2 + n);
-      const float4 m = *reinterpret_cast<const float4*>(win + (r + dil) * C2 + n);
-      const float4 z = *reinterpret_cast<const float4*>(win + r * C2 + n);
-      float s = acc[r];
-      s = fmaf(a.x, w0[0], s); s = fmaf(a.y, w0[1], s);
-      s = fmaf(a.z, w0[2], s); s = fmaf(a.w, w0[3], s);
-      s = fmaf(m.x, w1[0], s); s = fmaf(m.y, w1[1], s);
-      s = fmaf(m.z, w1[2], s); s = fmaf(m.w, w1[3], s);
-      s = fmaf(z.x, w2[0], s); s = fmaf(z.y, w2[1], s);
-      s = fmaf(z.z, w2[2], s); s = fmaf(z.w, w2[3], s);
-      acc[r] = s;
-    }
+  // first group: the dh window, rows outside [0, T) zeroed
+  for (int e = tid; e < (M + 2 * span) * cv; e += NTHREADS) {
+    const int w = e / cv, c = e % cv * 4, t = window_time(w, t0, M, dil);
+    if (t >= 0 && t < T)
+      cp_async16(win + w * ldd + c, dh + ((size_t)b * T + t) * C2 + c);
+    else
+      *reinterpret_cast<float4*>(win + w * ldd + c) = make_float4(0.f, 0.f, 0.f, 0.f);
   }
+  cp_async_commit();
+  for (int c = 0; c < S - 1; ++c) fill(bars, ring, c, source(c), C2, tid);
+  cp_async_wait_all();      // the dh window (the ring's copies are not in a group)
+  __syncthreads();
+
+  float acc[MW][NW][4];
+  zero(acc);
+  const auto bofs = [](int n) { return n * 8 * WLD; };
+  for (int i = 0; i < n_all; ++i) {
+    const int nc = i / (3 * q), tap = i % (3 * q) / q, k0 = i % q * BK;
+    bars.wait(i);
+    // tap 0 reads dh at t + d, tap 1 at t, tap 2 at t - d
+    chunk_mma<BK, Tl::SEP, false>(
+        acc, win + ((2 - tap) * span + row0) * ldd + k0, ldd,
+        ring + i % S * NC * WLD + col0 * WLD, WLD, bofs, lane, [&](int j) {
+          if (j == BK / 8 - 1) fill(bars, ring, i + S - 1, source(i + S - 1), C2, tid);
+        });
+    bars.release(i, lane);
+    if (i % (3 * q) != 3 * q - 1) continue;
+
 #pragma unroll
-  for (int r = 0; r < TT; ++r) {
-    const int t = t0 + r;
-    if (t < T) {
-      const size_t row = (size_t)b * T + t;
-      const float keep = mask != nullptr ? mask[row] : 1.f;
-      dx[row * C + j] = acc[r] * keep + dxout[row * C + j] * RSQRT2;
-    }
+    for (int mi = 0; mi < MW; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < NW; ++ni)
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int t = t0 + row0 + mi * 16 + (lane >> 2) + hr * 8;
+          if (t >= T) continue;
+          const int j = nc * NC + col0 + ni * 8 + 2 * (lane & 3);
+          const size_t row = (size_t)b * T + t;
+          const float keep = mask != nullptr ? mask[row] : 1.f;
+          const float2 r = ld2(dxout + row * C + j);
+          st2(dx + row * C + j, acc[mi][ni][2 * hr] * keep + r.x * RSQRT2,
+              acc[mi][ni][2 * hr + 1] * keep + r.y * RSQRT2);
+        }
+    zero(acc);
   }
+}
+
+// Each pass's shared memory: the weight ring and the do tile, or the dh
+// window of M + 2 min(d, M) rows.
+template <int M>
+size_t smem_gate() {
+  return sizeof(float) * ((size_t)S * NC * WLD + (size_t)M * (2 * C + 4));
+}
+
+template <int M>
+size_t smem_scatter(int dil) {
+  const int span = dil < M ? dil : M;
+  return sizeof(float) * ((size_t)S * NC * WLD + (size_t)(M + 2 * span) * (2 * C + 4));
+}
+
+template <int M>
+bool fits(int dil) {
+  return smem_gate<M>() <= max_dynamic_smem(gate_bwd_kernel<M>) &&
+         smem_scatter<M>(dil) <= max_dynamic_smem(shift_scatter_kernel<M>);
+}
+
+template <int M>
+int launch(const float* h, const float* dxout, const float* dskip, const float* mask,
+           const float* wo, const float* wd, float* dx, float* dh, float* g, int B, int T,
+           int dil, cudaStream_t stream) {
+  const size_t smem1 = smem_gate<M>(), smem2 = smem_scatter<M>(dil);
+  const dim3 grid((T + M - 1) / M, B);
+  cudaError_t err = cudaFuncSetAttribute(
+      gate_bwd_kernel<M>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem1);
+  if (err != cudaSuccess) return (int)err;
+  gate_bwd_kernel<M><<<grid, NTHREADS, smem1, stream>>>(h, dxout, dskip, wo, dh, g, T);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(shift_scatter_kernel<M>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem2);
+  if (err != cudaSuccess) return (int)err;
+  shift_scatter_kernel<M><<<grid, NTHREADS, smem2, stream>>>(dh, dxout, mask, wd, dx, T, dil);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// 1 if both passes' tiles of m rows (64 or 16) fit in a block's shared
+// memory on the current device at dilation dil, else 0. The wrapper's tile
+// plan asks this before it takes 64-row tiles.
+extern "C" int diffnet_block_bwd_fits(int m, int dil) {
+  if (m == 64) return fits<64>(dil);
+  if (m == 16) return fits<16>(dil);
+  return 0;
+}
+
 // h, dh [B, T, 2C]; dxout, dskip, dx, g [B, T, C]; mask [B, T] or null;
-// woT [2C, C] (Wo transposed); wdT [2C, 3C] (Wd transposed). Requires C a
-// multiple of 32 and at most 1024, and (TT + 2 dil) * 2C floats of shared
-// memory within the card's 227 KB (the wrapper checks).
+// wo [C, 2C] and wd [3C, 2C] as the forward takes them; every pointer
+// 16-byte aligned. m is the tile's rows (64 or 16). Requires C = 256 (the
+// wrapper checks it); returns cudaErrorInvalidValue otherwise, and the
+// launch's error where a pass's shared memory does not fit
+// (diffnet_block_bwd_fits).
 extern "C" int diffnet_block_bwd_f32(const float* h, const float* dxout,
                                      const float* dskip, const float* mask,
-                                     const float* woT, const float* wdT,
+                                     const float* wo, const float* wd,
                                      float* dx, float* dh, float* g, int B,
-                                     int T, int C, int dil, void* stream) {
+                                     int T, int c, int dil, int m, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((T + TT - 1) / TT, B);
-  const size_t smem1 = (size_t)TT * 2 * C * sizeof(float);
-  if (smem1 > 48 * 1024) {
-    cudaFuncSetAttribute(gate_bwd_kernel,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem1);
-  }
-  gate_bwd_kernel<<<grid, C, smem1, s>>>(h, dxout, dskip, woT, dh, g, T, C);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const size_t smem2 = (size_t)(TT + 2 * dil) * 2 * C * sizeof(float);
-  if (smem2 > 48 * 1024) {
-    cudaFuncSetAttribute(shift_scatter_kernel,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem2);
-  }
-  shift_scatter_kernel<<<grid, C, smem2, s>>>(dh, dxout, mask, wdT, dx, T, C, dil);
-  return (int)cudaGetLastError();
+  if (c != C) return (int)cudaErrorInvalidValue;
+  if (m == 64) return launch<64>(h, dxout, dskip, mask, wo, wd, dx, dh, g, B, T, dil, s);
+  if (m == 16) return launch<16>(h, dxout, dskip, mask, wo, wd, dx, dh, g, B, T, dil, s);
+  return (int)cudaErrorInvalidValue;
 }

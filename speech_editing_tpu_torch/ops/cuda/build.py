@@ -2,7 +2,8 @@
 
 Each source ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into
 its own shared library with a plain C interface, loaded with ``ctypes``.
-Libraries are named by a digest of the source and the flags and go into
+Libraries are named by a digest of the source, the shared headers
+(``csrc/*.cuh``) and the flags and go into
 ``speech_editing_tpu_torch/_build/`` (listed in ``.gitignore``), so a
 library is built once per source version, at first use. ``build_all``
 starts one ``nvcc`` per source, all at once, and waits for them.
@@ -28,6 +29,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: dict[str, ctypes.CDLL] = {}
+_functions: dict[tuple[ctypes.CDLL, str], object] = {}
 
 
 def _nvcc() -> str:
@@ -42,6 +44,7 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
@@ -77,13 +80,17 @@ def build_all(names=SOURCES) -> dict[str, str]:
 
 def kernel_function(name: str, symbol: str, argtypes: list):
     """C function ``symbol`` of ``csrc/<name>.cu``'s library, built first if
-    missing; it returns the ``cudaGetLastError()`` of its launch."""
-    if name not in _loaded:
+    missing, returning an int (a launch returns its ``cudaGetLastError()``)."""
+    lib = _loaded.get(name)
+    if lib is None:
         build_all((name,))
-        _loaded[name] = ctypes.CDLL(str(library_path(name)))
-    fn = getattr(_loaded[name], symbol)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+        lib = _loaded[name] = ctypes.CDLL(str(library_path(name)))
+    fn = _functions.get((lib, symbol))   # keyed by library: a swapped-in build takes effect
+    if fn is None:
+        fn = getattr(lib, symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _functions[lib, symbol] = fn
     return fn
 
 

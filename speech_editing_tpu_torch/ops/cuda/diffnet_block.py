@@ -8,13 +8,17 @@ step`` before the conv) and any dilation, so the default masked path of the
 denoiser runs through them. K1 writes the pre-activation ``h`` only when a
 gradient is needed. :class:`DiffNetBlockFunction` ties the two together as
 ``_vjp_fwd``/``_vjp_bwd`` do; its weight, bias, cond and step gradients are
-plain products, as the JAX package leaves them to XLA. The source notes in
-the ``.cu`` files give each kernel's bound and design.
+plain products, as the JAX package leaves them to XLA. Both kernels run
+their products on the tensor cores as 3xTF32 (float32 accuracy,
+``csrc/tf32x3.cuh``); :func:`_tile_plan` picks their rows per CTA and K1's
+cluster split from B·T. The source notes in the ``.cu`` files give each
+kernel's bound and design.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -26,10 +30,42 @@ from speech_editing_tpu_torch.ops.cuda.build import (check_status, check_tensor,
 
 RSQRT2 = 1.0 / math.sqrt(2.0)
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_FWD_ARGTYPES = [_P] * 13 + [_I] * 5 + [_P]
-_BWD_ARGTYPES = [_P] * 9 + [_I] * 4 + [_P]
-_BWD_TT = 16                  # time rows per block of K5 (csrc TT)
-_SMEM_LIMIT = 227 * 1024      # shared memory a block can use on the H100
+_FWD_ARGTYPES = [_P] * 13 + [_I] * 7 + [_P]
+_BWD_ARGTYPES = [_P] * 9 + [_I] * 5 + [_P]
+_C, _H = 256, 192             # the widths the kernels are compiled for (csrc C, H)
+_MIN_GRID = 128               # CTAs that fill the H100's 132 SMs
+
+
+@functools.cache
+def _fits64(name: str, dilation: int) -> bool:
+    """Whether 64-row tiles of K1 (``name`` "diffnet_block") or K5
+    ("diffnet_block_bwd") fit in a block's shared memory on the card at this
+    dilation, as the kernel's own library counts it."""
+    symbol = "diffnet_block_fwd_fits" if name == "diffnet_block" else "diffnet_block_bwd_fits"
+    return bool(kernel_function(name, symbol, [_I, _I])(64, dilation))
+
+
+def _tile_plan(b: int, t: int, fits64: bool = True) -> tuple[int, int]:
+    """(rows per CTA, CTAs per cluster) of K1 and K5 at [B, T].
+
+    64-row tiles where they alone give ``_MIN_GRID`` CTAs and ``fits64``
+    (they fit in shared memory); else 16-row tiles, and K1 splits the gate
+    columns over a cluster of 2, then 4 CTAs until the grid reaches
+    ``_MIN_GRID`` (4 where even that falls short). K5 takes the rows and no
+    cluster."""
+    if fits64 and b * -(-t // 64) >= _MIN_GRID:
+        return 64, 1
+    tiles, cluster = b * -(-t // 16), 1
+    while cluster < 4 and tiles * cluster < _MIN_GRID:
+        cluster *= 2
+    return 16, cluster
+
+
+def _check_aligned(**tensors) -> None:
+    """The kernels read and write these in 16-byte vectors."""
+    for name, tensor in tensors.items():
+        if tensor is not None and tensor.data_ptr() % 16:
+            raise ValueError(f"{name}: not 16-byte aligned")
 
 
 def _shift(y: torch.Tensor, offset: int) -> torch.Tensor:
@@ -74,9 +110,10 @@ def diffnet_block(x, cond, step, mask, wd, bd, wc, bc, wo, bo,
         raise ValueError(f"diffnet_block: unsupported device {x.device}")
     b, t, c = x.shape
     h = cond.shape[-1]
-    if c % 32 or c > 1024 or h % 4 or dilation < 1:
+    if (c, h) != (_C, _H) or dilation < 1:
         raise ValueError(f"diffnet_block: unsupported C={c}, H={h}, "
                          f"dilation={dilation}")
+    m, cluster = _tile_plan(b, t, _fits64("diffnet_block", dilation))
     dev = x.device
     for name, tensor, shape in (
             ("x", x, (b, t, c)), ("cond", cond, (b, t, h)), ("step", step, (b, c)),
@@ -86,13 +123,15 @@ def diffnet_block(x, cond, step, mask, wd, bd, wc, bc, wo, bo,
         check_tensor(tensor, name, shape, dev)
     if mask is not None:
         check_tensor(mask, "mask", (b, t), dev)
+    _check_aligned(x=x, cond=cond, step=step, wd=wd, bd=bd, wc=wc, bc=bc, wo=wo,
+                   bo=bo)
     xout = torch.empty_like(x)
     skip = torch.empty_like(x)
     h_out = x.new_empty(b, t, 2 * c) if return_h else None
     fn = kernel_function("diffnet_block", "diffnet_block_fwd_f32", _FWD_ARGTYPES)
     check_status(fn(ptr(x), ptr(cond), ptr(step), ptr(mask), ptr(wd), ptr(bd),
                     ptr(wc), ptr(bc), ptr(wo), ptr(bo), ptr(xout), ptr(skip),
-                    ptr(h_out), b, t, c, h, dilation, current_stream()),
+                    ptr(h_out), b, t, c, h, dilation, m, cluster, current_stream()),
                  "diffnet_block")
     diffnet_block.launches += 1
     return (xout, skip, h_out) if return_h else (xout, skip)
@@ -126,10 +165,10 @@ def diffnet_block_bwd(h, dxout, dskip, mask, wd, wo, dilation: int = 1):
     if h.device.type != "cuda":
         raise ValueError(f"diffnet_block_bwd: unsupported device {h.device}")
     b, t, c = dxout.shape
-    smem = (_BWD_TT + 2 * dilation) * 2 * c * 4
-    if c % 32 or c > 1024 or dilation < 1 or smem > _SMEM_LIMIT:
+    if c != _C or dilation < 1:
         raise ValueError(f"diffnet_block_bwd: unsupported C={c}, "
                          f"dilation={dilation}")
+    m, _ = _tile_plan(b, t, _fits64("diffnet_block_bwd", dilation))
     dev = h.device
     for name, tensor, shape in (
             ("h", h, (b, t, 2 * c)), ("dxout", dxout, (b, t, c)),
@@ -138,13 +177,13 @@ def diffnet_block_bwd(h, dxout, dskip, mask, wd, wo, dilation: int = 1):
         check_tensor(tensor, name, shape, dev)
     if mask is not None:
         check_tensor(mask, "mask", (b, t), dev)
-    wo_t, wd_t = wo.t().contiguous(), wd.t().contiguous()
+    _check_aligned(h=h, dxout=dxout, dskip=dskip, wd=wd, wo=wo)
     dx, g = torch.empty_like(dxout), torch.empty_like(dxout)
     dh = torch.empty_like(h)
     fn = kernel_function("diffnet_block_bwd", "diffnet_block_bwd_f32",
                          _BWD_ARGTYPES)
-    check_status(fn(ptr(h), ptr(dxout), ptr(dskip), ptr(mask), ptr(wo_t),
-                    ptr(wd_t), ptr(dx), ptr(dh), ptr(g), b, t, c, dilation,
+    check_status(fn(ptr(h), ptr(dxout), ptr(dskip), ptr(mask), ptr(wo),
+                    ptr(wd), ptr(dx), ptr(dh), ptr(g), b, t, c, dilation, m,
                     current_stream()), "diffnet_block_bwd")
     diffnet_block_bwd.launches += 1
     return dx, dh, g
