@@ -16,7 +16,10 @@ Phases, each of which exits non-zero on a failed check:
    timed L2-cold at the edit shape (20 weight sets cycled, as the edit's 20
    blocks find them); the backward kernels K5 and K4 also against autograd
    of the plain forward, through the autograd Functions that pair them with
-   K1 and K3;
+   K1 and K3; K3 and K4 at each timed shape also with their device time
+   (``torch.profiler``), device operations (which must be 1) and host time
+   a call, beside SDPA's, and on a batch with a row of only pad keys and at
+   a head width of 36;
 4. edit path: ``EditPipeline`` at the flagship width (seeded random
    weights) answers edit requests of 512 (``bench.py``'s utterance), 300
    and 700 frames; every launch counter must move by exactly its expected
@@ -31,6 +34,10 @@ Phases, each of which exits non-zero on a failed check:
    versions, same weights, optimizer state, diffusion draw, dropout off),
    agrees in losses, gradients, parameters and Adam moments; step time,
    frames per second, peak memory and a profiled step are printed.
+
+``python3 chip_smoke.py --time-attention`` builds K3 and K4 only and times
+them and SDPA at those shapes, with no checks: run from a copy of another
+commit, it times that commit's kernels in the same call.
 
 Float32 throughout, with TF32 off for matrix products and cuDNN
 convolutions, so the card and the CPU compute the same function. The
@@ -146,6 +153,8 @@ def bound(flops: float, n_bytes: float) -> tuple[float, str]:
 def rate(flops: float, ms: float, bound_ms: float) -> str:
     """Achieved TFLOP/s, as a share of the 3xTF32 and the fp32 CUDA-core
     rates, and the share of the bound."""
+    if ms <= 0:
+        return "no device time measured"
     tflops = flops / ms / 1e9
     return (f"{tflops:.1f} TFLOP/s ({tflops * 1e12 / PEAK_3XTF32_FLOPS:.3f} of 3xTF32, "
             f"{tflops * 1e12 / PEAK_FP32_FLOPS:.3f} of fp32 CUDA cores), "
@@ -319,61 +328,171 @@ def phase_mel() -> dict:
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
 
+PROFILE_EDGE_S = 0.05
+MARKER = "bitwise_not"     # the marker kernel's name holds this; no measured call's does
+
+
+def profiled(run) -> list:
+    """``torch.profiler``'s device operations (``device_ops``) over one call
+    of ``run``, after one profiled warm-up call. The profiler keeps a device
+    event only if its timestamp falls inside its window, and the device's
+    timestamps can read behind the host clock (a kernel seen to start before
+    its own launch), which dropped the first events of a short window; so
+    the window opens and closes PROFILE_EDGE_S of host sleep away from the
+    work."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1), acc_events=True) as prof:
+        for _ in range(2):
+            time.sleep(PROFILE_EDGE_S)
+            run()
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_EDGE_S)
+            prof.step()
+    return device_ops(prof)
+
+
+def profile_calls(fn, iters: int = 50, tries: int = 3) -> tuple[float, int]:
+    """The device time of one call in ms and the device operations a call
+    issues, from ``torch.profiler`` over ``iters`` calls, each followed by
+    a marker of one kernel (``bitwise_not_`` of one int16). Should the
+    profiler still lose events, each operation counts round(its events /
+    the marker's events) times a call, at its mean time an event; a window
+    that kept under half the marker's events is profiled again, up to
+    ``tries`` windows."""
+    marker = torch.zeros(1, dtype=torch.int16, device="cuda")
+
+    def run():
+        for _ in range(iters):
+            fn()
+            marker.bitwise_not_()
+    for _ in range(tries):
+        ops = profiled(run)
+        marks = sum(e.count for e in ops if MARKER in e.key)
+        if marks >= iters / 2:
+            break
+    check(marks >= iters / 2, f"the profiler kept {marks} of {iters} marker events "
+                              f"in each of {tries} windows: device operations not measured")
+    per_call = [(round(e.count / marks), e.self_device_time_total / e.count)
+                for e in ops if e.count and MARKER not in e.key]
+    return sum(n * us for n, us in per_call) / 1e3, sum(n for n, _ in per_call)
+
+
+def call_times(fn, library) -> dict:
+    """A kernel's wrapper call and one PyTorch call computing the same
+    function: event time, device time and device operations a call, host
+    time of the wrapper call."""
+    device_ms, ops = profile_calls(fn)
+    lib_device_ms, lib_ops = profile_calls(library)
+    return dict(ms=time_ms(fn), device_ms=device_ms, ops_per_call=ops, host_us=host_us(fn),
+                library_ms=time_ms(library), library_device_ms=lib_device_ms,
+                library_ops_per_call=lib_ops)
+
+
+def times_text(t: dict, library: str) -> str:
+    return (f"kernel {t['ms']:.4f} ms events, {t['device_ms']:.4f} ms device, "
+            f"{t['ops_per_call']} device ops a call, host {t['host_us']:.1f} us a call; "
+            f"{library} {t['library_ms']:.4f} ms events, {t['library_device_ms']:.4f} ms "
+            f"device ({t['library_ops_per_call']} ops)")
+
+
+def sdpa_fwd(q, k, v, pad):
+    """SDPA on the same inputs (the yardstick; the port never calls it)."""
+    qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+    allowed = (~pad)[:, None, None, :]
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=allowed, scale=1.0)
+
+
+def sdpa_bwd(q, k, v, do, pad):
+    """SDPA's backward on the same inputs and output gradient."""
+    qt, kt, vt = (a.detach().transpose(1, 2).requires_grad_() for a in (q, k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt, scale=1.0,
+                                         attn_mask=(~pad)[:, None, None, :])
+    do_t = do.transpose(1, 2)
+    return lambda: torch.autograd.grad(out, (qt, kt, vt), do_t, retain_graph=True)
+
+
+# the timed attention shapes: (B, S, valid keys of each row, K3 with lse);
+# None stands for the train batch's lengths
+FWD_SHAPES = ((1, 48, [48], False), (3, 130, [130, 100, 71], False),
+              (TRAIN_B, TRAIN_S, None, True))
+BWD_SHAPES = ((1, 48, [43]), (3, 130, [130, 100, 71]), (TRAIN_B, TRAIN_S, None))
+PAD_ROW_LENGTHS = [48, 0, 31]          # batch row 1 has only pad keys
+NARROW_D, NARROW_LENGTHS = 36, [48, 40, 24]
+
+
+def check_one_op(name: str, t: dict) -> None:
+    check(t["ops_per_call"] == 1, f"{name}: {t['ops_per_call']} device operations a call, "
+                                  f"expected 1")
+
+
 def phase_attention(gen) -> dict:
+    """K3 against its plain version (and its logsumexp) at the edit's,
+    a long and the train path's shapes, timed at each with its device
+    time, device operations and host time a call; then a batch with a
+    row of only pad keys and a head width of 36."""
     h = FLAGSHIP_HP["num_heads"]
     d = FLAGSHIP_HP["hidden_size"] // h
-    tol, out = 1e-4, {}
-    for b, s in ((1, 48), (3, 130)):
-        lengths = [s] + [s - 1 - 29 * i for i in range(1, b)]
+    tol, out, shapes = 1e-4, {"max_abs_err": 0.0}, []
+    for b, s, lengths, with_lse in FWD_SHAPES:
+        lengths = lengths or train_lengths()
         q, k, v, pad = attention_inputs(gen, b, s, lengths)
-        got, ref = flash_mha(q, k, v, pad), attention_plain(q, k, v, pad)
-        torch.cuda.synchronize()
-        err = float((got - ref).abs().max())     # every row has a valid key
-        ms = time_ms(lambda: flash_mha(q, k, v, pad))
-        plain_ms = time_ms(lambda: attention_plain(q, k, v, pad))
-        qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
-        allowed = (~pad)[:, None, None, :]
-        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=allowed, scale=1.0))
+        got = flash_mha(q, k, v, pad, return_lse=with_lse)   # the edit's form: no lse
+        got, lse = got if with_lse else (got, None)
+        ref = attention_plain(q, k, v, pad)
+        torch.cuda.synchronize()       # every row has a valid key
+        err = rel_err([got, lse], [ref, attention_lse_plain(q, k, pad)]) if with_lse \
+            else float((got - ref).abs().max())
+        t = call_times(lambda: flash_mha(q, k, v, pad, return_lse=with_lse),
+                       sdpa_fwd(q, k, v, pad))
+        plain_ms = time_ms(lambda: (attention_plain(q, k, v, pad), attention_lse_plain(q, k, pad))
+                           if with_lse else attention_plain(q, k, v, pad))
         flops = 4 * h * s * d * sum(lengths)    # q k^T and p v over valid keys
-        bound_ms, bound_by = bound(flops, nbytes(q, k, v, pad, got))
-        print(f"[kernel] flash_mha B={b} S={s} h={h} d={d} valid keys {lengths}: "
-              f"max_abs_err={err:.3e} (tol {tol}) kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bound_ms:.6f} ms "
-              f"({bound_by}); {rate(flops, ms, bound_ms)}", flush=True)
-        check(err <= tol, f"flash_mha S={s}: error {err} > {tol}")
-        out["max_abs_err"] = max(out.get("max_abs_err", 0.0), err)
-        if s == 48:  # the edit path's shape
-            out.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                       bound_ms=bound_ms, bound_by=bound_by)
-    # the train path's shape, with the logsumexp output its backward reads
-    lengths = train_lengths()
-    q, k, v, pad = attention_inputs(gen, TRAIN_B, TRAIN_S, lengths)
+        bound_ms, bound_by = bound(flops, nbytes(q, k, v, pad, got, lse))
+        shown = lengths if b <= 3 else f"{min(lengths)}..{max(lengths)}"
+        print(f"[kernel] flash_mha B={b} S={s} h={h} d={d}{' with logsumexp' if with_lse else ''}"
+              f", valid keys {shown}: max err {err:.3e} "
+              f"({'relative to the reference max' if with_lse else 'absolute'}, tol {tol}); "
+              f"{times_text(t, 'sdpa')}; plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms "
+              f"({bound_by}); device {rate(flops, t['device_ms'], bound_ms)}", flush=True)
+        check(err <= tol, f"flash_mha B={b} S={s}: error {err} > {tol}")
+        check_one_op(f"flash_mha B={b} S={s}", t)
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        shapes.append(dict(t, b=b, s=s, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                           max_err=err))
+    out.update(shapes[0], shapes=shapes)   # the table's row: the edit path's shape
+
+    # a row whose keys are all padding: zeros and lse -inf by design, where
+    # the plain version's -1e9 bias gives uniform weights; the other rows match
+    q, k, v, pad = attention_inputs(gen, 3, 48, PAD_ROW_LENGTHS)
     got, lse = flash_mha(q, k, v, pad, return_lse=True)
-    err = rel_err([got, lse], [attention_plain(q, k, v, pad),
-                               attention_lse_plain(q, k, pad)])
-    ms = time_ms(lambda: flash_mha(q, k, v, pad, return_lse=True))
-    plain_ms = time_ms(lambda: (attention_plain(q, k, v, pad),
-                                attention_lse_plain(q, k, pad)))
-    qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
-    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=(~pad)[:, None, None, :], scale=1.0))
-    flops = 4 * h * TRAIN_S * d * sum(lengths)
-    bound_ms, _ = bound(flops, nbytes(q, k, v, pad, got, lse))
-    print(f"[kernel] flash_mha B={TRAIN_B} S={TRAIN_S} with logsumexp, valid keys "
-          f"{min(lengths)}..{max(lengths)}: max err {err:.3e} relative to the "
-          f"reference's max (tol {tol}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"sdpa {lib_ms:.4f} ms, bound {bound_ms:.6f} ms; {rate(flops, ms, bound_ms)}",
-          flush=True)
-    check(err <= tol, f"flash_mha with logsumexp: error {err} > {tol}")
+    rows = [i for i, n in enumerate(PAD_ROW_LENGTHS) if n > 0]
+    empty = [i for i, n in enumerate(PAD_ROW_LENGTHS) if n == 0]
+    err = rel_err([got[rows], lse[rows]], [attention_plain(q, k, v, pad)[rows],
+                                           attention_lse_plain(q, k, pad)[rows]])
+    zero_row = bool((got[empty] == 0).all() and (lse[empty] == float("-inf")).all())
+    print(f"[kernel] flash_mha B=3 S=48 d={d}, valid keys {PAD_ROW_LENGTHS}: the row with "
+          f"none gives out 0 and lse -inf: {zero_row}; other rows max err {err:.3e} "
+          f"relative to the reference max (tol {tol})", flush=True)
+    check(zero_row, "flash_mha: a row with no valid key must give out 0 and lse -inf")
+    check(err <= tol, f"flash_mha with a padded row: error {err} > {tol}")
+
+    # a head width that is not a multiple of 8: d zero-filled to the k8 step
+    q, k, v, pad = attention_inputs(gen, 3, 48, NARROW_LENGTHS, d=NARROW_D)
+    got, lse = flash_mha(q, k, v, pad, return_lse=True)
+    err = rel_err([got, lse], [attention_plain(q, k, v, pad), attention_lse_plain(q, k, pad)])
+    print(f"[kernel] flash_mha B=3 S=48 d={NARROW_D}, valid keys {NARROW_LENGTHS}: max err "
+          f"{err:.3e} relative to the reference max (tol {tol})", flush=True)
+    check(err <= tol, f"flash_mha d={NARROW_D}: error {err} > {tol}")
+    out["max_abs_err"] = max(out["max_abs_err"], err)
     return dict(out, name="flash_mha", route="cuda",
                 source="speech_editing_tpu_torch/csrc/flash_attention.cu",
                 replaces="speech_editing_tpu/ops/flash_attention.py:85", tol=tol)
 
 
-def attention_inputs(gen, b: int, s: int, lengths):
+def attention_inputs(gen, b: int, s: int, lengths, d: int | None = None):
     h = FLAGSHIP_HP["num_heads"]
-    d = FLAGSHIP_HP["hidden_size"] // h
+    d = d or FLAGSHIP_HP["hidden_size"] // h
     q = torch.randn(b, s, h, d, device="cuda", generator=gen) * d ** -0.5
     k = torch.randn(b, s, h, d, device="cuda", generator=gen)
     v = torch.randn(b, s, h, d, device="cuda", generator=gen)
@@ -388,56 +507,107 @@ def train_lengths() -> list[int]:
     return [int(n) for n in (tokens > 0).sum(1)]
 
 
+def bwd_errors(q, k, v, pad, do, rows=None) -> tuple:
+    """K4 (fed K3's output and logsumexp) against its plain version over the
+    whole batch, and K3 + K4 against autograd of the plain forward over the
+    batch rows ``rows`` (all by default): (errors, K4's grads, K4's args)."""
+    o, lse = flash_mha(q, k, v, pad, return_lse=True)
+    args = (q, k, v, o, lse, do, pad)
+    got, ref = flash_mha_bwd(*args), attention_bwd_plain(*args)
+    torch.cuda.synchronize()
+    leaves = [a.detach().requires_grad_() for a in (q, k, v)]
+    grads = lambda attend: torch.autograd.grad(attend(*leaves, pad), leaves, do)
+    pick = (lambda gs: [g[rows] for g in gs]) if rows is not None else (lambda gs: gs)
+    err_ag = rel_err(pick(grads(flash_mha_train)), pick(grads(attention_plain)))
+    return rel_err(got, ref), err_ag, got, args
+
+
 def phase_attention_bwd(gen) -> dict:
     """K3's logsumexp and K4 against their plain versions, and K3 + K4 (the
     autograd Function) against autograd of the plain forward, with key
-    padding; timed beside SDPA's backward, at the train path's shape too."""
-    out = {"max_abs_err": 0.0}
-    for b, s, lengths in ((1, 48, [43]), (3, 130, [130, 100, 71]),
-                          (TRAIN_B, TRAIN_S, train_lengths())):
+    padding; timed beside SDPA's backward at each shape, with the device
+    time, device operations and host time a call; then a batch with a row
+    of only pad keys and a head width of 36."""
+    out, shapes = {"max_abs_err": 0.0}, []
+    for b, s, lengths in BWD_SHAPES:
+        lengths = lengths or train_lengths()
         q, k, v, pad = attention_inputs(gen, b, s, lengths)
         do = torch.randn_like(q)
-        o, lse = flash_mha(q, k, v, pad, return_lse=True)
-        args = (q, k, v, o, lse, do, pad)
-        got, ref = flash_mha_bwd(*args), attention_bwd_plain(*args)
-        torch.cuda.synchronize()
-        err_lse = rel_err([lse], [attention_lse_plain(q, k, pad)])
-        err = rel_err(got, ref)
-        leaves = [a.detach().requires_grad_() for a in (q, k, v)]
-        grads = lambda attend: torch.autograd.grad(attend(*leaves, pad), leaves, do)
-        err_ag = rel_err(grads(flash_mha_train), grads(attention_plain))
+        err, err_ag, got, args = bwd_errors(q, k, v, pad, do)
+        err_lse = rel_err([args[4]], [attention_lse_plain(q, k, pad)])
         pad_zero = bool((got[1][pad] == 0).all() and (got[2][pad] == 0).all())
-        ms = time_ms(lambda: flash_mha_bwd(*args))
+        t = call_times(lambda: flash_mha_bwd(*args), sdpa_bwd(q, k, v, do, pad))
         plain_ms = time_ms(lambda: attention_bwd_plain(*args))
-        qt, kt, vt = (a.detach().transpose(1, 2).requires_grad_() for a in (q, k, v))
-        sdpa = F.scaled_dot_product_attention(qt, kt, vt, scale=1.0,
-                                              attn_mask=(~pad)[:, None, None, :])
-        do_t = do.transpose(1, 2)
-        lib_ms = time_ms(lambda: torch.autograd.grad(sdpa, (qt, kt, vt), do_t,
-                                                     retain_graph=True))
         h, d = q.shape[2], q.shape[3]
         flops = 10 * h * s * d * sum(lengths)   # five products over valid keys
-        bound_ms, bound_by = bound(flops, nbytes(q, k, v, o, lse, do, pad, *got))
+        bound_ms, bound_by = bound(flops, nbytes(*args, *got))
         print(f"[kernel] flash_mha_bwd B={b} S={s} valid keys "
               f"{lengths if b <= 3 else f'{min(lengths)}..{max(lengths)}'}: "
               f"max err vs plain {err:.3e}, vs autograd of the plain forward "
               f"{err_ag:.3e}, logsumexp {err_lse:.3e} (tol {BWD_TOL}, relative to the "
-              f"reference's max); pad keys' dk, dv exactly 0: {pad_zero}; kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa backward {lib_ms:.4f} ms, "
-              f"bound {bound_ms:.6f} ms ({bound_by}); {rate(flops, ms, bound_ms)}",
+              f"reference's max); pad keys' dk, dv exactly 0: {pad_zero}; "
+              f"{times_text(t, 'sdpa backward')}; plain {plain_ms:.4f} ms, bound "
+              f"{bound_ms:.6f} ms ({bound_by}); device {rate(flops, t['device_ms'], bound_ms)}",
               flush=True)
         worst = max(err, err_ag, err_lse)
         check(worst <= BWD_TOL, f"flash_mha_bwd B={b} S={s}: error {worst} > {BWD_TOL}")
         check(pad_zero, f"flash_mha_bwd B={b} S={s}: pad keys got nonzero dk or dv")
+        check_one_op(f"flash_mha_bwd B={b} S={s}", t)
         out["max_abs_err"] = max(out["max_abs_err"], worst)
-        if b == TRAIN_B:
-            out.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                       bound_ms=bound_ms, bound_by=bound_by)
+        shapes.append(dict(t, b=b, s=s, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                           max_err=worst))
+    out.update(shapes[-1], shapes=shapes)  # the table's row: the train path's shape
+
+    # a row whose keys are all padding: dq = dk = dv = 0 there, K4 against
+    # its plain version over the whole batch, autograd only on the other rows
+    q, k, v, pad = attention_inputs(gen, 3, 48, PAD_ROW_LENGTHS)
+    do = torch.randn_like(q)
+    rows = [i for i, n in enumerate(PAD_ROW_LENGTHS) if n > 0]
+    empty = [i for i, n in enumerate(PAD_ROW_LENGTHS) if n == 0]
+    err, err_ag, got, _ = bwd_errors(q, k, v, pad, do, rows)
+    zero_row = all(bool((g[empty] == 0).all()) for g in got)
+    pad_zero = bool((got[1][pad] == 0).all() and (got[2][pad] == 0).all())
+    print(f"[kernel] flash_mha_bwd B=3 S=48 valid keys {PAD_ROW_LENGTHS}: the row with none "
+          f"gives dq = dk = dv = 0: {zero_row}; pad keys' dk, dv exactly 0: {pad_zero}; max err "
+          f"vs plain {err:.3e} (whole batch), vs autograd of the plain forward {err_ag:.3e} "
+          f"(other rows) (tol {BWD_TOL})", flush=True)
+    check(zero_row and pad_zero, "flash_mha_bwd: a row with no valid key must get zero grads")
+    check(max(err, err_ag) <= BWD_TOL, f"flash_mha_bwd with a padded row: {err}, {err_ag}")
+
+    q, k, v, pad = attention_inputs(gen, 3, 48, NARROW_LENGTHS, d=NARROW_D)
+    err, err_ag, got, _ = bwd_errors(q, k, v, pad, torch.randn_like(q))
+    pad_zero = bool((got[1][pad] == 0).all() and (got[2][pad] == 0).all())
+    print(f"[kernel] flash_mha_bwd B=3 S=48 d={NARROW_D} valid keys {NARROW_LENGTHS}: max err "
+          f"vs plain {err:.3e}, vs autograd of the plain forward {err_ag:.3e} (tol {BWD_TOL}); "
+          f"pad keys' dk, dv exactly 0: {pad_zero}", flush=True)
+    check(max(err, err_ag) <= BWD_TOL and pad_zero, f"flash_mha_bwd d={NARROW_D}: {err}, {err_ag}")
+    out["max_abs_err"] = max(out["max_abs_err"], err, err_ag)
     return dict(out, name="flash_mha_bwd", route="cuda",
                 source="speech_editing_tpu_torch/csrc/flash_attention_bwd.cu",
                 replaces="speech_editing_tpu/ops/flash_attention.py:85 (the bundled "
                          "kernel's _flash_attention_bwd_dkv :941 and _bwd_dq :1287)",
                 tol=BWD_TOL)
+
+
+def time_attention(gen) -> None:
+    """``--time-attention``: K3 and K4 as the installed package builds them,
+    timed at the phases' shapes with no checks, so that two versions of the
+    package can be timed in one call; one JSON line."""
+    rows = []
+    for (b, s, lengths, with_lse), (_, _, bwd_lengths) in zip(FWD_SHAPES, BWD_SHAPES):
+        q, k, v, pad = attention_inputs(gen, b, s, lengths or train_lengths())
+        fwd = call_times(lambda: flash_mha(q, k, v, pad, return_lse=with_lse),
+                         sdpa_fwd(q, k, v, pad))
+        q, k, v, pad = attention_inputs(gen, b, s, bwd_lengths or train_lengths())
+        do = torch.randn_like(q)
+        o, lse = flash_mha(q, k, v, pad, return_lse=True)
+        bwd = call_times(lambda: flash_mha_bwd(q, k, v, o, lse, do, pad),
+                         sdpa_bwd(q, k, v, do, pad))
+        print(f"[time] B={b} S={s}: flash_mha{' with logsumexp' if with_lse else ''} "
+              f"{times_text(fwd, 'sdpa')}; flash_mha_bwd {times_text(bwd, 'sdpa backward')}",
+              flush=True)
+        rows.append({"b": b, "s": s, "flash_mha": fwd, "flash_mha_bwd": bwd})
+    print(json.dumps({"attention_times": rows}))
 
 
 # -- edit path -------------------------------------------------------------------
@@ -583,14 +753,7 @@ def profile_edit(pipe, req, gen, edit_ms: float, top: int = 12) -> None:
     """Device time by kernel over one 512-frame edit (``torch.profiler``,
     after one profiled warm-up edit), and its share of ``edit_ms``, the
     edit's host-clock time without the profiler."""
-    from torch.profiler import ProfilerActivity, profile, schedule
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1), acc_events=True) as prof:
-        for _ in range(2):
-            pipe(*req, generator=gen)
-            torch.cuda.synchronize()
-            prof.step()
-    kernels = device_ops(prof)
+    kernels = profiled(lambda: pipe(*req, generator=gen))
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if busy_ms == 0:
         print("[profile] the profiler saw no device time: not measured", flush=True)
@@ -690,14 +853,7 @@ def profile_step(trainer, batch, step_ms: float, top: int = 15) -> None:
     """Device time by kernel over one train step (``torch.profiler``, after
     one profiled warm-up step), and its share of ``step_ms``, the step's
     host-clock time without the profiler."""
-    from torch.profiler import ProfilerActivity, profile, schedule
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1), acc_events=True) as prof:
-        for _ in range(2):
-            trainer.step(batch)
-            torch.cuda.synchronize()
-            prof.step()
-    kernels = device_ops(prof)
+    kernels = profiled(lambda: trainer.step(batch))
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if busy_ms == 0:
         print("[profile] the profiler saw no device time: not measured", flush=True)
@@ -760,6 +916,9 @@ def compare_step_with_cpu(trainer, batch) -> None:
 
 
 def main() -> None:
+    only_times = sys.argv[1:] == ["--time-attention"]
+    if sys.argv[1:] and not only_times:
+        fail(f"usage: python3 chip_smoke.py [--time-attention]; got {sys.argv[1:]}")
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke run needs one GPU")
     smi = subprocess.run(["nvidia-smi", "--id=0", "--query-gpu=name,power.limit",
@@ -773,6 +932,11 @@ def main() -> None:
     print("[device] float32 everywhere; TF32 off for matmul and cuDNN", flush=True)
 
     t0 = time.perf_counter()
+    if only_times:
+        build.build_all(("flash_attention", "flash_attention_bwd"))
+        print(smi, flush=True)
+        time_attention(torch.Generator(device="cuda").manual_seed(0))
+        return
     reports = build.build_all()
     print(f"[build] {len(build.SOURCES)} kernels ({', '.join(build.SOURCES)}) in "
           f"{time.perf_counter() - t0:.1f} s; built now: {sorted(reports)}", flush=True)
@@ -798,7 +962,7 @@ def main() -> None:
     print(json.dumps({"edit_rtf": rtf, "train_step": train, "card": smi}))
     print(smi)
     extra = ("warm_ms", "warm_plain_ms", "host_us", "train_ms", "train_plain_ms",
-             "train_bound_ms")
+             "train_bound_ms", "device_ms", "ops_per_call", "library_device_ms", "shapes")
     print(json.dumps({"kernels": [{key: k[key] for key in keys + extra if key in k}
                                   for k in kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -5,8 +5,9 @@
 // drives: the custom VJP of JAX's bundled
 // jax/experimental/pallas/ops/tpu/flash_attention.py (_flash_attention_bwd_dkv
 // and _flash_attention_bwd_dq, with di = rowsum(o * do) computed outside
-// them, as the caller does here). Over [B, T, h, d], q pre-scaled
-// (sm_scale = 1), with lse [B, h, Tq] the forward's per-row logsumexp:
+// them). Over [B, T, h, d], q pre-scaled (sm_scale = 1), with lse [B, h, Tq]
+// the forward's per-row logsumexp:
+//   di_i  = sum_c o_ic do_ic
 //   p_ij  = exp(q_i . k_j - lse_i)   (0 for a pad key j, or a row with no
 //                                      valid key: lse_i = -inf)
 //   dv_j  = sum_i p_ij do_i
@@ -14,215 +15,376 @@
 //   dq_i  = sum_j ds_ij k_j,   dk_j = sum_i ds_ij q_i
 // Pad keys get exactly zero dk and dv; a row with no valid key gets dq = 0.
 //
-// Bound on the H100: at the encoder's sizes (T = 48 tokens, h = 2,
-// d = 96) the work is 10*T^2*h*d = 4.4 MFLOP per batch row against
-// 8*T*h*d*4 bytes: far below a microsecond either way, so launch latency
-// bounds it. The design keeps to two launches, reads the [B, T, h, d]
-// tensors as they are (d = 96 needs no padding), and recomputes p from lse
-// instead of storing the [T, T] probabilities.
+// Bound on the H100: bytes. At the train shape (B = 78, T = 48 tokens,
+// h = 2, d = 96, 24-48 valid keys a row) the five products are
+// 10*T*h*d*sum(valid keys) = 0.25 GFLOP, 1.5 us at the 3xTF32 rate (495 / 3
+// = 165 TFLOP/s), against 23 MB of q, k, v, o, do, dq, dk and dv, 6.9 us at
+// 3.35 TB/s. The design reads each input once and writes each output once,
+// in one launch, and keeps S, P, dP and dS on chip.
 //
-// Design: two kernels, one warp per "own" row, ROWS rows per block, grid
-// over (row tiles, heads, batch), the structure of the forward kernel K3.
-//  * dq: a warp owns query row i; K and V tiles of KT = 32 keys are staged
-//    in shared memory with a row stride of d + 1 (so the lanes' dot
-//    products hit distinct banks); lane l scores key l of the tile (q.k and
-//    do.v), forms ds, and the warp accumulates ds_ij k_j with each lane
-//    holding up to four of the d columns.
-//  * dk/dv: a warp owns key row j; Q and dO tiles of 32 query rows are
-//    staged likewise with their lse and di; lane l forms p and ds for query
-//    l of the tile, and the warp accumulates p do and ds q.
+// Design: one CTA of 8 warps per (64-key tile, head, batch row); di is
+// computed inside.
+//  * When Tq <= 64 and Tk <= 64 (every call of the flagship paths) one CTA
+//    per (b, h) does everything. It stages Q, K, V and dO once with
+//    cp.async (rows 4 mod 32 floats apart, zero-filled to the m16 tile and
+//    d to the k8 step, any d <= 128), and O in the rows that P and dS take
+//    later, where it forms di = rowsum(O dO). It forms S = Q K^T and dP =
+//    dO V^T once each (three independent mma chains a tile), P = exp(S -
+//    lse) and dS = P (dP - di) into shared memory, then dV = P^T dO, dK =
+//    dS^T Q and dQ = dS K: five products, all on the tensor cores at
+//    float32 accuracy (3xTF32 mma.sync, tf32x3.cuh; k-permuted fragments,
+//    so the transposed operands load without bank conflicts). Keys past the
+//    tile's last valid key take no part in any product.
+//  * In the last three products warps 0-3 hold dV and warps 4-7 dK, each
+//    over every m16 row tile and a quarter of the d columns, and dQ is
+//    spread the same way, so the four SM sub-partitions share every product
+//    evenly; dQ is written once, with no atomics. At B = 78, h = 2 the 156
+//    CTAs fit on the 132 SMs at two a SM (103 KB of shared memory and at
+//    most 128 registers a thread each), so there is no second wave.
+//  * Longer sequences take key tiles of 64: each key tile's CTA loops over
+//    the query tiles and accumulates dK and dV; dQ takes a second pass in
+//    the same launch, one CTA per query tile looping over the key tiles,
+//    which forms S and dP again (seven products where the single tile
+//    needs five). No atomics, and no zeroed buffer: every output element
+//    is written once by one thread, in a fixed order, so results are
+//    bit-reproducible from run to run.
+// The attribute that lets a CTA take more than 48 KB of shared memory is
+// set once per process.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include "tf32x3.cuh"
+
+using namespace tf32x3;
 
 namespace {
 
-constexpr int ROWS = 8;    // own rows (warps) per block
-constexpr int KT = 32;     // rows of the other side per shared tile (one per lane)
-constexpr int DMAX = 128;  // head width limit (four columns per lane)
+constexpr int NWARPS = 8;
+constexpr int NTHREADS = NWARPS * 32;
+constexpr int TILE = 64;         // query rows and keys of a tile
+constexpr int LDP = TILE + 4;    // row stride of P and dS: 4 mod 32 floats
+constexpr int MT = TILE / 16;    // m16 tiles of a tile
 
-__device__ inline float dot_row(const float* a, const float* b, int D) {
-  float acc = 0.f;
-  for (int c = 0; c < D; ++c) acc = fmaf(a[c], b[c], acc);
-  return acc;
+// Rows staged of a tile of n <= TILE rows: whole m16 tiles.
+__host__ __device__ inline int tile_rows(int n) {
+  return (n + 15) / 16 * 16;
 }
 
-__global__ void attention_bwd_dq_kernel(
-    const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, const float* __restrict__ dout,
-    const float* __restrict__ lse, const float* __restrict__ di,
-    const unsigned char* __restrict__ key_pad, float* __restrict__ dq, int Tq,
-    int Tk, int H, int D) {
-  extern __shared__ float4 smem4[];
-  float* k_s = reinterpret_cast<float*>(smem4);  // [KT][D + 1]
-  float* v_s = k_s + KT * (D + 1);               // [KT][D + 1]
-  float* q_s = v_s + KT * (D + 1);               // [ROWS][D]
-  float* do_s = q_s + ROWS * D;                  // [ROWS][D]
-  float* valid_s = do_s + ROWS * D;              // [KT]
-  const int b = blockIdx.z, hh = blockIdx.y;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int row = blockIdx.x * ROWS + warp;
-  const bool active = row < Tq;
-  const size_t row_stride = (size_t)H * D;
+__host__ __device__ inline int first_tile(int T) {
+  return tile_rows(T < TILE ? T : TILE);
+}
 
-  const size_t own = ((size_t)b * Tq + row) * row_stride + hh * D;
-  for (int c = lane; c < D; c += 32) {
-    q_s[warp * D + c] = active ? q[own + c] : 0.f;
-    do_s[warp * D + c] = active ? dout[own + c] : 0.f;
+// Q and dO, K and V, P and dS, for the first (largest) tiles of Tq and Tk.
+template <int NDT>
+size_t smem_bytes(int Tq, int Tk) {
+  const int qc = first_tile(Tq), kc = first_tile(Tk);
+  return sizeof(float) * ((size_t)(2 * qc + 2 * kc) * row_ld<NDT>() + (size_t)2 * qc * LDP);
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+struct Smem {
+  float *q, *dout, *k, *v, *p, *ds;
+  float *lse, *di, *valid;   // [TILE] each
+};
+
+// The key rows the products need: through the tile's last valid key, in
+// whole m16 tiles (keys past it have p = 0, so dk = dv = 0 and no share in
+// dq).
+__device__ __forceinline__ int live_rows(const float* valid, int kr) {
+  const int lane = threadIdx.x & 31;
+  const unsigned lo = __ballot_sync(0xffffffffu, lane < kr && valid[lane] > 0.f);
+  const unsigned hi = __ballot_sync(0xffffffffu, lane + 32 < kr && valid[lane + 32] > 0.f);
+  const int last = hi ? 63 - __clz(hi) : lo ? 31 - __clz(lo) : -1;
+  return tile_rows(last + 1);
+}
+
+// Stages the query tile (Q, dO, lse, and di from O and dO) and/or the key
+// tile (K, V, which keys are valid). O lands in the rows of P and dS, which
+// are free until p_and_ds (LD <= 2 LDP), and di is formed there. Returns
+// live_rows of a new key tile.
+template <int DP, int LD>
+__device__ __forceinline__ int stage_tiles(const Smem& sm, bool new_q, bool new_k,
+                                            const float* q, const float* k, const float* v,
+                                            const float* o, const float* dout, const float* lse,
+                                            const unsigned char* key_pad, int b, int hh, int q0,
+                                            int nq, int k0, int nk, int Tq, int Tk, int H, int D,
+                                            bool vec) {
+  static_assert(LD <= 2 * LDP, "O does not fit in the rows of P and dS");
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int qr = tile_rows(nq), kr = tile_rows(nk);
+  if (new_q) {
+    stage_rows<DP, LD>(sm.q, q, b, q0, qr, Tq, H, D, hh, vec, tid, NTHREADS);
+    stage_rows<DP, LD>(sm.dout, dout, b, q0, qr, Tq, H, D, hh, vec, tid, NTHREADS);
+    stage_rows<DP, LD>(sm.p, o, b, q0, qr, Tq, H, D, hh, vec, tid, NTHREADS);
   }
-  const size_t stat = ((size_t)b * H + hh) * Tq + row;
-  const float lse_i = active ? lse[stat] : -INFINITY;
-  const float di_i = active ? di[stat] : 0.f;
-  const bool live = lse_i != -INFINITY;  // warp-uniform
-  float acc[DMAX / 32] = {0.f, 0.f, 0.f, 0.f};
-
-  for (int kt0 = 0; kt0 < Tk; kt0 += KT) {
-    __syncthreads();  // the previous tile is no longer read
-    for (int i = threadIdx.x; i < KT * D; i += blockDim.x) {
-      const int jj = i / D, c = i % D, key = kt0 + jj;
-      float kv = 0.f, vv = 0.f;
-      if (key < Tk) {
-        const size_t src = ((size_t)b * Tk + key) * row_stride + hh * D + c;
-        kv = k[src];
-        vv = v[src];
-      }
-      k_s[jj * (D + 1) + c] = kv;
-      v_s[jj * (D + 1) + c] = vv;
-    }
-    for (int jj = threadIdx.x; jj < KT; jj += blockDim.x) {
-      const int key = kt0 + jj;
-      valid_s[jj] = (key < Tk && (key_pad == nullptr || !key_pad[(size_t)b * Tk + key])) ? 1.f : 0.f;
-    }
-    __syncthreads();
-    if (!live) continue;
-
-    float ds = 0.f;
-    if (valid_s[lane] > 0.f) {
-      const float s = dot_row(q_s + warp * D, k_s + lane * (D + 1), D);
-      const float dp = dot_row(do_s + warp * D, v_s + lane * (D + 1), D);
-      ds = expf(s - lse_i) * (dp - di_i);
-    }
-    const int n_keys = min(KT, Tk - kt0);
-    for (int jj = 0; jj < n_keys; ++jj) {
-      const float dsj = __shfl_sync(0xffffffffu, ds, jj);
-      const float* kr = k_s + jj * (D + 1);
-#pragma unroll
-      for (int i = 0; i < DMAX / 32; ++i) {
-        const int c = lane + 32 * i;
-        if (c < D) acc[i] = fmaf(dsj, kr[c], acc[i]);
-      }
+  if (new_k) {
+    stage_rows<DP, LD>(sm.k, k, b, k0, kr, Tk, H, D, hh, vec, tid, NTHREADS);
+    stage_rows<DP, LD>(sm.v, v, b, k0, kr, Tk, H, D, hh, vec, tid, NTHREADS);
+  }
+  cp_async_commit();
+  if (new_k) {
+    for (int r = tid; r < kr; r += NTHREADS) {
+      const int key = k0 + r;
+      sm.valid[r] = r < nk && (key_pad == nullptr || !key_pad[(size_t)b * Tk + key]);
     }
   }
-  if (!active) return;
+  if (new_q) {
+    for (int r = tid; r < qr; r += NTHREADS)
+      sm.lse[r] = r < nq ? lse[((size_t)b * H + hh) * Tq + q0 + r] : -INFINITY;
+  }
+  cp_async_wait_all();
+  __syncthreads();
+  const int live = new_k ? live_rows(sm.valid, kr) : 0;
+  if (!new_q) return live;
+  // di = rowsum(o * do), a warp a row (columns past D are zero in both)
+  for (int r = warp; r < qr; r += NWARPS) {
+    float acc = 0.f;
 #pragma unroll
-  for (int i = 0; i < DMAX / 32; ++i) {
-    const int c = lane + 32 * i;
-    if (c < D) dq[own + c] = acc[i];
+    for (int c = lane; c < DP; c += 32) acc = fmaf(sm.p[r * LD + c], sm.dout[r * LD + c], acc);
+    acc = warp_sum(acc);
+    if (lane == 0) sm.di[r] = acc;
+  }
+  __syncthreads();   // O is read: P and dS may take its rows
+  return live;
+}
+
+// P and dS [qr][kl] of the staged tiles, one (m16, n8) tile a job: S = Q K^T
+// and dP = dO V^T, each formed once.
+template <int DP, int LD>
+__device__ __forceinline__ void p_and_ds(const Smem& sm, int qr, int kl) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int nnt = kl / 8, n_jobs = qr / 16 * nnt;
+  for (int job = warp; job < n_jobs; job += NWARPS) {
+    const int r0 = job / nnt * 16, c0 = job % nnt * 8;
+    float sp[3][4] = {}, dpp[3][4] = {}, s[4], dp[4];
+#pragma unroll
+    for (int kk = 0; kk < DP; kk += 8) {
+      uint32_t qhi[4], qlo[4], dhi[4], dlo[4], khi[2], klo[2], vhi[2], vlo[2];
+      load_a(sm.q + r0 * LD + kk, LD, lane, qhi, qlo);
+      load_a(sm.dout + r0 * LD + kk, LD, lane, dhi, dlo);
+      load_b<false>(sm.k + c0 * LD + kk, LD, lane, khi, klo);
+      load_b<false>(sm.v + c0 * LD + kk, LD, lane, vhi, vlo);
+      mma3_sep(sp, qhi, qlo, khi, klo);
+      mma3_sep(dpp, dhi, dlo, vhi, vlo);
+    }
+    sum3(sp, s);
+    sum3(dpp, dp);
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int r = r0 + g + 8 * hr, c = c0 + 2 * t4;
+      const float lse_r = sm.lse[r], di_r = sm.di[r];
+      float p[2], ds[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const bool live = lse_r != -INFINITY && sm.valid[c + e] > 0.f;
+        p[e] = live ? expf(s[2 * hr + e] - lse_r) : 0.f;
+        ds[e] = live ? p[e] * (dp[2 * hr + e] - di_r) : 0.f;
+      }
+      st2(sm.p + r * LDP + c, p[0], p[1]);
+      st2(sm.ds + r * LDP + c, ds[0], ds[1]);
+    }
   }
 }
 
-__global__ void attention_bwd_dkv_kernel(
-    const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, const float* __restrict__ dout,
-    const float* __restrict__ lse, const float* __restrict__ di,
-    const unsigned char* __restrict__ key_pad, float* __restrict__ dk,
-    float* __restrict__ dv, int Tq, int Tk, int H, int D) {
-  extern __shared__ float4 smem4[];
-  float* q_s = reinterpret_cast<float*>(smem4);  // [KT][D + 1]
-  float* do_s = q_s + KT * (D + 1);              // [KT][D + 1]
-  float* k_s = do_s + KT * (D + 1);              // [ROWS][D]
-  float* v_s = k_s + ROWS * D;                   // [ROWS][D]
-  float* lse_s = v_s + ROWS * D;                 // [KT]
-  float* di_s = lse_s + KT;                      // [KT]
-  const int b = blockIdx.z, hh = blockIdx.y;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int key = blockIdx.x * ROWS + warp;
-  const bool active = key < Tk;
-  const bool valid = active && (key_pad == nullptr || !key_pad[(size_t)b * Tk + key]);
-  const size_t row_stride = (size_t)H * D;
+// A warp's accumulator tiles in the last three products. dV (warps 0-3) and
+// dK (warps 4-7): every m16 key tile, and the NKV n8 column tiles w % 4 +
+// 4i. dQ: every m16 query tile, and the n8 column tiles w + 8i (NQ at most).
+// So each SM sub-partition (warps s and s + 4) takes an equal share of every
+// product whatever the number of rows, and a B fragment serves every m16
+// tile.
+template <int NDT>
+struct Own {
+  static constexpr int NKV = NDT / 4, NQ = (NDT + 7) / 8;
+};
 
-  const size_t own = ((size_t)b * Tk + key) * row_stride + hh * D;
-  for (int c = lane; c < D; c += 32) {
-    k_s[warp * D + c] = active ? k[own + c] : 0.f;
-    v_s[warp * D + c] = active ? v[own + c] : 0.f;
-  }
-  float acc_k[DMAX / 32] = {0.f, 0.f, 0.f, 0.f};
-  float acc_v[DMAX / 32] = {0.f, 0.f, 0.f, 0.f};
-
-  for (int qt0 = 0; qt0 < Tq; qt0 += KT) {
-    __syncthreads();  // the previous tile is no longer read
-    for (int i = threadIdx.x; i < KT * D; i += blockDim.x) {
-      const int ii = i / D, c = i % D, qr = qt0 + ii;
-      float qv = 0.f, dv_ = 0.f;
-      if (qr < Tq) {
-        const size_t src = ((size_t)b * Tq + qr) * row_stride + hh * D + c;
-        qv = q[src];
-        dv_ = dout[src];
-      }
-      q_s[ii * (D + 1) + c] = qv;
-      do_s[ii * (D + 1) + c] = dv_;
-    }
-    for (int ii = threadIdx.x; ii < KT; ii += blockDim.x) {
-      const int qr = qt0 + ii;
-      const size_t stat = ((size_t)b * H + hh) * Tq + qr;
-      lse_s[ii] = qr < Tq ? lse[stat] : -INFINITY;
-      di_s[ii] = qr < Tq ? di[stat] : 0.f;
-    }
-    __syncthreads();
-    if (!valid) continue;  // a pad key keeps dk = dv = 0 exactly
-
-    float p = 0.f, ds = 0.f;
-    const float l = lse_s[lane];
-    if (l != -INFINITY) {
-      const float s = dot_row(q_s + lane * (D + 1), k_s + warp * D, D);
-      const float dp = dot_row(do_s + lane * (D + 1), v_s + warp * D, D);
-      p = expf(s - l);
-      ds = p * (dp - di_s[lane]);
-    }
-    const int n_q = min(KT, Tq - qt0);
-    for (int ii = 0; ii < n_q; ++ii) {
-      const float pi = __shfl_sync(0xffffffffu, p, ii);
-      const float dsi = __shfl_sync(0xffffffffu, ds, ii);
-      const float* qr = q_s + ii * (D + 1);
-      const float* dr = do_s + ii * (D + 1);
+// dV += P^T dO (or dK += dS^T Q) over the qr staged query rows, for the key
+// rows below kl.
+template <int NDT, int LD>
+__device__ __forceinline__ void add_kv(const Smem& sm, float (&acc)[MT][Own<NDT>::NKV][4],
+                                       bool is_dk, int qr, int kl) {
+  constexpr int NKV = Own<NDT>::NKV;
+  const int lane = threadIdx.x & 31, w4 = (threadIdx.x >> 5) & 3;
+  const float* a = is_dk ? sm.ds : sm.p;
+  const float* bs = is_dk ? sm.q : sm.dout;
+  for (int kq = 0; kq < qr; kq += 8) {
+    uint32_t bh[NKV][2], bl[NKV][2];
 #pragma unroll
-      for (int i = 0; i < DMAX / 32; ++i) {
-        const int c = lane + 32 * i;
-        if (c < D) {
-          acc_v[i] = fmaf(pi, dr[c], acc_v[i]);
-          acc_k[i] = fmaf(dsi, qr[c], acc_k[i]);
+    for (int i = 0; i < NKV; ++i) load_b_kp(bs + kq * LD + (w4 + 4 * i) * 8, LD, lane, bh[i], bl[i]);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      if (16 * mt >= kl) break;
+      uint32_t ah[4], al[4];
+      load_at_kp(a + kq * LDP + 16 * mt, LDP, lane, ah, al);
+#pragma unroll
+      for (int i = 0; i < NKV; ++i) mma3(acc[mt][i], ah, al, bh[i], bl[i]);
+    }
+  }
+}
+
+// dQ += dS K over the key rows below kl, for the M m16 query tiles from m0,
+// those below qr.
+template <int NDT, int LD, int M>
+__device__ __forceinline__ void add_dq(const Smem& sm, float (&acc)[M][Own<NDT>::NQ][4], int m0,
+                                       int qr, int kl) {
+  constexpr int NQ = Own<NDT>::NQ;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int kk = 0; kk < kl; kk += 8) {
+    uint32_t bh[NQ][2], bl[NQ][2];
+#pragma unroll
+    for (int i = 0; i < NQ; ++i)
+      if (warp + 8 * i < NDT) load_b_kp(sm.k + kk * LD + (warp + 8 * i) * 8, LD, lane, bh[i], bl[i]);
+#pragma unroll
+    for (int mt = 0; mt < M; ++mt) {
+      if (16 * (m0 + mt) >= qr) break;
+      uint32_t ah[4], al[4];
+      load_a_kp(sm.ds + 16 * (m0 + mt) * LDP + kk, LDP, lane, ah, al);
+#pragma unroll
+      for (int i = 0; i < NQ; ++i)
+        if (warp + 8 * i < NDT) mma3(acc[mt][i], ah, al, bh[i], bl[i]);
+    }
+  }
+}
+
+// Writes a warp's accumulator tiles, acc[mt][i] at rows t0 + 16 mt and
+// columns 8 (n0 + nstep i), to head hh of batch row b of x [B, T, H, D],
+// rows < T and columns < D, two floats a store where D is even.
+template <int M, int NI>
+__device__ __forceinline__ void store_tiles(float* x, const float (&acc)[M][NI][4], int b,
+                                            int t0, int T, int H, int D, int hh, int n0,
+                                            int nstep) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int mt = 0; mt < M; ++mt)
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int t = t0 + 16 * mt + g + 8 * hr;
+      if (t >= T) continue;
+      float* row = x + ((size_t)b * T + t) * H * D + (size_t)hh * D;
+#pragma unroll
+      for (int i = 0; i < NI; ++i) {
+        const int c = (n0 + nstep * i) * 8 + 2 * t4;
+        const float v0 = acc[mt][i][2 * hr], v1 = acc[mt][i][2 * hr + 1];
+        if (D % 2 == 0) {
+          if (c < D) st2(row + c, v0, v1);
+        } else {
+          if (c < D) row[c] = v0;
+          if (c + 1 < D) row[c + 1] = v1;
         }
       }
     }
-  }
-  if (!active) return;
-#pragma unroll
-  for (int i = 0; i < DMAX / 32; ++i) {
-    const int c = lane + 32 * i;
-    if (c < D) {
-      dk[own + c] = acc_k[i];
-      dv[own + c] = acc_v[i];
+}
+
+// blockIdx.x < n_kv: the CTA of key tile blockIdx.x, over every query tile
+// (and dq too when n_kv == 1); else the dq CTA of query tile blockIdx.x -
+// n_kv, over every key tile.
+template <int NDT, int MINB>
+__global__ void __launch_bounds__(NTHREADS, MINB) attention_bwd_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const float* __restrict__ o, const float* __restrict__ dout,
+    const float* __restrict__ lse, const unsigned char* __restrict__ key_pad,
+    float* __restrict__ dq, float* __restrict__ dk, float* __restrict__ dv, int Tq, int Tk,
+    int H, int D, int n_kv, int vec) {
+  constexpr int DP = NDT * 8, LD = row_ld<NDT>();
+  constexpr int NKV = Own<NDT>::NKV, NQ = Own<NDT>::NQ;
+  extern __shared__ float4 smem4[];
+  __shared__ float lse_s[TILE], di_s[TILE], valid_s[TILE];
+  const int qc = first_tile(Tq), kc = first_tile(Tk);
+  Smem sm;
+  sm.q = reinterpret_cast<float*>(smem4);   // [qc][LD]
+  sm.dout = sm.q + qc * LD;                   // [qc][LD]
+  sm.k = sm.dout + qc * LD;                   // [kc][LD]
+  sm.v = sm.k + kc * LD;                      // [kc][LD]
+  sm.p = sm.v + kc * LD;                      // [qc][LDP]
+  sm.ds = sm.p + qc * LDP;                    // [qc][LDP]
+  sm.lse = lse_s;
+  sm.di = di_s;
+  sm.valid = valid_s;
+
+  const int b = blockIdx.z, hh = blockIdx.y, warp = threadIdx.x >> 5;
+  if (blockIdx.x < n_kv) {
+    const int k0 = blockIdx.x * TILE, nk = max(0, min(TILE, Tk - k0));
+    const int n_qt = max(1, (Tq + TILE - 1) / TILE);
+    const bool is_dk = warp >= 4;
+    float kv_acc[MT][NKV][4] = {};   // dV or dK
+    int kl = 0;
+    for (int it = 0; it < n_qt; ++it) {
+      const int q0 = it * TILE, nq = max(0, min(TILE, Tq - q0)), qr = tile_rows(nq);
+      if (it > 0) __syncthreads();   // the last query tile is no longer read
+      const int live = stage_tiles<DP, LD>(sm, true, it == 0, q, k, v, o, dout, lse, key_pad, b,
+                                           hh, q0, nq, k0, nk, Tq, Tk, H, D, vec);
+      if (it == 0) kl = live;
+      p_and_ds<DP, LD>(sm, qr, kl);
+      __syncthreads();
+      add_kv<NDT, LD>(sm, kv_acc, is_dk, qr, kl);
+      // every key is here: this tile's dq is whole, one m16 tile at a time
+      for (int mt = 0; n_kv == 1 && 16 * mt < qr; ++mt) {
+        float dq_acc[1][NQ][4] = {};
+        add_dq<NDT, LD, 1>(sm, dq_acc, mt, qr, kl);
+        store_tiles<1, NQ>(dq, dq_acc, b, q0 + 16 * mt, Tq, H, D, hh, warp, 8);
+      }
     }
+    store_tiles<MT, NKV>(is_dk ? dk : dv, kv_acc, b, k0, Tk, H, D, hh, warp & 3, 4);
+  } else {
+    const int q0 = (blockIdx.x - n_kv) * TILE, nq = max(0, min(TILE, Tq - q0));
+    const int qr = tile_rows(nq);
+    float dq_acc[MT][NQ][4] = {};
+    for (int it = 0; it < n_kv; ++it) {
+      const int k0 = it * TILE, nk = max(0, min(TILE, Tk - k0));
+      if (it > 0) __syncthreads();   // the last key tile is no longer read
+      const int kl = stage_tiles<DP, LD>(sm, it == 0, true, q, k, v, o, dout, lse, key_pad, b,
+                                         hh, q0, nq, k0, nk, Tq, Tk, H, D, vec);
+      p_and_ds<DP, LD>(sm, qr, kl);
+      __syncthreads();
+      add_dq<NDT, LD, MT>(sm, dq_acc, 0, qr, kl);
+    }
+    store_tiles<MT, NQ>(dq, dq_acc, b, q0, Tq, H, D, hh, warp, 8);
   }
+}
+
+template <int NDT>
+int launch(const float* q, const float* k, const float* v, const float* o, const float* dout,
+           const float* lse, const unsigned char* key_pad, float* dq, float* dk, float* dv,
+           int B, int Tq, int Tk, int H, int D, bool vec, cudaStream_t stream) {
+  // two CTAs a SM where their registers allow (128 a thread)
+  constexpr int MINB = NDT <= 12 ? 2 : 1;
+  auto kernel = attention_bwd_kernel<NDT, MINB>;
+  // once per process: room for the largest tiles (64 x 64)
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes<NDT>(TILE, TILE));
+  if (attr != cudaSuccess) return (int)attr;
+  const int n_kv = Tk > TILE ? (Tk + TILE - 1) / TILE : 1;
+  const int n_q = n_kv == 1 ? 0 : Tq > TILE ? (Tq + TILE - 1) / TILE : 1;
+  const size_t smem = smem_bytes<NDT>(Tq, Tk);
+  kernel<<<dim3(n_kv + n_q, H, B), NTHREADS, smem, stream>>>(q, k, v, o, dout, lse, key_pad, dq,
+                                                            dk, dv, Tq, Tk, H, D, n_kv, vec);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// q, dout, dq [B, Tq, H, D]; k, v, dk, dv [B, Tk, H, D]; lse, di [B, H, Tq];
-// key_pad [B, Tk] bytes (nonzero = pad) or null. Requires D <= 128 (the
-// wrapper checks).
+// q, o, dout, dq [B, Tq, H, D]; k, v, dk, dv [B, Tk, H, D]; lse [B, H, Tq];
+// key_pad [B, Tk] bytes (nonzero = pad) or null. Requires 1 <= D <= 128 (the
+// wrapper checks); returns cudaErrorInvalidValue otherwise.
 extern "C" int attention_bwd_f32(const float* q, const float* k, const float* v,
-                                 const float* dout, const float* lse,
-                                 const float* di, const unsigned char* key_pad,
-                                 float* dq, float* dk, float* dv, int B, int Tq,
-                                 int Tk, int H, int D, void* stream) {
+                                 const float* o, const float* dout, const float* lse,
+                                 const unsigned char* key_pad, float* dq, float* dk,
+                                 float* dv, int B, int Tq, int Tk, int H, int D,
+                                 void* stream) {
+  if (D < 1 || D > 128) return (int)cudaErrorInvalidValue;
+  if ((size_t)B * H == 0) return 0;
+  const bool vec = D % 4 == 0 && ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o |
+                                   (uintptr_t)dout) % 16 == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = (size_t)(2 * KT * (D + 1) + 2 * ROWS * D + 2 * KT) * sizeof(float);
-  attention_bwd_dq_kernel<<<dim3((Tq + ROWS - 1) / ROWS, H, B), ROWS * 32, smem, s>>>(
-      q, k, v, dout, lse, di, key_pad, dq, Tq, Tk, H, D);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  attention_bwd_dkv_kernel<<<dim3((Tk + ROWS - 1) / ROWS, H, B), ROWS * 32, smem, s>>>(
-      q, k, v, dout, lse, di, key_pad, dk, dv, Tq, Tk, H, D);
-  return (int)cudaGetLastError();
+  if (D <= 32) return launch<4>(q, k, v, o, dout, lse, key_pad, dq, dk, dv, B, Tq, Tk, H, D, vec, s);
+  if (D <= 64) return launch<8>(q, k, v, o, dout, lse, key_pad, dq, dk, dv, B, Tq, Tk, H, D, vec, s);
+  if (D <= 96)
+    return launch<12>(q, k, v, o, dout, lse, key_pad, dq, dk, dv, B, Tq, Tk, H, D, vec, s);
+  return launch<16>(q, k, v, o, dout, lse, key_pad, dq, dk, dv, B, Tq, Tk, H, D, vec, s);
 }

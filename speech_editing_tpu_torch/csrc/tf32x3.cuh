@@ -1,6 +1,7 @@
 // Float32-accurate tile products on the H100's tensor cores (3xTF32), and the
-// copies that feed them. Shared by K1 (diffnet_block.cu) and K5
-// (diffnet_block_bwd.cu).
+// copies that feed them. Shared by K1 (diffnet_block.cu), K5
+// (diffnet_block_bwd.cu), K3 (flash_attention.cu) and K4
+// (flash_attention_bwd.cu).
 //
 // Each operand is split as a = hi + lo: hi = tf32(a), rounded to nearest
 // (cvt.rna's rounding), and lo = a - hi, the fp32 residual, which the
@@ -142,6 +143,75 @@ __device__ __forceinline__ void load_b(const float* b, int ldb, int lane,
   }
 }
 
+// d += a * b for one k8 step, float32-accurate: the three TF32 products of
+// the split operands, the two small ones first.
+__device__ __forceinline__ void mma3(float* d, const uint32_t* ahi, const uint32_t* alo,
+                                     const uint32_t* bhi, const uint32_t* blo) {
+  mma_tf32(d, alo, bhi);
+  mma_tf32(d, ahi, blo);
+  mma_tf32(d, ahi, bhi);
+}
+
+// The same three products into three accumulators, so that a run of k8
+// steps into one tile is three independent mma.sync chains, a third as long;
+// sum3 joins them (small terms first).
+__device__ __forceinline__ void mma3_sep(float (&d)[3][4], const uint32_t* ahi,
+                                         const uint32_t* alo, const uint32_t* bhi,
+                                         const uint32_t* blo) {
+  mma_tf32(d[0], alo, bhi);
+  mma_tf32(d[1], ahi, blo);
+  mma_tf32(d[2], ahi, bhi);
+}
+
+__device__ __forceinline__ void sum3(const float (&d)[3][4], float* out) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) out[e] = d[2][e] + (d[0][e] + d[1][e]);
+}
+
+// Fragments with the k index of a k8 step permuted, in A and B alike (a
+// product sums over k, so one permutation applied to both leaves it
+// unchanged): slot t holds column 2t and slot t + 4 column 2t + 1. Then an
+// accumulator fragment (c0..c3: columns 2t, 2t + 1 of rows g, g + 8) is an A
+// fragment as it stands (a_from_acc), and the rows 2t, 2t + 1 that a lane
+// reads of a k-major operand fall on 32 distinct banks at a row stride of 4
+// mod 32.
+//
+// A, row-major (a[m * lda + k]), split.
+__device__ __forceinline__ void load_a_kp(const float* a, int lda, int lane,
+                                          uint32_t* hi, uint32_t* lo) {
+  const int g = lane >> 2, t = lane & 3;
+  split(a[g * lda + 2 * t], hi[0], lo[0]);
+  split(a[(g + 8) * lda + 2 * t], hi[1], lo[1]);
+  split(a[g * lda + 2 * t + 1], hi[2], lo[2]);
+  split(a[(g + 8) * lda + 2 * t + 1], hi[3], lo[3]);
+}
+
+// A stored k-major (a[k * lda + m]: the transpose of a row-major tile), split.
+__device__ __forceinline__ void load_at_kp(const float* a, int lda, int lane,
+                                           uint32_t* hi, uint32_t* lo) {
+  const int g = lane >> 2, t = lane & 3;
+  split(a[2 * t * lda + g], hi[0], lo[0]);
+  split(a[2 * t * lda + g + 8], hi[1], lo[1]);
+  split(a[(2 * t + 1) * lda + g], hi[2], lo[2]);
+  split(a[(2 * t + 1) * lda + g + 8], hi[3], lo[3]);
+}
+
+// B stored k-major (b[k * ldb + n]), split.
+__device__ __forceinline__ void load_b_kp(const float* b, int ldb, int lane,
+                                          uint32_t* hi, uint32_t* lo) {
+  const int g = lane >> 2, t = lane & 3;
+  split(b[2 * t * ldb + g], hi[0], lo[0]);
+  split(b[(2 * t + 1) * ldb + g], hi[1], lo[1]);
+}
+
+// The A fragment, k permuted, of the m16 x k8 tile held in accumulator c.
+__device__ __forceinline__ void a_from_acc(const float* c, uint32_t* hi, uint32_t* lo) {
+  split(c[0], hi[0], lo[0]);
+  split(c[2], hi[1], lo[1]);
+  split(c[1], hi[2], lo[2]);
+  split(c[3], hi[3], lo[3]);
+}
+
 // acc[MT][NT] += A x B over one chunk of BK columns of K, float32-accurate.
 // A: MT m16 tiles from a (row-major, stride lda, tile mt at row 16 mt).
 // B: NT n8 tiles, tile nt at b + bofs(nt), stored k-major or n-major.
@@ -206,6 +276,51 @@ __device__ __forceinline__ void chunk_mma(float (&acc)[MT][NT][4], const float* 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+
+// One float, for rows whose width or address rules out 16-byte copies.
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+
+// The row stride of a staged [rows][8 NDT] tile: 4 mod 32 floats, the
+// stride at which the k-permuted fragment loads above hit 32 banks.
+template <int NDT>
+__host__ __device__ constexpr int row_ld() {
+  return (NDT * 8 + 31) / 32 * 32 + 4;
+}
+
+// Stages rows [t0, t0 + R) of head hh of batch row b of x [B, T, H, D] into
+// dst [R][LD]: copied where t < T and c < D, zero up to DP columns and past
+// T, so that every k8 step and every m16 tile reads finite values. vec: D %
+// 4 == 0 and x 16-byte aligned (16-byte copies), else one float a copy.
+template <int DP, int LD>
+__device__ __forceinline__ void stage_rows(float* dst, const float* x, int b, int t0, int R,
+                                           int T, int H, int D, int hh, bool vec, int tid,
+                                           int nthreads) {
+  const size_t rs = (size_t)H * D;
+  const float* src = x + (size_t)b * T * rs + (size_t)hh * D;
+  if (vec) {
+    constexpr int cv = DP / 4;
+    for (int e = tid; e < R * cv; e += nthreads) {
+      const int r = e / cv, c = e % cv * 4, t = t0 + r;
+      float* d = dst + r * LD + c;
+      if (t < T && c < D)
+        cp_async16(d, src + (size_t)t * rs + c);
+      else
+        *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  } else {
+    for (int e = tid; e < R * DP; e += nthreads) {
+      const int r = e / DP, c = e % DP, t = t0 + r;
+      float* d = dst + r * LD + c;
+      if (t < T && c < D)
+        cp_async4(d, src + (size_t)t * rs + c);
+      else
+        *d = 0.f;
+    }
+  }
 }
 
 __device__ __forceinline__ void cp_async_commit() {

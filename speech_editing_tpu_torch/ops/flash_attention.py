@@ -6,8 +6,9 @@ Replace the Pallas TPU flash attention that
 custom VJP. The plain forward is the einsum path of ``MultiheadAttention``
 (``speech_editing_tpu/modules/transformer.py``). K3 writes each row's
 logsumexp only when a gradient is needed; :class:`FlashAttentionFunction`
-ties K3 and K4 together. The source notes in the ``.cu`` files give each
-kernel's bound and design.
+ties K3 and K4 together. Each is one launch per call, its products on the
+tensor cores at float32 accuracy; the source notes in the ``.cu`` files
+give each kernel's bound and design.
 """
 
 from __future__ import annotations
@@ -110,9 +111,9 @@ def flash_mha_bwd(q, k, v, o, lse, do, key_padding_mask=None):
     """q, o, do [B, Tq, h, d]; k, v [B, Tk, h, d]; lse [B, h, Tq] from
     ``flash_mha(..., return_lse=True)`` -> (dq, dk, dv).
 
-    ``di = rowsum(o * do)`` is a torch reduction, as JAX's
-    ``_flash_attention_bwd`` computes it outside its kernels. A CPU tensor
-    takes the plain version; a CUDA tensor launches K4."""
+    A CPU tensor takes the plain version; a CUDA tensor launches K4, one
+    kernel that also forms ``di = rowsum(o * do)``, which JAX's
+    ``_flash_attention_bwd`` computes outside its kernels."""
     if q.device.type == "cpu":
         return attention_bwd_plain(q, k, v, o, lse, do, key_padding_mask)
     if q.device.type != "cuda":
@@ -126,10 +127,9 @@ def flash_mha_bwd(q, k, v, o, lse, do, key_padding_mask=None):
                                 ("do", do, (b, tq, h, d)), ("lse", lse, (b, h, tq))):
         check_tensor(tensor, name, shape, q.device)
     _check_mask("flash_mha_bwd", key_padding_mask, b, tk, q.device)
-    di = (o * do).sum(-1).transpose(1, 2).contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     fn = kernel_function("flash_attention_bwd", "attention_bwd_f32", _BWD_ARGTYPES)
-    check_status(fn(ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(di),
+    check_status(fn(ptr(q), ptr(k), ptr(v), ptr(o), ptr(do), ptr(lse),
                     ptr(key_padding_mask), ptr(dq), ptr(dk), ptr(dv),
                     b, tq, tk, h, d, current_stream()), "flash_mha_bwd")
     flash_mha_bwd.launches += 1

@@ -158,14 +158,25 @@ def _jax_attention(q, k, v, pad):
     return jnp.einsum("bhqk,bkhd->bqhd", jax.nn.softmax(logits, axis=-1), v)
 
 
-@pytest.mark.parametrize("b,t", [(2, 13), (3, 40)])
-def test_k4_plain_matches_jax_einsum_vjp(rng, b, t):
+def _train_lengths(b: int, t: int) -> list:
+    """Valid tokens of each row as the flagship train batch draws them: 24
+    up to t, the first row full."""
+    n = np.random.RandomState(0).randint(24, t + 1, b)
+    n[0] = t
+    return list(n)
+
+
+@pytest.mark.parametrize("b,t,lengths", [(2, 13, [13, 6]), (3, 40, [40, 36, 20]),
+                                         (6, 48, _train_lengths(6, 48))],
+                         ids=["2-13", "3-40", "flagship-48"])
+def test_k4_plain_matches_jax_einsum_vjp(rng, b, t, lengths):
+    """At the flagship head shape (h=2, d=96), the last case also at its
+    token length with rows padded as in the train batch: the plain K3 and
+    K4, which the card is held to, against jax.vjp of the einsum path."""
     h, d = 2, 96
     q, k, v, do = (rng.randn(b, t, h, d).astype(np.float32) for _ in range(4))
     q *= d ** -0.5
-    pad = np.zeros((b, t), bool)
-    pad[1, t - 4:] = True
-    pad[-1, t // 2:] = True
+    pad = np.arange(t)[None, :] >= np.array(lengths)[:, None]
     _, vjp = jax.vjp(lambda *a: _jax_attention(*a, jnp.asarray(pad)),
                      jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
     refs = vjp(jnp.asarray(do))
@@ -197,6 +208,18 @@ def test_k4_function_gradcheck_float64():
     pad = torch.zeros(2, 5, dtype=torch.bool)
     pad[1, 3:] = True
     assert torch.autograd.gradcheck(lambda *a: flash_mha_train(*a, pad), (q, k, v))
+
+
+@pytest.mark.parametrize("d", [96, 129])
+def test_attention_wrappers_refuse_other_devices(d):
+    """A tensor neither on the CPU nor on a GPU is refused at any head width,
+    129 (past the kernels' 128) included."""
+    q = torch.zeros(1, 4, 2, d, device="meta")
+    lse = torch.zeros(1, 2, 4, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        flash_mha(q, q, q)
+    with pytest.raises(ValueError, match="unsupported device"):
+        flash_mha_bwd(q, q, q, q, lse, q)
 
 
 def test_backward_wrappers_reject_unsupported_devices():
