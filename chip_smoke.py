@@ -16,10 +16,13 @@ Phases, each of which exits non-zero on a failed check:
    timed L2-cold at the edit shape (20 weight sets cycled, as the edit's 20
    blocks find them); the backward kernels K5 and K4 also against autograd
    of the plain forward, through the autograd Functions that pair them with
-   K1 and K3; K3 and K4 at each timed shape also with their device time
-   (``torch.profiler``), device operations (which must be 1) and host time
-   a call, beside SDPA's, and on a batch with a row of only pad keys and at
-   a head width of 36;
+   K1 and K3; at each timed shape the device time (``torch.profiler``),
+   device operations and host time a call, the operations checked == 1 for
+   K2, K3 and K4; K3 and K4 beside SDPA's, and on a batch with a row of only
+   pad keys and at a head width of 36; K2 at the edit's three requests, at
+   B=4 with a ragged last tile and at hop 128, timed beside a cuFFT
+   composite, its bound counted as the least work of the function (a real
+   FFT on the fp32 CUDA cores);
 4. edit path: ``EditPipeline`` at the flagship width (seeded random
    weights) answers edit requests of 512 (``bench.py``'s utterance), 300
    and 700 frames; every launch counter must move by exactly its expected
@@ -36,8 +39,9 @@ Phases, each of which exits non-zero on a failed check:
    frames per second, peak memory and a profiled step are printed.
 
 ``python3 chip_smoke.py --time-attention`` builds K3 and K4 only and times
-them and SDPA at those shapes, with no checks: run from a copy of another
-commit, it times that commit's kernels in the same call.
+them and SDPA at those shapes, with no checks; ``--time-mel`` does the same
+for K2 at the edit shape beside the cuFFT composite. Run from a copy of
+another commit, either times that commit's kernels in the same call.
 
 Float32 throughout, with TF32 off for matrix products and cuDNN
 convolutions, so the card and the CPU compute the same function. The
@@ -72,9 +76,10 @@ from speech_editing_tpu_torch.ops.flash_attention import (attention_bwd_plain,
                                                           attention_plain, flash_mha,
                                                           flash_mha_bwd,
                                                           flash_mha_train)
-from speech_editing_tpu_torch.ops.mel import MelConfig
+from speech_editing_tpu_torch.ops.mel import MelConfig, mel_bases
 from speech_editing_tpu_torch.ops.mel import mel_spectrogram as mel_plain
 from speech_editing_tpu_torch.training.trainer import Trainer
+from speech_editing_tpu_torch.utils.audio.dsp import stft_window
 
 PEAK_FP32_FLOPS = 67e12     # H100 SXM, float32 outside the tensor cores
 # H100 SXM, float32-accurate products on the tensor cores: three TF32
@@ -142,11 +147,12 @@ def host_us(fn, iters: int = 200, warmup: int = 3) -> float:
     return us
 
 
-def bound(flops: float, n_bytes: float) -> tuple[float, str]:
-    """The least time for the work: its float32 FLOP at the 3xTF32 tensor-core
-    rate (the fastest float32-accurate rate of the card) or its bytes at the
-    HBM rate, whichever is longer, in ms."""
-    t_ops, t_bytes = flops / PEAK_3XTF32_FLOPS, n_bytes / PEAK_HBM_BYTES
+def bound(flops: float, n_bytes: float, peak: float = PEAK_3XTF32_FLOPS) -> tuple[float, str]:
+    """The least time for the work: its float32 FLOP at ``peak`` (by default
+    the 3xTF32 tensor-core rate, the fastest float32-accurate rate of the
+    card, for products) or its bytes at the HBM rate, whichever is longer,
+    in ms."""
+    t_ops, t_bytes = flops / peak, n_bytes / PEAK_HBM_BYTES
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -200,7 +206,8 @@ def phase_diffnet_block(gen) -> dict:
     300, 700), at B=4 with dilation 1, 2 and 3 (3 at T=509, a ragged last
     tile), at B=16 with dilation 8 (whose 64-row tiles do not fit) and at
     the train shape with h; timed at the edit shape warm and L2-cold, and at
-    the train shape, with the host time of one call at the edit shape."""
+    the train shape, with the device time, device operations and host time
+    of one call at both."""
     c, h = FLAGSHIP_HP["residual_channels"], FLAGSHIP_HP["hidden_size"]
     tol, out = 1e-4, {"max_abs_err": 0.0}
     flops = lambda b, t: 2 * b * t * 2 * c * (3 * c + h + c)
@@ -221,15 +228,17 @@ def phase_diffnet_block(gen) -> dict:
             ms = time_ms(lambda: call(diffnet_block))
             plain_ms = time_ms(lambda: call(diffnet_block_plain))
             bound_ms, bound_by = bound(flops(b, t), nbytes(x, cond, step, mask, *w, *got))
+            device_ms, ops = profile_calls(lambda: call(diffnet_block))
+            us = host_us(lambda: call(diffnet_block))
             msg += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-                    f"({bound_by}); {rate(flops(b, t), ms, bound_ms)}")
+                    f"({bound_by}); {rate(flops(b, t), ms, bound_ms)}; {device_ms:.4f} ms "
+                    f"device, {ops} device ops a call, host {us:.1f} us a call")
             if train:
-                out.update(train_ms=ms, train_plain_ms=plain_ms, train_bound_ms=bound_ms)
+                out.update(train_ms=ms, train_plain_ms=plain_ms, train_bound_ms=bound_ms,
+                           train_device_ms=device_ms, train_ops_per_call=ops, train_host_us=us)
             else:
-                us = host_us(lambda: call(diffnet_block))
-                msg += f"; host {us:.1f} us a call"
                 out.update(warm_ms=ms, warm_plain_ms=plain_ms, bound_ms=bound_ms,
-                           bound_by=bound_by, host_us=us)
+                           bound_by=bound_by, host_us=us, device_ms=device_ms, ops_per_call=ops)
         print(msg, flush=True)
     # the edit shape as the edit finds it: its 20 blocks' weights (50 MB)
     # do not stay in the 50 MB L2, so cycle through 20 weight sets
@@ -255,8 +264,9 @@ def phase_diffnet_block_bwd(gen) -> dict:
     """K5 against its plain version, and K1 + K5 (the autograd Function)
     against autograd of the plain forward, at B=4 with dilation 1 and 2
     (and 3 at T=509, a ragged last tile); timed at B=4 and at the train
-    path's B=78; against its plain version also at B=16 with dilation 8,
-    whose 64-row tiles do not fit."""
+    path's B=78, there also with the device time, device operations and
+    host time of one call; against its plain version also at B=16 with
+    dilation 8, whose 64-row tiles do not fit."""
     c, out = FLAGSHIP_HP["residual_channels"], {"max_abs_err": 0.0}
     check_wide_dilation("diffnet_block_bwd", 16, 512, 8)
     for b, t, dilation in ((4, 512, 1), (4, 512, 2), (4, 509, 3), (16, 512, 8),
@@ -293,7 +303,12 @@ def phase_diffnet_block_bwd(gen) -> dict:
             msg += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                     f"bound {bound_ms:.4f} ms ({bound_by}); {rate(flops, ms, bound_ms)}")
             if b == TRAIN_B:
-                out.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+                device_ms, ops = profile_calls(lambda: diffnet_block_bwd(*args))
+                us = host_us(lambda: diffnet_block_bwd(*args))
+                msg += (f"; {device_ms:.4f} ms device, {ops} device ops a call, "
+                        f"host {us:.1f} us a call")
+                out.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                           device_ms=device_ms, ops_per_call=ops, host_us=us)
         print(msg + f" (tol {BWD_TOL}, relative to the reference's max)", flush=True)
     return dict(out, name="diffnet_block_bwd", route="cuda",
                 source="speech_editing_tpu_torch/csrc/diffnet_block_bwd.cu",
@@ -301,31 +316,108 @@ def phase_diffnet_block_bwd(gen) -> dict:
                 tol=BWD_TOL, library_ms=None)
 
 
+# K2's shapes (batch, samples, hop): the edit's three requests, a ragged
+# last tile at B=4, and hop 128
+MEL_SHAPES = ((1, 512 * HOP, HOP), (1, 300 * HOP, HOP), (1, 700 * HOP, HOP),
+              (4, 256 * 130 + 17, HOP), (1, 512 * HOP, 128))
+MEL_TOL, MEL_MEAN_TOL = 2e-2, 2e-3   # log10 units, the Pallas kernel's test bars
+CUFFT = "cufft composite (stft, abs, mel product, log10: several calls)"
+
+
+def cufft_mel(wav, cfg):
+    """K2's yardstick on the same inputs: ``torch.stft`` (cuFFT), magnitude,
+    mel product and log10, a composite of several PyTorch calls; the port
+    never calls it."""
+    window = torch.tensor(stft_window(cfg.window, cfg.win_length, cfg.fft_size),
+                          dtype=torch.float32, device=wav.device)
+    fb_t = torch.from_numpy(mel_bases(cfg)[2]).to(wav.device)
+
+    def run():
+        spec = torch.stft(wav, cfg.fft_size, cfg.hop_size, window=window, center=True,
+                          pad_mode="constant", return_complex=True)
+        return torch.log10(torch.clamp(spec.abs().transpose(1, 2) @ fb_t, min=cfg.eps))
+    return run
+
+
+def mel_work(cfg, frames: int) -> tuple[float, float]:
+    """K2's least work over ``frames`` frames in FLOP: a real FFT at 2.5 n
+    log2 n a frame, 4 a bin for the magnitude, 2 a non-zero filterbank
+    weight. Beside it the TPU formulation's count, by which K2 was bounded
+    while it computed dense DFT products: two such products and a dense mel
+    product."""
+    n, n_bins = cfg.fft_size, cfg.fft_size // 2 + 1
+    nnz = np.count_nonzero(mel_bases(cfg)[2])
+    fft = frames * (2.5 * n * np.log2(n) + 4 * n_bins + 2 * nnz)
+    dense = frames * (2 * 2 * n * n_bins + 2 * n_bins * cfg.num_mels)
+    return float(fft), float(dense)
+
+
+def edit_wav():
+    """bench.py's 131072-sample utterance, the edit path's K2 input."""
+    return torch.tensor(utterance(512 * HOP, seed=0), device="cuda")[None]
+
+
 def phase_mel() -> dict:
-    cfg, n = MelConfig(), 512 * HOP          # bench.py's 131072-sample utterance
-    tol, mean_tol = 2e-2, 2e-3               # log10 units, the Pallas kernel's test bars
-    wav = torch.tensor(utterance(n, seed=0), device="cuda")[None]
-    got, ref = mel_spectrogram(wav, cfg), mel_plain(wav, cfg)
-    torch.cuda.synchronize()
-    err = float((got - ref).abs().max())
-    mean_err = float((got - ref).abs().mean())
-    ms = time_ms(lambda: mel_spectrogram(wav, cfg))
+    """K2 against its plain version at MEL_SHAPES (max and mean error in
+    log10); at the edit shape its event time, device time, device operations
+    (which must be 1) and host time a call, beside the plain version and the
+    cuFFT composite, and its share of the bound, counted as the function's
+    least work at the fp32 CUDA-core rate (the old DFT-product count once
+    beside it)."""
+    out = {"max_abs_err": 0.0, "shapes": []}
+    for b, n, hop in MEL_SHAPES:
+        cfg = MelConfig(hop_size=hop)
+        wav = torch.tensor(np.stack([utterance(n, seed=i) for i in range(b)]), device="cuda")
+        got, ref = mel_spectrogram(wav, cfg), mel_plain(wav, cfg)
+        torch.cuda.synchronize()
+        err, mean_err = float((got - ref).abs().max()), float((got - ref).abs().mean())
+        print(f"[kernel] mel_spectrogram B={b} N={n} hop={hop} ({got.shape[1]} frames): "
+              f"max_abs_err={err:.3e} (tol {MEL_TOL}), mean_abs_err={mean_err:.3e} "
+              f"(tol {MEL_MEAN_TOL})", flush=True)
+        check(err <= MEL_TOL, f"mel_spectrogram B={b} N={n} hop={hop}: error {err} > {MEL_TOL}")
+        check(mean_err <= MEL_MEAN_TOL, f"mel_spectrogram B={b} N={n} hop={hop}: mean error "
+                                        f"{mean_err} > {MEL_MEAN_TOL}")
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        out["shapes"].append(dict(b=b, n=n, hop=hop, max_err=err, mean_err=mean_err))
+
+    cfg, wav = MelConfig(), edit_wav()
+    got, cufft = mel_spectrogram(wav, cfg), cufft_mel(wav, cfg)
+    cufft_err = float((cufft() - got).abs().max())
+    t = call_times(lambda: mel_spectrogram(wav, cfg), cufft)
+    check_one_op("mel_spectrogram", t)
     plain_ms = time_ms(lambda: mel_plain(wav, cfg))
-    n_frames, n_bins = got.shape[1], cfg.fft_size // 2 + 1
-    flops = n_frames * (2 * 2 * cfg.fft_size * n_bins + 2 * n_bins * cfg.num_mels)
+    n_bins = cfg.fft_size // 2 + 1
+    fft_flops, dense_flops = mel_work(cfg, got.shape[1])
+    io = nbytes(wav, got)
+    bound_ms, bound_by = bound(fft_flops, io, PEAK_FP32_FLOPS)
     basis_bytes = 4 * (2 * cfg.fft_size * n_bins + n_bins * cfg.num_mels)
-    bound_ms, bound_by = bound(flops, nbytes(wav, got) + basis_bytes)
-    print(f"[kernel] mel_spectrogram N={n}: max_abs_err={err:.3e} (tol {tol}), "
-          f"mean_abs_err={mean_err:.3e} (tol {mean_tol}) kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
-          f"{rate(flops, ms, bound_ms)}", flush=True)
-    check(err <= tol, f"mel_spectrogram: error {err} > {tol}")
-    check(mean_err <= mean_tol, f"mel_spectrogram: mean error {mean_err} > {mean_tol}")
-    return dict(name="mel_spectrogram", route="cuda",
+    old_ms, old_by = bound(dense_flops, io + basis_bytes)
+    print(f"[kernel] mel_spectrogram B=1 N={wav.shape[1]}: {times_text(t, CUFFT)}; plain "
+          f"{plain_ms:.4f} ms; the composite's max |diff| from the kernel {cufft_err:.3e}; "
+          f"bound {bound_ms:.6f} ms ({bound_by}: {fft_flops / 1e6:.2f} MFLOP at the fp32 "
+          f"CUDA-core rate, {io / 1e6:.3f} MB), {bound_ms / t['device_ms']:.3f} of the device "
+          f"time, {bound_ms / t['ms']:.3f} of the event time; the old DFT-product count "
+          f"{old_ms:.6f} ms ({old_by}: {dense_flops / 1e9:.3f} GFLOP at 3xTF32, "
+          f"{(io + basis_bytes) / 1e6:.2f} MB with the bases), {old_ms / t['device_ms']:.3f} "
+          f"of the device time", flush=True)
+    return dict(out, name="mel_spectrogram", route="cuda",
                 source="speech_editing_tpu_torch/csrc/mel_kernel.cu",
-                replaces="speech_editing_tpu/ops/pallas/mel_kernel.py:53",
-                max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+                replaces="speech_editing_tpu/ops/pallas/mel_kernel.py:53", tol=MEL_TOL,
+                ms=t["ms"], device_ms=t["device_ms"], ops_per_call=t["ops_per_call"],
+                host_us=t["host_us"], plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                old_bound_ms=old_ms, library_ms=None, cufft_ms=t["library_ms"],
+                cufft_device_ms=t["library_device_ms"],
+                cufft_ops_per_call=t["library_ops_per_call"])
+
+
+def time_mel(gen=None) -> None:
+    """``--time-mel``: K2 as the installed package builds it, timed at the
+    edit shape beside the cuFFT composite with no checks, so that two
+    versions of the package can be timed in one call; one JSON line."""
+    cfg, wav = MelConfig(), edit_wav()
+    t = call_times(lambda: mel_spectrogram(wav, cfg), cufft_mel(wav, cfg))
+    print(f"[time] mel_spectrogram B=1 N={wav.shape[1]}: {times_text(t, CUFFT)}", flush=True)
+    print(json.dumps({"mel_times": t}))
 
 
 PROFILE_EDGE_S = 0.05
@@ -915,10 +1007,15 @@ def compare_step_with_cpu(trainer, batch) -> None:
         check(worst[key][0] <= STEP_MOMENT_TOL, f"B=2 step: {key} error {worst[key]}")
 
 
+# the timing-only modes: the kernels they build and the function that times them
+TIMING_MODES = {"--time-attention": (("flash_attention", "flash_attention_bwd"), time_attention),
+                "--time-mel": (("mel_kernel",), time_mel)}
+
+
 def main() -> None:
-    only_times = sys.argv[1:] == ["--time-attention"]
-    if sys.argv[1:] and not only_times:
-        fail(f"usage: python3 chip_smoke.py [--time-attention]; got {sys.argv[1:]}")
+    timing = TIMING_MODES.get(sys.argv[1]) if len(sys.argv) == 2 else None
+    if sys.argv[1:] and timing is None:
+        fail(f"usage: python3 chip_smoke.py [{' | '.join(TIMING_MODES)}]; got {sys.argv[1:]}")
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke run needs one GPU")
     smi = subprocess.run(["nvidia-smi", "--id=0", "--query-gpu=name,power.limit",
@@ -932,10 +1029,11 @@ def main() -> None:
     print("[device] float32 everywhere; TF32 off for matmul and cuDNN", flush=True)
 
     t0 = time.perf_counter()
-    if only_times:
-        build.build_all(("flash_attention", "flash_attention_bwd"))
+    if timing:
+        names, run = timing
+        build.build_all(names)
         print(smi, flush=True)
-        time_attention(torch.Generator(device="cuda").manual_seed(0))
+        run(torch.Generator(device="cuda").manual_seed(0))
         return
     reports = build.build_all()
     print(f"[build] {len(build.SOURCES)} kernels ({', '.join(build.SOURCES)}) in "
@@ -962,7 +1060,9 @@ def main() -> None:
     print(json.dumps({"edit_rtf": rtf, "train_step": train, "card": smi}))
     print(smi)
     extra = ("warm_ms", "warm_plain_ms", "host_us", "train_ms", "train_plain_ms",
-             "train_bound_ms", "device_ms", "ops_per_call", "library_device_ms", "shapes")
+             "train_bound_ms", "train_device_ms", "train_ops_per_call", "train_host_us",
+             "device_ms", "ops_per_call", "library_device_ms", "old_bound_ms", "cufft_ms",
+             "cufft_device_ms", "cufft_ops_per_call", "shapes")
     print(json.dumps({"kernels": [{key: k[key] for key in keys + extra if key in k}
                                   for k in kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

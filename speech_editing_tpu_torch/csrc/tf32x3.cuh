@@ -1,7 +1,7 @@
 // Float32-accurate tile products on the H100's tensor cores (3xTF32), and the
 // copies that feed them. Shared by K1 (diffnet_block.cu), K5
 // (diffnet_block_bwd.cu), K3 (flash_attention.cu) and K4
-// (flash_attention_bwd.cu).
+// (flash_attention_bwd.cu); K2 (mel_kernel.cu) uses only the cp.async copies.
 //
 // Each operand is split as a = hi + lo: hi = tf32(a), rounded to nearest
 // (cvt.rna's rounding), and lo = a - hi, the fp32 residual, which the

@@ -1,10 +1,12 @@
 """Log-mel spectrogram: the configuration and the plain PyTorch version.
 
-The plain version computes what the fused kernel (``ops/cuda/mel_kernel.py``)
-computes, in the same formulation: constant centre padding, the periodic
-Hann window folded into cos/sin DFT bases, two DFT products,
-``sqrt(re^2 + im^2 + 1e-30)``, the slaney mel product and
-``log10(max(eps, .))``. Frames: ``N // hop + 1``.
+The plain version computes the function of the fused kernel
+(``ops/cuda/mel_kernel.py``) as dense products, the TPU kernel's
+formulation: constant centre padding, the periodic Hann window folded into
+cos/sin DFT bases, two DFT products, ``sqrt(re^2 + im^2 + 1e-30)``, the
+slaney mel product and ``log10(max(eps, .))``. The kernel computes the
+same bins by a real FFT and sums each mel band over its non-zero bins
+only. Frames: ``N // hop + 1``.
 """
 
 from __future__ import annotations
