@@ -24,11 +24,12 @@ Phases, each of which exits non-zero on a failed check:
    composite, its bound counted as the least work of the function (a real
    FFT on the fp32 CUDA cores);
 4. edit path: ``EditPipeline`` at the flagship width (seeded random
-   weights) answers edit requests of 512 (``bench.py``'s utterance), 300
-   and 700 frames; every launch counter must move by exactly its expected
-   amount per request; outputs are finite, frames outside the edit equal
-   the source mel, and one request re-run on the CPU (plain versions, same
-   weights and noise) agrees; the edit's real-time factor is timed;
+   weights, DiffNet's output projection drawn non-zero) answers edit
+   requests of 512 (``bench.py``'s utterance), 300 and 700 frames; every
+   launch counter must move by exactly its expected amount per request;
+   outputs are finite, frames outside the edit equal the source mel, and
+   one request re-run on the CPU (plain versions, same weights and noise)
+   agrees; the edit's real-time factor is timed;
 5. train path: ``Trainer`` at the flagship width takes 3 warm-up and 10
    timed steps on a seeded synthetic batch at the flagship token budget
    (78 utterances x 512 frames); every loss term and the gradient norm are
@@ -36,7 +37,21 @@ Phases, each of which exits non-zero on a failed check:
    per step; one step on a 2-utterance slice, re-run on the CPU (plain
    versions, same weights, optimizer state, diffusion draw, dropout off),
    agrees in losses, gradients, parameters and Adam moments; step time,
-   frames per second, peak memory and a profiled step are printed.
+   frames per second, peak memory and a profiled step are printed;
+6. run path: the training entry ``speech_editing_tpu_torch.run`` on
+   ``egs/spec_denoiser.yaml`` as shipped (conv text encoder, speaker
+   embeddings, ``max_sentences`` 16, ``max_tokens`` 40,000, two loader
+   workers, alignment-aware masks; float32 through ``use_bf16=False``) over
+   a synthetic binarized corpus of 512/32/8 utterances of 150-700 frames,
+   in a temporary directory: 60 steps with sanity validation, validation
+   and a checkpoint every 30 steps, then a second run resumes to 70. Every
+   step launches K1 and K5 20 times each and nothing else, every
+   validation batch K1 20 times; metrics are finite; the checkpoints at 30
+   and 60 exist; the resume starts at step 60 with the saved parameters and
+   Adam moments bit for bit; a 2-utterance slice of a corpus batch, stepped
+   on the card and on the CPU, agrees. Steps/s, real frames/s, the loader
+   wait a step, a profiled step, peak memory, validation time and the
+   checkpoint's size, save and load times are printed.
 
 ``python3 chip_smoke.py --time-attention`` builds K3 and K4 only and times
 them and SDPA at those shapes, with no checks; ``--time-mel`` does the same
@@ -51,10 +66,15 @@ second-to-last line is ``{"kernels": [...]}``, the last
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import itertools
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -62,6 +82,7 @@ import torch
 import torch.nn.functional as F
 
 from speech_editing_tpu_torch.config.flagship import FLAGSHIP_HP, HIFIGAN_V1_HP
+from speech_editing_tpu_torch.data.indexed_dataset import IndexedDatasetBuilder
 from speech_editing_tpu_torch.infer.edit import EditPipeline
 from speech_editing_tpu_torch.ops.cuda import build
 from speech_editing_tpu_torch.ops.cuda.diffnet_block import (_fits64, _tile_plan,
@@ -78,6 +99,7 @@ from speech_editing_tpu_torch.ops.flash_attention import (attention_bwd_plain,
                                                           flash_mha_train)
 from speech_editing_tpu_torch.ops.mel import MelConfig, mel_bases
 from speech_editing_tpu_torch.ops.mel import mel_spectrogram as mel_plain
+from speech_editing_tpu_torch.run import run as run_entry
 from speech_editing_tpu_torch.training.trainer import Trainer
 from speech_editing_tpu_torch.utils.audio.dsp import stft_window
 
@@ -180,14 +202,21 @@ def rel_err(got, ref) -> float:
 
 # -- kernel phases ---------------------------------------------------------------
 
-def block_inputs(gen, b: int, t: int = 512):
+def block_inputs(gen, b: int, t: int = 512, ragged: bool = False):
     """A DiffNet block's inputs at the flagship width, the last row with a
-    37-frame padded tail: (x, cond, step, mask, weights)."""
+    37-frame padded tail, or with ``ragged`` each row but the first padded
+    from a length drawn in [t/5, t], as a collated batch of utterances is:
+    (x, cond, step, mask, weights)."""
     c, h = FLAGSHIP_HP["residual_channels"], FLAGSHIP_HP["hidden_size"]
     r = lambda *s, scale=1.0: torch.randn(*s, device="cuda", generator=gen) * scale
     x, cond, step = r(b, t, c), r(b, t, h, scale=0.5), r(b, c, scale=0.3)
     mask = torch.ones(b, t, device="cuda")
-    mask[-1, t - 37:] = 0.0
+    if ragged:
+        lengths = torch.randint(t // 5, t + 1, (b,), device="cuda", generator=gen)
+        lengths[0] = t
+        mask = (torch.arange(t, device="cuda")[None] < lengths[:, None]).float()
+    else:
+        mask[-1, t - 37:] = 0.0
     w = (r(3 * c, 2 * c, scale=0.05), r(2 * c, scale=0.1), r(h, 2 * c, scale=0.05),
          r(2 * c, scale=0.1), r(c, 2 * c, scale=0.05), r(2 * c, scale=0.1))
     return x, cond, step, mask, w
@@ -201,27 +230,48 @@ def check_wide_dilation(name: str, b: int, t: int, dilation: int) -> None:
           f"{name}: 64-row tiles expected at dilation 1 and 16-row tiles at {dilation}")
 
 
+def run_block_shapes():
+    """The run path's block shapes, [max_sentences, T] at dilation 1 with
+    every row padded to its own length: T = 700 (the corpus's longest;
+    64-row tiles with a ragged last tile), 500 (64-row tiles, ragged) and
+    300 (16-row tiles, ragged)."""
+    return [(RUN_B, t, 1) for t in (RUN_MAX_T, 500, 300)]
+
+
+def plan_text(name: str, b: int, t: int, dilation: int) -> str:
+    """The tile plan the wrapper of K1 or K5 (which takes no cluster) picks."""
+    rows, cluster = _tile_plan(b, t, _fits64(name, dilation))
+    split = cluster > 1 and name == "diffnet_block"
+    return f"{rows}-row tiles{f' x cluster {cluster}' if split else ''}"
+
+
 def phase_diffnet_block(gen) -> dict:
     """K1 against its plain version at the edit's requests (B=1, T = 512,
     300, 700), at B=4 with dilation 1, 2 and 3 (3 at T=509, a ragged last
-    tile), at B=16 with dilation 8 (whose 64-row tiles do not fit) and at
-    the train shape with h; timed at the edit shape warm and L2-cold, and at
-    the train shape, with the device time, device operations and host time
-    of one call at both."""
+    tile), at B=16 with dilation 8 (whose 64-row tiles do not fit), at the
+    train shape with h and at the run path's shapes (every row padded to
+    its own length) with h and without; timed at the edit shape warm and
+    L2-cold, and at the train shape, with the device time, device
+    operations and host time of one call at both."""
     c, h = FLAGSHIP_HP["residual_channels"], FLAGSHIP_HP["hidden_size"]
     tol, out = 1e-4, {"max_abs_err": 0.0}
     flops = lambda b, t: 2 * b * t * 2 * c * (3 * c + h + c)
     check_wide_dilation("diffnet_block", 16, 512, 8)
-    for b, t, dilation in ((1, 512, 1), (1, 300, 1), (1, 700, 1), (4, 512, 1), (4, 512, 2),
-                           (4, 509, 3), (16, 512, 8), (TRAIN_B, 512, 1)):
-        x, cond, step, mask, w = block_inputs(gen, b, t)
-        train = b == TRAIN_B      # the train path's form: h written too
+    shapes = [(b, t, d, False, b == TRAIN_B)   # the train path's form: h written too
+              for b, t, d in ((1, 512, 1), (1, 300, 1), (1, 700, 1), (4, 512, 1), (4, 512, 2),
+                              (4, 509, 3), (16, 512, 8), (TRAIN_B, 512, 1))]
+    shapes += [(b, t, d, True, train) for b, t, d in run_block_shapes() for train in (True, False)]
+    for b, t, dilation, ragged, train in shapes:
+        x, cond, step, mask, w = block_inputs(gen, b, t, ragged)
         call = lambda fn: fn(x, cond, step, mask, *w, dilation=dilation, return_h=train)
         got, ref = call(diffnet_block), call(diffnet_block_plain)
         torch.cuda.synchronize()
         err = max(float((g - e).abs().max()) for g, e in zip(got, ref))
         msg = (f"[kernel] diffnet_block B={b} T={t} C={c} H={h} dilation={dilation}"
-               f"{' (with h)' if train else ''}: max_abs_err={err:.3e} (tol {tol})")
+               f"{' (with h)' if train else ''}"
+               f"{', rows padded to their own lengths' if ragged else ''}, "
+               f"{plan_text('diffnet_block', b, t, dilation)}: max_abs_err={err:.3e} "
+               f"(tol {tol})")
         check(err <= tol, f"diffnet_block B={b} T={t} d={dilation}: error {err} > {tol}")
         out["max_abs_err"] = max(out["max_abs_err"], err)
         if (b, t) in ((1, 512), (TRAIN_B, 512)):
@@ -266,12 +316,15 @@ def phase_diffnet_block_bwd(gen) -> dict:
     (and 3 at T=509, a ragged last tile); timed at B=4 and at the train
     path's B=78, there also with the device time, device operations and
     host time of one call; against its plain version also at B=16 with
-    dilation 8, whose 64-row tiles do not fit."""
+    dilation 8, whose 64-row tiles do not fit, and at the run path's
+    shapes (every row padded to its own length)."""
     c, out = FLAGSHIP_HP["residual_channels"], {"max_abs_err": 0.0}
     check_wide_dilation("diffnet_block_bwd", 16, 512, 8)
-    for b, t, dilation in ((4, 512, 1), (4, 512, 2), (4, 509, 3), (16, 512, 8),
-                           (TRAIN_B, 512, 1)):
-        x, cond, step, mask, w = block_inputs(gen, b, t)
+    shapes = [(b, t, d, False) for b, t, d in ((4, 512, 1), (4, 512, 2), (4, 509, 3),
+                                               (16, 512, 8), (TRAIN_B, 512, 1))]
+    shapes += [(b, t, d, True) for b, t, d in run_block_shapes()]
+    for b, t, dilation, ragged in shapes:
+        x, cond, step, mask, w = block_inputs(gen, b, t, ragged)
         dxo, dsk = (torch.randn(b, t, c, device="cuda", generator=gen) for _ in range(2))
         _, _, h = diffnet_block(x, cond, step, mask, *w, dilation=dilation,
                                 return_h=True)
@@ -279,8 +332,9 @@ def phase_diffnet_block_bwd(gen) -> dict:
         got, ref = diffnet_block_bwd(*args), diffnet_block_bwd_plain(*args)
         torch.cuda.synchronize()
         err = rel_err(got, ref)
-        msg = f"[kernel] diffnet_block_bwd B={b} T={t} C={c} dilation={dilation}: " \
-              f"max err vs plain {err:.3e}"
+        msg = (f"[kernel] diffnet_block_bwd B={b} T={t} C={c} dilation={dilation}"
+               f"{', rows padded to their own lengths' if ragged else ''}, "
+               f"{plan_text('diffnet_block_bwd', b, t, dilation)}: max err vs plain {err:.3e}")
         if b == 4:
             leaves = [a.detach().requires_grad_() for a in (x, cond, step, *w)]
 
@@ -295,7 +349,7 @@ def phase_diffnet_block_bwd(gen) -> dict:
             err = max(err, err_ag)
         check(err <= BWD_TOL, f"diffnet_block_bwd B={b} d={dilation}: error {err}")
         out["max_abs_err"] = max(out["max_abs_err"], err)
-        if dilation == 1:
+        if (b, t) in ((4, 512), (TRAIN_B, 512)) and dilation == 1:
             ms = time_ms(lambda: diffnet_block_bwd(*args))
             plain_ms = time_ms(lambda: diffnet_block_bwd_plain(*args))
             flops = 16 * b * t * c * c
@@ -425,7 +479,7 @@ MARKER = "bitwise_not"     # the marker kernel's name holds this; no measured ca
 
 
 def profiled(run) -> list:
-    """``torch.profiler``'s device operations (``device_ops``) over one call
+    """``torch.profiler``'s events by name (``key_averages``) over one call
     of ``run``, after one profiled warm-up call. The profiler keeps a device
     event only if its timestamp falls inside its window, and the device's
     timestamps can read behind the host clock (a kernel seen to start before
@@ -441,7 +495,7 @@ def profiled(run) -> list:
             torch.cuda.synchronize()
             time.sleep(PROFILE_EDGE_S)
             prof.step()
-    return device_ops(prof)
+    return list(prof.key_averages())
 
 
 def profile_calls(fn, iters: int = 50, tries: int = 3) -> tuple[float, int]:
@@ -459,7 +513,7 @@ def profile_calls(fn, iters: int = 50, tries: int = 3) -> tuple[float, int]:
             fn()
             marker.bitwise_not_()
     for _ in range(tries):
-        ops = profiled(run)
+        ops = device_ops(profiled(run))
         marks = sum(e.count for e in ops if MARKER in e.key)
         if marks >= iters / 2:
             break
@@ -743,6 +797,11 @@ def edit_request(t: int, seed: int, device: str):
 
 def edit_path(gen) -> tuple[dict, dict]:
     pipe = EditPipeline(FLAGSHIP_HP, HIFIGAN_V1_HP, device="cuda", vocab_size=80, seed=0)
+    # flax zero-initializes DiffNet's output projection, which would hide the
+    # blocks' output from the comparisons below; a trained model's is not zero
+    out = pipe.model.denoise_fn.output_projection.weight
+    out.data.copy_(torch.randn(out.shape, generator=torch.Generator().manual_seed(0))
+                   * (2 / out.shape[1]) ** 0.5)
     big_t = FLAGSHIP_HP["timesteps"]
     requests = {t: edit_request(t, seed=i, device="cuda")
                 for i, t in enumerate(REQUEST_FRAMES)}
@@ -831,12 +890,21 @@ def time_edits(pipe, req, gen, n: int = 40, warmup: int = 3) -> dict:
     return rtf
 
 
-def device_ops(prof) -> list:
+def device_ops(events: list) -> list:
     """The profile's device operations by name, without the spans of
     annotations (the profiler step, the optimizer step), whose device time
     is that of the kernels inside them."""
-    return [e for e in prof.key_averages()
+    return [e for e in events
             if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and not e.key.startswith(("ProfilerStep", "Optimizer."))]
+
+
+def host_ops(events: list) -> list:
+    """The profile's host operations by name (the CPU side: operators,
+    CUDA runtime calls), without the annotation spans."""
+    return [e for e in events
+            if e.device_type == torch.autograd.DeviceType.CPU
             and not getattr(e, "is_user_annotation", False)
             and not e.key.startswith(("ProfilerStep", "Optimizer."))]
 
@@ -845,7 +913,7 @@ def profile_edit(pipe, req, gen, edit_ms: float, top: int = 12) -> None:
     """Device time by kernel over one 512-frame edit (``torch.profiler``,
     after one profiled warm-up edit), and its share of ``edit_ms``, the
     edit's host-clock time without the profiler."""
-    kernels = profiled(lambda: pipe(*req, generator=gen))
+    kernels = device_ops(profiled(lambda: pipe(*req, generator=gen)))
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if busy_ms == 0:
         print("[profile] the profiler saw no device time: not measured", flush=True)
@@ -893,8 +961,8 @@ def train_batch(b: int, t: int, s: int, seed: int) -> dict:
 def train_path() -> tuple[dict, dict]:
     batch = train_batch(TRAIN_B, TRAIN_T, TRAIN_S, seed=0)
     real_frames = int((batch["mel2ph"] > 0).sum())
-    trainer = Trainer(dict(FLAGSHIP_HP, tb_log_interval=TRAIN_WARMUP + TRAIN_TIMED),
-                      device="cuda", seed=0, vocab_size=80, sil_token_ids=SIL_IDS)
+    trainer = Trainer.from_hp(FLAGSHIP_HP, device="cuda", seed=0, vocab_size=80,
+                              sil_token_ids=SIL_IDS)
     reset_counts()
     per_step, ev_ms, host_ms = [], [], []
     torch.cuda.reset_peak_memory_stats()
@@ -937,74 +1005,403 @@ def train_path() -> tuple[dict, dict]:
           f"{stats['frames_per_s']:.0f} frames/s ({stats['real_frames_per_s']:.0f} real); "
           f"peak memory {peak_gib:.3f} GiB", flush=True)
     profile_step(trainer, batch, stats["host_ms_p50"])
-    compare_step_with_cpu(trainer, batch)
+    compare_step_with_cpu("train", lambda dev: Trainer.from_hp(
+        FLAGSHIP_HP, device=dev, seed=1, vocab_size=80, sil_token_ids=SIL_IDS,
+        dropout=False), trainer.train_step.state_dict(), {k: v[:2] for k, v in batch.items()})
     return totals, stats
 
 
-def profile_step(trainer, batch, step_ms: float, top: int = 15) -> None:
+def profile_step(trainer, batch, step_ms: float, top: int = 15,
+                 label: str = "train") -> float | None:
     """Device time by kernel over one train step (``torch.profiler``, after
     one profiled warm-up step), and its share of ``step_ms``, the step's
-    host-clock time without the profiler."""
-    kernels = profiled(lambda: trainer.step(batch))
+    host-clock time without the profiler; then the host's own time by
+    operation (under the profiler, which adds to it). Returns the device's
+    busy ms, None if the profiler saw none."""
+    events = profiled(lambda: trainer.step(batch))
+    kernels = device_ops(events)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if busy_ms == 0:
         print("[profile] the profiler saw no device time: not measured", flush=True)
-        return
-    print(f"[profile] train step: {sum(e.count for e in kernels)} device operations, "
+        return None
+    print(f"[profile] {label} step: {sum(e.count for e in kernels)} device operations, "
           f"busy {busy_ms:.3f} ms, {busy_ms / step_ms:.3f} of the unprofiled step's "
           f"{step_ms:.3f} ms host clock", flush=True)
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         print(f"[profile] {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d}x "
               f"{e.key[:90]}", flush=True)
+    host = host_ops(events)
+    print(f"[profile] {label} step, host: {sum(e.count for e in host)} operations and "
+          f"runtime calls, {sum(e.self_cpu_time_total for e in host) / 1e3:.3f} ms of "
+          f"their own host time under the profiler; the largest:", flush=True)
+    for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:top]:
+        print(f"[profile] {e.self_cpu_time_total / 1e3:9.3f} ms {e.count:5d}x "
+              f"{e.key[:90]}", flush=True)
+    return busy_ms
 
 
-def compare_step_with_cpu(trainer, batch) -> None:
-    """One step on a 2-utterance slice of the batch, on the card and on the
-    CPU (plain versions), from the trained state with the same diffusion
-    draw and dropout off: losses, gradients, updated parameters and Adam
-    moments must agree."""
-    import copy
-    sub = {k: v[:2] for k, v in batch.items()}
+@contextlib.contextmanager
+def relu_branches(masks: list, replay: bool):
+    """Within the block every ReLU (``torch.relu``, which ``F.relu`` and
+    ``nn.ReLU`` call) records its branch, ``x > 0``, into ``masks`` in call
+    order; with ``replay`` it takes the recorded branch instead of its own,
+    ``x * mask``, and counts the inputs where the two differ. A gradient
+    jumps where a ReLU's input crosses 0: two steps whose pre-activations
+    differ by rounding can take different branches at an input within
+    rounding of 0 and then differ there by far more than rounding. Yields
+    ``[flips, calls]``."""
+    orig, tally = torch.relu, [0, 0]
+
+    def relu(x):
+        if not replay:
+            masks.append(x.detach() > 0)
+            return orig(x)
+        mask = masks[tally[1]].to(x.device)
+        tally[0] += int(((x > 0) != mask).sum())
+        tally[1] += 1
+        return x * mask.to(x.dtype)
+
+    torch.relu = relu
+    try:
+        yield tally
+    finally:
+        torch.relu = orig
+    check(not replay or tally[1] == len(masks),
+          f"relu_branches: {tally[1]} ReLU calls replayed {len(masks)} recorded ones")
+
+
+def compare_step_with_cpu(label: str, make_twin, state: dict, sub: dict) -> None:
+    """One step on ``sub``, a 2-utterance batch (host arrays of the step's
+    keys), on the card and on the CPU (plain versions): twins from
+    ``make_twin(device)`` with dropout off load ``state`` and take the same
+    diffusion draw, and the CPU's ReLUs take the card's branches
+    (``relu_branches``), so both differentiate the same function; losses,
+    gradients, updated parameters and Adam moments must agree."""
     gen = torch.Generator().manual_seed(7)
-    t_draw = torch.randint(0, FLAGSHIP_HP["timesteps"] + 1, (2,), generator=gen)
-    noise = torch.randn(2, TRAIN_T, 80, generator=gen)
-    state = trainer.train_step.state_dict()
+    b, t = sub["mels"].shape[:2]
+    t_draw = torch.randint(0, FLAGSHIP_HP["timesteps"] + 1, (b,), generator=gen)
+    noise = torch.randn(b, t, 80, generator=gen)
+    masks: list = []
 
-    def run(dev: str) -> dict:
-        twin = Trainer(FLAGSHIP_HP, device=dev, seed=1, vocab_size=80,
-                       sil_token_ids=SIL_IDS, dropout=False)
+    def run(dev: str, replay: bool) -> dict:
+        twin = make_twin(dev)
         twin.train_step.load_state_dict(copy.deepcopy(state))
         t0 = time.perf_counter()
-        metrics = twin.train_step(twin.to_device(sub), t=t_draw.to(dev),
-                                  noise=noise.to(dev))
+        with relu_branches(masks, replay) as tally:
+            metrics = twin.train_step(twin.to_device(sub), t=t_draw.to(dev),
+                                      noise=noise.to(dev))
         secs = time.perf_counter() - t0
         step = twin.train_step
         named = dict(step.model.named_parameters())
         moment = lambda key: {n: step.optimizer.state[p][key].cpu()
                               for n, p in named.items()}
         return dict(secs=secs, metrics={k: float(v) for k, v in metrics.items()},
-                    grads={n: p.grad.cpu() for n, p in named.items()},
+                    flips=tally[0], grads={n: p.grad.cpu() for n, p in named.items()},
                     params={n: p.detach().cpu() for n, p in named.items()},
                     exp_avg=moment("exp_avg"), exp_avg_sq=moment("exp_avg_sq"))
 
-    gpu, cpu = (run(dev) for dev in ("cuda", "cpu"))
+    gpu, cpu = (run(dev, replay=i == 1) for i, dev in enumerate(("cuda", "cpu")))
+    n_relu = sum(m.numel() for m in masks)
     loss_err = max(abs(gpu["metrics"][k] - v) / max(abs(v), 1e-12)
                    for k, v in cpu["metrics"].items() if k != "nan_grads")
     worst = {key: max((rel_err([gpu[key][n]], [cpu[key][n]]), n) for n in cpu[key])
              for key in ("grads", "params", "exp_avg", "exp_avg_sq")}
-    print(f"[train] B=2 step on the card vs the CPU ({cpu['secs']:.1f} s): loss terms "
+    print(f"[{label}] B=2 step on the card vs the CPU ({cpu['secs']:.1f} s): loss terms "
           f"max rel err {loss_err:.3e} (tol {STEP_LOSS_RTOL}); gradients "
           f"{worst['grads'][0]:.3e} of each tensor's max (tol {STEP_GRAD_TOL}, worst "
           f"{worst['grads'][1]}); updated params {worst['params'][0]:.3e} (tol "
           f"{STEP_PARAM_TOL}); Adam moments {worst['exp_avg'][0]:.3e} / "
           f"{worst['exp_avg_sq'][0]:.3e} (tol {STEP_MOMENT_TOL}); loss "
-          f"{gpu['metrics']['total_loss']:.6f} vs {cpu['metrics']['total_loss']:.6f}",
-          flush=True)
-    check(loss_err <= STEP_LOSS_RTOL, f"B=2 step: loss error {loss_err}")
-    check(worst["grads"][0] <= STEP_GRAD_TOL, f"B=2 step: gradient error {worst['grads']}")
-    check(worst["params"][0] <= STEP_PARAM_TOL, f"B=2 step: param error {worst['params']}")
+          f"{gpu['metrics']['total_loss']:.6f} vs {cpu['metrics']['total_loss']:.6f}; ReLU "
+          f"inputs on the other side of 0 on the CPU, given the card's branch: "
+          f"{cpu['flips']} of {n_relu}", flush=True)
+    check(loss_err <= STEP_LOSS_RTOL, f"[{label}] B=2 step: loss error {loss_err}")
+    check(worst["grads"][0] <= STEP_GRAD_TOL, f"[{label}] B=2 step: gradient error {worst['grads']}")
+    check(worst["params"][0] <= STEP_PARAM_TOL, f"[{label}] B=2 step: param error {worst['params']}")
     for key in ("exp_avg", "exp_avg_sq"):
-        check(worst[key][0] <= STEP_MOMENT_TOL, f"B=2 step: {key} error {worst[key]}")
+        check(worst[key][0] <= STEP_MOMENT_TOL, f"[{label}] B=2 step: {key} error {worst[key]}")
+
+
+# -- run path --------------------------------------------------------------------
+
+# the synthetic corpus: VCTK-like utterances (150-700 frames, about 2-8 s at
+# 22,050 Hz and hop 256), one phone per about 7 frames, 80 phones
+RUN_SPLITS = {"train": 512, "valid": 32, "test": 8}
+RUN_MIN_T, RUN_MAX_T, RUN_FRAMES_PER_PHONE = 150, 700, 7
+RUN_SIL_PHONES = ["|", ",", ".", "?", "!", ";"]
+RUN_PHONES = RUN_SIL_PHONES + [f"P{i}" for i in range(80 - len(RUN_SIL_PHONES))]
+RUN_SPEAKERS = 24
+RUN_HP = ("use_bf16=False,max_updates=60,val_check_interval=30,num_sanity_val_steps=2,"
+          "eval_max_batches=8,tb_log_interval=10")
+RUN_RESUME_TO = 70
+RUN_B = 16              # egs/base.yaml's max_sentences: 16 x 700 frames is under max_tokens
+RUN_WARMUP = 5          # steps of the first run left out of its timings
+RUN_LAYERS = FLAGSHIP_HP["residual_layers"]   # egs/spec_denoiser.yaml's, as the flagship's
+EXPECTED_PER_RUN_STEP = {"diffnet_block": RUN_LAYERS, "diffnet_block_bwd": RUN_LAYERS,
+                         "mel_spectrogram": 0, "flash_mha": 0, "flash_mha_bwd": 0}
+EXPECTED_PER_VALID_BATCH = dict(EXPECTED_PER_RUN_STEP, diffnet_block_bwd=0)
+
+
+def write_run_corpus(data_dir: str, seed: int = 0) -> int:
+    """A binarized corpus with every key ``EditingDataset`` reads, written
+    by the port's ``IndexedDatasetBuilder``: log-mel-like mels, phone
+    tokens with a silence phone about one in four, monotonic mel2ph, raw
+    f0 in Hz with 20 % unvoiced frames, coarse pitch, a 256-d speaker
+    embedding per speaker. Returns the bytes of mel written."""
+    rs = np.random.RandomState(seed)
+    os.makedirs(data_dir)
+    with open(os.path.join(data_dir, "phone_set.json"), "w") as f:
+        json.dump(RUN_PHONES, f)
+    speakers = rs.randn(RUN_SPEAKERS, 256).astype(np.float32)
+    n_sil = len(RUN_SIL_PHONES)
+    mel_bytes = 0
+    for split, n_items in RUN_SPLITS.items():
+        builder = IndexedDatasetBuilder(os.path.join(data_dir, split))
+        lengths = rs.randint(RUN_MIN_T, RUN_MAX_T + 1, n_items)
+        for i, t in enumerate(lengths):
+            s = max(2, int(t) // RUN_FRAMES_PER_PHONE)
+            tokens = rs.randint(3 + n_sil, 3 + len(RUN_PHONES), s)
+            sil = rs.rand(s) < 0.25
+            tokens[sil] = rs.randint(3, 3 + n_sil, int(sil.sum()))
+            bounds = np.sort(rs.choice(np.arange(1, t), s - 1, replace=False))
+            mel2ph = np.searchsorted(bounds, np.arange(t), side="right") + 1
+            f0 = rs.uniform(80, 300, t) * (rs.rand(t) >= 0.2)
+            mel = (rs.randn(t, 80) * 0.5 - 1.0).astype(np.float32)
+            mel_bytes += mel.nbytes
+            builder.add_item({
+                "item_name": f"{split}_{i}", "txt": "synthetic", "wav_fn": f"{split}_{i}.wav",
+                "ph_token": tokens.astype(np.int64), "mel": mel,
+                "mel2ph": mel2ph.astype(np.int64), "f0": f0.astype(np.float32),
+                "pitch": rs.randint(1, 256, t).astype(np.int64),
+                "spk_embed": speakers[rs.randint(RUN_SPEAKERS)]})
+        builder.finalize()
+        np.save(os.path.join(data_dir, f"{split}_lengths.npy"), lengths)
+    return mel_bytes
+
+
+class _TimedLoader:
+    """A training loader whose every batch records the host's wait for it."""
+
+    def __init__(self, loader, waits: list):
+        self.loader, self.sampler, self.waits = loader, loader.sampler, waits
+
+    def __iter__(self):
+        return self._timed(iter(self.loader))   # starts the workers now, as the loader does
+
+    def _timed(self, it):
+        while True:
+            t0 = time.perf_counter()
+            try:
+                raw = next(it)
+            except StopIteration:
+                return
+            self.waits.append((time.perf_counter() - t0) * 1e3)
+            yield raw
+
+    def close(self) -> None:
+        self.loader.close()
+
+
+class RunRecorder:
+    """Wraps ``Trainer``'s methods while the run entry trains, to record each
+    step's CUDA-event and host-clock time, real frames, launches and
+    metrics, each validation batch's launches, the loader waits, the
+    validations', saves' and the resume's host time, and the state the
+    resume loaded."""
+
+    def __init__(self):
+        self.steps, self.valid, self.waits = [], [], []
+        self.validate_s, self.save_s, self.load_s = [], [], []
+        self.loaded = None
+
+    @contextlib.contextmanager
+    def instrumented(self):
+        names = ("step", "_eval_batch", "_loader", "validate", "save", "_build_state")
+        orig = {name: getattr(Trainer, name) for name in names}
+        rec = self
+
+        def step(trainer, raw):
+            before = counts()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            metrics = orig["step"](trainer, raw)
+            end.record()
+            end.synchronize()
+            rec.steps.append(dict(
+                host_ms=(time.perf_counter() - t0) * 1e3, event_ms=start.elapsed_time(end),
+                frames=int(raw["mel_lengths"].sum()), shape=tuple(raw["mels"].shape[:2]),
+                launches={k: counts()[k] - before[k] for k in COUNTERS},
+                step=trainer.global_step, metrics=metrics,
+                # a copy, so the loader's pinned buffers go back to its cache
+                raw={k: v.clone() if isinstance(v, torch.Tensor) else v
+                     for k, v in raw.items()}))
+            return metrics
+
+        def eval_batch(trainer, raw):
+            before = counts()
+            metrics = orig["_eval_batch"](trainer, raw)
+            torch.cuda.synchronize()
+            rec.valid.append({k: counts()[k] - before[k] for k in COUNTERS})
+            return metrics
+
+        def loader(trainer, prefix, *args, **kwargs):
+            made = orig["_loader"](trainer, prefix, *args, **kwargs)
+            return _TimedLoader(made, rec.waits) if prefix == "train" else made
+
+        def timed(name, into):
+            def wrapper(trainer, *args, **kwargs):
+                t0 = time.perf_counter()
+                out = orig[name](trainer, *args, **kwargs)
+                torch.cuda.synchronize()
+                into.append(time.perf_counter() - t0)
+                return out
+            return wrapper
+
+        def build_state(trainer):
+            timed("_build_state", rec.load_s)(trainer)
+            rec.loaded = copy.deepcopy(trainer.train_step.state_dict())
+
+        patches = dict(step=step, _eval_batch=eval_batch, _loader=loader,
+                       validate=timed("validate", self.validate_s),
+                       save=timed("save", self.save_s), _build_state=build_state)
+        for name, fn in patches.items():
+            setattr(Trainer, name, fn)
+        try:
+            yield self
+        finally:
+            for name, fn in orig.items():
+                setattr(Trainer, name, fn)
+
+
+def states_equal(a: dict, b: dict) -> bool:
+    """Bit for bit: parameters, Adam's moments and both counts."""
+    if (a["step"], a["updates"]) != (b["step"], b["updates"]):
+        return False
+    if any(not torch.equal(v, b["model"][k].to(v.device)) for k, v in a["model"].items()):
+        return False
+    sa, sb = a["optimizer"]["state"], b["optimizer"]["state"]
+    return sorted(sa) == sorted(sb) and all(
+        torch.equal(torch.as_tensor(v), torch.as_tensor(sb[i][k]).to(torch.as_tensor(v).device))
+        for i in sa for k, v in sa[i].items())
+
+
+def run_path(smi: str) -> tuple[dict, dict]:
+    """The training entry (``speech_editing_tpu_torch.run``) on
+    ``egs/spec_denoiser.yaml`` at its shipped widths and batch budget, float32,
+    over a synthetic corpus: 60 steps with sanity and interval validation
+    and checkpoints, then a resume to 70."""
+    q = lambda xs, p: float(np.percentile(xs, p))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_run_")
+    try:
+        t0 = time.perf_counter()
+        mel_bytes = write_run_corpus(os.path.join(tmp, "data"))
+        corpus_s = time.perf_counter() - t0
+        work = os.path.join(tmp, "checkpoints", "run")
+        argv = ["--config", "egs/spec_denoiser.yaml", "--exp_name", work, "-hp",
+                f"binary_data_dir={os.path.join(tmp, 'data')},{RUN_HP}"]
+        first, second = RunRecorder(), RunRecorder()
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        with first.instrumented():
+            trainer = run_entry(argv)
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        with second.instrumented():
+            resumed = run_entry(argv[:-1] + [argv[-1] + f",max_updates={RUN_RESUME_TO}"])
+        totals = counts()
+
+        print(f"[run] launches per step {first.steps[-1]['launches']}, per validation batch "
+              f"{first.valid[-1]}; totals {totals}", flush=True)
+        for rec in (first, second):
+            for st in rec.steps:
+                check(st["launches"] == EXPECTED_PER_RUN_STEP,
+                      f"run step {st['step']}: launches {st['launches']} != "
+                      f"{EXPECTED_PER_RUN_STEP}")
+                m = {k: float(v) for k, v in st["metrics"].items()}
+                check(all(np.isfinite(v) for v in m.values()) and m["nan_grads"] == 0,
+                      f"run step {st['step']}: non-finite metrics {m}")
+            for moved in rec.valid:
+                check(moved == EXPECTED_PER_VALID_BATCH,
+                      f"validation batch: launches {moved} != {EXPECTED_PER_VALID_BATCH}")
+        check(len(first.steps) == 60 and len(first.valid) == 2 + 8 + 8,
+              f"run: {len(first.steps)} steps, {len(first.valid)} validation batches")
+        ckpts = {n: os.path.join(work, f"model_ckpt_steps_{n}.ckpt") for n in (30, 60, 70)}
+        check(all(os.path.exists(p) for p in ckpts.values()),
+              f"run: checkpoints {sorted(os.listdir(work))}")
+        saved = torch.load(ckpts[60], map_location="cpu", weights_only=True)["state"]
+        check(second.steps[0]["step"] == 61 and len(second.steps) == RUN_RESUME_TO - 60
+              and states_equal(second.loaded, saved),
+              "resume: the second run did not start from step 60 with the saved "
+              "parameters and Adam moments, bit for bit")
+        print(f"[run] resume: started at step 60 with the checkpoint's parameters, Adam "
+              f"moments and counts bit for bit; ran to {resumed.global_step}", flush=True)
+
+        timed = first.steps[RUN_WARMUP:]
+        ev = [st["event_ms"] for st in timed]
+        host = [st["host_ms"] for st in timed]
+        frames = sum(st["frames"] for st in timed)
+        waits = first.waits[RUN_WARMUP:]
+        stats = {"steps": len(first.steps) + len(second.steps), "timed_steps": len(timed),
+                 "batch_sizes": sorted({st["shape"][0] for st in first.steps}),
+                 "padded_frames_range": [min(st["shape"][1] for st in first.steps),
+                                         max(st["shape"][1] for st in first.steps)],
+                 "padded_frames_p50": q([st["shape"][1] for st in timed], 50),
+                 "real_frames_per_step_mean": frames / len(timed),
+                 "event_ms_p50": q(ev, 50), "event_ms_p75": q(ev, 75),
+                 "host_ms_p50": q(host, 50), "host_ms_p75": q(host, 75),
+                 "steps_per_s_events": 1e3 / q(ev, 50), "steps_per_s_host": 1e3 / q(host, 50),
+                 "real_frames_per_s_events": frames / (sum(ev) / 1e3),
+                 "real_frames_per_s_host": frames / (sum(host) / 1e3),
+                 "loader_wait_ms_p50": q(waits, 50), "loader_wait_ms_p75": q(waits, 75),
+                 "loader_wait_ms_max": max(waits), "first_batch_wait_ms": first.waits[0],
+                 "validation_s": first.validate_s, "peak_gib": peak_gib,
+                 "ckpt_mb": os.path.getsize(ckpts[60]) / 1e6,
+                 "ckpt_save_s": first.save_s, "ckpt_load_s": second.load_s[0],
+                 "corpus_mel_mb": mel_bytes / 1e6, "corpus_write_s": corpus_s, "card": smi}
+        print(f"[run] egs/spec_denoiser.yaml, float32, {stats['timed_steps']} timed steps "
+              f"(of 60, after {RUN_WARMUP}), batches of {stats['batch_sizes']} utterances "
+              f"padded to {stats['padded_frames_range']} frames (p50 "
+              f"{stats['padded_frames_p50']:.0f}), "
+              f"{stats['real_frames_per_step_mean']:.0f} real frames a step: CUDA "
+              f"events p50 {stats['event_ms_p50']:.3f} ms, p75 {stats['event_ms_p75']:.3f} "
+              f"ms; host clock p50 {stats['host_ms_p50']:.3f} ms, p75 "
+              f"{stats['host_ms_p75']:.3f} ms; {stats['steps_per_s_host']:.2f} steps/s "
+              f"(host p50), {stats['real_frames_per_s_host']:.0f} real frames/s (host), "
+              f"{stats['real_frames_per_s_events']:.0f} (events); {smi}", flush=True)
+        print(f"[run] loader wait a step (ds_workers 2): p50 {stats['loader_wait_ms_p50']:.3f} "
+              f"ms, p75 {stats['loader_wait_ms_p75']:.3f} ms, max "
+              f"{stats['loader_wait_ms_max']:.3f} ms, first batch "
+              f"{stats['first_batch_wait_ms']:.1f} ms; peak memory {peak_gib:.3f} GiB; "
+              f"validations {[round(v, 3) for v in first.validate_s]} s (8 batches; the "
+              f"first is the 2-batch sanity run); checkpoint {stats['ckpt_mb']:.1f} MB, "
+              f"saves {[round(v, 3) for v in first.save_s]} s, resume load "
+              f"{stats['ckpt_load_s']:.3f} s; corpus {stats['corpus_mel_mb']:.1f} MB of mel "
+              f"written in {corpus_s:.1f} s; {smi}", flush=True)
+        # the profiled step: the timed batch at the median padded length,
+        # against its own host-clock time in the run
+        mid = sorted(timed, key=lambda st: st["shape"][1])[len(timed) // 2]
+        raw = {k: v.pin_memory() if isinstance(v, torch.Tensor) else v
+               for k, v in mid["raw"].items()}
+        b, t = mid["shape"]
+        print(f"[run] profiled batch: the timed step at the median padded length, B={b} x "
+              f"T={t} ({mid['frames']} real frames; {plan_text('diffnet_block', b, t, 1)} "
+              f"for K1, {plan_text('diffnet_block_bwd', b, t, 1)} for K5), "
+              f"{mid['host_ms']:.3f} ms host clock and {mid['event_ms']:.3f} ms CUDA events "
+              f"in the run", flush=True)
+        busy_ms = profile_step(trainer, raw, mid["host_ms"], label=f"run B={b} x T={t}")
+        stats.update(profiled_batch=[b, t], profiled_real_frames=mid["frames"],
+                     profiled_host_ms=mid["host_ms"], profiled_busy_ms=busy_ms,
+                     profiled_busy_share=None if busy_ms is None else busy_ms / mid["host_ms"])
+        keys = resumed.task.effective_batch_keys()
+        check("spk_embed" in keys, f"run: the step's keys {keys} lack spk_embed")
+        compare_step_with_cpu("run", lambda dev: Trainer(resumed.task, resumed.hp, dev,
+                                                         dropout=False),
+                              resumed.train_step.state_dict(),
+                              {k: raw[k][:2] for k in keys})
+        return totals, stats
+    finally:
+        shutil.rmtree(tmp)
 
 
 # the timing-only modes: the kernels they build and the function that times them
@@ -1048,16 +1445,18 @@ def main() -> None:
                phase_attention(gen), phase_attention_bwd(gen)]
     edit_launches, rtf = edit_path(gen)
     train_launches, train = train_path()
+    run_launches, run_stats = run_path(smi)
     for k in kernels:
         k["launches_by_path"] = {"edit": edit_launches[k["name"]],
-                                 "train": train_launches[k["name"]]}
+                                 "train": train_launches[k["name"]],
+                                 "run": run_launches[k["name"]]}
         k["launches"] = sum(k["launches_by_path"].values())
         k["kernel_ms"] = k["ms"]
         check(k["launches"] > 0, f"{k['name']} was not launched on a main path")
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_path",
             "max_abs_err", "tol", "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
-    print(json.dumps({"edit_rtf": rtf, "train_step": train, "card": smi}))
+    print(json.dumps({"edit_rtf": rtf, "train_step": train, "run": run_stats, "card": smi}))
     print(smi)
     extra = ("warm_ms", "warm_plain_ms", "host_us", "train_ms", "train_plain_ms",
              "train_bound_ms", "train_device_ms", "train_ops_per_call", "train_host_us",

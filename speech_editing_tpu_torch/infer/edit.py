@@ -17,10 +17,12 @@ from speech_editing_tpu_torch.models.vocoder.hifigan import HifiGanGenerator
 from speech_editing_tpu_torch.ops.cuda.mel_kernel import mel_spectrogram
 from speech_editing_tpu_torch.ops.mel import MelConfig
 from speech_editing_tpu_torch.ops.pitch import extract_pitch, norm_interp_f0
+from speech_editing_tpu_torch.utils.init import init_like_flax
 
 
 class EditPipeline:
-    """Weights are seeded random until loaded through ``model`` and
+    """Weights are seeded random, drawn as flax draws them
+    (``utils/init.py``), until loaded through ``model`` and
     ``vocoder`` (``load_state_dict``; see ``utils/convert_jax_params.py``).
 
     ``device`` defaults to ``"cuda"`` and raises when no GPU is present;
@@ -35,8 +37,8 @@ class EditPipeline:
         self.mel_cfg = mel_cfg
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
-            self.model = GaussianDiffusion(vocab_size, hp, mel_cfg.num_mels)
-            self.vocoder = HifiGanGenerator(vocoder_hp)
+            self.model = init_like_flax(GaussianDiffusion(vocab_size, hp, mel_cfg.num_mels))
+            self.vocoder = init_like_flax(HifiGanGenerator(vocoder_hp))
         self.model.to(self.device).eval()
         self.vocoder.to(self.device).eval()
 

@@ -3,11 +3,11 @@
 The duration predictor sees an embedding of the masked ground-truth
 durations and the pitch predictor an embedding of the masked ground-truth
 coarse pitch, so unedited regions anchor the predictions and only the
-masked span is inpainted. Only the ``fft`` encoder is ported; the decoder
-is never run by the editing path. In training (``train=True``) the
-predictors run dropout with masks from an explicit ``torch.Generator``, and
-``predictor_grad`` scales the gradient that reaches the encoder through
-their inputs.
+masked span is inpainted. The ``fft`` and ``conv`` text encoders are
+ported; the decoder is never run by the editing path. In training
+(``train=True``) the predictors run dropout with masks from an explicit
+``torch.Generator``, and ``predictor_grad`` scales the gradient that
+reaches the encoder through their inputs.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ from typing import Any
 import torch
 from torch import nn
 
+from speech_editing_tpu_torch.modules.conv import TextConvEncoder
 from speech_editing_tpu_torch.modules.predictors import (DurationPredictor,
                                                          PitchPredictor)
 from speech_editing_tpu_torch.modules.transformer import (FastSpeechEncoder,
@@ -44,12 +45,20 @@ class StyleEmbedMixin:
 class FastSpeech(StyleEmbedMixin, nn.Module):
     def __init__(self, vocab_size: int, hp: Any):
         super().__init__()
-        if hp.get("encoder_type", "fft") != "fft":
-            raise NotImplementedError(f"encoder_type={hp.get('encoder_type')}")
         self.hp = hp
         h = hp["hidden_size"]
-        self.encoder = FastSpeechEncoder(vocab_size, h, hp["enc_layers"],
-                                         hp["enc_ffn_kernel_size"], hp["num_heads"])
+        enc_type = hp.get("encoder_type", "fft")
+        if enc_type == "fft":
+            self.encoder = FastSpeechEncoder(vocab_size, h, hp["enc_layers"],
+                                             hp["enc_ffn_kernel_size"], hp["num_heads"])
+        elif enc_type == "conv":
+            self.encoder = TextConvEncoder(
+                vocab_size, h, h, tuple(hp["enc_dilations"]), hp["enc_kernel_size"],
+                norm_type=hp.get("enc_dec_norm", "ln"),
+                layers_in_block=hp.get("layers_in_block", 2),
+                post_net_kernel=hp.get("enc_post_net_kernel", 3))
+        else:
+            raise NotImplementedError(f"encoder_type={enc_type}")
         if hp.get("use_spk_id"):
             self.spk_id_proj = TokenEmbedding(hp["num_spk"], h, padding_idx=-1)
         if hp.get("use_spk_embed"):

@@ -1,0 +1,61 @@
+"""Train from a YAML config, as the JAX package's ``run.py`` does:
+
+    python -m speech_editing_tpu_torch.run --config egs/spec_denoiser.yaml \
+        --exp_name NAME [-hp k=v,...] [--validate] [--reset] [--remove] [--device cpu]
+
+The config's ``task_cls`` names the task; the port resolves it by class
+name among its own tasks (``TASKS``) and never imports the named module.
+The run trains on the GPU unless ``--device cpu`` is given. The shipped
+``egs/spec_denoiser.yaml`` sets ``use_bf16: true``, which the port does
+not run yet: pass ``-hp use_bf16=False`` to train in float32, as the
+config's comment describes the reference's training.
+"""
+
+from __future__ import annotations
+
+import sys
+from typing import Optional, Sequence
+
+from speech_editing_tpu_torch.config.hparams import arg_parser, set_hparams
+from speech_editing_tpu_torch.training.tasks.spec_denoiser import SpecDenoiserTask
+from speech_editing_tpu_torch.training.trainer import Trainer, cuda_or_cpu
+
+TASKS = {cls.__name__: cls for cls in (SpecDenoiserTask,)}
+
+
+def task_class(task_cls: str):
+    """The port's task named by the last part of a ``task_cls`` string."""
+    name = task_cls.rsplit(".", 1)[-1]
+    if name not in TASKS:
+        raise ValueError(f"task_cls {task_cls!r}: the port has no task {name!r} "
+                         f"(ported: {sorted(TASKS)})")
+    return TASKS[name]
+
+
+def run(argv: Optional[Sequence[str]] = None) -> Trainer:
+    """Parse ``argv`` (default ``sys.argv[1:]``), then train, or validate
+    with ``--validate``; returns the trainer."""
+    parser = arg_parser()
+    parser.add_argument("--device", type=str, default="cuda")
+    args = parser.parse_args(sys.argv[1:] if argv is None else list(argv))
+    if args.infer:
+        raise NotImplementedError("--infer is not ported: the vocoder registry and the "
+                                  "test writer wait for ROADMAP Queue 1 item 6")
+    device = cuda_or_cpu(args.device, "run")
+    hp = set_hparams(args)
+    if hp.get("infer"):
+        raise NotImplementedError("infer: true is not ported (ROADMAP Queue 1 item 6)")
+    if not hp.get("task_cls"):
+        raise ValueError("the config must set task_cls")
+    task = task_class(hp["task_cls"])(hp)
+    print(f"| Task: {type(task).__name__}", flush=True)
+    trainer = Trainer(task, hp, device)
+    if hp["validate"]:
+        trainer.validate_only()
+    else:
+        trainer.fit()
+    return trainer
+
+
+if __name__ == "__main__":
+    run()

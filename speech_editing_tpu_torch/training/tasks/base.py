@@ -1,0 +1,56 @@
+"""What a model family gives the trainer: its dataset, the batch keys its
+step reads, its model and its loss. The port of the JAX package's
+``training/tasks/base.py``.
+
+The vocabulary comes from the corpus's ``phone_set.json``
+(``binary_data_dir``): ``vocab_size`` counts it with the three reserved
+ids, and ``sil_token_ids`` are the ids of its silence phones. Without one,
+``hp["vocab_size"]`` (default 100) and no silence ids.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Any, Sequence
+
+from speech_editing_tpu_torch.data.datasets import EditingDataset
+from speech_editing_tpu_torch.utils.text.text_encoder import (TokenTextEncoder,
+                                                              build_token_encoder)
+
+
+class BaseTask:
+    dataset_cls = EditingDataset
+    # the collated batch's keys that go to the device for a step
+    array_batch_keys: Sequence[str] = (
+        "txt_tokens", "mels", "mel2ph", "f0", "uv", "time_mel_masks")
+
+    def __init__(self, hp: Any):
+        self.hp = hp
+        data_dir = hp.get("binary_data_dir", "")
+        fn = os.path.join(data_dir, "phone_set.json") if data_dir else ""
+        self.token_encoder: TokenTextEncoder | None = (
+            build_token_encoder(fn) if fn and os.path.exists(fn) else None)
+        if self.token_encoder is None:
+            self.vocab_size = int(hp.get("vocab_size", 100))
+            self.sil_token_ids: tuple = ()
+        else:
+            enc = self.token_encoder
+            self.vocab_size = enc.vocab_size
+            self.sil_token_ids = tuple(sorted({i for p in enc.sil_phonemes()
+                                               for i in enc.encode(p)}))
+
+    def effective_batch_keys(self) -> tuple:
+        keys = list(self.array_batch_keys)
+        if self.hp.get("use_spk_embed"):
+            keys.append("spk_embed")
+        if self.hp.get("use_spk_id"):
+            keys.append("spk_ids")
+        return tuple(keys)
+
+    def build_model(self):
+        raise NotImplementedError
+
+    def make_loss_fn(self, model, train: bool = True):
+        """``loss_fn(batch, generator=None, t=None, noise=None) -> (total,
+        losses)``; ``train=False`` is the validation loss (no dropout)."""
+        raise NotImplementedError

@@ -1,8 +1,9 @@
-"""FluentSpeech (spec_denoiser) task: the training loss.
+"""FluentSpeech (spec_denoiser) task: the model and the training loss.
 
 Masked-region mel losses (l1 + ssim on ``mel_out * mask`` against
 ``mels * mask``), the duration losses and the pitch loss, over one
-training forward of :class:`GaussianDiffusion`.
+training forward of :class:`GaussianDiffusion`. The model starts from
+flax's initializers (``utils/init.py``).
 """
 
 from __future__ import annotations
@@ -10,12 +11,16 @@ from __future__ import annotations
 from typing import Any, Sequence
 
 from speech_editing_tpu_torch.models.spec_denoiser.spec_denoiser import GaussianDiffusion
+from speech_editing_tpu_torch.training.tasks.base import BaseTask
 from speech_editing_tpu_torch.training.losses import (add_mel_loss, dur_loss,
                                                       pitch_loss, sil_token_mask)
+from speech_editing_tpu_torch.utils.init import init_like_flax
 
 
 def build_model(vocab_size: int, hp: Any) -> GaussianDiffusion:
-    return GaussianDiffusion(vocab_size, hp, hp.get("audio_num_mel_bins", 80))
+    """The model with flax's initial weights, drawn from torch's global
+    generator."""
+    return init_like_flax(GaussianDiffusion(vocab_size, hp, hp.get("audio_num_mel_bins", 80)))
 
 
 def make_loss_fn(model: GaussianDiffusion, hp: Any,
@@ -47,3 +52,13 @@ def make_loss_fn(model: GaussianDiffusion, hp: Any,
         return sum(losses.values()), losses
 
     return loss_fn
+
+
+class SpecDenoiserTask(BaseTask):
+    """FluentSpeech diffusion editing."""
+
+    def build_model(self) -> GaussianDiffusion:
+        return build_model(self.vocab_size, self.hp)
+
+    def make_loss_fn(self, model: GaussianDiffusion, train: bool = True):
+        return make_loss_fn(model, self.hp, self.sil_token_ids, train)

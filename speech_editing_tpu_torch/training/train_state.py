@@ -1,11 +1,12 @@
-"""One training step: forward, loss, backward, clip, AdamW, NaN tripwire.
+"""One training step: forward, loss, backward, clip, AdamW, NaN tripwire;
+and the validation step.
 
-The counterpart of the JAX package's ``make_train_step`` without a mesh or
-bf16. When any gradient is non-finite the update is skipped whole: the
-parameters, Adam's moments, Adam's count and the schedule's count stay as
-they were, ``nan_grads`` is 1, and the step counter still advances. The
-finiteness check reads one scalar back to the host each step (the JAX step
-selects on the device instead).
+The counterpart of the JAX package's ``make_train_step`` and
+``make_eval_step`` without a mesh or bf16. When any gradient is non-finite
+the update is skipped whole: the parameters, Adam's moments, Adam's count
+and the schedule's count stay as they were, ``nan_grads`` is 1, and the
+step counter still advances. The finiteness check reads one scalar back to
+the host each step (the JAX step selects on the device instead).
 """
 
 from __future__ import annotations
@@ -70,3 +71,18 @@ class TrainStep:
         self.model.load_state_dict(state["model"])
         self.optimizer.load_state_dict(state["optimizer"])
         self.step, self.updates = state["step"], state["updates"]
+
+
+def make_eval_step(loss_fn):
+    """``eval_step(batch, generator=None, t=None, noise=None) -> metrics``:
+    the loss terms and ``total_loss`` of ``loss_fn`` (built with
+    ``train=False``) under ``torch.no_grad()``, as 0-d tensors."""
+
+    @torch.no_grad()
+    def eval_step(batch: dict, generator: torch.Generator | None = None,
+                  t: torch.Tensor | None = None,
+                  noise: torch.Tensor | None = None) -> dict:
+        total, losses = loss_fn(batch, generator=generator, t=t, noise=noise)
+        return dict(losses, total_loss=total)
+
+    return eval_step

@@ -1,89 +1,235 @@
-"""A minimal FluentSpeech trainer: collated batches in, steps, logged
-metrics out.
+"""The training loop around :class:`TrainStep`: loader, validation,
+checkpoints, resume, logging.
 
-The core of the JAX package's ``Trainer._train_loop``: each batch (a dict
-of numpy arrays, the keys of ``make_loss_fn``) goes to the device, one
-:class:`TrainStep` runs on it, and every ``hp["tb_log_interval"]`` steps
-the metrics are printed; ``hp["max_nan_intervals"]`` logged intervals in a
-row with skipped (non-finite) updates abort the run. Checkpoints, validation and the
-binarized-dataset reader are not ported yet.
+The port of the JAX package's ``training/trainer.py`` without a mesh, GAN
+tasks or the test loop. ``fit`` builds the state (resuming from the work
+dir's last checkpoint), runs ``num_sanity_val_steps`` validation batches,
+then steps through the endless training loader until ``max_updates``:
+every ``tb_log_interval`` steps it prints the metrics (``max_nan_intervals``
+such intervals in a row with skipped, non-finite updates abort the run),
+every ``val_check_interval`` steps it validates and writes a checkpoint,
+and it writes one on ``KeyboardInterrupt`` and at the end. Metrics are
+printed, not written to TensorBoard.
 """
 
 from __future__ import annotations
 
-from typing import Any, Iterable, Sequence
+import os
+import time
+from typing import Any, Optional, Sequence
 
 import torch
 
-from speech_editing_tpu_torch.training.tasks.spec_denoiser import build_model
-from speech_editing_tpu_torch.training.train_state import TrainStep
+from speech_editing_tpu_torch.data.datasets import DataLoader
+from speech_editing_tpu_torch.training.checkpoint import (get_last_checkpoint,
+                                                          load_checkpoint,
+                                                          save_checkpoint)
+from speech_editing_tpu_torch.training.tasks.spec_denoiser import SpecDenoiserTask
+from speech_editing_tpu_torch.training.train_state import TrainStep, make_eval_step
+from speech_editing_tpu_torch.utils.convert_jax_params import params_from_jax
 
-_INT_KEYS = ("txt_tokens", "mel2ph")
+_INT_KEYS = ("txt_tokens", "mel2ph", "spk_ids")
+
+
+def check_supported(hp: Any) -> None:
+    """Raise on the settings the port does not run yet."""
+    if hp.get("use_bf16"):
+        raise NotImplementedError("use_bf16: true is not ported (ROADMAP Queue 2 item 1); "
+                                  "set use_bf16=False to train in float32")
+    if int(hp.get("accumulate_grad_batches", 1) or 1) > 1:
+        raise NotImplementedError("accumulate_grad_batches > 1 is not ported (ROADMAP Queue 1)")
+    if int(hp.get("tp_size", 1) or 1) > 1:
+        raise NotImplementedError("tp_size > 1 is not ported (ROADMAP Queue 1 item 7)")
+
+
+def cuda_or_cpu(device: Any, who: str) -> torch.device:
+    """``device`` as asked; a CUDA device raises when there is none."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{who}: no CUDA device; pass device='cpu' to run the "
+                           "plain versions")
+    return device
 
 
 class Trainer:
-    """Seeded random weights (``seed``) until loaded through
-    ``train_step.load_state_dict``. ``device`` defaults to ``"cuda"`` and
-    raises when no GPU is present; ``device="cpu"`` runs every kernel's
-    plain version. ``dropout=False`` turns predictor dropout off."""
+    """Trains ``task``'s model on ``device`` (default ``"cuda"``, which
+    raises when no GPU is present; ``"cpu"`` runs every kernel's plain
+    version). Weights are drawn from ``hp["seed"]`` until a checkpoint
+    loads. ``dropout=False`` turns predictor dropout off. Checkpoints go to
+    ``hp["work_dir"]``, by default ``checkpoints/<exp_name>``."""
 
-    def __init__(self, hp: Any, device="cuda", seed: int = 0, vocab_size: int = 80,
-                 sil_token_ids: Sequence[int] = (), dropout: bool = True):
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("Trainer: no CUDA device; pass device='cpu' "
-                               "to run the plain versions")
-        self.hp = hp
+    def __init__(self, task: Any, hp: Any, device: Any = "cuda", dropout: bool = True):
+        check_supported(hp)
+        self.device = cuda_or_cpu(device, "Trainer")
+        self.task, self.hp = task, hp
+        self.work_dir = hp.get("work_dir") or os.path.join(
+            "checkpoints", hp.get("exp_name") or "default")
+        seed = int(hp.get("seed", 1234))
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
-            self.model = build_model(vocab_size, hp)
+            self.model = task.build_model()
         self.model.to(self.device).train()
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
-        self.train_step = TrainStep(self.model, hp, sil_token_ids, train=dropout)
-        self.log_interval = int(hp.get("tb_log_interval", 100))
-        self.max_nan_intervals = int(hp.get("max_nan_intervals", 5))
+        self.train_step = TrainStep(self.model, hp, task.sil_token_ids, train=dropout)
+        self.eval_step = make_eval_step(task.make_loss_fn(self.model, train=False))
         self._nan_intervals = 0
+
+    @classmethod
+    def from_hp(cls, hp: Any, device: Any = "cuda", seed: int = 0, vocab_size: int = 80,
+                sil_token_ids: Sequence[int] = (), dropout: bool = True) -> "Trainer":
+        """A FluentSpeech trainer without a corpus, for batches the caller
+        passes to :meth:`step`."""
+        task = SpecDenoiserTask(dict(hp, seed=seed, vocab_size=vocab_size,
+                                     binary_data_dir=""))
+        task.sil_token_ids = tuple(sil_token_ids)
+        return cls(task, task.hp, device, dropout)
 
     @property
     def global_step(self) -> int:
         return self.train_step.step
 
+    # -- data ---------------------------------------------------------------------
+
+    def _loader(self, prefix: str, shuffle: bool, endless: bool = False,
+                max_sentences_key: str = "max_sentences") -> DataLoader:
+        hp = self.hp
+        max_sent = hp.get(max_sentences_key, 16)
+        if max_sent in (-1, None):
+            max_sent = hp.get("max_sentences", 16)
+        # worker processes for the training stream only, as in the JAX package
+        workers = int(hp.get("ds_workers", 0)) if prefix == "train" else 0
+        return DataLoader(self.task.dataset_cls(prefix, hp, shuffle=shuffle),
+                          max_tokens=hp.get("max_tokens"), max_sentences=max_sent,
+                          endless=endless, num_workers=workers,
+                          pin_memory=self.device.type == "cuda")
+
     def to_device(self, batch: dict) -> dict:
+        """Arrays or tensors -> tensors on the device (int64 ids, float32
+        otherwise); the copy does not block, which from the loader's pinned
+        batches makes it asynchronous."""
         out = {}
         for k, v in batch.items():
             v = torch.as_tensor(v)
-            out[k] = (v.long() if k in _INT_KEYS else v.float()).to(self.device)
+            v = v.long() if k in _INT_KEYS else v.float()
+            out[k] = v.to(self.device, non_blocking=True)
         return out
 
-    def step(self, batch: dict) -> dict:
-        """One training step on a host (or device) batch; returns its metrics
-        as 0-d device tensors."""
-        metrics = self.train_step(self.to_device(batch), self.generator)
-        if self.global_step % self.log_interval == 0:
-            self._log(metrics)
-        return metrics
+    def _device_batch(self, raw: dict) -> dict:
+        return self.to_device({k: raw[k] for k in self.task.effective_batch_keys()
+                               if k in raw})
 
-    def fit(self, batches: Iterable[dict], max_updates: int) -> list[dict]:
-        """Step through ``batches`` until ``max_updates`` steps have run;
-        returns every step's metrics as floats."""
-        history = []
-        for batch in batches:
-            if self.global_step >= max_updates:
-                break
-            history.append({k: float(v) for k, v in self.step(batch).items()})
-        return history
+    # -- state --------------------------------------------------------------------
 
-    def _log(self, metrics: dict) -> None:
+    def _build_state(self) -> None:
+        """Resume from the work dir's last checkpoint, if any: a port
+        checkpoint restores the parameters, Adam's moments and the counts; a
+        JAX one the parameters and the step count, with a fresh optimizer."""
+        ckpt_path, _ = get_last_checkpoint(self.work_dir)
+        if ckpt_path is not None:
+            payload = load_checkpoint(ckpt_path, map_location=self.device)
+            if "jax_params" in payload:
+                self.model.load_state_dict(params_from_jax(payload["jax_params"], self.hp))
+                self.train_step.step = payload["steps"]
+                print(f"| loaded the parameters of JAX checkpoint {ckpt_path} (step "
+                      f"{self.global_step}); the optimizer starts fresh", flush=True)
+            else:
+                self.train_step.load_state_dict(payload["state"])
+                print(f"| loaded checkpoint {ckpt_path} (step {self.global_step})",
+                      flush=True)
+        n_params = sum(p.numel() for p in self.model.parameters())
+        print(f"| model params: {n_params / 1e6:.3f}M | device: {self.device}", flush=True)
+
+    def save(self, val_loss: Optional[float] = None) -> str:
+        hp = self.hp
+        return save_checkpoint(self.work_dir, self.train_step.state_dict(),
+                               self.global_step, val_loss=val_loss,
+                               num_ckpt_keep=int(hp.get("num_ckpt_keep", 3)),
+                               save_best=bool(hp.get("save_best", False)))
+
+    # -- train --------------------------------------------------------------------
+
+    def step(self, raw: dict) -> dict:
+        """One training step on a collated host batch; its metrics as 0-d
+        device tensors."""
+        return self.train_step(self._device_batch(raw), self.generator)
+
+    def fit(self) -> None:
+        hp = self.hp
+        max_updates = int(hp.get("max_updates", 100000))
+        val_interval = int(hp.get("val_check_interval", 2000))
+        log_interval = int(hp.get("tb_log_interval", 100))
+        num_sanity = int(hp.get("num_sanity_val_steps", 5))
+        self._build_state()
+        # the stream restarts at epoch 0 on a resume, as in the JAX package
+        loader = self._loader("train", shuffle=True, endless=True)
+        try:
+            batches = iter(loader)   # starts the workers, which boot during sanity validation
+            if num_sanity > 0:
+                self.validate(max_batches=num_sanity, log=False)
+            t0 = time.time()
+            while self.global_step < max_updates:
+                metrics = self.step(next(batches))
+                if self.global_step % log_interval == 0:
+                    self._log(metrics, log_interval / max(time.time() - t0, 1e-9))
+                    t0 = time.time()
+                if self.global_step % val_interval == 0:
+                    self.save(self.validate())
+        except KeyboardInterrupt:
+            print("| KeyboardInterrupt: saving checkpoint before exit", flush=True)
+            self.save()
+            raise
+        finally:
+            loader.close()
+        self.save()
+        print(f"| training done at step {self.global_step}", flush=True)
+
+    def _log(self, metrics: dict, steps_per_s: float) -> None:
         m = {k: float(v) for k, v in metrics.items()}
-        print(f"| step {self.global_step} | "
+        print(f"| step {self.global_step} | {steps_per_s:.2f} it/s | "
               + " ".join(f"{k}={v:.4f}" for k, v in sorted(m.items())), flush=True)
         if m["nan_grads"] > 0:
             self._nan_intervals += 1
-            print(f"| WARNING: non-finite gradients at step {self.global_step}; "
-                  f"update skipped ({self._nan_intervals} intervals in a row)",
-                  flush=True)
-            if self._nan_intervals >= self.max_nan_intervals:
+            print(f"| WARNING: non-finite gradients at step {self.global_step}; update "
+                  f"was skipped ({self._nan_intervals} consecutive intervals)", flush=True)
+            if self._nan_intervals >= int(self.hp.get("max_nan_intervals", 5)):
                 raise RuntimeError(f"gradients non-finite for {self._nan_intervals} "
-                                   "logged intervals in a row; aborting")
+                                   "consecutive log intervals; aborting (set "
+                                   "max_nan_intervals to tune)")
         else:
             self._nan_intervals = 0
+
+    # -- validation ---------------------------------------------------------------
+
+    def _eval_batch(self, raw: dict) -> dict:
+        return self.eval_step(self._device_batch(raw), self.generator)
+
+    def validate(self, max_batches: Optional[int] = None, log: bool = True) -> Optional[float]:
+        """Mean metrics over the valid split (``max_valid_sentences`` a
+        batch; at most ``eval_max_batches`` batches, -1 for all); returns
+        the mean ``total_loss``."""
+        if max_batches is None:
+            mb = int(self.hp.get("eval_max_batches", -1))
+            max_batches = None if mb == -1 else mb
+        totals: dict = {}
+        n = 0
+        with self._loader("valid", shuffle=False,
+                          max_sentences_key="max_valid_sentences") as loader:
+            for raw in loader:
+                if max_batches is not None and n >= max_batches:
+                    break
+                for k, v in self._eval_batch(raw).items():
+                    totals[k] = totals.get(k, 0.0) + float(v)
+                n += 1
+        if n == 0:
+            return None
+        means = {k: v / n for k, v in totals.items()}
+        if log:
+            print(f"| validation @ step {self.global_step}: "
+                  + " ".join(f"{k}={v:.4f}" for k, v in sorted(means.items())), flush=True)
+        return means.get("total_loss")
+
+    def validate_only(self) -> Optional[float]:
+        """``--validate``: restore the last checkpoint and validate once."""
+        self._build_state()
+        return self.validate()
+

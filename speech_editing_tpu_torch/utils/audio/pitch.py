@@ -1,9 +1,11 @@
-"""f0 quantisation and de-normalisation on torch tensors."""
+"""f0 quantisation and de-normalisation on torch tensors, and the
+dataset's f0 normalisation on host numpy."""
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 
@@ -31,3 +33,17 @@ def denorm_f0(f0: torch.Tensor, uv: torch.Tensor | None,
     if pitch_padding is not None:
         f0 = torch.where(pitch_padding, torch.zeros_like(f0), f0)
     return f0
+
+
+def norm_interp_f0(f0: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Host numpy, for the dataset: Hz f0 [T] -> (log2 f0 with the unvoiced
+    frames (0 Hz) interpolated linearly between voiced neighbours, uv [T]),
+    both float32."""
+    f0 = np.asarray(f0, np.float32)
+    uv = (f0 == 0).astype(np.float32)
+    f0 = np.where(uv > 0, 0.0, np.log2(f0 + 1e-8)).astype(np.float32)
+    if 0 < int(uv.sum()) < len(f0):
+        voiced = np.where(uv == 0)[0]
+        f0 = np.where(uv > 0, np.interp(np.arange(len(f0)), voiced,
+                                        f0[voiced]).astype(np.float32), f0)
+    return f0, uv

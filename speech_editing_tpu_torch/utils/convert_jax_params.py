@@ -5,7 +5,7 @@ differences handled here:
 
 * flax ``Conv`` kernel ``[k, in, out]`` -> torch ``Conv1d`` ``[out, in, k]``;
 * flax ``Dense`` kernel ``[in, out]`` -> torch ``Linear`` ``[out, in]``;
-* flax ``LayerNorm`` ``scale`` -> ``weight``;
+* flax ``LayerNorm`` and ``GroupNorm`` ``scale`` -> ``weight``;
 * attention ``DenseGeneral`` q/k/v ``[E, h, d]`` -> packed
   ``in_proj_weight [3E, E]``; out ``[h, d, E]`` -> ``out_proj.weight [E, E]``;
 * flax ``ConvTranspose`` kernel ``[k, in, out]`` is flipped along k
@@ -76,6 +76,24 @@ def _encoder(sd: dict, name: str, p: Mapping, num_layers: int) -> None:
     _layer_norm(sd, f"{name}.layer_norm", fft["layer_norm"])
 
 
+def text_conv_encoder_params_from_jax(p: Mapping, n_blocks: int, layers_in_block: int = 2,
+                                      prefix: str = "") -> dict[str, torch.Tensor]:
+    """JAX ``TextConvEncoder`` params -> ``state_dict`` of the port's, keys
+    prefixed by ``prefix``."""
+    sd: dict[str, torch.Tensor] = {}
+    _embedding(sd, f"{prefix}embed_tokens", p["embed_tokens"])
+    conv = p["conv"]
+    for j in range(n_blocks):
+        for i in range(layers_in_block):
+            rp, name = conv[f"res_{j}"], f"{prefix}res_blocks.{j}.blocks.{i}"
+            _layer_norm(sd, f"{name}.0", rp[f"norm_{i}"])
+            _conv(sd, f"{name}.1", rp[f"conv_{i}"])
+            _conv(sd, f"{name}.4", rp[f"proj_{i}"])
+    _layer_norm(sd, f"{prefix}last_norm", conv["last_norm"])
+    _conv(sd, f"{prefix}post_net1", conv["post_net1"])
+    return sd
+
+
 def diffnet_params_from_jax(p: Mapping, residual_layers: int,
                             prefix: str = "") -> dict[str, torch.Tensor]:
     """JAX ``DiffNet`` params -> ``state_dict`` of the port's DiffNet, keys
@@ -101,7 +119,12 @@ def params_from_jax(params: Mapping, hp: Any) -> dict[str, torch.Tensor]:
     params = params.get("params", params)
     sd: dict[str, torch.Tensor] = {}
     fs = params["fs"]
-    _encoder(sd, "fs.encoder", fs["encoder"], hp["enc_layers"])
+    if hp.get("encoder_type", "fft") == "conv":
+        sd.update(text_conv_encoder_params_from_jax(
+            fs["encoder"], len(hp["enc_dilations"]), hp.get("layers_in_block", 2),
+            "fs.encoder."))
+    else:
+        _encoder(sd, "fs.encoder", fs["encoder"], hp["enc_layers"])
     if "spk_id_proj" in fs:
         _embedding(sd, "fs.spk_id_proj", fs["spk_id_proj"])
     if "spk_embed_proj" in fs:

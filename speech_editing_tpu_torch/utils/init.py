@@ -1,0 +1,88 @@
+"""Flax's parameter initializers on the port's modules.
+
+The JAX package draws its starting weights through ``model.init``; the
+port's modules take torch's defaults when built. :func:`init_like_flax`
+redraws every parameter from the distribution flax gives the same
+parameter (the same distributions, not the same draws):
+
+* token embeddings: normal with std dim^-0.5 (``TokenEmbedding``);
+* dense layers, convolutions, attention projections: lecun-normal (a
+  normal truncated at two standard deviations with variance 1 / fan_in),
+  zero biases;
+* LayerNorm and GroupNorm: scale one, bias zero;
+* DiffNet's convolutions: kaiming-normal (variance 2 / fan_in, truncated),
+  its final ``output_projection`` zero, so the first x0 prediction is 0;
+* the conv text encoder's convolutions: xavier-uniform;
+* HiFi-GAN's convolutions after ``conv_pre``: normal with std 0.01.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from speech_editing_tpu_torch.models.vocoder.hifigan import HifiGanGenerator
+from speech_editing_tpu_torch.modules.conv import ConvBlocks
+from speech_editing_tpu_torch.modules.transformer import MultiheadAttention
+from speech_editing_tpu_torch.modules.wavenet import DiffNet
+
+# the std of a standard normal truncated to [-2, 2]
+_TRUNC_STD = 0.87962566103423978
+
+
+def _variance_scaling_normal_(w: torch.Tensor, scale: float) -> None:
+    """jax's ``variance_scaling(scale, "fan_in", "truncated_normal")``."""
+    fan_in = nn.init._calculate_fan_in_and_fan_out(w)[0]
+    std = math.sqrt(scale / fan_in) / _TRUNC_STD
+    nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std)
+
+
+def _reset(layer: nn.Module, init) -> None:
+    init(layer.weight)
+    if layer.bias is not None:
+        nn.init.zeros_(layer.bias)
+
+
+def lecun_normal_(w: torch.Tensor) -> None:
+    _variance_scaling_normal_(w, 1.0)
+
+
+def kaiming_normal_(w: torch.Tensor) -> None:
+    _variance_scaling_normal_(w, 2.0)
+
+
+@torch.no_grad()
+def init_like_flax(model: nn.Module) -> nn.Module:
+    """Redraw every parameter of ``model`` as flax initializes it (see the
+    module doc) from torch's global generator; returns ``model``."""
+    for m in model.modules():
+        if isinstance(m, nn.Embedding):
+            nn.init.normal_(m.weight, std=m.embedding_dim ** -0.5)
+        elif isinstance(m, (nn.Linear, nn.Conv1d, nn.ConvTranspose1d)):
+            _reset(m, lecun_normal_)
+        elif isinstance(m, (nn.LayerNorm, nn.GroupNorm)):
+            nn.init.ones_(m.weight)
+            nn.init.zeros_(m.bias)
+        elif isinstance(m, MultiheadAttention):
+            lecun_normal_(m.in_proj_weight)
+    # modules whose flax counterparts name their own initializers
+    for m in model.modules():
+        if isinstance(m, DiffNet):
+            for layer in (m.input_projection, m.skip_projection):
+                _reset(layer, kaiming_normal_)
+            for block in m.residual_layers:
+                for layer in (block.dilated_conv, block.conditioner_projection,
+                              block.output_projection):
+                    _reset(layer, kaiming_normal_)
+            _reset(m.output_projection, nn.init.zeros_)
+        elif isinstance(m, ConvBlocks):
+            for layer in m.modules():
+                if isinstance(layer, nn.Conv1d):
+                    _reset(layer, nn.init.xavier_uniform_)
+        elif isinstance(m, HifiGanGenerator):
+            for layer in m.modules():
+                if isinstance(layer, (nn.Conv1d, nn.ConvTranspose1d)) and layer is not m.conv_pre:
+                    _reset(layer, lambda w: nn.init.normal_(w, std=0.01))
+    return model

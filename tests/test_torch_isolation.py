@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: importing every module of
-``speech_editing_tpu_torch`` loads neither JAX nor the JAX package, and its
-entry points refuse to fall back to the CPU on their own."""
+``speech_editing_tpu_torch`` loads neither JAX, flax, optax, PyYAML nor the
+JAX package, and its entry points (the edit pipeline, the trainer and the
+training entry ``run``) refuse to fall back to the CPU on their own."""
 
 import os
 import subprocess
@@ -16,20 +17,25 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 assert len(names) >= 20, names
-leaked = sorted(m for m in sys.modules
-                if m in ("jax", "flax") or m.startswith(("jax.", "flax."))
-                or m == "speech_editing_tpu" or m.startswith("speech_editing_tpu."))
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in
+                ("jax", "jaxlib", "flax", "optax", "yaml", "speech_editing_tpu"))
 assert not leaked, leaked
 if not torch.cuda.is_available():
     from speech_editing_tpu_torch.infer.edit import EditPipeline
+    from speech_editing_tpu_torch.run import run
     from speech_editing_tpu_torch.training.trainer import Trainer
-    for entry, args in ((EditPipeline, ({}, {})), (Trainer, ({},))):
+    train_argv = ["--config", "egs/spec_denoiser.yaml", "--exp_name", "never_made",
+                  "-hp", "use_bf16=False"]
+    for entry, args in ((EditPipeline, ({}, {})), (Trainer.from_hp, ({},)),
+                        (run, (train_argv,))):
         try:
             entry(*args)
         except RuntimeError as e:
             assert "no CUDA device" in str(e), e
         else:
             raise AssertionError(f"{entry.__name__}() ran without a GPU")
+    import os
+    assert not os.path.exists("checkpoints/never_made")
 print("ISOLATED", len(names))
 """
 

@@ -293,9 +293,10 @@ def test_trainer_steps_on_cpu_reproducibly():
     batches = [_batch(s) for s in (0, 1, 2)]
     runs = []
     for _ in range(2):
-        trainer = Trainer(dict(HP, tb_log_interval=2), device="cpu", seed=3,
-                          vocab_size=VOCAB, sil_token_ids=SIL)
-        runs.append(trainer.fit(batches * 2, max_updates=4))
+        trainer = Trainer.from_hp(HP, device="cpu", seed=3, vocab_size=VOCAB,
+                                  sil_token_ids=SIL)
+        runs.append([{k: float(v) for k, v in trainer.step(b).items()}
+                     for b in (batches * 2)[:4]])
         assert trainer.global_step == 4 and trainer.train_step.updates == 4
     assert runs[0] == runs[1] and len(runs[0]) == 4
     for m in runs[0]:
