@@ -52,6 +52,23 @@ Phases, each of which exits non-zero on a failed check:
    on the card and on the CPU, agrees. Steps/s, real frames/s, the loader
    wait a step, a profiled step, peak memory, validation time and the
    checkpoint's size, save and load times are printed.
+7. infer path, on the run path's checkpoint and corpus with a HiFi-GAN V1
+   checkpoint of seeded weights at ``egs/hifigan.yaml``'s widths (the
+   vocoder must load as HiFi-GAN on the card): ``run --infer`` over the 8
+   test utterances writes [P]/[G]/[P_SEG]/[G_SEG] wavs and ``meta.csv``,
+   each item launches K1 160 times and no other kernel, and every mel_out
+   frame outside the dataset's mask is the ground truth's; then the CSV
+   region-edit API (``SpecDenoiserInfer.example_run``) edits four
+   requests of 2.5-5 s (a lengthening, a shortening, a same-length edit
+   and a tail that re-phonemizes differently; fallback g2p, TextGrids
+   written here): an output and a ``_ref`` wav each, 160 K1 launches an
+   edit, head and tail frames equal to the source's, the edited span as
+   long as its predicted durations, the same request twice bit-identical;
+   each edit's host latency and its parts over 40 edits, one profiled
+   edit, and one request re-run on the CPU with the card's noise (a
+   duration or pitch bin that rounds the other way is replayed and
+   counted). K1 is then held against its plain version at every length
+   this phase ran it at.
 
 ``python3 chip_smoke.py --time-attention`` builds K3 and K4 only and times
 them and SDPA at those shapes, with no checks; ``--time-mel`` does the same
@@ -68,6 +85,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import csv
 import itertools
 import json
 import os
@@ -81,9 +99,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+import speech_editing_tpu_torch.models.fs as fs_module
 from speech_editing_tpu_torch.config.flagship import FLAGSHIP_HP, HIFIGAN_V1_HP
+from speech_editing_tpu_torch.config.hparams import (arg_parser, dump_yaml, load_config,
+                                                     set_hparams)
 from speech_editing_tpu_torch.data.indexed_dataset import IndexedDatasetBuilder
 from speech_editing_tpu_torch.infer.edit import EditPipeline
+from speech_editing_tpu_torch.infer.spec_denoiser import SpecDenoiserInfer, request_generator
+from speech_editing_tpu_torch.infer.vocoder import HifiGAN, get_vocoder_cls
+from speech_editing_tpu_torch.models.vocoder.hifigan import HifiGanGenerator
 from speech_editing_tpu_torch.ops.cuda import build
 from speech_editing_tpu_torch.ops.cuda.diffnet_block import (_fits64, _tile_plan,
                                                              diffnet_block,
@@ -100,8 +124,15 @@ from speech_editing_tpu_torch.ops.flash_attention import (attention_bwd_plain,
 from speech_editing_tpu_torch.ops.mel import MelConfig, mel_bases
 from speech_editing_tpu_torch.ops.mel import mel_spectrogram as mel_plain
 from speech_editing_tpu_torch.run import run as run_entry
+from speech_editing_tpu_torch.training.checkpoint import save_checkpoint
 from speech_editing_tpu_torch.training.trainer import Trainer
-from speech_editing_tpu_torch.utils.audio.dsp import stft_window
+from speech_editing_tpu_torch.utils.audio.dsp import stft_window, wav2spec
+from speech_editing_tpu_torch.utils.audio.io import save_wav
+from speech_editing_tpu_torch.utils.init import init_like_flax
+from speech_editing_tpu_torch.utils.multiprocess import ResultSaverPool
+from speech_editing_tpu_torch.utils.text.processors import (_FallbackG2p,
+                                                            get_txt_processor_cls, txt_to_ph)
+from speech_editing_tpu_torch.utils.text.text_encoder import is_sil_phoneme
 
 PEAK_FP32_FLOPS = 67e12     # H100 SXM, float32 outside the tensor cores
 # H100 SXM, float32-accurate products on the tensor cores: three TF32
@@ -1128,8 +1159,12 @@ def compare_step_with_cpu(label: str, make_twin, state: dict, sub: dict) -> None
 # 22,050 Hz and hop 256), one phone per about 7 frames, 80 phones
 RUN_SPLITS = {"train": 512, "valid": 32, "test": 8}
 RUN_MIN_T, RUN_MAX_T, RUN_FRAMES_PER_PHONE = 150, 700, 7
-RUN_SIL_PHONES = ["|", ",", ".", "?", "!", ";"]
-RUN_PHONES = RUN_SIL_PHONES + [f"P{i}" for i in range(80 - len(RUN_SIL_PHONES))]
+RUN_SIL_PHONES = ["|", ",", ".", "?", "!", ";", "<BOS>"]
+# every phone the fallback g2p writes, so the CSV edit API's phones are in the vocabulary
+G2P_PHONES = sorted({p for _, phs in _FallbackG2p.DIGRAPHS for p in phs}
+                    | {p for phs in _FallbackG2p.SINGLE.values() for p in phs} | {"AH0"})
+RUN_PHONES = RUN_SIL_PHONES + G2P_PHONES + [
+    f"P{i}" for i in range(80 - len(RUN_SIL_PHONES) - len(G2P_PHONES))]
 RUN_SPEAKERS = 24
 RUN_HP = ("use_bf16=False,max_updates=60,val_check_interval=30,num_sanity_val_steps=2,"
           "eval_max_batches=8,tb_log_interval=10")
@@ -1287,121 +1322,578 @@ def states_equal(a: dict, b: dict) -> bool:
         for i in sa for k, v in sa[i].items())
 
 
-def run_path(smi: str) -> tuple[dict, dict]:
+def run_path(smi: str, tmp: str) -> tuple[dict, dict]:
     """The training entry (``speech_editing_tpu_torch.run``) on
     ``egs/spec_denoiser.yaml`` at its shipped widths and batch budget, float32,
-    over a synthetic corpus: 60 steps with sanity and interval validation
-    and checkpoints, then a resume to 70."""
+    over a synthetic corpus in ``tmp/data``: 60 steps with sanity and
+    interval validation and checkpoints into ``tmp/checkpoints/run``, then a
+    resume to 70."""
     q = lambda xs, p: float(np.percentile(xs, p))
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_run_")
+    t0 = time.perf_counter()
+    mel_bytes = write_run_corpus(os.path.join(tmp, "data"))
+    corpus_s = time.perf_counter() - t0
+    work = os.path.join(tmp, "checkpoints", "run")
+    argv = ["--config", "egs/spec_denoiser.yaml", "--exp_name", work, "-hp",
+            f"binary_data_dir={os.path.join(tmp, 'data')},{RUN_HP}"]
+    first, second = RunRecorder(), RunRecorder()
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with first.instrumented():
+        trainer = run_entry(argv)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    with second.instrumented():
+        resumed = run_entry(argv[:-1] + [argv[-1] + f",max_updates={RUN_RESUME_TO}"])
+    totals = counts()
+
+    print(f"[run] launches per step {first.steps[-1]['launches']}, per validation batch "
+          f"{first.valid[-1]}; totals {totals}", flush=True)
+    for rec in (first, second):
+        for st in rec.steps:
+            check(st["launches"] == EXPECTED_PER_RUN_STEP,
+                  f"run step {st['step']}: launches {st['launches']} != "
+                  f"{EXPECTED_PER_RUN_STEP}")
+            m = {k: float(v) for k, v in st["metrics"].items()}
+            check(all(np.isfinite(v) for v in m.values()) and m["nan_grads"] == 0,
+                  f"run step {st['step']}: non-finite metrics {m}")
+        for moved in rec.valid:
+            check(moved == EXPECTED_PER_VALID_BATCH,
+                  f"validation batch: launches {moved} != {EXPECTED_PER_VALID_BATCH}")
+    check(len(first.steps) == 60 and len(first.valid) == 2 + 8 + 8,
+          f"run: {len(first.steps)} steps, {len(first.valid)} validation batches")
+    ckpts = {n: os.path.join(work, f"model_ckpt_steps_{n}.ckpt") for n in (30, 60, 70)}
+    check(all(os.path.exists(p) for p in ckpts.values()),
+          f"run: checkpoints {sorted(os.listdir(work))}")
+    saved = torch.load(ckpts[60], map_location="cpu", weights_only=True)["state"]
+    check(second.steps[0]["step"] == 61 and len(second.steps) == RUN_RESUME_TO - 60
+          and states_equal(second.loaded, saved),
+          "resume: the second run did not start from step 60 with the saved "
+          "parameters and Adam moments, bit for bit")
+    print(f"[run] resume: started at step 60 with the checkpoint's parameters, Adam "
+          f"moments and counts bit for bit; ran to {resumed.global_step}", flush=True)
+
+    timed = first.steps[RUN_WARMUP:]
+    ev = [st["event_ms"] for st in timed]
+    host = [st["host_ms"] for st in timed]
+    frames = sum(st["frames"] for st in timed)
+    waits = first.waits[RUN_WARMUP:]
+    stats = {"steps": len(first.steps) + len(second.steps), "timed_steps": len(timed),
+             "batch_sizes": sorted({st["shape"][0] for st in first.steps}),
+             "padded_frames_range": [min(st["shape"][1] for st in first.steps),
+                                     max(st["shape"][1] for st in first.steps)],
+             "padded_frames_p50": q([st["shape"][1] for st in timed], 50),
+             "real_frames_per_step_mean": frames / len(timed),
+             "event_ms_p50": q(ev, 50), "event_ms_p75": q(ev, 75),
+             "host_ms_p50": q(host, 50), "host_ms_p75": q(host, 75),
+             "steps_per_s_events": 1e3 / q(ev, 50), "steps_per_s_host": 1e3 / q(host, 50),
+             "real_frames_per_s_events": frames / (sum(ev) / 1e3),
+             "real_frames_per_s_host": frames / (sum(host) / 1e3),
+             "loader_wait_ms_p50": q(waits, 50), "loader_wait_ms_p75": q(waits, 75),
+             "loader_wait_ms_max": max(waits), "first_batch_wait_ms": first.waits[0],
+             "validation_s": first.validate_s, "peak_gib": peak_gib,
+             "ckpt_mb": os.path.getsize(ckpts[60]) / 1e6,
+             "ckpt_save_s": first.save_s, "ckpt_load_s": second.load_s[0],
+             "corpus_mel_mb": mel_bytes / 1e6, "corpus_write_s": corpus_s, "card": smi}
+    print(f"[run] egs/spec_denoiser.yaml, float32, {stats['timed_steps']} timed steps "
+          f"(of 60, after {RUN_WARMUP}), batches of {stats['batch_sizes']} utterances "
+          f"padded to {stats['padded_frames_range']} frames (p50 "
+          f"{stats['padded_frames_p50']:.0f}), "
+          f"{stats['real_frames_per_step_mean']:.0f} real frames a step: CUDA "
+          f"events p50 {stats['event_ms_p50']:.3f} ms, p75 {stats['event_ms_p75']:.3f} "
+          f"ms; host clock p50 {stats['host_ms_p50']:.3f} ms, p75 "
+          f"{stats['host_ms_p75']:.3f} ms; {stats['steps_per_s_host']:.2f} steps/s "
+          f"(host p50), {stats['real_frames_per_s_host']:.0f} real frames/s (host), "
+          f"{stats['real_frames_per_s_events']:.0f} (events); {smi}", flush=True)
+    print(f"[run] loader wait a step (ds_workers 2): p50 {stats['loader_wait_ms_p50']:.3f} "
+          f"ms, p75 {stats['loader_wait_ms_p75']:.3f} ms, max "
+          f"{stats['loader_wait_ms_max']:.3f} ms, first batch "
+          f"{stats['first_batch_wait_ms']:.1f} ms; peak memory {peak_gib:.3f} GiB; "
+          f"validations {[round(v, 3) for v in first.validate_s]} s (8 batches; the "
+          f"first is the 2-batch sanity run); checkpoint {stats['ckpt_mb']:.1f} MB, "
+          f"saves {[round(v, 3) for v in first.save_s]} s, resume load "
+          f"{stats['ckpt_load_s']:.3f} s; corpus {stats['corpus_mel_mb']:.1f} MB of mel "
+          f"written in {corpus_s:.1f} s; {smi}", flush=True)
+    # the profiled step: the timed batch at the median padded length,
+    # against its own host-clock time in the run
+    mid = sorted(timed, key=lambda st: st["shape"][1])[len(timed) // 2]
+    raw = {k: v.pin_memory() if isinstance(v, torch.Tensor) else v
+           for k, v in mid["raw"].items()}
+    b, t = mid["shape"]
+    print(f"[run] profiled batch: the timed step at the median padded length, B={b} x "
+          f"T={t} ({mid['frames']} real frames; {plan_text('diffnet_block', b, t, 1)} "
+          f"for K1, {plan_text('diffnet_block_bwd', b, t, 1)} for K5), "
+          f"{mid['host_ms']:.3f} ms host clock and {mid['event_ms']:.3f} ms CUDA events "
+          f"in the run", flush=True)
+    busy_ms = profile_step(trainer, raw, mid["host_ms"], label=f"run B={b} x T={t}")
+    stats.update(profiled_batch=[b, t], profiled_real_frames=mid["frames"],
+                 profiled_host_ms=mid["host_ms"], profiled_busy_ms=busy_ms,
+                 profiled_busy_share=None if busy_ms is None else busy_ms / mid["host_ms"])
+    keys = resumed.task.effective_batch_keys()
+    check("spk_embed" in keys, f"run: the step's keys {keys} lack spk_embed")
+    compare_step_with_cpu("run", lambda dev: Trainer(resumed.task, resumed.hp, dev,
+                                                     dropout=False),
+                          resumed.train_step.state_dict(),
+                          {k: raw[k][:2] for k in keys})
+    return totals, stats
+
+
+# -- infer path ------------------------------------------------------------------
+
+# the CSV edit API's requests: (seconds of source audio, f0, text, edited text,
+# region, edited region): a lengthening, a shortening and a same-length
+# edit, and an edit whose tail after the stated region differs ("mat" ->
+# "mats"), which the splice meets as a tail that re-phonemized differently
+# (the fallback g2p is context-free and re-phonemizes no unchanged word)
+CSV_ROWS = [
+    (3.0, 130.0, "we walked along the quiet river bank at dawn",
+     "we walked along the very long and quiet river bank at dawn", "[4,5]", "[4,8]"),
+    (5.0, 180.0, "she sold seven bright sea shells by the sandy shore last summer",
+     "she sold shells by the sandy shore last summer", "[2,5]", "[2,2]"),
+    (4.0, 110.0, "the old man read the morning paper in his garden",
+     "the old man read the evening paper in his garden", "[6,6]", "[6,6]"),
+    (2.5, 210.0, "the cat sat on the mat", "the dog sat on the mats", "[2,2]", "[2,2]"),
+]
+CSV_ROUNDS = 10           # timed passes over the four requests
+CSV_TOL = 1e-3            # card vs CPU mel_out of one CSV request
+DUR_TOL = 1e-4            # card vs CPU predicted durations
+EXPECTED_PER_EDIT = {"diffnet_block": RUN_LAYERS * FLAGSHIP_HP["timesteps"],
+                     "diffnet_block_bwd": 0, "mel_spectrogram": 0, "flash_mha": 0,
+                     "flash_mha_bwd": 0}
+
+
+def csv_wav(seconds: float, f0: float, seed: int) -> np.ndarray:
+    """A harmonic source: six partials of ``f0`` with a 3 Hz tremolo over a
+    0.01 rms noise floor."""
+    n = int(seconds * SR)
+    t_ax = np.arange(n) / SR
+    tone = sum(0.3 / k * np.sin(2 * np.pi * f0 * k * t_ax) for k in range(1, 7))
+    tone = tone * (1 + 0.3 * np.sin(2 * np.pi * 3 * t_ax))
+    return (tone + 0.01 * np.random.RandomState(seed).randn(n)).astype(np.float32)
+
+
+def write_textgrid(path: str, text: str, n_frames: int, lead: int = 8, tail: int = 12) -> None:
+    """An MFA-style phone tier: ``text``'s g2p phones spread evenly over
+    ``n_frames`` between a leading and a trailing silence."""
+    ph, *_ = txt_to_ph(get_txt_processor_cls("en"), text)
+    phones = [p for p in ph.split(" ") if not is_sil_phoneme(p)]
+    bounds = lead + np.round(np.linspace(0, n_frames - lead - tail, len(phones) + 1)).astype(int)
+    sec = lambda f: float(f * HOP / SR)
+    ivs = ([(0.0, sec(lead), "")]
+           + [(sec(a), sec(b), p) for a, b, p in zip(bounds[:-1], bounds[1:], phones)]
+           + [(sec(bounds[-1]), sec(n_frames), "")])
+    lines = ['File type = "ooTextFile"', 'Object class = "TextGrid"', "", "xmin = 0",
+             f"xmax = {sec(n_frames)!r}", "tiers? <exists>", "size = 1", "item []:",
+             "    item [1]:", '        class = "IntervalTier"', '        name = "phones"',
+             "        xmin = 0", f"        xmax = {sec(n_frames)!r}",
+             f"        intervals: size = {len(ivs)}"]
+    for k, (a, b, m) in enumerate(ivs, 1):
+        lines += [f"        intervals [{k}]:", f"            xmin = {a!r}",
+                  f"            xmax = {b!r}", f'            text = "{m}"']
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def write_vocoder(voc_dir: str) -> dict:
+    """A HiFi-GAN V1 checkpoint of seeded weights (flax's initializers) at
+    ``egs/hifigan.yaml``'s widths, with its ``config.yaml``; returns the
+    generator's config."""
+    vhp = {k: load_config("egs/hifigan.yaml")[k] for k in HIFIGAN_V1_HP}
+    check(vhp == HIFIGAN_V1_HP, f"egs/hifigan.yaml's generator {vhp} != {HIFIGAN_V1_HP}")
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        sd = init_like_flax(HifiGanGenerator(vhp)).state_dict()
+    save_checkpoint(voc_dir, {"model": sd}, 1)
+    with open(os.path.join(voc_dir, "config.yaml"), "w") as f:
+        f.write(dump_yaml(vhp))
+    return vhp
+
+
+class InferRecorder:
+    """Wraps ``Trainer._infer_batch``, ``SpecDenoiserInfer``'s methods, the
+    HiFi-GAN vocoder and the result writers' ``drain`` while an entry point
+    runs, to record each test batch's and each edit's launches, inputs and
+    outputs, the predicted durations, and the host time of the inference
+    forwards, the vocoder calls and the wait for the writers."""
+
+    def __init__(self):
+        self.batches, self.edits, self.durs = [], [], []
+        self.seconds = {"forward": 0.0, "vocoder": 0.0, "writers": 0.0}
+
+    @contextlib.contextmanager
+    def instrumented(self):
+        rec = self
+        orig = {"batch": Trainer._infer_batch, "forward": SpecDenoiserInfer.forward_model,
+                "durs": SpecDenoiserInfer.predict_durations, "voc": HifiGAN.spec2wav,
+                "drain": ResultSaverPool.drain}
+
+        def timed(name, key):
+            def wrapper(*args, **kwargs):
+                t0 = time.perf_counter()
+                out = orig[name](*args, **kwargs)
+                rec.seconds[key] += time.perf_counter() - t0
+                return out
+            return wrapper
+
+        def infer_batch(trainer, raw, *args, **kwargs):
+            before = counts()
+            t0 = time.perf_counter()
+            out = orig["batch"](trainer, raw, *args, **kwargs)
+            torch.cuda.synchronize()
+            rec.seconds["forward"] += time.perf_counter() - t0
+            rec.batches.append(dict(launches={k: counts()[k] - before[k] for k in COUNTERS},
+                                    names=list(raw["item_name"]),
+                                    lengths=[int(n) for n in raw["mel_lengths"]],
+                                    shape=tuple(raw["mels"].shape[:2]),
+                                    mels=torch.as_tensor(raw["mels"]).clone(),
+                                    masks=torch.as_tensor(raw["time_mel_masks"]).clone(),
+                                    mel_out=out["mel_out"].cpu()))
+            return out
+
+        def forward_model(inf, item, *args, **kwargs):
+            before = counts()
+            out = orig["forward"](inf, item, *args, **kwargs)
+            torch.cuda.synchronize()
+            rec.edits.append(dict(launches={k: counts()[k] - before[k] for k in COUNTERS},
+                                  item=item, out=out))
+            return out
+
+        def predict_durations(inf, item, spk_embed):
+            dur = orig["durs"](inf, item, spk_embed)
+            rec.durs.append(dur)
+            return dur
+
+        Trainer._infer_batch = infer_batch
+        SpecDenoiserInfer.forward_model = forward_model
+        SpecDenoiserInfer.predict_durations = predict_durations
+        HifiGAN.spec2wav = timed("voc", "vocoder")
+        ResultSaverPool.drain = timed("drain", "writers")
+        try:
+            yield self
+        finally:
+            Trainer._infer_batch = orig["batch"]
+            SpecDenoiserInfer.forward_model = orig["forward"]
+            SpecDenoiserInfer.predict_durations = orig["durs"]
+            HifiGAN.spec2wav = orig["voc"]
+            ResultSaverPool.drain = orig["drain"]
+
+
+def check_test_set(gen_dir: str, rec: InferRecorder) -> None:
+    """``--infer``'s outputs: a [P] and a [G] wav and a [P] mel per item,
+    segment wavs per masked item, ``meta.csv``; K1 only, 160 launches an
+    item; mel_out finite and equal to the ground truth outside the mask."""
+    names = [n for b in rec.batches for n in b["names"]]
+    check(len(names) == RUN_SPLITS["test"] and len(set(names)) == len(names),
+          f"--infer generated {names}")
+    wavs = set(os.listdir(os.path.join(gen_dir, "wavs")))
+    with open(os.path.join(gen_dir, "meta.csv")) as f:
+        meta = list(csv.reader(f))[1:]
+    check(sorted(r[0] for r in meta) == sorted(names), f"meta.csv rows {meta}")
+    for b in rec.batches:
+        check(b["launches"] == EXPECTED_PER_EDIT,
+              f"--infer batch {b['names']}: launches {b['launches']} != {EXPECTED_PER_EDIT}")
+        for i, name in enumerate(b["names"]):
+            t = b["lengths"][i]
+            seg = b["masks"][i, :t] == 1
+            want = {f"[P]{name}.wav", f"[G]{name}.wav", f"[P]{name}_mel.npy"}
+            if bool(seg.any()):
+                want |= {f"[P_SEG]{name}.wav", f"[G_SEG]{name}.wav"}
+            check(want <= wavs, f"--infer {name}: missing {sorted(want - wavs)}")
+            mel_out, mels = b["mel_out"][i, :t], b["mels"][i, :t]
+            saved = torch.from_numpy(np.load(os.path.join(gen_dir, "wavs", f"[P]{name}_mel.npy")))
+            check(bool(torch.isfinite(mel_out).all()) and torch.equal(saved, mel_out),
+                  f"--infer {name}: mel_out not finite or not the saved [P] mel")
+            check(torch.equal(mel_out[~seg], mels[~seg]),
+                  f"--infer {name}: frames outside the mask differ from the ground truth")
+
+
+def check_edit(rec_edit: dict, dur: np.ndarray, out_dir: str) -> dict:
+    """One CSV edit: its wavs, K1 only with 160 launches, the composite's
+    head and tail equal to the source mel's spliced frames, the edited span
+    as long as the predicted durations of the edited words, all finite."""
+    item, (wav_out, wav_gt, mel_out, mel, ref_mels, _) = rec_edit["item"], rec_edit["out"]
+    name = item["item_name"]
+    check(all(os.path.exists(os.path.join(out_dir, f"{name}{s}.wav")) for s in ("", "_ref")),
+          f"CSV edit {name}: missing wavs in {sorted(os.listdir(out_dir))}")
+    check(rec_edit["launches"] == EXPECTED_PER_EDIT,
+          f"CSV edit {name}: launches {rec_edit['launches']} != {EXPECTED_PER_EDIT}")
+    check(all(np.isfinite(a).all() for a in (wav_out, wav_gt, mel_out)),
+          f"CSV edit {name}: non-finite output")
+    (w0, w1), (c0, c1) = item["words_region"][0], item["edited_words_region"][0]
+    head = int(np.sum((item["mel2word"] >= 1) & (item["mel2word"] < w0)))
+    tail_src = mel[item["mel2word"] > w1]
+    dur_int = np.round(dur).astype(np.int64) * (item["edited_ph_token"] > 0)
+    changed = (item["edited_ph2word"] >= c0) & (item["edited_ph2word"] <= c1)
+    span = int(dur_int[changed].sum())
+    check(mel_out.shape[0] == head + span + len(tail_src),
+          f"CSV edit {name}: {mel_out.shape[0]} frames != head {head} + predicted span "
+          f"{span} + tail {len(tail_src)}")
+    check(np.array_equal(mel_out[:head], mel[:head])
+          and np.array_equal(mel_out[head + span:], tail_src),
+          f"CSV edit {name}: head or tail frames differ from the source mel")
+    n_tail_orig = int(np.sum(item["ph2word"] > w1))
+    n_tail_edit = int(np.sum(item["edited_ph2word"] > c1))
+    return dict(name=name, source_frames=int(mel.shape[0]), frames=int(mel_out.shape[0]),
+                head=head, span=span, tail=len(tail_src),
+                tail_phones=(n_tail_orig, n_tail_edit), wav_s=len(wav_out) / SR)
+
+
+@contextlib.contextmanager
+def coarse_pitch_bins(bins: list, replay: bool):
+    """Within the block every pitch quantisation (``f0_to_coarse``, as the
+    conditioner calls it) records its bins into ``bins``; with ``replay`` it
+    takes the recorded bins instead of its own and counts those that
+    differ, each by one bin (an f0 within rounding of a bin edge). A bin
+    picks a pitch embedding, so such a frame's conditioning would differ by
+    far more than rounding. Yields ``[flips, calls]``."""
+    orig, tally = fs_module.f0_to_coarse, [0, 0]
+
+    def f0_to_coarse(f0, *args, **kwargs):
+        got = orig(f0, *args, **kwargs)
+        if not replay:
+            bins.append(got.detach().clone())
+            return got
+        want = bins[tally[1]].to(got.device)
+        differ = got != want
+        check(bool(((got - want).abs()[differ] == 1).all()),
+              "coarse pitch: the card's and the CPU's bins differ by more than one")
+        tally[0] += int(differ.sum())
+        tally[1] += 1
+        return want
+
+    fs_module.f0_to_coarse = f0_to_coarse
     try:
-        t0 = time.perf_counter()
-        mel_bytes = write_run_corpus(os.path.join(tmp, "data"))
-        corpus_s = time.perf_counter() - t0
-        work = os.path.join(tmp, "checkpoints", "run")
-        argv = ["--config", "egs/spec_denoiser.yaml", "--exp_name", work, "-hp",
-                f"binary_data_dir={os.path.join(tmp, 'data')},{RUN_HP}"]
-        first, second = RunRecorder(), RunRecorder()
-        reset_counts()
-        torch.cuda.reset_peak_memory_stats()
-        with first.instrumented():
-            trainer = run_entry(argv)
-        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-        with second.instrumented():
-            resumed = run_entry(argv[:-1] + [argv[-1] + f",max_updates={RUN_RESUME_TO}"])
-        totals = counts()
-
-        print(f"[run] launches per step {first.steps[-1]['launches']}, per validation batch "
-              f"{first.valid[-1]}; totals {totals}", flush=True)
-        for rec in (first, second):
-            for st in rec.steps:
-                check(st["launches"] == EXPECTED_PER_RUN_STEP,
-                      f"run step {st['step']}: launches {st['launches']} != "
-                      f"{EXPECTED_PER_RUN_STEP}")
-                m = {k: float(v) for k, v in st["metrics"].items()}
-                check(all(np.isfinite(v) for v in m.values()) and m["nan_grads"] == 0,
-                      f"run step {st['step']}: non-finite metrics {m}")
-            for moved in rec.valid:
-                check(moved == EXPECTED_PER_VALID_BATCH,
-                      f"validation batch: launches {moved} != {EXPECTED_PER_VALID_BATCH}")
-        check(len(first.steps) == 60 and len(first.valid) == 2 + 8 + 8,
-              f"run: {len(first.steps)} steps, {len(first.valid)} validation batches")
-        ckpts = {n: os.path.join(work, f"model_ckpt_steps_{n}.ckpt") for n in (30, 60, 70)}
-        check(all(os.path.exists(p) for p in ckpts.values()),
-              f"run: checkpoints {sorted(os.listdir(work))}")
-        saved = torch.load(ckpts[60], map_location="cpu", weights_only=True)["state"]
-        check(second.steps[0]["step"] == 61 and len(second.steps) == RUN_RESUME_TO - 60
-              and states_equal(second.loaded, saved),
-              "resume: the second run did not start from step 60 with the saved "
-              "parameters and Adam moments, bit for bit")
-        print(f"[run] resume: started at step 60 with the checkpoint's parameters, Adam "
-              f"moments and counts bit for bit; ran to {resumed.global_step}", flush=True)
-
-        timed = first.steps[RUN_WARMUP:]
-        ev = [st["event_ms"] for st in timed]
-        host = [st["host_ms"] for st in timed]
-        frames = sum(st["frames"] for st in timed)
-        waits = first.waits[RUN_WARMUP:]
-        stats = {"steps": len(first.steps) + len(second.steps), "timed_steps": len(timed),
-                 "batch_sizes": sorted({st["shape"][0] for st in first.steps}),
-                 "padded_frames_range": [min(st["shape"][1] for st in first.steps),
-                                         max(st["shape"][1] for st in first.steps)],
-                 "padded_frames_p50": q([st["shape"][1] for st in timed], 50),
-                 "real_frames_per_step_mean": frames / len(timed),
-                 "event_ms_p50": q(ev, 50), "event_ms_p75": q(ev, 75),
-                 "host_ms_p50": q(host, 50), "host_ms_p75": q(host, 75),
-                 "steps_per_s_events": 1e3 / q(ev, 50), "steps_per_s_host": 1e3 / q(host, 50),
-                 "real_frames_per_s_events": frames / (sum(ev) / 1e3),
-                 "real_frames_per_s_host": frames / (sum(host) / 1e3),
-                 "loader_wait_ms_p50": q(waits, 50), "loader_wait_ms_p75": q(waits, 75),
-                 "loader_wait_ms_max": max(waits), "first_batch_wait_ms": first.waits[0],
-                 "validation_s": first.validate_s, "peak_gib": peak_gib,
-                 "ckpt_mb": os.path.getsize(ckpts[60]) / 1e6,
-                 "ckpt_save_s": first.save_s, "ckpt_load_s": second.load_s[0],
-                 "corpus_mel_mb": mel_bytes / 1e6, "corpus_write_s": corpus_s, "card": smi}
-        print(f"[run] egs/spec_denoiser.yaml, float32, {stats['timed_steps']} timed steps "
-              f"(of 60, after {RUN_WARMUP}), batches of {stats['batch_sizes']} utterances "
-              f"padded to {stats['padded_frames_range']} frames (p50 "
-              f"{stats['padded_frames_p50']:.0f}), "
-              f"{stats['real_frames_per_step_mean']:.0f} real frames a step: CUDA "
-              f"events p50 {stats['event_ms_p50']:.3f} ms, p75 {stats['event_ms_p75']:.3f} "
-              f"ms; host clock p50 {stats['host_ms_p50']:.3f} ms, p75 "
-              f"{stats['host_ms_p75']:.3f} ms; {stats['steps_per_s_host']:.2f} steps/s "
-              f"(host p50), {stats['real_frames_per_s_host']:.0f} real frames/s (host), "
-              f"{stats['real_frames_per_s_events']:.0f} (events); {smi}", flush=True)
-        print(f"[run] loader wait a step (ds_workers 2): p50 {stats['loader_wait_ms_p50']:.3f} "
-              f"ms, p75 {stats['loader_wait_ms_p75']:.3f} ms, max "
-              f"{stats['loader_wait_ms_max']:.3f} ms, first batch "
-              f"{stats['first_batch_wait_ms']:.1f} ms; peak memory {peak_gib:.3f} GiB; "
-              f"validations {[round(v, 3) for v in first.validate_s]} s (8 batches; the "
-              f"first is the 2-batch sanity run); checkpoint {stats['ckpt_mb']:.1f} MB, "
-              f"saves {[round(v, 3) for v in first.save_s]} s, resume load "
-              f"{stats['ckpt_load_s']:.3f} s; corpus {stats['corpus_mel_mb']:.1f} MB of mel "
-              f"written in {corpus_s:.1f} s; {smi}", flush=True)
-        # the profiled step: the timed batch at the median padded length,
-        # against its own host-clock time in the run
-        mid = sorted(timed, key=lambda st: st["shape"][1])[len(timed) // 2]
-        raw = {k: v.pin_memory() if isinstance(v, torch.Tensor) else v
-               for k, v in mid["raw"].items()}
-        b, t = mid["shape"]
-        print(f"[run] profiled batch: the timed step at the median padded length, B={b} x "
-              f"T={t} ({mid['frames']} real frames; {plan_text('diffnet_block', b, t, 1)} "
-              f"for K1, {plan_text('diffnet_block_bwd', b, t, 1)} for K5), "
-              f"{mid['host_ms']:.3f} ms host clock and {mid['event_ms']:.3f} ms CUDA events "
-              f"in the run", flush=True)
-        busy_ms = profile_step(trainer, raw, mid["host_ms"], label=f"run B={b} x T={t}")
-        stats.update(profiled_batch=[b, t], profiled_real_frames=mid["frames"],
-                     profiled_host_ms=mid["host_ms"], profiled_busy_ms=busy_ms,
-                     profiled_busy_share=None if busy_ms is None else busy_ms / mid["host_ms"])
-        keys = resumed.task.effective_batch_keys()
-        check("spk_embed" in keys, f"run: the step's keys {keys} lack spk_embed")
-        compare_step_with_cpu("run", lambda dev: Trainer(resumed.task, resumed.hp, dev,
-                                                         dropout=False),
-                              resumed.train_step.state_dict(),
-                              {k: raw[k][:2] for k in keys})
-        return totals, stats
+        yield tally
     finally:
-        shutil.rmtree(tmp)
+        fs_module.f0_to_coarse = orig
+    check(not replay or tally[1] == len(bins),
+          f"coarse_pitch_bins: {tally[1]} calls replayed {len(bins)} recorded ones")
+
+
+def compare_edit_with_cpu(hp: dict, inf, inp: dict) -> dict:
+    """One CSV request on the card and again on the CPU (plain versions),
+    with the card's noise and, where a predicted duration or a pitch bin
+    lies within rounding of a rounding edge, the card's rounding replayed
+    and counted; the float durations within DUR_TOL and mel_out within
+    CSV_TOL."""
+    item = inf.preprocess_input(inp)
+    spk = inf.spk_embedder(item["wav"])[None]
+    bins: list = []
+    with coarse_pitch_bins(bins, replay=False):
+        dur_gpu = inf.predict_durations(item, spk)
+        mel_gpu = inf.forward_model(item)[2]
+    gen = request_generator(int(hp.get("seed", 1234)), item, "cuda")
+    noise = [torch.randn(1, mel_gpu.shape[0], 80, device="cuda", generator=gen).cpu()
+             for _ in range(FLAGSHIP_HP["timesteps"] + 1)]
+    cpu = SpecDenoiserInfer(hp, "cpu")
+    t0 = time.perf_counter()
+    with coarse_pitch_bins(bins, replay=True) as tally:
+        dur_cpu = cpu.predict_durations(item, spk)
+        flipped = np.round(dur_cpu) != np.round(dur_gpu)
+        mel_cpu = cpu.forward_model(item, noise=noise, dur_int=np.round(dur_gpu))[2]
+    cpu_s = time.perf_counter() - t0
+    dur_err = float(np.abs(dur_cpu - dur_gpu).max())
+    edge = np.abs(np.abs(dur_gpu - np.floor(dur_gpu)) - 0.5)
+    mel_err = float(np.abs(mel_cpu - mel_gpu).max()) if mel_cpu.shape == mel_gpu.shape else np.inf
+    out = dict(name=item["item_name"], frames=int(mel_gpu.shape[0]), cpu_s=cpu_s,
+               dur_max_abs_err=dur_err, dur_replayed=int(flipped.sum()), durations=len(dur_gpu),
+               bins_replayed=tally[0], bins=int(sum(b.numel() for b in bins)),
+               mel_max_abs_err=mel_err)
+    print(f"[infer] CSV request {out['name']} on the card vs the CPU ({cpu_s:.1f} s): "
+          f"durations max_abs_err {dur_err:.3e} (tol {DUR_TOL}), {out['dur_replayed']} of "
+          f"{out['durations']} rounded the other way on the CPU and replayed; pitch bins "
+          f"replayed {out['bins_replayed']} of {out['bins']}; mel_out ({out['frames']} "
+          f"frames) max_abs_err {mel_err:.3e} (tol {CSV_TOL})", flush=True)
+    check(dur_err <= DUR_TOL, f"CSV request: durations differ by {dur_err} > {DUR_TOL}")
+    check(bool((edge[flipped] <= DUR_TOL).all()),
+          "CSV request: a duration rounded the other way away from a .5 edge")
+    check(mel_err <= CSV_TOL, f"CSV request: card vs CPU mel_out error {mel_err} > {CSV_TOL}")
+    return out
+
+
+def time_csv_edits(inf, inputs: list) -> dict:
+    """Host-clock latency of each CSV edit, one at a time, CSV_ROUNDS passes
+    over the requests after one untimed pass: the whole edit (``wav2spec``
+    of the wav file, then ``infer_once``) and its parts: the host front end
+    (``wav2spec``, g2p, TextGrid, ``autocorr_pitch``), the duration program
+    (with the host's length regulation), the diffusion program and the two
+    vocoder calls. Every part ends in a copy to the host, so the host
+    clock holds its device work."""
+    parts = {"front_end": [], "durations": [], "diffusion": [], "vocoder": []}
+    names = {"preprocess_input": "front_end", "inpaint_durations": "durations",
+             "diffuse": "diffusion", "run_vocoder": "vocoder"}
+    spent: dict = {}
+
+    def timed(name):
+        fn = getattr(inf, name)
+
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            spent[names[name]] = spent.get(names[name], 0.0) + time.perf_counter() - t0
+            return out
+        return wrapper
+
+    for name in names:
+        setattr(inf, name, timed(name))
+    total = []
+    try:
+        for rnd in range(CSV_ROUNDS + 1):
+            for row in inputs:
+                spent.clear()
+                t0 = time.perf_counter()
+                spec = wav2spec(row["wav_fn_orig"], **row["spec_kw"])
+                t1 = time.perf_counter()
+                inf.infer_once(dict(row["info"], mel=spec["mel"], wav=spec["wav"]))
+                t2 = time.perf_counter()
+                if rnd == 0:
+                    continue
+                spent["front_end"] += t1 - t0
+                total.append((t2 - t0) * 1e3)
+                for k in parts:
+                    parts[k].append(spent[k] * 1e3)
+    finally:
+        for name in names:
+            delattr(inf, name)
+    q = lambda xs, p: float(np.percentile(xs, p))
+    stats = {"edits": len(total), "host_ms_p50": q(total, 50), "host_ms_p75": q(total, 75)}
+    for k, xs in parts.items():
+        stats[f"{k}_ms_p50"], stats[f"{k}_ms_p75"] = q(xs, 50), q(xs, 75)
+    return stats
+
+
+def infer_path(smi: str, tmp: str, work: str, data_dir: str) -> tuple[dict, dict, dict, list]:
+    """The two inference entry points on the run path's checkpoint and
+    corpus, with a HiFi-GAN V1 vocoder checkpoint of seeded weights: ``run
+    --infer`` over the 8 test utterances, then the CSV region-edit API
+    over CSV_ROWS, timed, profiled and one request re-run on the CPU.
+    Returns the launches of each and the statistics, and the frame counts
+    K1 ran at."""
+    voc_dir = os.path.join(tmp, "hifigan")
+    write_vocoder(voc_dir)
+    argv = ["--config", "egs/spec_denoiser.yaml", "--exp_name", work, "-hp",
+            f"binary_data_dir={data_dir},{RUN_HP},vocoder_ckpt={voc_dir}", "--infer"]
+    hp = set_hparams(arg_parser().parse_args(argv), print_hparams=False)
+    voc = get_vocoder_cls(hp["vocoder"])(hp, "cuda")
+    check(voc.kind == "hifigan" and next(voc.generator.parameters()).is_cuda,
+          f"vocoder: {voc.kind} on {voc.device}, expected HiFi-GAN on cuda")
+    del voc
+
+    # run --infer over the test split
+    rec = InferRecorder()
+    reset_counts()
+    t0 = time.perf_counter()
+    with rec.instrumented():
+        trainer = run_entry(argv)
+    infer_s = time.perf_counter() - t0
+    infer_launches = counts()
+    gen_dir = os.path.join(work, f"generated_{trainer.global_step}_test")
+    check_test_set(gen_dir, rec)
+    lengths = sorted(b["shape"][1] for b in rec.batches)
+    sec = rec.seconds
+    stats = {"infer_items": len(rec.batches), "infer_s": infer_s,
+             "infer_items_per_s": len(rec.batches) / infer_s, "infer_frames": lengths,
+             "infer_forward_s": sec["forward"], "infer_vocoder_s": sec["vocoder"],
+             "infer_writers_wait_s": sec["writers"],
+             "infer_other_s": infer_s - sec["forward"] - sec["vocoder"] - sec["writers"]}
+    print(f"[infer] run --infer: {len(rec.batches)} test items ({lengths} frames) in "
+          f"{infer_s:.2f} s, {stats['infer_items_per_s']:.2f} items/s (host clock, model "
+          f"and vocoder load and the writes included): inference forwards "
+          f"{sec['forward']:.2f} s, vocoder calls {sec['vocoder']:.2f} s, waiting for the "
+          f"{os.getenv('N_PROC', (os.cpu_count() or 2) - 1)} spawned writers "
+          f"{sec['writers']:.2f} s, the rest (config, model and checkpoint load, loader) "
+          f"{stats['infer_other_s']:.2f} s; launches per item "
+          f"{rec.batches[0]['launches']}, totals {infer_launches}; every mel_out frame "
+          f"outside the mask is the ground truth's; {smi}", flush=True)
+    del trainer
+
+    # the CSV edit API
+    csv_dir = os.path.join(tmp, "csv")
+    os.makedirs(csv_dir)
+    spec_kw = dict(sample_rate=hp["audio_sample_rate"], fft_size=hp["fft_size"],
+                   hop_size=hp["hop_size"], win_length=hp.get("win_size", hp["fft_size"]),
+                   num_mels=hp["audio_num_mel_bins"], fmin=hp["fmin"], fmax=hp["fmax"])
+    rows = []
+    for i, (seconds, f0, text, edited, region, edited_region) in enumerate(CSV_ROWS):
+        wav_fn = os.path.join(csv_dir, f"edit{i}.wav")
+        save_wav(csv_wav(seconds, f0, i), wav_fn, SR)
+        tg = os.path.join(csv_dir, f"edit{i}.TextGrid")
+        write_textgrid(tg, text, wav2spec(wav_fn, **spec_kw)["mel"].shape[0])
+        rows.append(dict(item_name=f"edit{i}", text=text, edited_text=edited,
+                         wav_fn_orig=wav_fn, edited_region=edited_region, region=region,
+                         mfa_textgrid=tg))
+    out_dir = os.path.join(csv_dir, "out")
+    rec = InferRecorder()
+    reset_counts()
+    with rec.instrumented():
+        SpecDenoiserInfer.example_run(rows, hp, out_dir=out_dir, device="cuda")
+    csv_launches = counts()
+    check(len(rec.edits) == len(rows) == len(rec.durs), f"CSV edit API: {len(rec.edits)} edits")
+    edits = [check_edit(e, d, out_dir) for e, d in zip(rec.edits, rec.durs)]
+    check(edits[-1]["tail_phones"][0] != edits[-1]["tail_phones"][1],
+          f"CSV edit {edits[-1]['name']}: the tail rank remap was not reached")
+    for e in edits:
+        print(f"[infer] CSV edit {e['name']}: {e['source_frames']} source frames -> "
+              f"{e['frames']} (head {e['head']}, predicted span {e['span']}, tail "
+              f"{e['tail']}; tail phones {e['tail_phones'][0]} -> {e['tail_phones'][1]}), "
+              f"{e['wav_s']:.3f} s of audio; head and tail frames are the source's",
+              flush=True)
+    print(f"[infer] CSV edit API: {len(rows)} edits; launches per edit "
+          f"{rec.edits[0]['launches']}, totals {csv_launches}", flush=True)
+
+    inf = SpecDenoiserInfer(hp, "cuda")
+    inputs = [dict(info=r, wav_fn_orig=r["wav_fn_orig"], spec_kw=spec_kw) for r in rows]
+    again = []
+    for r in inputs[:2]:
+        spec = wav2spec(r["wav_fn_orig"], **spec_kw)
+        inp = dict(r["info"], mel=spec["mel"], wav=spec["wav"])
+        again.append(inf.infer_once(inp)[2])
+    check(np.array_equal(again[0], rec.edits[0]["out"][2])
+          and np.array_equal(again[1], rec.edits[1]["out"][2]),
+          "CSV edit API: the same request twice gave different mels")
+    print("[infer] the same requests again (a new SpecDenoiserInfer): bit-identical mels",
+          flush=True)
+    timing = time_csv_edits(inf, inputs)
+    print(f"[infer] CSV edit latency, {timing['edits']} edits one at a time over "
+          f"{len(rows)} requests ({[e['frames'] for e in edits]} frames), host clock: p50 "
+          f"{timing['host_ms_p50']:.3f} ms, p75 {timing['host_ms_p75']:.3f} ms; host front "
+          f"end p50 {timing['front_end_ms_p50']:.3f} (p75 {timing['front_end_ms_p75']:.3f}), "
+          f"duration program {timing['durations_ms_p50']:.3f} "
+          f"({timing['durations_ms_p75']:.3f}), diffusion program "
+          f"{timing['diffusion_ms_p50']:.3f} ({timing['diffusion_ms_p75']:.3f}), two vocoder "
+          f"calls {timing['vocoder_ms_p50']:.3f} ({timing['vocoder_ms_p75']:.3f}) ms; {smi}",
+          flush=True)
+    spec = wav2spec(rows[0]["wav_fn_orig"], **spec_kw)
+    inp = dict(rows[0], mel=spec["mel"], wav=spec["wav"])
+    kernels = device_ops(profiled(lambda: inf.infer_once(inp)))
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    n_ops = sum(e.count for e in kernels)
+    print(f"[profile] CSV edit {rows[0]['item_name']} ({edits[0]['frames']} frames): "
+          f"{n_ops} device operations, busy {busy_ms:.3f} ms", flush=True)
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
+        print(f"[profile] {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d}x "
+              f"{e.key[:90]}", flush=True)
+    cpu = compare_edit_with_cpu(hp, inf, inp)
+    stats.update(csv_edits=edits, csv_timing=timing, csv_profile_busy_ms=busy_ms,
+                 csv_profile_device_ops=n_ops, csv_cpu=cpu, card=smi)
+    frames = lengths + [e["frames"] for e in edits]
+    return infer_launches, csv_launches, stats, frames
+
+
+def check_block_at(gen, frames: list) -> float:
+    """K1 against its plain version at B=1 and each frame count the infer
+    path ran it at, no padding, as the edits give it; returns the error."""
+    worst = 0.0
+    for t in sorted(set(frames)):
+        x, cond, step, _, w = block_inputs(gen, 1, t)
+        mask = torch.ones(1, t, device="cuda")
+        got = diffnet_block(x, cond, step, mask, *w)
+        ref = diffnet_block_plain(x, cond, step, mask, *w)
+        err = max(float((g - e).abs().max()) for g, e in zip(got, ref))
+        check(err <= 1e-4, f"diffnet_block B=1 T={t}: error {err} > 1e-4")
+        worst = max(worst, err)
+    print(f"[kernel] diffnet_block B=1 at the infer path's {len(set(frames))} lengths "
+          f"{sorted(set(frames))}, {plan_text('diffnet_block', 1, max(frames), 1)} at the "
+          f"longest: max_abs_err={worst:.3e} (tol 1e-4)", flush=True)
+    return worst
 
 
 # the timing-only modes: the kernels they build and the function that times them
@@ -1445,23 +1937,35 @@ def main() -> None:
                phase_attention(gen), phase_attention_bwd(gen)]
     edit_launches, rtf = edit_path(gen)
     train_launches, train = train_path()
-    run_launches, run_stats = run_path(smi)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_run_")
+    try:
+        run_launches, run_stats = run_path(smi, tmp)
+        infer_launches, csv_launches, infer_stats, infer_frames = infer_path(
+            smi, tmp, os.path.join(tmp, "checkpoints", "run"), os.path.join(tmp, "data"))
+    finally:
+        shutil.rmtree(tmp)
+    block = kernels[0]
+    block["infer_max_abs_err"] = check_block_at(gen, infer_frames)
+    block["max_abs_err"] = max(block["max_abs_err"], block["infer_max_abs_err"])
     for k in kernels:
         k["launches_by_path"] = {"edit": edit_launches[k["name"]],
                                  "train": train_launches[k["name"]],
-                                 "run": run_launches[k["name"]]}
+                                 "run": run_launches[k["name"]],
+                                 "infer": infer_launches[k["name"]],
+                                 "csv_edit": csv_launches[k["name"]]}
         k["launches"] = sum(k["launches_by_path"].values())
         k["kernel_ms"] = k["ms"]
         check(k["launches"] > 0, f"{k['name']} was not launched on a main path")
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_path",
             "max_abs_err", "tol", "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
-    print(json.dumps({"edit_rtf": rtf, "train_step": train, "run": run_stats, "card": smi}))
+    print(json.dumps({"edit_rtf": rtf, "train_step": train, "run": run_stats,
+                      "infer": infer_stats, "card": smi}))
     print(smi)
     extra = ("warm_ms", "warm_plain_ms", "host_us", "train_ms", "train_plain_ms",
              "train_bound_ms", "train_device_ms", "train_ops_per_call", "train_host_us",
              "device_ms", "ops_per_call", "library_device_ms", "old_bound_ms", "cufft_ms",
-             "cufft_device_ms", "cufft_ops_per_call", "shapes")
+             "cufft_device_ms", "cufft_ops_per_call", "shapes", "infer_max_abs_err")
     print(json.dumps({"kernels": [{key: k[key] for key in keys + extra if key in k}
                                   for k in kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -6,8 +6,11 @@ in place of its ``HParams`` view. The configs are read without PyYAML: the
 shipped ``egs/*.yaml`` use one flat mapping of ``key: value`` lines, and
 :func:`parse_yaml` reads exactly that subset (plain, single- and
 double-quoted scalars, flow lists nested to any depth, comments) with
-YAML 1.1's scalar types, as ``yaml.safe_load`` resolves them. Anything else
-(nested mappings, block lists, anchors, tags, multi-line scalars) raises.
+YAML 1.1's scalar types, as ``yaml.safe_load`` resolves them, and also the
+block lists (``- item`` lines, nested as ``- - item``) that PyYAML's
+``safe_dump`` writes for list values, as in the ``config.yaml`` the JAX
+package saves in a work dir. Anything else (nested mappings, anchors,
+tags, multi-line scalars) raises, naming the key.
 """
 
 from __future__ import annotations
@@ -146,30 +149,91 @@ def _strip_comment(line: str) -> str:
     return line
 
 
+def _value(rest: str, where: str) -> Any:
+    """The scalar or flow list that is the whole of ``rest``."""
+    if rest.startswith("["):
+        value, end = _flow_list(rest, 0, where)
+    elif rest[:1] in ("'", '"'):
+        value, end = _quoted(rest, 0, where)
+    else:
+        value, end = _plain(rest, where), len(rest)
+    if rest[end:].strip():
+        raise YamlSubsetError(f"{where}: unexpected text after the value: {rest!r}")
+    return value
+
+
+def _is_item(line: str) -> bool:
+    return line == "-" or line.startswith("- ")
+
+
+def _block_list(lines: list, key: str, name: str, where: str) -> list:
+    """The block list in ``lines`` ((line number, text) pairs following
+    ``key:``): ``- item`` entries at one column, an entry's value a scalar
+    after its dash or a block list further in."""
+    toks = []      # (column, "-" or the scalar's text, line number)
+    for lineno, text in lines:
+        col = len(text) - len(text.lstrip(" "))
+        rest = text[col:]
+        while _is_item(rest):
+            toks.append((col, "-", lineno))
+            body = rest[1:].lstrip(" ")
+            col += len(rest) - len(body)
+            rest = body
+        if rest:
+            toks.append((col, rest, lineno))
+
+    def seq(i: int, col: int) -> tuple[list, int]:
+        out: list = []
+        while i < len(toks) and toks[i][0] == col and toks[i][1] == "-":
+            i += 1
+            item = None
+            if i < len(toks) and toks[i][0] > col:
+                if toks[i][1] == "-":
+                    item, i = seq(i, toks[i][0])
+                else:
+                    text = toks[i][1]
+                    if text[0] not in "['\"" and (": " in text or text.endswith(":")):
+                        raise YamlSubsetError(f"{name}:{toks[i][2]}: key {key!r}: "
+                                              "mappings in a list are not supported")
+                    item = _value(text, f"{name}:{toks[i][2]}")
+                    i += 1
+            out.append(item)
+        return out, i
+
+    value, end = seq(0, toks[0][0]) if toks else ([], 0)
+    if not toks or end != len(toks):
+        raise YamlSubsetError(f"{where}: key {key!r}: only a value on its line or a "
+                              "block list of '- item' lines is supported")
+    return value
+
+
 def parse_yaml(text: str, name: str = "<yaml>") -> dict:
-    """One flat mapping of ``key: value`` lines -> dict (see module doc)."""
+    """One flat mapping of ``key: value`` lines, or of ``key:`` lines each
+    followed by a block list -> dict (see module doc)."""
     out: dict = {}
-    for lineno, raw in enumerate(text.splitlines(), 1):
+    lines = [(n, _strip_comment(raw).rstrip(), raw)
+             for n, raw in enumerate(text.splitlines(), 1)]
+    lines = [entry for entry in lines if entry[1].strip()]
+    i = 0
+    while i < len(lines):
+        lineno, line, raw = lines[i]
+        i += 1
         where = f"{name}:{lineno}"
-        line = _strip_comment(raw).rstrip()
-        if not line.strip():
-            continue
-        if line[0] in " \t" or line.startswith(("---", "...", "- ", "%")):
+        if line[0] in " \t" or line.startswith(("---", "...", "%")) or _is_item(line):
             raise YamlSubsetError(f"{where}: only one flat mapping is supported: {raw!r}")
         key, sep, rest = line.partition(":")
         if (not sep or not _KEY.fullmatch(key) or key in _BOOL or _NULL.fullmatch(key)
                 or (rest and rest[0] not in " \t")):
             raise YamlSubsetError(f"{where}: expected 'key: value', got {raw!r}")
         rest = rest.strip()
-        if rest.startswith("["):
-            value, end = _flow_list(rest, 0, where)
-        elif rest[:1] in ("'", '"'):
-            value, end = _quoted(rest, 0, where)
-        else:
-            value, end = _plain(rest, where), len(rest)
-        if rest[end:].strip():
-            raise YamlSubsetError(f"{where}: unexpected text after the value: {raw!r}")
-        out[key] = value
+        block = []
+        while i < len(lines) and (lines[i][1][0] in " \t" or _is_item(lines[i][1])):
+            block.append(lines[i][:2])
+            i += 1
+        if block and rest:
+            raise YamlSubsetError(f"{where}: key {key!r}: multi-line values are not "
+                                  "supported")
+        out[key] = _block_list(block, key, name, where) if block else _value(rest, where)
     return out
 
 

@@ -1,0 +1,96 @@
+"""The inference base class: phone encoder, model, vocoder and speaker
+embedder. The port of the JAX package's ``infer/base_infer.py``.
+
+The model's weights come from the last checkpoint of ``hp["work_dir"]``
+(the port's or the JAX package's), the vocoder from the registry
+(``hp["vocoder"]``), the phone encoder from ``phone_set.json`` under
+``binary_data_dir`` (or ``processed_data_dir``). ``device`` defaults to
+``"cuda"``, which raises without a GPU; ``"cpu"`` runs every kernel's
+plain version. ``infer_once = forward_model(preprocess_input(inp))``.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Any
+
+import numpy as np
+
+from speech_editing_tpu_torch.training.trainer import cuda_or_cpu
+
+
+class BaseInfer:
+    def __init__(self, hp: Any, device: Any = "cuda"):
+        self.device = cuda_or_cpu(device, type(self).__name__)
+        self.hp = hp
+        self.data_dir = hp["binary_data_dir"]
+        self.ph_encoder = self._load_encoder()
+        self.model = self.build_model()
+        self.vocoder = self.build_vocoder()
+        self.spk_embedder = self._build_spk_embedder()
+
+    def _load_encoder(self):
+        from speech_editing_tpu_torch.utils.text.text_encoder import build_token_encoder
+
+        for d in (self.data_dir, self.hp.get("processed_data_dir", "")):
+            fn = os.path.join(d, "phone_set.json") if d else ""
+            if fn and os.path.exists(fn):
+                return build_token_encoder(fn)
+        raise FileNotFoundError(f"phone_set.json not found under {self.data_dir}")
+
+    def build_model(self):
+        raise NotImplementedError
+
+    def load_variables(self) -> dict:
+        """The last checkpoint of ``work_dir`` as the model's ``state_dict``."""
+        from speech_editing_tpu_torch.training.checkpoint import (get_last_checkpoint,
+                                                                  load_checkpoint)
+        from speech_editing_tpu_torch.utils.convert_jax_params import params_from_jax
+
+        ckpt_path, _ = get_last_checkpoint(self.hp["work_dir"])
+        if ckpt_path is None:
+            raise FileNotFoundError(f"no checkpoint in {self.hp['work_dir']}")
+        payload = load_checkpoint(ckpt_path)
+        if "jax_params" in payload:
+            sd = params_from_jax(payload["jax_params"], self.hp)
+        else:
+            sd = payload["state"]["model"]
+        print(f"| loaded {ckpt_path} (step {payload['steps']})", flush=True)
+        return sd
+
+    def maybe_quantize(self, state_dict: dict) -> dict:
+        """``serve_quant_int8`` is not ported; without it the weights pass."""
+        if self.hp.get("serve_quant_int8"):
+            raise NotImplementedError("serve_quant_int8 (int8 weight-only serving) is not "
+                                      "ported (ROADMAP Queue 1 item 8, serving)")
+        return state_dict
+
+    def build_vocoder(self):
+        from speech_editing_tpu_torch.infer.vocoder import get_vocoder_cls
+
+        return get_vocoder_cls(self.hp.get("vocoder", "GriffinLim"))(self.hp, self.device)
+
+    def _build_spk_embedder(self):
+        """resemblyzer's speaker encoder when it imports, else a zero
+        256-vector, as in the JAX package; prints which."""
+        try:
+            from resemblyzer import VoiceEncoder  # type: ignore
+
+            enc = VoiceEncoder(device="cpu")
+        except Exception:
+            print("| speaker embedding: zeros (resemblyzer is not installed)", flush=True)
+            return lambda wav: np.zeros(256, np.float32)
+        print("| speaker embedding: resemblyzer VoiceEncoder", flush=True)
+        return lambda wav: np.asarray(enc.embed_utterance(wav.astype(np.float64)), np.float32)
+
+    def run_vocoder(self, mel: np.ndarray) -> np.ndarray:
+        return self.vocoder.spec2wav(np.asarray(mel))
+
+    def preprocess_input(self, inp: dict) -> dict:
+        raise NotImplementedError
+
+    def forward_model(self, item: dict):
+        raise NotImplementedError
+
+    def infer_once(self, inp: dict):
+        return self.forward_model(self.preprocess_input(inp))

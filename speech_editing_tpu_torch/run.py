@@ -1,11 +1,13 @@
-"""Train from a YAML config, as the JAX package's ``run.py`` does:
+"""Train, validate or generate the test set from a YAML config, as the JAX
+package's ``run.py`` does:
 
     python -m speech_editing_tpu_torch.run --config egs/spec_denoiser.yaml \
-        --exp_name NAME [-hp k=v,...] [--validate] [--reset] [--remove] [--device cpu]
+        --exp_name NAME [-hp k=v,...] [--validate | --infer] [--reset] [--remove] \
+        [--device cpu]
 
 The config's ``task_cls`` names the task; the port resolves it by class
 name among its own tasks (``TASKS``) and never imports the named module.
-The run trains on the GPU unless ``--device cpu`` is given. The shipped
+It runs on the GPU unless ``--device cpu`` is given. The shipped
 ``egs/spec_denoiser.yaml`` sets ``use_bf16: true``, which the port does
 not run yet: pass ``-hp use_bf16=False`` to train in float32, as the
 config's comment describes the reference's training.
@@ -34,23 +36,21 @@ def task_class(task_cls: str):
 
 def run(argv: Optional[Sequence[str]] = None) -> Trainer:
     """Parse ``argv`` (default ``sys.argv[1:]``), then train, or validate
-    with ``--validate``; returns the trainer."""
+    with ``--validate``, or with ``--infer`` (or ``infer: true``) generate
+    the test set (``Trainer.test``); returns the trainer."""
     parser = arg_parser()
     parser.add_argument("--device", type=str, default="cuda")
     args = parser.parse_args(sys.argv[1:] if argv is None else list(argv))
-    if args.infer:
-        raise NotImplementedError("--infer is not ported: the vocoder registry and the "
-                                  "test writer wait for ROADMAP Queue 1 item 6")
     device = cuda_or_cpu(args.device, "run")
     hp = set_hparams(args)
-    if hp.get("infer"):
-        raise NotImplementedError("infer: true is not ported (ROADMAP Queue 1 item 6)")
     if not hp.get("task_cls"):
         raise ValueError("the config must set task_cls")
     task = task_class(hp["task_cls"])(hp)
     print(f"| Task: {type(task).__name__}", flush=True)
     trainer = Trainer(task, hp, device)
-    if hp["validate"]:
+    if hp["infer"]:
+        trainer.test()
+    elif hp["validate"]:
         trainer.validate_only()
     else:
         trainer.fit()

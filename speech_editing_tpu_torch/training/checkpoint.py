@@ -118,12 +118,19 @@ def _plain_tree(node: Any) -> Any:
 
 def load_jax_checkpoint(path: str) -> dict:
     """A JAX package checkpoint -> ``{"jax_params": numpy tree, "steps",
-    "epoch", "val_loss"}``, without importing JAX."""
+    "epoch", "val_loss"}``, without importing JAX. A HiFi-GAN checkpoint
+    gives its generator's parameters: a ``GanTrainState`` keeps them in its
+    ``gen_params`` field (its ``params`` is a property, which pickle does
+    not keep), and a plain ``{"gen", "disc"}`` tree under ``gen``, as the
+    JAX package's vocoder reads them."""
     with open(path, "rb") as f:
         payload = _JaxCheckpointUnpickler(f).load()
     state = payload["state"]
-    params = state["params"] if isinstance(state, dict) else state.__dict__["params"]
-    return {"jax_params": _plain_tree(params), "steps": int(payload["steps"]),
+    fields = state if isinstance(state, dict) else state.__dict__
+    params = _plain_tree(fields["gen_params"] if "gen_params" in fields else fields["params"])
+    if "gen" in params and "disc" in params:
+        params = params["gen"]
+    return {"jax_params": params, "steps": int(payload["steps"]),
             "epoch": int(payload.get("epoch", 0)), "val_loss": payload.get("val_loss")}
 
 

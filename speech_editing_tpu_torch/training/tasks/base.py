@@ -1,5 +1,5 @@
 """What a model family gives the trainer: its dataset, the batch keys its
-step reads, its model and its loss. The port of the JAX package's
+step reads, its model, its loss and its inference forward. The port of the JAX package's
 ``training/tasks/base.py``.
 
 The vocabulary comes from the corpus's ``phone_set.json``
@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import os
 from typing import Any, Sequence
+
+import torch
 
 from speech_editing_tpu_torch.data.datasets import EditingDataset
 from speech_editing_tpu_torch.utils.text.text_encoder import (TokenTextEncoder,
@@ -54,3 +56,21 @@ class BaseTask:
         """``loss_fn(batch, generator=None, t=None, noise=None) -> (total,
         losses)``; ``train=False`` is the validation loss (no dropout)."""
         raise NotImplementedError
+
+    def build_infer_fn(self, model):
+        """``infer_fn(batch, generator=None, noise=None) -> out``: the
+        model's inference forward on a device batch (the dataset's
+        ``mel2ph`` and ``time_mel_masks``), with ``mel_out`` composited as
+        ``mel_out * mask + mels * (1 - mask)``. ``generator`` / ``noise``:
+        see ``GaussianDiffusion.forward``."""
+
+        @torch.inference_mode()
+        def infer_fn(batch, generator=None, noise=None):
+            tm = batch["time_mel_masks"][..., None].float()
+            out = model(batch["txt_tokens"], tm, batch["mel2ph"], batch.get("spk_embed"),
+                        batch["mels"], batch["f0"], batch["uv"], generator=generator,
+                        noise=noise)
+            out["mel_out"] = out["mel_out"] * tm + batch["mels"] * (1 - tm)
+            return out
+
+        return infer_fn

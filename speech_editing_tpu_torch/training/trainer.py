@@ -1,22 +1,24 @@
 """The training loop around :class:`TrainStep`: loader, validation,
-checkpoints, resume, logging.
+checkpoints, resume, logging, and the test loop.
 
-The port of the JAX package's ``training/trainer.py`` without a mesh, GAN
-tasks or the test loop. ``fit`` builds the state (resuming from the work
+The port of the JAX package's ``training/trainer.py`` without a mesh or
+GAN tasks. ``fit`` builds the state (resuming from the work
 dir's last checkpoint), runs ``num_sanity_val_steps`` validation batches,
 then steps through the endless training loader until ``max_updates``:
 every ``tb_log_interval`` steps it prints the metrics (``max_nan_intervals``
 such intervals in a row with skipped, non-finite updates abort the run),
 every ``val_check_interval`` steps it validates and writes a checkpoint,
 and it writes one on ``KeyboardInterrupt`` and at the end. Metrics are
-printed, not written to TensorBoard.
+printed, not written to TensorBoard. ``test`` (``--infer``) generates
+the test split with the last checkpoint and writes wavs and ``meta.csv``.
 """
 
 from __future__ import annotations
 
+import csv
 import os
 import time
-from typing import Any, Optional, Sequence
+from typing import Any, Callable, Optional, Sequence
 
 import torch
 
@@ -233,3 +235,86 @@ class Trainer:
         self._build_state()
         return self.validate()
 
+
+    # -- test ---------------------------------------------------------------------
+
+    def _infer_batch(self, raw: dict, infer_fn, generator: torch.Generator,
+                     noise_fn: Optional[Callable] = None) -> dict:
+        """One test batch's inference forward; ``noise_fn(raw)`` gives its
+        diffusion noise in place of ``generator``'s draws (tests only)."""
+        batch = self._device_batch(raw)
+        noise = None if noise_fn is None else noise_fn(raw)
+        return infer_fn(batch, generator=generator, noise=noise)
+
+    def test(self, noise_fn: Optional[Callable] = None) -> Optional[str]:
+        """``--infer``: the last checkpoint generates the ``test`` split
+        (``max_valid_sentences`` a batch, the first ``test_num`` items) with
+        the dataset's ``mel2ph`` and inference masks, composited with the
+        ground truth outside the mask; the registry's vocoder
+        (``hp["vocoder"]``) writes ``[P]`` and, with ``save_gt``, ``[G]``
+        wavs, and for each item with a mask ``[P_SEG]``/``[G_SEG]`` wavs of
+        the masked frames only, into
+        ``<work_dir>/generated_<step>_<gen_dir_name or test>/wavs/``, with
+        ``[P]<item>_mel.npy`` and a ``meta.csv`` index. Writes go through
+        ``test_save_workers`` spawned processes (at most 1: in this one).
+        The diffusion noise comes from a device generator seeded by
+        ``hp["seed"]``. Returns the generation directory."""
+        from speech_editing_tpu_torch.infer.vocoder import get_vocoder_cls
+        from speech_editing_tpu_torch.training.result_saver import save_test_result
+        from speech_editing_tpu_torch.utils.multiprocess import ResultSaverPool
+
+        hp = self.hp
+        with self._loader("test", shuffle=False,
+                          max_sentences_key="max_valid_sentences") as loader:
+            if len(loader.dataset) == 0:
+                print("| empty test set", flush=True)
+                return None
+            self._build_state()
+            self.model.eval()
+            infer_fn = self.task.build_infer_fn(self.model)
+            vocoder = get_vocoder_cls(hp.get("vocoder", "GriffinLim"))(hp, self.device)
+            gen_dir = os.path.join(
+                self.work_dir, f"generated_{self.global_step}_{hp.get('gen_dir_name') or 'test'}")
+            os.makedirs(os.path.join(gen_dir, "wavs"), exist_ok=True)
+            sr = int(hp["audio_sample_rate"])
+            saver = ResultSaverPool(hp.get("test_save_workers"))
+            generator = torch.Generator(device=self.device).manual_seed(
+                int(hp.get("seed", 1234)))
+            n_done, test_num = 0, int(hp.get("test_num", 100))
+            for raw in loader:
+                if n_done >= test_num:
+                    break
+                out = self._infer_batch(raw, infer_fn, generator, noise_fn)
+                mel_pred = out["mel_out"].cpu().numpy()
+                mels = torch.as_tensor(raw["mels"]).numpy()
+                masks = torch.as_tensor(raw["time_mel_masks"]).numpy()
+                for b in range(mel_pred.shape[0]):
+                    if n_done >= test_num:
+                        break
+                    item_name = raw["item_name"][b]
+                    t_len = int(raw["mel_lengths"][b])
+                    mel_p, mel_g = mel_pred[b, :t_len], mels[b, :t_len]
+                    # vocode here (device work); the file writes go to the pool
+                    saver.add_job(save_test_result, (vocoder.spec2wav(mel_p), mel_p,
+                                                     f"[P]{item_name}", gen_dir, sr, True))
+                    if hp.get("save_gt", True):
+                        saver.add_job(save_test_result, (vocoder.spec2wav(mel_g), mel_g,
+                                                         f"[G]{item_name}", gen_dir, sr))
+                    # the masked frames alone, for segment-level evaluation
+                    seg = masks[b, :t_len] == 1
+                    if seg.any():
+                        saver.add_job(save_test_result, (vocoder.spec2wav(mel_p[seg]), None,
+                                                         f"[P_SEG]{item_name}", gen_dir, sr))
+                        saver.add_job(save_test_result, (vocoder.spec2wav(mel_g[seg]), None,
+                                                         f"[G_SEG]{item_name}", gen_dir, sr))
+                    n_done += 1
+            saver.drain()
+        names = sorted(f[3:-8] for f in os.listdir(f"{gen_dir}/wavs")
+                       if f.startswith("[P]") and f.endswith("_mel.npy"))
+        with open(f"{gen_dir}/meta.csv", "w", newline="") as f:
+            w = csv.writer(f)
+            w.writerow(["item_name", "wav_fn_pred", "wav_fn_gt"])
+            for name in names:
+                w.writerow([name, f"wavs/[P]{name}.wav", f"wavs/[G]{name}.wav"])
+        print(f"| test done: {n_done} items -> {gen_dir}", flush=True)
+        return gen_dir

@@ -1,25 +1,79 @@
-"""Host-side DSP constants: the STFT window and the slaney mel filterbank.
+"""Host-side DSP: the STFT window, the slaney mel filterbank, STFT and
+inverse STFT, and the log-mel of a wav (``wav2spec``).
 
-numpy only, computed in float64 and cast at the end, with the conventions
-of librosa's defaults (periodic Hann window zero-centred to ``n_fft``,
-slaney mel scale with slaney area normalisation).
+numpy only (scipy for the window), computed in float64 and cast at the
+end, with the conventions of librosa's defaults (periodic Hann window
+zero-centred to ``n_fft``, ``center=True`` constant padding, slaney mel
+scale with slaney area normalisation, log10 mel with eps 1e-6). The port's
+copy of the JAX package's ``utils/audio/dsp.py`` without its native
+backend: the region-edit API's log-mel is this host function, as in
+the JAX package, not kernel K2.
 """
 
 from __future__ import annotations
 
 import numpy as np
+from scipy.signal import get_window
 
 
 def stft_window(window: str, win_length: int, n_fft: int) -> np.ndarray:
     """Periodic window, zero-padded symmetrically to n_fft (librosa layout)."""
-    if window != "hann":
-        raise NotImplementedError(f"window={window!r}")
-    n = np.arange(win_length, dtype=np.float64)
-    w = 0.5 - 0.5 * np.cos(2.0 * np.pi * n / win_length)
+    w = get_window(window, win_length, fftbins=True).astype(np.float64)
     if win_length < n_fft:
         lpad = (n_fft - win_length) // 2
         w = np.pad(w, (lpad, n_fft - win_length - lpad))
     return w
+
+
+def frame_signal(y: np.ndarray, n_fft: int, hop: int, center: bool = True,
+                 pad_mode: str = "constant") -> np.ndarray:
+    """Slice a 1-D signal into overlapping frames [n_frames, n_fft]."""
+    if center:
+        y = np.pad(y, (n_fft // 2, n_fft // 2), mode=pad_mode)
+    n_frames = 1 + (len(y) - n_fft) // hop
+    idx = np.arange(n_fft)[None, :] + hop * np.arange(n_frames)[:, None]
+    return y[idx]
+
+
+def stft(y: np.ndarray, n_fft: int = 1024, hop_size: int = 256,
+         win_length: int | None = None, window: str = "hann",
+         center: bool = True, pad_mode: str = "constant") -> np.ndarray:
+    """Complex STFT, shape [1 + n_fft//2, n_frames] (librosa layout)."""
+    win_length = win_length or n_fft
+    w = stft_window(window, win_length, n_fft)
+    frames = frame_signal(np.asarray(y, np.float64), n_fft, hop_size, center, pad_mode)
+    spec = np.fft.rfft(frames * w[None, :], n=n_fft, axis=-1)
+    return spec.T
+
+
+def istft(spec: np.ndarray, hop_size: int = 256, win_length: int | None = None,
+          window: str = "hann", center: bool = True, length: int | None = None) -> np.ndarray:
+    """Inverse STFT by overlap-add with squared-window normalization; with
+    ``center`` and no ``length`` both padded edges are trimmed, as librosa
+    does."""
+    n_fft = 2 * (spec.shape[0] - 1)
+    win_length = win_length or n_fft
+    w = stft_window(window, win_length, n_fft)
+    frames = np.fft.irfft(spec.T, n=n_fft, axis=-1) * w[None, :]
+    n_frames = frames.shape[0]
+    out_len = n_fft + hop_size * (n_frames - 1)
+    y = np.zeros(out_len)
+    norm = np.zeros(out_len)
+    w2 = w * w
+    for i in range(n_frames):
+        s = i * hop_size
+        y[s:s + n_fft] += frames[i]
+        norm[s:s + n_fft] += w2
+    y = y / np.maximum(norm, 1e-10)
+    if center:
+        y = y[n_fft // 2:]
+        if length is None:
+            y = y[: max(out_len - n_fft, 0)]
+    if length is not None:
+        if len(y) < length:
+            y = np.pad(y, (0, length - len(y)))
+        y = y[:length]
+    return y
 
 
 def hz_to_mel(freqs):
@@ -63,3 +117,56 @@ def mel_filterbank(sample_rate: int, n_fft: int, n_mels: int = 80,
     weights = np.maximum(0.0, np.minimum(lower, upper))
     enorm = 2.0 / (hz_pts[2:n_mels + 2] - hz_pts[:n_mels])
     return (weights * enorm[:, None]).astype(np.float32)
+
+
+def amp_to_db(x):
+    return 20 * np.log10(np.maximum(1e-5, x))
+
+
+def normalize_spec(s, min_level_db):
+    return (s - min_level_db) / -min_level_db
+
+
+def pad_lr(x: np.ndarray, fsize: int, fshift: int, pad_sides: int = 1):
+    """Padding that lands the signal on an exact frame boundary."""
+    assert pad_sides in (1, 2)
+    pad = (x.shape[0] // fshift + 1) * fshift - x.shape[0]
+    if pad_sides == 1:
+        return 0, pad
+    return pad // 2, pad // 2 + pad % 2
+
+
+def wav2spec(wav_or_path, fft_size: int = 1024, hop_size: int = 256,
+             win_length: int = 1024, window: str = "hann", num_mels: int = 80,
+             fmin: float = 80, fmax: float = -1, eps: float = 1e-6,
+             sample_rate: int = 22050, loud_norm: bool = False) -> dict:
+    """wav (or a wav file's path) -> ``{'wav': [N], 'mel': [T, n_mels],
+    'linear': [T, n_bins], 'mel_basis': [n_mels, n_bins]}``: log10 mel and
+    linear spectrogram, the wav zero-padded or cut to exactly ``T *
+    hop_size`` samples. ``fmin``/``fmax`` of -1 mean 0 and Nyquist."""
+    if isinstance(wav_or_path, str):
+        from speech_editing_tpu_torch.utils.audio.io import load_wav
+
+        wav, _ = load_wav(wav_or_path, sample_rate)
+    else:
+        wav = np.asarray(wav_or_path, np.float32)
+    if loud_norm:
+        # RMS normalization to about -22 dB, as the JAX package approximates
+        # BS.1770 loudness without pyloudnorm
+        rms = np.sqrt(np.mean(wav ** 2) + 1e-12)
+        wav = wav * (10 ** (-22 / 20) / max(rms, 1e-8))
+        if np.abs(wav).max() > 1:
+            wav = wav / np.abs(wav).max()
+    fmin = 0 if fmin == -1 else fmin
+    fmax = sample_rate / 2 if fmax == -1 else fmax
+    mel_basis = mel_filterbank(sample_rate, fft_size, num_mels, fmin, fmax)
+    x_stft = stft(wav, fft_size, hop_size, win_length, window, center=True,
+                  pad_mode="constant")
+    linear = np.abs(x_stft)  # [n_bins, T]
+    mel = np.log10(np.maximum(eps, mel_basis @ linear))
+    l_pad, r_pad = pad_lr(wav, fft_size, hop_size, 1)
+    wav = np.pad(wav, (l_pad, r_pad), mode="constant")
+    wav = wav[: mel.shape[1] * hop_size]
+    linear = np.log10(np.maximum(eps, linear))
+    return {"wav": wav.astype(np.float32), "mel": mel.T.astype(np.float32),
+            "linear": linear.T.astype(np.float32), "mel_basis": mel_basis}

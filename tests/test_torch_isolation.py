@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: importing every module of
 ``speech_editing_tpu_torch`` loads neither JAX, flax, optax, PyYAML nor the
-JAX package, and its entry points (the edit pipeline, the trainer and the
-training entry ``run``) refuse to fall back to the CPU on their own."""
+JAX package, and its entry points (the edit pipeline, the trainer, the
+entry ``run`` with and without ``--infer``, the CSV region-edit API and
+the HiFi-GAN vocoder) refuse to fall back to the CPU on their own."""
 
 import os
 import subprocess
@@ -22,12 +23,16 @@ leaked = sorted(m for m in sys.modules if m.split(".")[0] in
 assert not leaked, leaked
 if not torch.cuda.is_available():
     from speech_editing_tpu_torch.infer.edit import EditPipeline
+    from speech_editing_tpu_torch.infer.spec_denoiser import SpecDenoiserInfer, main
+    from speech_editing_tpu_torch.infer.vocoder import HifiGAN
     from speech_editing_tpu_torch.run import run
     from speech_editing_tpu_torch.training.trainer import Trainer
     train_argv = ["--config", "egs/spec_denoiser.yaml", "--exp_name", "never_made",
                   "-hp", "use_bf16=False"]
     for entry, args in ((EditPipeline, ({}, {})), (Trainer.from_hp, ({},)),
-                        (run, (train_argv,))):
+                        (run, (train_argv,)), (run, (train_argv + ["--infer"],)),
+                        (SpecDenoiserInfer, ({},)), (SpecDenoiserInfer.example_run, ([], {})),
+                        (main, (train_argv,)), (HifiGAN, ({},))):
         try:
             entry(*args)
         except RuntimeError as e:

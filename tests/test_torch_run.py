@@ -4,7 +4,8 @@ synthetic corpus train N steps with sanity and interval validation and
 rolling checkpoints, a second run resumes at N, ``--validate`` validates
 the last checkpoint, the eval loss of one validation batch equals the JAX
 package's eval step with the same injected draws, and the settings the
-port does not run yet raise."""
+port does not run yet raise (``--infer`` itself is tested in
+``test_torch_infer_run.py``)."""
 
 import functools
 import json
@@ -117,7 +118,8 @@ def test_eval_loss_equals_jax(setup):
 
 
 @pytest.mark.parametrize("extra", [
-    [], ["--infer"], ["-hp", "use_bf16=False,accumulate_grad_batches=2"],
+    [], ["--infer", "-hp", "use_bf16=False,serve_quant_int8=True"],
+    ["-hp", "use_bf16=False,accumulate_grad_batches=2"],
     ["-hp", "use_bf16=False,tp_size=2"],
 ])
 def test_settings_not_ported_raise(setup, tmp_path, extra):
