@@ -69,6 +69,24 @@ Phases, each of which exits non-zero on a failed check:
    duration or pitch bin that rounds the other way is replayed and
    counted). K1 is then held against its plain version at every length
    this phase ran it at.
+8. serve path, on the same checkpoint, corpus and HiFi-GAN: the batch
+   server (``BatchedEditServer``, 16 rows a chunk, the default 128-1536
+   frame and 32-256 token buckets), warmed, edits 32 requests of 1.3-15.5 s
+   (TextGrids written here): each dur chunk launches no kernel and each
+   diff chunk K1 160 times and nothing else; results finite with the
+   source's head and tail frames; no program shape after warmup; one
+   request gives the same mel bit for bit alone, in its 16-row chunk and at
+   another row, and at its exact-fit bucket agrees with the per-item driver
+   (SERVE_FIT_TOL); a 128-frame diff chunk runs again bit-identical and on
+   the CPU with the card's noise (pitch bins replayed, CSV_TOL); a B=16 x
+   T=512 diff chunk is profiled (host, busy, K1's and HiFi-GAN's shares).
+   Then the serve CLI in a subprocess over the same requests as JSONL, with
+   ``--warmup --workers 2 --max-wait-ms 100`` and again with ``--fast-io``:
+   all served, 16-bit wavs bit-identical across the two runs and batch
+   mode, no shape added after warmup; latency p50/p99 and chunk fill. Then
+   the same requests on int8 weights (``serve_quant_int8``): bytes against
+   float32 and the largest mel_out difference. K1 is held against its plain
+   version at B=16 and T 256-1536 with ragged masks.
 
 ``python3 chip_smoke.py --time-attention`` builds K3 and K4 only and times
 them and SDPA at those shapes, with no checks; ``--time-mel`` does the same
@@ -94,10 +112,12 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from scipy.io import wavfile
 
 import speech_editing_tpu_torch.models.fs as fs_module
 from speech_editing_tpu_torch.config.flagship import FLAGSHIP_HP, HIFIGAN_V1_HP
@@ -105,7 +125,10 @@ from speech_editing_tpu_torch.config.hparams import (arg_parser, dump_yaml, load
                                                      set_hparams)
 from speech_editing_tpu_torch.data.indexed_dataset import IndexedDatasetBuilder
 from speech_editing_tpu_torch.infer.edit import EditPipeline
-from speech_editing_tpu_torch.infer.spec_denoiser import SpecDenoiserInfer, request_generator
+from speech_editing_tpu_torch.infer.serve import _load_request as load_request
+from speech_editing_tpu_torch.infer.serving import BatchedEditServer
+from speech_editing_tpu_torch.infer.spec_denoiser import (SpecDenoiserInfer, request_generator,
+                                                          request_noise)
 from speech_editing_tpu_torch.infer.vocoder import HifiGAN, get_vocoder_cls
 from speech_editing_tpu_torch.models.vocoder.hifigan import HifiGanGenerator
 from speech_editing_tpu_torch.ops.cuda import build
@@ -1681,8 +1704,7 @@ def compare_edit_with_cpu(hp: dict, inf, inp: dict) -> dict:
         dur_gpu = inf.predict_durations(item, spk)
         mel_gpu = inf.forward_model(item)[2]
     gen = request_generator(int(hp.get("seed", 1234)), item, "cuda")
-    noise = [torch.randn(1, mel_gpu.shape[0], 80, device="cuda", generator=gen).cpu()
-             for _ in range(FLAGSHIP_HP["timesteps"] + 1)]
+    noise = request_noise(gen, FLAGSHIP_HP["timesteps"], mel_gpu.shape[0], 80)[:, None].cpu()
     cpu = SpecDenoiserInfer(hp, "cpu")
     t0 = time.perf_counter()
     with coarse_pitch_bins(bins, replay=True) as tally:
@@ -1896,6 +1918,401 @@ def check_block_at(gen, frames: list) -> float:
     return worst
 
 
+# -- serve path ------------------------------------------------------------------
+
+SERVE_BATCH = 16
+# the serve phase's 32 requests, seconds of source audio each: the edited
+# lengths fall in the 128, 256, 512, 1024 and 1536-frame buckets and the
+# 32- to 256-token buckets; 17 share one (token, frame) bucket, a full
+# chunk and a tail
+SERVE_SECONDS = [1.3] * 3 + [2.6] * 4 + [4.5] * 17 + [9.0] * 4 + [15.5] * 4
+SERVE_WORDS = ("we walked along the quiet river bank at dawn while she sold seven bright sea "
+               "shells by the sandy shore and the old man read his morning paper in the "
+               "garden").split()
+SERVE_NEW = [["very", "long"], ["green"], ["small", "and", "old"], ["evening"]]
+SERVE_ALONE = 7           # the first 4.5 s request: served alone, at another row, exact fit
+SERVE_CPU_T = 128         # the frame bucket of the diff chunk re-run on the CPU
+SERVE_FIT_TOL = 1e-4      # exact-fit server vs the per-item driver, on the card
+SERVE_K1_T = (256, 512, 1024, 1536)    # K1 at B=16 and the serving buckets
+EXPECTED_PER_DUR_CHUNK = {k: 0 for k in EXPECTED_PER_EDIT}
+
+
+def serve_rows(d: str, spec_kw: dict) -> list:
+    """The serve phase's requests (the serve CLI's JSONL schema with an
+    ``mfa_textgrid``): harmonic wavs of SERVE_SECONDS, about 2.6 words a
+    second from SERVE_WORDS, one or two words in the first third replaced
+    by one to three others; TextGrids written as the infer path's."""
+    rows = []
+    for i, secs in enumerate(SERVE_SECONDS):
+        n = max(5, round(secs * 2.6))
+        words = [SERVE_WORDS[(5 * i + k) % len(SERVE_WORDS)] for k in range(n)]
+        w0, new = n // 3 + 1, SERVE_NEW[i % len(SERVE_NEW)]
+        w1 = w0 + i % 2
+        wav_fn = os.path.join(d, f"serve{i:02d}.wav")
+        save_wav(csv_wav(secs, 100.0 + 7 * i, 100 + i), wav_fn, SR)
+        tg = os.path.join(d, f"serve{i:02d}.TextGrid")
+        write_textgrid(tg, " ".join(words), wav2spec(wav_fn, **spec_kw)["mel"].shape[0])
+        rows.append(dict(item_name=f"serve{i:02d}", text=" ".join(words),
+                         edited_text=" ".join(words[:w0 - 1] + new + words[w1:]),
+                         region=f"[{w0},{w1}]", edited_region=f"[{w0},{w0 + len(new) - 1}]",
+                         wav_fn_orig=wav_fn, mfa_textgrid=tg))
+    return rows
+
+
+class ChunkRecorder:
+    """Wraps a server's two chunk stages to record each chunk: its stage,
+    buckets, real rows, batch, launches, host seconds (its results' fetch
+    included) and requests."""
+
+    def __init__(self, server):
+        self.chunks = []
+        for stage in BatchedEditServer.STAGES:
+            name = f"run_{stage}_chunk"
+            setattr(server, name, self._wrap(stage, getattr(server, name)))
+
+    def _wrap(self, stage, run):
+        def wrapped(reqs, s_b, t_b, b_eff):
+            before = counts()
+            t0 = time.perf_counter()
+            run(reqs, s_b, t_b, b_eff)
+            self.chunks.append(dict(stage=stage, s_b=s_b, t_b=t_b, n=len(reqs), b=b_eff,
+                                    s=time.perf_counter() - t0, reqs=list(reqs),
+                                    launches={k: counts()[k] - before[k] for k in COUNTERS}))
+        return wrapped
+
+    def of(self, stage: str) -> list:
+        return [c for c in self.chunks if c["stage"] == stage]
+
+
+def check_served(inputs: list, results: list, rec: ChunkRecorder) -> None:
+    """Each dur chunk launches no kernel, each diff chunk K1 160 times and
+    nothing else; every result finite, of its spliced length, its head and
+    tail frames the source's and every frame outside the edit the spliced
+    reference's."""
+    for c in rec.of("dur"):
+        check(c["launches"] == EXPECTED_PER_DUR_CHUNK,
+              f"serve: dur chunk {c['s_b']}x{c['t_b']} launched {c['launches']}")
+    for c in rec.of("diff"):
+        check(c["launches"] == EXPECTED_PER_EDIT,
+              f"serve: diff chunk {c['s_b']}x{c['t_b']} launched {c['launches']}")
+    reqs = {r.item["item_name"]: r for c in rec.of("diff") for r in c["reqs"]}
+    check(sorted(reqs) == sorted(i["item_name"] for i in inputs),
+          f"serve: diff chunks served {sorted(reqs)}")
+    for inp, res in zip(inputs, results):
+        r = reqs[inp["item_name"]]
+        mel_out, item, sp = res["mel_out"], r.item, r.splice
+        check(mel_out.shape == (sp["t_new"], 80) and np.isfinite(mel_out).all()
+              and np.isfinite(res["wav_out"]).all()
+              and len(res["wav_out"]) == sp["t_new"] * HOP,
+              f"serve {inp['item_name']}: result shape or values")
+        (w0, w1) = item["words_region"][0]
+        head = int(np.sum((item["mel2word"] >= 1) & (item["mel2word"] < w0)))
+        tail = item["mel"][item["mel2word"] > w1]
+        keep = sp["time_mel_masks"][:, 0] == 0
+        check(np.array_equal(mel_out[:head], item["mel"][:head])
+              and np.array_equal(mel_out[len(mel_out) - len(tail):], tail)
+              and np.array_equal(mel_out[keep], sp["ref_mels"][keep]),
+              f"serve {inp['item_name']}: head, tail or unedited frames differ from the source")
+
+
+def fresh_noise(reqs: list, seed: int) -> None:
+    """Give each request a new generator, so a re-run draws the noise its
+    first run drew."""
+    for r in reqs:
+        r.gen = request_generator(seed, r.item, "cuda")
+
+
+def serve_profile(server, chunk: dict, seed: int, smi: str) -> dict:
+    """One diff chunk re-run on the card: its host time (median of 3), and
+    from ``torch.profiler`` its device busy time and operations, K1's share
+    and HiFi-GAN's (the vocoder profiled alone on a chunk-shaped mel)."""
+    reqs, args = chunk["reqs"], (chunk["s_b"], chunk["t_b"], chunk["b"])
+
+    def run():
+        fresh_noise(reqs, seed)
+        BatchedEditServer.run_diff_chunk(server, reqs, *args)
+    host = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        run()
+        host.append((time.perf_counter() - t0) * 1e3)
+    kernels = device_ops(profiled(run))
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    k1 = sum(e.self_device_time_total for e in kernels if "diffnet_block" in e.key) / 1e3
+    mel = torch.zeros(chunk["b"], chunk["t_b"], 80, device="cuda") - 4.0
+    voc = sum(e.self_device_time_total for e in device_ops(
+        profiled(lambda: server.infer.vocoder.spec2wav_batch_dev(mel)))) / 1e3
+    out = dict(shape=[chunk["b"], chunk["t_b"]], s_b=chunk["s_b"],
+               host_ms=float(np.median(host)), busy_ms=busy,
+               device_ops=sum(e.count for e in kernels), k1_ms=k1, hifigan_ms=voc)
+    if busy == 0:
+        print(f"[serve] profiled diff chunk: the profiler saw no device time, busy not "
+              f"measured; host {out['host_ms']:.3f} ms", flush=True)
+        return out
+    print(f"[serve] profiled diff chunk B={chunk['b']} x T={chunk['t_b']} (S={chunk['s_b']}, "
+          f"{chunk['n']} real rows): host {out['host_ms']:.3f} ms (median of 3), device busy "
+          f"{busy:.3f} ms ({busy / out['host_ms']:.3f} of it) in {out['device_ops']} "
+          f"operations; K1 {k1:.3f} ms ({k1 / busy:.3f}), HiFi-GAN alone on the chunk's shape "
+          f"{voc:.3f} ms ({voc / busy:.3f}); {smi}", flush=True)
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"[profile] {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d}x "
+              f"{e.key[:90]}", flush=True)
+    return out
+
+
+def serve_cpu_rerun(hp: dict, server, chunk: dict, results: dict, seed: int) -> dict:
+    """One diff chunk again on the card, bit-identical to its first run,
+    recording its pitch bins; then on the CPU (plain versions, the card's
+    noise and bins replayed, the vocoder left out): mel_out within
+    CSV_TOL."""
+    reqs, args = chunk["reqs"], (chunk["s_b"], chunk["t_b"], chunk["b"])
+    bins: list = []
+    fresh_noise(reqs, seed)
+    with coarse_pitch_bins(bins, replay=False):
+        BatchedEditServer.run_diff_chunk(server, reqs, *args)
+    again = all(np.array_equal(r.result["mel_out"], results[r.item["item_name"]]["mel_out"])
+                for r in reqs)
+    check(again, "serve: a diff chunk run again gave other mels")
+    fresh_noise(reqs, seed)
+    noise = server.chunk_noise(reqs, chunk["t_b"], chunk["b"]).cpu()
+    cpu = BatchedEditServer(SpecDenoiserInfer(hp, "cpu"), max_batch=SERVE_BATCH)
+    cpu.infer.vocoder = types.SimpleNamespace(       # mel_out is compared, not audio
+        device_batched=False, spec2wav_batch=lambda mels: np.zeros((len(mels), 1)))
+    cpu.chunk_noise = lambda *_: noise
+    cpu_reqs = [copy.copy(r) for r in reqs]
+    t0 = time.perf_counter()
+    with coarse_pitch_bins(bins, replay=True) as tally:
+        cpu.run_diff_chunk(cpu_reqs, *args)
+    err = max(float(np.abs(c.result["mel_out"] - r.result["mel_out"]).max())
+              for c, r in zip(cpu_reqs, reqs))
+    out = dict(shape=[chunk["b"], chunk["t_b"]], rows=chunk["n"], cpu_s=time.perf_counter() - t0,
+               bins_replayed=tally[0], bins=int(sum(b.numel() for b in bins)),
+               mel_max_abs_err=err)
+    print(f"[serve] diff chunk B={chunk['b']} x T={chunk['t_b']} ({chunk['n']} real rows) run "
+          f"again on the card: bit-identical; on the CPU ({out['cpu_s']:.1f} s) with the "
+          f"card's noise: pitch bins replayed {tally[0]} of {out['bins']}, mel_out "
+          f"max_abs_err {err:.3e} (tol {CSV_TOL})", flush=True)
+    check(err <= CSV_TOL, f"serve: card vs CPU diff chunk mel_out error {err} > {CSV_TOL}")
+    return out
+
+
+def serve_cli(argv_hp: list, rows: list, out_dir: str, extra: list) -> dict:
+    """``python -m speech_editing_tpu_torch.infer.serve`` in a subprocess
+    over ``rows`` as JSONL; returns its numbers, read from its stderr."""
+    jsonl = out_dir + ".jsonl"
+    with open(jsonl, "w") as f:
+        f.writelines(json.dumps(r) + "\n" for r in rows)
+    cmd = [sys.executable, "-m", "speech_editing_tpu_torch.infer.serve", *argv_hp,
+           "--jsonl", jsonl, "--out-dir", out_dir, "--workers", "2", "--max-wait-ms", "100",
+           "--max-batch", str(SERVE_BATCH), *extra]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall = time.perf_counter() - t0
+    err = proc.stderr
+    check(proc.returncode == 0, f"serve CLI exited {proc.returncode}:\n{err[-3000:]}")
+    served = [ln for ln in err.splitlines() if ln.startswith("| served ")]
+    tail = [ln for ln in err.splitlines() if " chunks, fill " in ln]
+    check(len(served) == 1 and len(tail) == 1, f"serve CLI output:\n{err[-3000:]}")
+    words = served[0].split()
+    out = dict(wall_s=wall, served=int(words[2]), p50_ms=float(words[6]),
+               p99_ms=float(words[10]), chunks=int(tail[0].split()[1]),
+               fill=float(tail[0].split("fill ")[1].split()[0]),
+               shapes=int(tail[0].split("; ")[1].split()[0]))
+    warm = [ln for ln in err.splitlines() if ln.startswith("| warmup: ") and "shapes in" in ln]
+    if warm:
+        out.update(warmup_shapes=int(warm[0].split()[2]),
+                   warmup_s=float(warm[0].split(" in ")[1].rstrip("s")))
+    return out
+
+
+def read_wavs(out_dir: str, names: list) -> dict:
+    waves = {}
+    for name in names:
+        sr, data = wavfile.read(os.path.join(out_dir, f"{name}.wav"))
+        check(sr == SR and data.dtype == np.int16, f"serve CLI {name}.wav: {sr} Hz, {data.dtype}")
+        waves[name] = data
+    return waves
+
+
+def serve_path(smi: str, tmp: str, work: str, data_dir: str) -> tuple[dict, dict]:
+    """The batch server and the serve CLI at the shipped widths on the run
+    path's checkpoint and the infer path's HiFi-GAN V1: 32 requests in batch
+    mode (warmed first), checked and timed; one request alone, at another
+    row and at its exact-fit bucket; a diff chunk re-run on the CPU; a
+    profiled B=16 x T=512 diff chunk; the CLI online with --warmup and
+    again with --fast-io; the same requests on int8 weights. Returns the
+    batch run's launches and the statistics."""
+    voc_dir = os.path.join(tmp, "hifigan")
+    argv_hp = ["--config", "egs/spec_denoiser.yaml", "--exp_name", work, "-hp",
+               f"binary_data_dir={data_dir},{RUN_HP},vocoder_ckpt={voc_dir}"]
+    hp = set_hparams(arg_parser().parse_args(argv_hp + ["--infer"]), print_hparams=False)
+    seed = int(hp.get("seed", 1234))
+    d = os.path.join(tmp, "serve")
+    os.makedirs(d)
+    spec_kw = dict(sample_rate=hp["audio_sample_rate"], fft_size=hp["fft_size"],
+                   hop_size=hp["hop_size"], win_length=hp.get("win_size", hp["fft_size"]),
+                   num_mels=hp["audio_num_mel_bins"], fmin=hp["fmin"], fmax=hp["fmax"])
+    rows = serve_rows(d, spec_kw)
+    inputs = [load_request(r, hp) for r in rows]
+    names = [r["item_name"] for r in rows]
+    audio_in = sum(len(i["wav"]) for i in inputs) / SR
+
+    # batch mode, warmed
+    inf = SpecDenoiserInfer(hp, "cuda")
+    check(inf.vocoder.kind == "hifigan" and inf.vocoder.device_batched,
+          f"serve: vocoder {inf.vocoder.kind}, expected HiFi-GAN on the card")
+    server = BatchedEditServer(inf, max_batch=SERVE_BATCH)
+    t0 = time.perf_counter()
+    n_warm = server.warmup()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    warmed = set(server.program_shapes)
+    rec = ChunkRecorder(server)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    results = server.edit_many(inputs)
+    wall = time.perf_counter() - t0
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(server.program_shapes == warmed, "serve: traffic ran a shape warmup did not")
+    check_served(inputs, results, rec)
+    by_name = dict(zip(names, results))
+    diff = rec.of("diff")
+    frame_buckets = sorted({c["t_b"] for c in diff})
+    token_buckets = sorted({c["s_b"] for c in diff})
+    full = [c for c in diff if c["n"] == c["b"]]
+    check(len(frame_buckets) >= 4 and len(token_buckets) >= 3 and full
+          and any(c["n"] < c["b"] for c in diff),
+          f"serve: diff chunks {[(c['s_b'], c['t_b'], c['n']) for c in diff]}")
+    audio_out = sum(r["t_frames"] for r in results) * HOP / SR
+    dur_s, diff_s = (sum(c["s"] for c in rec.of(st)) for st in ("dur", "diff"))
+    stats = dict(requests=len(inputs), source_audio_s=audio_in, edited_audio_s=audio_out,
+                 frames=[r["t_frames"] for r in results], warmup_s=warm_s,
+                 warmup_shapes=n_warm, batch_s=wall, requests_per_s=len(inputs) / wall,
+                 audio_s_per_s=audio_out / wall, dur_chunks_s=dur_s, diff_chunks_s=diff_s,
+                 prepare_s=wall - dur_s - diff_s, peak_gib=peak,
+                 chunks=[(c["stage"], c["s_b"], c["t_b"], c["n"], c["b"], round(c["s"], 4))
+                         for c in rec.chunks],
+                 fill=sum(c["n"] for c in diff) / sum(c["b"] for c in diff))
+    print(f"[serve] warmup: {n_warm} program shapes in {warm_s:.2f} s; batch mode: "
+          f"{len(inputs)} requests ({audio_in:.1f} s of source audio, {audio_out:.1f} s "
+          f"edited, {min(stats['frames'])}-{max(stats['frames'])} frames) in {wall:.3f} s: "
+          f"{stats['requests_per_s']:.3f} requests/s, {stats['audio_s_per_s']:.3f} audio s/s; "
+          f"host front end {stats['prepare_s']:.3f} s, {len(rec.of('dur'))} dur chunks "
+          f"{dur_s:.3f} s, {len(diff)} diff chunks {diff_s:.3f} s (fill {stats['fill']:.3f}; "
+          f"frame buckets {frame_buckets}, token buckets {token_buckets}, {len(full)} full); "
+          f"peak memory {peak:.3f} GiB; launches {launches}; no shape after warmup; {smi}",
+          flush=True)
+    for c in diff:
+        print(f"[serve] diff chunk S={c['s_b']} T={c['t_b']}: {c['n']}/{c['b']} rows, "
+              f"{c['s'] * 1e3:.3f} ms host, launches {c['launches']['diffnet_block']} K1",
+              flush=True)
+
+    # one request alone, at another row, and at its exact-fit bucket
+    alone_name = names[SERVE_ALONE]
+    alone = server.edit_many([inputs[SERVE_ALONE]])[0]["mel_out"]
+    row1 = server.edit_many([inputs[SERVE_ALONE + 1], inputs[SERVE_ALONE]])[1]["mel_out"]
+    check(np.array_equal(alone, by_name[alone_name]["mel_out"])
+          and np.array_equal(row1, alone),
+          f"serve {alone_name}: alone, co-batched and at row 1 not bit-identical")
+    item = inf.preprocess_input(inputs[SERVE_ALONE])
+    t_src, t_new = len(item["mel2ph"]), by_name[alone_name]["t_frames"]
+    fit = {}
+    for b in (SERVE_BATCH, 1):
+        fit_srv = BatchedEditServer(inf, max_batch=b, frame_buckets=sorted({t_src, t_new}),
+                                    token_buckets=(len(item["edited_ph_token"]),))
+        fit_rec = ChunkRecorder(fit_srv)
+        got = fit_srv.edit_many([inputs[SERVE_ALONE]])[0]["mel_out"]
+        dur = fit_rec.of("dur")[0]["reqs"][0].dur_pred
+        per_item = inf.forward_model(item, dur_int=np.round(dur))[2]
+        fit[b] = float(np.abs(got - per_item).max()) if got.shape == per_item.shape else np.inf
+    print(f"[serve] {alone_name} ({t_new} frames): alone, in its 16-row chunk and at row 1 "
+          f"bit-identical; exact-fit bucket vs the per-item driver: max_abs_err "
+          f"{fit[SERVE_BATCH]:.3e} at B={SERVE_BATCH}, {fit[1]:.3e} at B=1 "
+          f"(tol {SERVE_FIT_TOL})", flush=True)
+    check(max(fit.values()) <= SERVE_FIT_TOL,
+          f"serve: exact fit vs the per-item driver {fit} > {SERVE_FIT_TOL}")
+    stats.update(exact_fit_max_abs_err=fit[SERVE_BATCH], exact_fit_b1_max_abs_err=fit[1])
+
+    cpu_chunk = next(c for c in diff if c["t_b"] == SERVE_CPU_T)
+    stats["cpu"] = serve_cpu_rerun(hp, server, cpu_chunk, by_name, seed)
+    stats["profile"] = serve_profile(server, next(c for c in full if c["t_b"] == 512), seed, smi)
+
+    # online: the CLI, warmed, and again with --fast-io
+    online = serve_cli(argv_hp, rows, os.path.join(d, "out"), ["--warmup"])
+    fast = serve_cli(argv_hp, rows, os.path.join(d, "fast"), ["--warmup", "--fast-io"])
+    check(online["served"] == fast["served"] == len(rows),
+          f"serve CLI served {online['served']} and {fast['served']} of {len(rows)}")
+    check(online["shapes"] == online["warmup_shapes"],
+          f"serve CLI: {online['shapes']} program shapes run, {online['warmup_shapes']} warmed")
+    waves, fast_waves = read_wavs(os.path.join(d, "out"), names), read_wavs(
+        os.path.join(d, "fast"), names)
+    ref_fn = os.path.join(d, "ref.wav")
+    for name in names:
+        save_wav(by_name[name]["wav_out"], ref_fn, SR)
+        ref = wavfile.read(ref_fn)[1]
+        for label, other in (("--fast-io", fast_waves[name]), ("batch mode", ref)):
+            same = other.shape == waves[name].shape
+            check(same and np.array_equal(waves[name], other),
+                  f"serve CLI {name}.wav: {label}'s samples differ ("
+                  + (f"{int(np.sum(waves[name] != other))} of {other.size}" if same else
+                     f"{other.shape} against {waves[name].shape}") + ")")
+    print(f"[serve] online CLI (--warmup, --workers 2, --max-wait-ms 100): {online['served']} "
+          f"requests in {online['wall_s']:.1f} s (process start and model load included), "
+          f"latency p50 {online['p50_ms']:.0f} ms / p99 {online['p99_ms']:.0f} ms, "
+          f"{online['chunks']} chunks, fill {online['fill']:.3f}; warmup {online['warmup_shapes']} "
+          f"shapes in {online['warmup_s']:.1f} s, none added by the traffic; --warmup "
+          f"--fast-io: p50 {fast['p50_ms']:.0f} / p99 {fast['p99_ms']:.0f} ms, fill "
+          f"{fast['fill']:.3f}, {fast['wall_s']:.1f} s; "
+          f"every wav 16-bit and bit-identical across the two runs and batch mode; {smi}",
+          flush=True)
+    stats.update(online=online, online_fast_io=fast)
+
+    # int8 weights
+    inf8 = SpecDenoiserInfer(dict(hp, serve_quant_int8=True), "cuda")
+    t0 = time.perf_counter()
+    res8 = BatchedEditServer(inf8, max_batch=SERVE_BATCH).edit_many(inputs)
+    wall8 = time.perf_counter() - t0
+    same = [(r, q) for r, q in zip(results, res8) if r["t_frames"] == q["t_frames"]]
+    check(all(np.isfinite(q["mel_out"]).all() for q in res8) and same,
+          "serve int8: non-finite mel_out or no request of the float length")
+    diff8 = max(float(np.abs(r["mel_out"] - q["mel_out"]).max()) for r, q in same)
+    stats["int8"] = dict(acoustic_bytes=inf8.quant.bytes, acoustic_f32_bytes=inf8.quant.f32_bytes,
+                         hifigan_bytes=inf8.vocoder.quant.bytes,
+                         hifigan_f32_bytes=inf8.vocoder.quant.f32_bytes,
+                         max_quant_err=inf8.quant.max_err, mel_max_abs_diff=diff8,
+                         same_length=len(same), batch_s=wall8,
+                         requests_per_s=len(inputs) / wall8)
+    print(f"[serve] int8 weights: acoustic model {inf8.quant.bytes} bytes against "
+          f"{inf8.quant.f32_bytes} in float32, HiFi-GAN {inf8.vocoder.quant.bytes} against "
+          f"{inf8.vocoder.quant.f32_bytes}; max quantization error {inf8.quant.max_err:.3e}; "
+          f"{len(same)} of {len(inputs)} requests keep the float run's length, their mel_out "
+          f"within {diff8:.3e} of it; batch mode {wall8:.3f} s, "
+          f"{len(inputs) / wall8:.3f} requests/s; {smi}", flush=True)
+    return launches, dict(stats, card=smi)
+
+
+def check_block_serving(gen) -> tuple[float, list]:
+    """K1 against its plain version at B=16 and the serving frame buckets,
+    each row but the first padded from its own length (a chunk's ragged
+    mask); returns the error and the shapes."""
+    worst, shapes = 0.0, []
+    for t in SERVE_K1_T:
+        x, cond, step, mask, w = block_inputs(gen, SERVE_BATCH, t, ragged=True)
+        got = diffnet_block(x, cond, step, mask, *w)
+        ref = diffnet_block_plain(x, cond, step, mask, *w)
+        err = max(float((g - e).abs().max()) for g, e in zip(got, ref))
+        check(err <= 1e-4, f"diffnet_block B={SERVE_BATCH} T={t} ragged: error {err} > 1e-4")
+        print(f"[kernel] diffnet_block B={SERVE_BATCH} T={t} ragged (serve), "
+              f"{plan_text('diffnet_block', SERVE_BATCH, t, 1)}: max_abs_err={err:.3e} "
+              f"(tol 1e-4)", flush=True)
+        worst = max(worst, err)
+        shapes.append(dict(b=SERVE_BATCH, t=t, ragged=True, path="serve", max_err=err))
+    return worst, shapes
+
+
 # the timing-only modes: the kernels they build and the function that times them
 TIMING_MODES = {"--time-attention": (("flash_attention", "flash_attention_bwd"), time_attention),
                 "--time-mel": (("mel_kernel",), time_mel)}
@@ -1940,19 +2357,24 @@ def main() -> None:
     tmp = tempfile.mkdtemp(prefix="chip_smoke_run_")
     try:
         run_launches, run_stats = run_path(smi, tmp)
+        work, data_dir = os.path.join(tmp, "checkpoints", "run"), os.path.join(tmp, "data")
         infer_launches, csv_launches, infer_stats, infer_frames = infer_path(
-            smi, tmp, os.path.join(tmp, "checkpoints", "run"), os.path.join(tmp, "data"))
+            smi, tmp, work, data_dir)
+        serve_launches, serve_stats = serve_path(smi, tmp, work, data_dir)
     finally:
         shutil.rmtree(tmp)
     block = kernels[0]
     block["infer_max_abs_err"] = check_block_at(gen, infer_frames)
-    block["max_abs_err"] = max(block["max_abs_err"], block["infer_max_abs_err"])
+    block["serve_max_abs_err"], block["shapes"] = check_block_serving(gen)
+    block["max_abs_err"] = max(block["max_abs_err"], block["infer_max_abs_err"],
+                               block["serve_max_abs_err"])
     for k in kernels:
         k["launches_by_path"] = {"edit": edit_launches[k["name"]],
                                  "train": train_launches[k["name"]],
                                  "run": run_launches[k["name"]],
                                  "infer": infer_launches[k["name"]],
-                                 "csv_edit": csv_launches[k["name"]]}
+                                 "csv_edit": csv_launches[k["name"]],
+                                 "serve": serve_launches[k["name"]]}
         k["launches"] = sum(k["launches_by_path"].values())
         k["kernel_ms"] = k["ms"]
         check(k["launches"] > 0, f"{k['name']} was not launched on a main path")
@@ -1960,12 +2382,13 @@ def main() -> None:
             "max_abs_err", "tol", "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     print(json.dumps({"edit_rtf": rtf, "train_step": train, "run": run_stats,
-                      "infer": infer_stats, "card": smi}))
+                      "infer": infer_stats, "serve": serve_stats, "card": smi}))
     print(smi)
     extra = ("warm_ms", "warm_plain_ms", "host_us", "train_ms", "train_plain_ms",
              "train_bound_ms", "train_device_ms", "train_ops_per_call", "train_host_us",
              "device_ms", "ops_per_call", "library_device_ms", "old_bound_ms", "cufft_ms",
-             "cufft_device_ms", "cufft_ops_per_call", "shapes", "infer_max_abs_err")
+             "cufft_device_ms", "cufft_ops_per_call", "shapes", "infer_max_abs_err",
+             "serve_max_abs_err")
     print(json.dumps({"kernels": [{key: k[key] for key in keys + extra if key in k}
                                   for k in kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

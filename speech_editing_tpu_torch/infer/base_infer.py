@@ -7,6 +7,7 @@ The model's weights come from the last checkpoint of ``hp["work_dir"]``
 ``binary_data_dir`` (or ``processed_data_dir``). ``device`` defaults to
 ``"cuda"``, which raises without a GPU; ``"cpu"`` runs every kernel's
 plain version. ``infer_once = forward_model(preprocess_input(inp))``.
+``serve_quant_int8`` keeps the model's weights in int8 (``quant``).
 """
 
 from __future__ import annotations
@@ -16,10 +17,13 @@ from typing import Any
 
 import numpy as np
 
+from speech_editing_tpu_torch.infer.quant import maybe_quantized, weights
 from speech_editing_tpu_torch.training.trainer import cuda_or_cpu
 
 
 class BaseInfer:
+    quant = None    # the model's int8 weights under serve_quant_int8 (build_model)
+
     def __init__(self, hp: Any, device: Any = "cuda"):
         self.device = cuda_or_cpu(device, type(self).__name__)
         self.hp = hp
@@ -58,12 +62,16 @@ class BaseInfer:
         print(f"| loaded {ckpt_path} (step {payload['steps']})", flush=True)
         return sd
 
-    def maybe_quantize(self, state_dict: dict) -> dict:
-        """``serve_quant_int8`` is not ported; without it the weights pass."""
-        if self.hp.get("serve_quant_int8"):
-            raise NotImplementedError("serve_quant_int8 (int8 weight-only serving) is not "
-                                      "ported (ROADMAP Queue 1 item 8, serving)")
-        return state_dict
+    def maybe_quantize(self, model):
+        """``serve_quant_int8``: ``model``'s weights in int8 on the device
+        (``infer/quant.py``), which the device programs dequantize once a
+        call through :meth:`weights`; None without it."""
+        return maybe_quantized(self.hp, model, self.device, "acoustic model")
+
+    def weights(self):
+        """The context the device programs run the model in: its float32
+        weights dequantized for the call under ``serve_quant_int8``."""
+        return weights(self.quant)
 
     def build_vocoder(self):
         from speech_editing_tpu_torch.infer.vocoder import get_vocoder_cls

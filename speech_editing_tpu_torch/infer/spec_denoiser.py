@@ -26,9 +26,14 @@ vocoded.
 
 A request's diffusion noise comes from a device ``torch.Generator`` seeded
 by ``crc32(seed|item_name|ph|words_region|edited_words_region)``
-(``request_generator``): it depends only on the seed and the request, as
+(``request_generator``), drawn in one call at the request's exact frame
+count (``request_noise``): it depends only on the seed and the request, as
 the JAX package's ``request_prng_key`` does with threefry keys, which torch
-cannot reproduce.
+cannot reproduce. The batch server (``infer/serving.py``, ``make_server``;
+``serve_batched`` here) draws each row the same way and zero-pads it to its
+bucket, so its exact-fit result is the per-item one. With
+``serve_quant_int8`` both device programs run on int8 weights dequantized
+once a call (``infer/quant.py``).
 """
 
 from __future__ import annotations
@@ -50,9 +55,6 @@ from speech_editing_tpu_torch.infer.infer_utils import (
 from speech_editing_tpu_torch.utils.text.processors import get_txt_processor_cls, txt_to_ph
 from speech_editing_tpu_torch.utils.text.text_encoder import is_sil_phoneme
 
-SERVING = "ROADMAP Queue 1 item 8, serving"
-
-
 def request_generator(seed: int, item: dict, device: Any) -> torch.Generator:
     """A generator on ``device`` seeded by the CRC-32 of ``seed`` and the
     request's identity: its name, phones and edit regions (32 bits: the
@@ -61,6 +63,16 @@ def request_generator(seed: int, item: dict, device: Any) -> torch.Generator:
                       str(item.get("words_region", "")),
                       str(item.get("edited_words_region", ""))])
     return torch.Generator(device=device).manual_seed(zlib.crc32(ident.encode()))
+
+
+def request_noise(gen: torch.Generator, steps: int, t: int, m: int) -> torch.Tensor:
+    """A request's reverse-diffusion noise at its exact frame count ``t``,
+    in one draw from its generator ``gen``: [steps + 1, t, m] on
+    ``gen``'s device, the initial noise and then that of steps
+    ``steps - 1`` .. 0 (``GaussianDiffusion.forward``). Torch's generators
+    promise nothing across sizes, so a row padded to a bucket is drawn at
+    its own length and zero-padded: the padded frames are masked out."""
+    return torch.randn(steps + 1, t, m, generator=gen, device=gen.device)
 
 
 def dur_inpaint_prep(item: dict):
@@ -204,15 +216,56 @@ def splice_edit(item: dict, edited_mel2ph_pred: np.ndarray,
 
 
 class SpecDenoiserInfer(BaseInfer):
+    @classmethod
+    def make_server(cls, infer_ins, **kw):
+        """The batched serving engine for this family
+        (``infer/serving.py::BatchedEditServer``); raises for an in-place
+        editing family's experiment, whose server is not ported."""
+        from speech_editing_tpu_torch.infer.serving import BatchedEditServer, check_served
+
+        check_served(infer_ins.hp)
+        return BatchedEditServer(infer_ins, **kw)
+
     def build_model(self):
         from speech_editing_tpu_torch.training.tasks.spec_denoiser import build_model
 
         model = build_model(self.ph_encoder.vocab_size, self.hp)
-        model.load_state_dict(self.maybe_quantize(self.load_variables()))
-        return model.to(self.device).eval()
+        model.load_state_dict(self.load_variables())
+        model.to(self.device).eval()
+        self.quant = self.maybe_quantize(model)
+        return model
 
     def _tensor(self, a, dtype=None) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(a), dtype=dtype).to(self.device)
+        return torch.as_tensor(a, dtype=dtype).to(self.device)
+
+    # -- the two device programs, batched ------------------------------------
+    @torch.inference_mode()
+    def _predict_dur(self, txt, tm, m2p, mdur, spk) -> torch.Tensor:
+        """Device program 1: the duration predictor on the edited phones
+        txt [B, S], conditioned on the masked ground-truth durations mdur
+        [B, S] of the untouched words; tm [B, T, 1] the edited frames, m2p
+        [B, T] the masked alignment, spk [B, 256]. Returns the float
+        durations [B, S] on the device."""
+        with self.weights():
+            out = self.model.predict_durations(
+                self._tensor(txt), self._tensor(tm), self._tensor(m2p), self._tensor(mdur),
+                self._tensor(spk, torch.float32))
+        return out["dur"]
+
+    @torch.inference_mode()
+    def _infer(self, txt, tm, m2p, spk, ref, f0, uv, noise) -> torch.Tensor:
+        """Device program 2: the reverse diffusion with predicted pitch over
+        the spliced frames; txt [B, S], tm [B, T, 1], m2p [B, T], spk [B,
+        256], ref [B, T, 80], f0 and uv [B, T]; ``noise`` timesteps + 1
+        tensors [B, T, 80] (each row's ``request_noise``, zero-padded).
+        Returns mel_out [B, T, 80] on the device, before the composite."""
+        noise = torch.stack([torch.as_tensor(n) for n in noise]).to(self.device, torch.float32)
+        with self.weights():
+            out = self.model(
+                self._tensor(txt), self._tensor(tm), self._tensor(m2p),
+                self._tensor(spk, torch.float32), self._tensor(ref), self._tensor(f0),
+                self._tensor(uv), use_pred_pitch=True, noise=noise)
+        return out["mel_out"]
 
     # -- host-side preprocessing ----------------------------------------------
     def preprocess_input(self, inp: dict) -> dict:
@@ -265,18 +318,14 @@ class SpecDenoiserInfer(BaseInfer):
         }
 
     # -- duration inpainting + splice + diffusion ------------------------------
-    @torch.inference_mode()
     def predict_durations(self, item: dict, spk_embed: np.ndarray) -> np.ndarray:
-        """Device program 1: the duration predictor on the edited phones,
-        conditioned on the masked ground-truth durations of the untouched
-        words. Returns the float durations [S_edit]."""
+        """Device program 1 on one request. Returns the float durations
+        [S_edit]."""
         masked_dur, masked_mel2ph, edit_frames = dur_inpaint_prep(item)
-        out = self.model.predict_durations(
-            self._tensor(item["edited_ph_token"])[None],
-            self._tensor(edit_frames.astype(np.float32))[None, :, None],
-            self._tensor(masked_mel2ph)[None], self._tensor(masked_dur)[None],
-            self._tensor(spk_embed, torch.float32))
-        return out["dur"][0].float().cpu().numpy()
+        dur = self._predict_dur(item["edited_ph_token"][None],
+                                edit_frames.astype(np.float32)[None, :, None],
+                                masked_mel2ph[None], masked_dur[None], spk_embed)
+        return dur[0].float().cpu().numpy()
 
     def inpaint_durations(self, item: dict, spk_embed: np.ndarray,
                           dur_int: Optional[np.ndarray] = None):
@@ -292,23 +341,19 @@ class SpecDenoiserInfer(BaseInfer):
             item, dur, int(self.hp.get("frames_multiple", 1)))
         return edited_mel2ph_pred, edited_mel2word, edit_frames
 
-    @torch.inference_mode()
     def diffuse(self, item: dict, sp: dict, spk_embed: np.ndarray,
                 noise: Optional[Sequence[torch.Tensor]] = None) -> np.ndarray:
-        """Device program 2: the reverse diffusion over the spliced frames
-        ``sp`` (``splice_edit``) with predicted pitch; its noise from the
-        request's generator unless given (``timesteps + 1`` tensors [1, T,
-        80], see ``GaussianDiffusion.forward``). Returns mel_out [T, 80]
-        before the composite."""
-        gen = None if noise is not None else request_generator(
-            int(self.hp.get("seed", 1234)), item, self.device)
-        out = self.model(
-            self._tensor(item["edited_ph_token"])[None],
-            self._tensor(sp["time_mel_masks"])[None], self._tensor(sp["mel2ph"])[None],
-            self._tensor(spk_embed, torch.float32), self._tensor(sp["ref_mels"])[None],
-            self._tensor(sp["f0"])[None], self._tensor(sp["uv"])[None],
-            use_pred_pitch=True, generator=gen, noise=noise)
-        return out["mel_out"][0].cpu().numpy()
+        """Device program 2 on the spliced frames ``sp`` (``splice_edit``) of
+        one request; its noise ``request_noise`` of the request's generator
+        unless given (``timesteps + 1`` tensors [1, T, 80]). Returns mel_out
+        [T, 80] before the composite."""
+        if noise is None:
+            gen = request_generator(int(self.hp.get("seed", 1234)), item, self.device)
+            noise = request_noise(gen, self.model.num_timesteps, sp["t_new"],
+                                  self.model.out_dims)[:, None]
+        return self._infer(item["edited_ph_token"][None], sp["time_mel_masks"][None],
+                           sp["mel2ph"][None], spk_embed, sp["ref_mels"][None],
+                           sp["f0"][None], sp["uv"][None], noise)[0].cpu().numpy()
 
     def forward_model(self, item: dict, noise: Optional[Sequence[torch.Tensor]] = None,
                       dur_int: Optional[np.ndarray] = None):
@@ -341,12 +386,13 @@ class SpecDenoiserInfer(BaseInfer):
     def example_run(cls, dataset_info: List[dict], hp: Any,
                     out_dir: str = "inference/out", device: Any = "cuda"):
         """The CSV edit API: the log-mel of each row's wav, one edit per row,
-        ``<out_dir>/<item_name>.wav`` and ``<item_name>_ref.wav``."""
+        ``<out_dir>/<item_name>.wav`` and ``<item_name>_ref.wav``. With
+        ``serve_batched`` the edits run through the batch server
+        (``serve_max_batch`` requests a chunk), with the same results
+        contract."""
         from speech_editing_tpu_torch.utils.audio.dsp import wav2spec
         from speech_editing_tpu_torch.utils.audio.io import save_wav
 
-        if hp.get("serve_batched"):
-            raise NotImplementedError(f"serve_batched is not ported ({SERVING})")
         infer_ins = cls(hp, device)
         os.makedirs(out_dir, exist_ok=True)
         inputs = []
@@ -359,11 +405,19 @@ class SpecDenoiserInfer(BaseInfer):
             inp = dict(data_info)
             inp.update(mel=res["mel"], wav=res["wav"])
             inputs.append(inp)
-        for inp in inputs:
-            wav_out, wav_gt, *_ = infer_ins.infer_once(inp)
-            name = inp["item_name"]
-            save_wav(wav_out, f"{out_dir}/{name}.wav", hp["audio_sample_rate"])
-            save_wav(wav_gt, f"{out_dir}/{name}_ref.wav", hp["audio_sample_rate"])
+        if hp.get("serve_batched"):
+            server = cls.make_server(infer_ins, max_batch=int(hp.get("serve_max_batch", 8)))
+            for inp, r in zip(inputs, server.edit_many(inputs)):
+                name = inp["item_name"]
+                save_wav(r["wav_out"], f"{out_dir}/{name}.wav", hp["audio_sample_rate"])
+                save_wav(infer_ins.run_vocoder(inp["mel"]), f"{out_dir}/{name}_ref.wav",
+                         hp["audio_sample_rate"])
+        else:
+            for inp in inputs:
+                wav_out, wav_gt, *_ = infer_ins.infer_once(inp)
+                name = inp["item_name"]
+                save_wav(wav_out, f"{out_dir}/{name}.wav", hp["audio_sample_rate"])
+                save_wav(wav_gt, f"{out_dir}/{name}_ref.wav", hp["audio_sample_rate"])
         print(f"| region-edit results -> {out_dir}", flush=True)
 
 
@@ -424,12 +478,13 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     import sys
 
     from speech_editing_tpu_torch.config.hparams import arg_parser, set_hparams
-    from speech_editing_tpu_torch.training.trainer import cuda_or_cpu
+    from speech_editing_tpu_torch.training.trainer import cuda_or_cpu, float32_on_card
 
     parser = arg_parser()
     parser.add_argument("--device", type=str, default="cuda")
     args = parser.parse_args(sys.argv[1:] if argv is None else list(argv))
     device = cuda_or_cpu(args.device, "spec_denoiser")
+    float32_on_card()
     hp = set_hparams(args)
     test_file_path = hp.get("infer_csv", "inference/example.csv")
     test_wav_directory = "inference/audio"

@@ -7,7 +7,10 @@
 checkpoint or a JAX one) with the directory's ``config.yaml`` into the
 port's generator on the device; as in the JAX package it falls back to
 Griffin-Lim when no checkpoint is there, and says so. ``kind`` names the
-vocoder that runs.
+vocoder that runs. A vocoder whose ``device_batched`` is set also takes
+device tensors (``spec2wav_batch_dev``), for the batch server, which pads
+its chunks to static shapes for it. :func:`pcm16` is ``save_wav``'s 16-bit
+conversion on a tensor.
 """
 
 from __future__ import annotations
@@ -17,6 +20,8 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+
+from speech_editing_tpu_torch.infer.quant import maybe_quantized, weights
 
 VOCODERS: dict = {}
 
@@ -32,8 +37,18 @@ def get_vocoder_cls(name: str):
     return VOCODERS[name.lower()]
 
 
+def pcm16(wav: torch.Tensor) -> torch.Tensor:
+    """16-bit PCM of a float wav on its own device, bit for bit the samples
+    ``utils/audio/io.py::save_wav`` writes: clip to [-1, 1], times 32767 in
+    float32, truncated to int16."""
+    return (wav.float().clamp(-1.0, 1.0) * 32767.0).to(torch.int16)
+
+
 class BaseVocoder:
     kind = ""
+    #: True when ``spec2wav_batch_dev`` runs one device program on the
+    #: whole batch (the server then vocodes its padded chunks on the device)
+    device_batched = False
 
     def spec2wav(self, mel: np.ndarray, **kw) -> np.ndarray:
         raise NotImplementedError
@@ -69,7 +84,9 @@ class HifiGAN(BaseVocoder):
     checkpoint holds the generator's ``state_dict`` under
     ``state["model"]``; a JAX one a ``GanTrainState`` or a parameter tree
     (``training/checkpoint.py``). ``device`` defaults to ``"cuda"``, which
-    raises without a GPU."""
+    raises without a GPU. ``serve_quant_int8`` keeps the generator's
+    weights in int8 (``infer/quant.py``), as the JAX package's vocoder
+    does."""
 
     def __init__(self, hp: Any, device: Any = "cuda"):
         from speech_editing_tpu_torch.config.hparams import read_yaml
@@ -79,9 +96,6 @@ class HifiGAN(BaseVocoder):
         from speech_editing_tpu_torch.training.trainer import cuda_or_cpu
         from speech_editing_tpu_torch.utils.convert_jax_params import vocoder_params_from_jax
 
-        if hp.get("serve_quant_int8"):
-            raise NotImplementedError("serve_quant_int8 (int8 weight-only serving) is not "
-                                      "ported (ROADMAP Queue 1 item 8, serving)")
         self.hp = hp
         self.device = cuda_or_cpu(device, "HifiGAN")
         ckpt_dir = hp.get("vocoder_ckpt", "") or ""
@@ -96,7 +110,9 @@ class HifiGAN(BaseVocoder):
             self.generator = HifiGanGenerator(vhp)
             self.generator.load_state_dict(sd)
             self.generator.to(self.device).eval()
+            self.quant = maybe_quantized(hp, self.generator, self.device, "HiFi-GAN")
             self.kind = "hifigan"
+            self.device_batched = True
             print(f"| vocoder: HiFi-GAN from {ckpt_path} on {self.device}", flush=True)
         else:
             self._fallback = GriffinLim(hp)
@@ -105,9 +121,15 @@ class HifiGAN(BaseVocoder):
                   f"config.yaml in vocoder_ckpt {ckpt_dir!r})", flush=True)
 
     @torch.inference_mode()
+    def spec2wav_batch_dev(self, mels: torch.Tensor) -> torch.Tensor:
+        """mels [B, T, 80] on the device -> wavs [B, N] there, one generator
+        call; only with ``device_batched``."""
+        with weights(self.quant):
+            return self.generator(mels)
+
     def _generate(self, mels: np.ndarray) -> np.ndarray:
         x = torch.as_tensor(np.asarray(mels, np.float32)).to(self.device)
-        return self.generator(x).cpu().numpy()
+        return self.spec2wav_batch_dev(x).cpu().numpy()
 
     def spec2wav(self, mel: np.ndarray, **kw) -> np.ndarray:
         if self.generator is None:

@@ -16,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -29,6 +30,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: dict[str, ctypes.CDLL] = {}
+_load_lock = threading.Lock()
 _functions: dict[tuple[ctypes.CDLL, str], object] = {}
 
 
@@ -83,8 +85,11 @@ def kernel_function(name: str, symbol: str, argtypes: list):
     missing, returning an int (a launch returns its ``cudaGetLastError()``)."""
     lib = _loaded.get(name)
     if lib is None:
-        build_all((name,))
-        lib = _loaded[name] = ctypes.CDLL(str(library_path(name)))
+        with _load_lock:    # threads of a server may reach a kernel's first call together
+            lib = _loaded.get(name)
+            if lib is None:
+                build_all((name,))
+                lib = _loaded[name] = ctypes.CDLL(str(library_path(name)))
     fn = _functions.get((lib, symbol))   # keyed by library: a swapped-in build takes effect
     if fn is None:
         fn = getattr(lib, symbol)

@@ -20,7 +20,7 @@ from typing import Optional, Sequence
 
 from speech_editing_tpu_torch.config.hparams import arg_parser, set_hparams
 from speech_editing_tpu_torch.training.tasks.spec_denoiser import SpecDenoiserTask
-from speech_editing_tpu_torch.training.trainer import Trainer, cuda_or_cpu
+from speech_editing_tpu_torch.training.trainer import Trainer, cuda_or_cpu, float32_on_card
 
 TASKS = {cls.__name__: cls for cls in (SpecDenoiserTask,)}
 
@@ -42,6 +42,7 @@ def run(argv: Optional[Sequence[str]] = None) -> Trainer:
     parser.add_argument("--device", type=str, default="cuda")
     args = parser.parse_args(sys.argv[1:] if argv is None else list(argv))
     device = cuda_or_cpu(args.device, "run")
+    float32_on_card()
     hp = set_hparams(args)
     if not hp.get("task_cls"):
         raise ValueError("the config must set task_cls")

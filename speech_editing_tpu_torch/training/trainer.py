@@ -53,6 +53,14 @@ def cuda_or_cpu(device: Any, who: str) -> torch.device:
     return device
 
 
+def float32_on_card() -> None:
+    """Float32 matrix products and cuDNN convolutions on the card, not TF32
+    (cuDNN's default): the port computes in float32, as its checks against
+    the CPU hold it. The command lines call it."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
 class Trainer:
     """Trains ``task``'s model on ``device`` (default ``"cuda"``, which
     raises when no GPU is present; ``"cpu"`` runs every kernel's plain

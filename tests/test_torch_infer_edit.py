@@ -16,6 +16,7 @@ import json
 import os
 import pickle
 import shutil
+import types
 
 import jax
 import jax.numpy as jnp
@@ -211,13 +212,20 @@ def test_griffin_lim_and_the_fallback_match_jax(env, capsys):
 
 
 def test_serving_settings_not_ported_raise(env):
+    """Serving is ported for FluentSpeech (``serve_quant_int8`` and
+    ``serve_batched`` build and run, tests/test_torch_serving.py); the
+    in-place families' server is not, and says which ROADMAP item holds it."""
+    from speech_editing_tpu_torch.infer.serving import check_served
+
     hp = env["hp"]
-    with pytest.raises(NotImplementedError, match="serving"):
-        psd.SpecDenoiserInfer(dict(hp, serve_quant_int8=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="serving"):
-        get_vocoder_cls("HifiGAN")(dict(hp, serve_quant_int8=True), "cpu")
-    with pytest.raises(NotImplementedError, match="serving"):
-        psd.SpecDenoiserInfer.example_run([], dict(hp, serve_batched=True), device="cpu")
+    assert psd.SpecDenoiserInfer(dict(hp, serve_quant_int8=True), device="cpu").quant is not None
+    check_served(hp)
+    for task_cls in ("tasks.campnet.CampNetTask", "tasks.a3t.A3TTask",
+                     "tasks.editspeech.EditSpeechTask"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+            check_served(dict(hp, task_cls=task_cls))
+        with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+            psd.SpecDenoiserInfer.make_server(types.SimpleNamespace(hp=dict(hp, task_cls=task_cls)))
 
 
 def test_csv_command_line_writes_each_edit(env, tmp_path, monkeypatch, capsys):

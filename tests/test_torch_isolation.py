@@ -1,8 +1,9 @@
 """The PyTorch port stands alone: importing every module of
 ``speech_editing_tpu_torch`` loads neither JAX, flax, optax, PyYAML nor the
 JAX package, and its entry points (the edit pipeline, the trainer, the
-entry ``run`` with and without ``--infer``, the CSV region-edit API and
-the HiFi-GAN vocoder) refuse to fall back to the CPU on their own."""
+entry ``run`` with and without ``--infer``, the CSV region-edit API, the
+HiFi-GAN vocoder, the batch server and the serve CLI) refuse to fall back
+to the CPU on their own."""
 
 import os
 import subprocess
@@ -18,11 +19,15 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 assert len(names) >= 20, names
+for served in ("online", "quant", "serve", "serving"):
+    assert f"speech_editing_tpu_torch.infer.{served}" in names, served
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in
                 ("jax", "jaxlib", "flax", "optax", "yaml", "speech_editing_tpu"))
 assert not leaked, leaked
 if not torch.cuda.is_available():
     from speech_editing_tpu_torch.infer.edit import EditPipeline
+    from speech_editing_tpu_torch.infer.serve import main as serve_main
+    from speech_editing_tpu_torch.infer.serving import BatchedEditServer
     from speech_editing_tpu_torch.infer.spec_denoiser import SpecDenoiserInfer, main
     from speech_editing_tpu_torch.infer.vocoder import HifiGAN
     from speech_editing_tpu_torch.run import run
@@ -32,7 +37,9 @@ if not torch.cuda.is_available():
     for entry, args in ((EditPipeline, ({}, {})), (Trainer.from_hp, ({},)),
                         (run, (train_argv,)), (run, (train_argv + ["--infer"],)),
                         (SpecDenoiserInfer, ({},)), (SpecDenoiserInfer.example_run, ([], {})),
-                        (main, (train_argv,)), (HifiGAN, ({},))):
+                        (main, (train_argv,)), (HifiGAN, ({},)),
+                        (BatchedEditServer, (None, {})),
+                        (serve_main, (train_argv[:4] + ["--jsonl", "never_read.jsonl"],))):
         try:
             entry(*args)
         except RuntimeError as e:

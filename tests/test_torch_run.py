@@ -118,7 +118,7 @@ def test_eval_loss_equals_jax(setup):
 
 
 @pytest.mark.parametrize("extra", [
-    [], ["--infer", "-hp", "use_bf16=False,serve_quant_int8=True"],
+    [], ["--infer", "-hp", "use_bf16=False,use_masked_cond=False"],
     ["-hp", "use_bf16=False,accumulate_grad_batches=2"],
     ["-hp", "use_bf16=False,tp_size=2"],
 ])
