@@ -87,6 +87,26 @@ Phases, each of which exits non-zero on a failed check:
    the same requests on int8 weights (``serve_quant_int8``): bytes against
    float32 and the largest mel_out difference. K1 is held against its plain
    version at B=16 and T 256-1536 with ragged masks.
+9. in-place path: CampNet, A3T and EditSpeech (``infer/editors.py``) in
+   turn at their shipped widths (``egs/{campnet,a3t,editspeech}.yaml``),
+   each from a port checkpoint of seeded weights written here, on the run
+   path's phone set and the infer path's HiFi-GAN: the CSV edit API over
+   the infer path's four requests (wavs, launches an edit, the same request
+   twice bit-identical, frames outside the mask the source's); the batch
+   server (``BatchedInPlaceEditServer``, 16 rows a chunk, default buckets),
+   warmed, over the serve path's 32 requests (each CampNet chunk launches
+   K3 9 times, the other families nothing; results finite with the
+   source's frames outside the mask; requests/s, audio s/s, fill, peak
+   memory); one request alone, in its chunk and at another row
+   bit-identical, and at its exact-fit bucket with max_batch 1 the
+   per-item driver's mel and wav bit for bit; a profiled B=16 x T=512
+   chunk (host, busy, K3's and HiFi-GAN's shares); a 128-frame chunk run
+   again bit-identical and on the CPU (EditSpeech's splice frames
+   replayed and counted, INPLACE_CPU_TOL). CampNet also online through the
+   serve CLI (``--warmup``; wavs bit-identical to batch mode's) and
+   EditSpeech on int8 weights. K3 is held against its plain version and
+   timed beside SDPA at CampNet's decoder shapes (B=16, T 256-1536, h=2,
+   d=96, ragged key padding) in the kernels phase.
 
 ``python3 chip_smoke.py --time-attention`` builds K3 and K4 only and times
 them and SDPA at those shapes, with no checks; ``--time-mel`` does the same
@@ -119,14 +139,16 @@ import torch
 import torch.nn.functional as F
 from scipy.io import wavfile
 
+import speech_editing_tpu_torch.models.editspeech as editspeech_module
 import speech_editing_tpu_torch.models.fs as fs_module
 from speech_editing_tpu_torch.config.flagship import FLAGSHIP_HP, HIFIGAN_V1_HP
 from speech_editing_tpu_torch.config.hparams import (arg_parser, dump_yaml, load_config,
                                                      set_hparams)
 from speech_editing_tpu_torch.data.indexed_dataset import IndexedDatasetBuilder
 from speech_editing_tpu_torch.infer.edit import EditPipeline
+from speech_editing_tpu_torch.infer.editors import A3TInfer, CampNetInfer, EditSpeechInfer
 from speech_editing_tpu_torch.infer.serve import _load_request as load_request
-from speech_editing_tpu_torch.infer.serving import BatchedEditServer
+from speech_editing_tpu_torch.infer.serving import BatchedEditServer, BatchedInPlaceEditServer
 from speech_editing_tpu_torch.infer.spec_denoiser import (SpecDenoiserInfer, request_generator,
                                                           request_noise)
 from speech_editing_tpu_torch.infer.vocoder import HifiGAN, get_vocoder_cls
@@ -155,7 +177,7 @@ from speech_editing_tpu_torch.utils.init import init_like_flax
 from speech_editing_tpu_torch.utils.multiprocess import ResultSaverPool
 from speech_editing_tpu_torch.utils.text.processors import (_FallbackG2p,
                                                             get_txt_processor_cls, txt_to_ph)
-from speech_editing_tpu_torch.utils.text.text_encoder import is_sil_phoneme
+from speech_editing_tpu_torch.utils.text.text_encoder import build_token_encoder, is_sil_phoneme
 
 PEAK_FP32_FLOPS = 67e12     # H100 SXM, float32 outside the tensor cores
 # H100 SXM, float32-accurate products on the tensor cores: three TF32
@@ -618,6 +640,10 @@ FWD_SHAPES = ((1, 48, [48], False), (3, 130, [130, 100, 71], False),
               (TRAIN_B, TRAIN_S, None, True))
 BWD_SHAPES = ((1, 48, [43]), (3, 130, [130, 100, 71]), (TRAIN_B, TRAIN_S, None))
 PAD_ROW_LENGTHS = [48, 0, 31]          # batch row 1 has only pad keys
+# CampNet's coarse decoder self-attention in a serving chunk: B=16 frame rows
+# at the serving buckets, h=2, d=96 (egs/campnet.yaml's hidden 192), each
+# row but the first padded from its own length
+CAMPNET_B, CAMPNET_T, CAMPNET_H = 16, (256, 512, 1024, 1536), 2
 NARROW_D, NARROW_LENGTHS = 36, [48, 40, 24]
 
 
@@ -661,6 +687,8 @@ def phase_attention(gen) -> dict:
         shapes.append(dict(t, b=b, s=s, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                            max_err=err))
     out.update(shapes[0], shapes=shapes)   # the table's row: the edit path's shape
+    out["campnet_shapes"] = [check_attention_at(gen, CAMPNET_B, t, tol) for t in CAMPNET_T]
+    out["max_abs_err"] = max([out["max_abs_err"]] + [r["max_err"] for r in out["campnet_shapes"]])
 
     # a row whose keys are all padding: zeros and lse -inf by design, where
     # the plain version's -1e9 bias gives uniform weights; the other rows match
@@ -690,8 +718,38 @@ def phase_attention(gen) -> dict:
                 replaces="speech_editing_tpu/ops/flash_attention.py:85", tol=tol)
 
 
-def attention_inputs(gen, b: int, s: int, lengths, d: int | None = None):
-    h = FLAGSHIP_HP["num_heads"]
+def campnet_lengths(b: int, t: int) -> list[int]:
+    """A serving chunk's frame counts: the first row fills the bucket, the
+    others fall evenly to 40% of it."""
+    return [t] + [int(t * (1 - 0.6 * i / (b - 1))) for i in range(1, b)]
+
+
+def check_attention_at(gen, b: int, t: int, tol: float) -> dict:
+    """K3 at a CampNet decoder shape (ragged key padding) against its plain
+    version, timed beside SDPA with the same padding, with its bound."""
+    h, d = CAMPNET_H, 192 // CAMPNET_H
+    lengths = campnet_lengths(b, t)
+    q, k, v, pad = attention_inputs(gen, b, t, lengths, d=d, h=h)
+    got = flash_mha(q, k, v, pad)
+    err = float((got - attention_plain(q, k, v, pad)).abs().max())
+    torch.cuda.synchronize()
+    times = call_times(lambda: flash_mha(q, k, v, pad), sdpa_fwd(q, k, v, pad))
+    plain_ms = time_ms(lambda: attention_plain(q, k, v, pad), iters=5)
+    flops = 4 * h * t * d * sum(lengths)       # q k^T and p v over valid keys
+    bound_ms, bound_by = bound(flops, nbytes(q, k, v, pad, got))
+    print(f"[kernel] flash_mha B={b} T={t} h={h} d={d} (CampNet's decoder self-attention), "
+          f"valid keys {min(lengths)}..{max(lengths)}: max err {err:.3e} (absolute, tol {tol}); "
+          f"{times_text(times, 'sdpa')}; plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms "
+          f"({bound_by}, {flops / 1e9:.2f} GFLOP); device "
+          f"{rate(flops, times['device_ms'], bound_ms)}", flush=True)
+    check(err <= tol, f"flash_mha B={b} T={t} d={d}: error {err} > {tol}")
+    check_one_op(f"flash_mha B={b} T={t}", times)
+    return dict(times, b=b, s=t, h=h, d=d, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, gflop=flops / 1e9, max_err=err)
+
+
+def attention_inputs(gen, b: int, s: int, lengths, d: int | None = None, h: int | None = None):
+    h = h or FLAGSHIP_HP["num_heads"]
     d = d or FLAGSHIP_HP["hidden_size"] // h
     q = torch.randn(b, s, h, d, device="cuda", generator=gen) * d ** -0.5
     k = torch.randn(b, s, h, d, device="cuda", generator=gen)
@@ -1937,36 +1995,44 @@ SERVE_K1_T = (256, 512, 1024, 1536)    # K1 at B=16 and the serving buckets
 EXPECTED_PER_DUR_CHUNK = {k: 0 for k in EXPECTED_PER_EDIT}
 
 
-def serve_rows(d: str, spec_kw: dict) -> list:
+def serve_row_specs(d: str) -> list:
     """The serve phase's requests (the serve CLI's JSONL schema with an
-    ``mfa_textgrid``): harmonic wavs of SERVE_SECONDS, about 2.6 words a
-    second from SERVE_WORDS, one or two words in the first third replaced
-    by one to three others; TextGrids written as the infer path's."""
+    ``mfa_textgrid``), their wav and TextGrid paths under ``d``: harmonic
+    wavs of SERVE_SECONDS, about 2.6 words a second from SERVE_WORDS, one
+    or two words in the first third replaced by one to three others."""
     rows = []
     for i, secs in enumerate(SERVE_SECONDS):
         n = max(5, round(secs * 2.6))
         words = [SERVE_WORDS[(5 * i + k) % len(SERVE_WORDS)] for k in range(n)]
         w0, new = n // 3 + 1, SERVE_NEW[i % len(SERVE_NEW)]
         w1 = w0 + i % 2
-        wav_fn = os.path.join(d, f"serve{i:02d}.wav")
-        save_wav(csv_wav(secs, 100.0 + 7 * i, 100 + i), wav_fn, SR)
-        tg = os.path.join(d, f"serve{i:02d}.TextGrid")
-        write_textgrid(tg, " ".join(words), wav2spec(wav_fn, **spec_kw)["mel"].shape[0])
         rows.append(dict(item_name=f"serve{i:02d}", text=" ".join(words),
                          edited_text=" ".join(words[:w0 - 1] + new + words[w1:]),
                          region=f"[{w0},{w1}]", edited_region=f"[{w0},{w0 + len(new) - 1}]",
-                         wav_fn_orig=wav_fn, mfa_textgrid=tg))
+                         wav_fn_orig=os.path.join(d, f"serve{i:02d}.wav"),
+                         mfa_textgrid=os.path.join(d, f"serve{i:02d}.TextGrid")))
+    return rows
+
+
+def serve_rows(d: str, spec_kw: dict) -> list:
+    """``serve_row_specs`` with their wavs and TextGrids (as the infer
+    path's) written."""
+    rows = serve_row_specs(d)
+    for i, (secs, row) in enumerate(zip(SERVE_SECONDS, rows)):
+        save_wav(csv_wav(secs, 100.0 + 7 * i, 100 + i), row["wav_fn_orig"], SR)
+        write_textgrid(row["mfa_textgrid"], row["text"],
+                       wav2spec(row["wav_fn_orig"], **spec_kw)["mel"].shape[0])
     return rows
 
 
 class ChunkRecorder:
-    """Wraps a server's two chunk stages to record each chunk: its stage,
+    """Wraps a server's chunk stages to record each chunk: its stage,
     buckets, real rows, batch, launches, host seconds (its results' fetch
     included) and requests."""
 
     def __init__(self, server):
         self.chunks = []
-        for stage in BatchedEditServer.STAGES:
+        for stage in type(server).STAGES:
             name = f"run_{stage}_chunk"
             setattr(server, name, self._wrap(stage, getattr(server, name)))
 
@@ -2294,6 +2360,359 @@ def serve_path(smi: str, tmp: str, work: str, data_dir: str) -> tuple[dict, dict
     return launches, dict(stats, card=smi)
 
 
+# -- in-place path ---------------------------------------------------------------
+
+# the in-place editing families: their drivers and shipped configs
+INPLACE = (("campnet", CampNetInfer, "egs/campnet.yaml"), ("a3t", A3TInfer, "egs/a3t.yaml"),
+           ("editspeech", EditSpeechInfer, "egs/editspeech.yaml"))
+# K3 launches of one CampNet forward: its 3 encoder layers and 6 decoder layers
+CAMPNET_K3 = 9
+INPLACE_CPU_T = 128       # the frame bucket of the chunk re-run on the CPU
+INPLACE_CPU_TOL = 1e-3    # card vs CPU mel_out of that chunk
+INPLACE_PROFILE_T = 512   # the frame bucket of the profiled chunk
+INPLACE_INT8 = "editspeech"   # the family served on int8 weights (LSTM, conv and linear layouts)
+
+
+def expected_inplace(family: str, forwards: int) -> dict:
+    """Launches of ``forwards`` model forwards: K3 for CampNet, nothing else."""
+    return {k: (CAMPNET_K3 * forwards if family == "campnet" and k == "flash_mha" else 0)
+            for k in COUNTERS}
+
+
+def write_inplace_checkpoint(cls, hp: dict, work: str, seed: int) -> int:
+    """Seeded weights at the config's widths (flax's initializers, then
+    every 1-axis parameter and CampNet's mask embedding moved by 0.05 x a
+    normal draw, as trained ones are not zero) as a port checkpoint in
+    ``work``; returns the parameter count."""
+    vocab = build_token_encoder(os.path.join(hp["binary_data_dir"], "phone_set.json")).vocab_size
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        model = init_like_flax(cls.model_cls(vocab, hp, 80))
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                if p.ndim <= 1 or name == "mask_emb":
+                    p.add_(torch.randn_like(p) * 0.05)
+    save_checkpoint(work, {"model": model.state_dict()}, 1)
+    return sum(p.numel() for p in model.parameters())
+
+
+@contextlib.contextmanager
+def fusion_indices(found: list, replay: bool):
+    """Within the block EditSpeech's splice frames (``fusion_index``) are
+    recorded into ``found``; with ``replay`` the recorded ones are taken
+    instead and those that differ counted (two frames whose disagreements
+    lie within rounding of each other). Yields ``[flips, calls]``."""
+    orig, tally = editspeech_module.fusion_index, [0, 0]
+
+    def fusion_index(*args):
+        got = orig(*args)
+        if not replay:
+            found.append(got.clone())
+            return got
+        want = found[tally[1]].to(got.device)
+        tally[0] += int((got != want).sum())
+        tally[1] += 1
+        return want
+
+    editspeech_module.fusion_index = fusion_index
+    try:
+        yield tally
+    finally:
+        editspeech_module.fusion_index = orig
+
+
+def check_inplace_results(family: str, inputs: list, results: list, rec: ChunkRecorder) -> None:
+    """Each chunk launches the family's kernels; every result finite, of
+    its source's length, every frame outside the edit's mask the source's."""
+    for c in rec.of("fwd"):
+        check(c["launches"] == expected_inplace(family, 1),
+              f"{family}: chunk {c['s_b']}x{c['t_b']} launched {c['launches']}")
+    for inp, res in zip(inputs, results):
+        mel, keep = inp["mel"], res["time_mel_masks"][:, 0] == 0
+        check(res["mel_out"].shape == mel.shape and np.isfinite(res["mel_out"]).all()
+              and np.isfinite(res["wav_out"]).all() and len(res["wav_out"]) == len(mel) * HOP,
+              f"{family} {inp['item_name']}: result shape or values")
+        check(keep.any() and not keep.all() and np.array_equal(res["mel_out"][keep], mel[keep]),
+              f"{family} {inp['item_name']}: frames outside the edit differ from the source")
+
+
+def inplace_profile(family: str, server, chunk: dict, smi: str) -> dict:
+    """One chunk re-run on the card: its host time (median of 3), and from
+    ``torch.profiler`` its device busy time and operations, K3's share and
+    HiFi-GAN's (profiled alone on a chunk-shaped mel)."""
+    reqs, args = chunk["reqs"], (chunk["s_b"], chunk["t_b"], chunk["b"])
+    run = lambda: BatchedInPlaceEditServer.run_fwd_chunk(server, reqs, *args)
+    host = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        run()
+        host.append((time.perf_counter() - t0) * 1e3)
+    kernels = device_ops(profiled(run))
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    k3 = sum(e.self_device_time_total for e in kernels if "attention_fwd" in e.key) / 1e3
+    mel = torch.zeros(chunk["b"], chunk["t_b"], 80, device="cuda") - 4.0
+    voc = sum(e.self_device_time_total for e in device_ops(
+        profiled(lambda: server.infer.vocoder.spec2wav_batch_dev(mel)))) / 1e3
+    out = dict(shape=[chunk["b"], chunk["t_b"]], s_b=chunk["s_b"], rows=chunk["n"],
+               host_ms=float(np.median(host)), busy_ms=busy,
+               device_ops=sum(e.count for e in kernels), k3_ms=k3, hifigan_ms=voc)
+    if busy == 0:
+        print(f"[inplace] {family}: profiled chunk: the profiler saw no device time, busy not "
+              f"measured; host {out['host_ms']:.3f} ms", flush=True)
+        return out
+    print(f"[inplace] {family}: profiled chunk B={chunk['b']} x T={chunk['t_b']} "
+          f"(S={chunk['s_b']}, {chunk['n']} real rows): host {out['host_ms']:.3f} ms (median of "
+          f"3), device busy {busy:.3f} ms ({busy / out['host_ms']:.3f} of it) in "
+          f"{out['device_ops']} operations; K3 {k3:.3f} ms ({k3 / busy:.3f}), HiFi-GAN alone on "
+          f"the chunk's shape {voc:.3f} ms ({voc / busy:.3f}); {smi}", flush=True)
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"[profile] {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d}x "
+              f"{e.key[:90]}", flush=True)
+    return out
+
+
+def inplace_cpu_rerun(family: str, cls, hp: dict, server, chunk: dict, results: dict) -> dict:
+    """One chunk again on the card, bit-identical to its first run
+    (EditSpeech's splice frames recorded), then on the CPU (plain versions,
+    the splice frames replayed and counted, the vocoder left out): mel_out
+    within INPLACE_CPU_TOL."""
+    reqs, args = chunk["reqs"], (chunk["s_b"], chunk["t_b"], chunk["b"])
+    found: list = []
+    with fusion_indices(found, replay=False):
+        BatchedInPlaceEditServer.run_fwd_chunk(server, reqs, *args)
+    again = all(np.array_equal(r.result["mel_out"], results[r.item["item_name"]]["mel_out"])
+                for r in reqs)
+    check(again, f"{family}: a chunk run again gave other mels")
+    cpu = cls.make_server(cls(hp, "cpu"), max_batch=SERVE_BATCH)
+    cpu.infer.vocoder = types.SimpleNamespace(       # mel_out is compared, not audio
+        device_batched=False, spec2wav_batch=lambda mels: np.zeros((len(mels), 1)))
+    cpu_reqs = [copy.copy(r) for r in reqs]
+    t0 = time.perf_counter()
+    with fusion_indices(found, replay=True) as tally:
+        cpu.run_fwd_chunk(cpu_reqs, *args)
+    err = max(float(np.abs(c.result["mel_out"] - r.result["mel_out"]).max())
+              for c, r in zip(cpu_reqs, reqs))
+    splice = int(sum(f.numel() for f in found))
+    out = dict(shape=[chunk["b"], chunk["t_b"]], rows=chunk["n"], cpu_s=time.perf_counter() - t0,
+               fusion_replayed=tally[0], fusion_rows=splice, mel_max_abs_err=err)
+    print(f"[inplace] {family}: chunk B={chunk['b']} x T={chunk['t_b']} ({chunk['n']} real rows) "
+          f"run again on the card: bit-identical; on the CPU ({out['cpu_s']:.1f} s): "
+          + (f"splice frames replayed {tally[0]} of {splice}, " if family == "editspeech" else "")
+          + f"mel_out max_abs_err {err:.3e} (tol {INPLACE_CPU_TOL})", flush=True)
+    check(err <= INPLACE_CPU_TOL,
+          f"{family}: card vs CPU chunk mel_out error {err} > {INPLACE_CPU_TOL}")
+    return out
+
+
+def inplace_csv(family: str, cls, hp: dict, rows: list, out_dir: str) -> dict:
+    """The family's CSV edit API over the infer path's four requests: an
+    output and a _ref wav each, one model forward's launches an edit; then
+    one request again through a new driver, bit-identical, its frames
+    outside the mask the source's."""
+    launches = []
+    orig = cls.forward_model
+
+    def forward_model(inf, item):
+        before = counts()
+        out = orig(inf, item)
+        launches.append({k: counts()[k] - before[k] for k in COUNTERS})
+        return out
+    cls.forward_model = forward_model
+    t0 = time.perf_counter()
+    try:
+        cls.example_run(rows, hp, out_dir=out_dir, device="cuda")
+    finally:
+        cls.forward_model = orig
+    wall = time.perf_counter() - t0
+    check(len(launches) == len(rows) and all(
+        os.path.exists(os.path.join(out_dir, f"{r['item_name']}{sfx}.wav"))
+        for r in rows for sfx in ("", "_ref")), f"{family} CSV: {len(launches)} edits, "
+                                                  f"wavs {sorted(os.listdir(out_dir))}")
+    check(all(n == expected_inplace(family, 1) for n in launches),
+          f"{family} CSV: launches {launches}")
+    inf = cls(hp, "cuda")
+    spec = wav2spec(rows[0]["wav_fn_orig"], **csv_spec_kw(hp))
+    item = inf.preprocess_input(dict(rows[0], mel=spec["mel"], wav=spec["wav"]))
+    first, second = inf.forward_model(item)[2], inf.forward_model(item)[2]
+    keep = inf._frame_mask(item) == 0
+    check(np.array_equal(first, second) and np.isfinite(first).all()
+          and np.array_equal(first[keep], item["mel"][keep]),
+          f"{family} CSV: a request twice differs, or frames outside the mask changed")
+    print(f"[inplace] {family}: CSV edit API, {len(rows)} edits in {wall:.2f} s (driver load "
+          f"included), launches an edit {launches[0]}; the same request again bit-identical, "
+          f"frames outside the mask the source's", flush=True)
+    return dict(edits=len(rows), wall_s=wall, launches_per_edit=launches[0])
+
+
+def csv_spec_kw(hp: dict) -> dict:
+    return dict(sample_rate=hp["audio_sample_rate"], fft_size=hp["fft_size"],
+                hop_size=hp["hop_size"], win_length=hp.get("win_size", hp["fft_size"]),
+                num_mels=hp["audio_num_mel_bins"], fmin=hp["fmin"], fmax=hp["fmax"])
+
+
+def inplace_family(family: str, cls, config: str, smi: str, tmp: str, data_dir: str,
+                   seed: int) -> tuple[dict, dict]:
+    """One in-place family at its shipped widths: a seeded port checkpoint,
+    the CSV edit API, batch mode over the serve path's 32 requests (warmed;
+    checked, timed), one request alone, at another row and at its exact-fit
+    bucket with max_batch 1 against the per-item driver (bit for bit), a
+    profiled B=16 x T=512 chunk, a 128-frame chunk re-run on the CPU.
+    Returns the batch run's launches and the statistics."""
+    voc_dir = os.path.join(tmp, "hifigan")
+    work = os.path.join(tmp, "inplace", family)
+    argv_hp = ["--config", config, "--exp_name", work, "-hp",
+               f"binary_data_dir={data_dir},vocoder_ckpt={voc_dir}"]
+    hp = set_hparams(arg_parser().parse_args(argv_hp + ["--infer"]), print_hparams=False)
+    check(cls.__name__.lower().startswith(family) and family in hp["task_cls"].lower(),
+          f"{config}: task_cls {hp['task_cls']}")
+    n_params = write_inplace_checkpoint(cls, hp, work, seed)
+    csv_rows = [dict(item_name=f"edit{i}", text=text, edited_text=edited,
+                     wav_fn_orig=os.path.join(tmp, "csv", f"edit{i}.wav"),
+                     edited_region=edited_region, region=region,
+                     mfa_textgrid=os.path.join(tmp, "csv", f"edit{i}.TextGrid"))
+                for i, (_, _, text, edited, region, edited_region) in enumerate(CSV_ROWS)]
+    csv_stats = inplace_csv(family, cls, hp, csv_rows, os.path.join(work, "csv_out"))
+
+    rows = serve_row_specs(os.path.join(tmp, "serve"))
+    inputs = [load_request(r, hp) for r in rows]
+    names = [r["item_name"] for r in rows]
+    inf = cls(hp, "cuda")
+    check(inf.vocoder.kind == "hifigan" and inf.vocoder.device_batched,
+          f"{family}: vocoder {inf.vocoder.kind}, expected HiFi-GAN on the card")
+    server = cls.make_server(inf, max_batch=SERVE_BATCH)
+    t0 = time.perf_counter()
+    n_warm = server.warmup()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    warmed = set(server.program_shapes)
+    rec = ChunkRecorder(server)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    results = server.edit_many(inputs)
+    wall = time.perf_counter() - t0
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(server.program_shapes == warmed, f"{family}: traffic ran a shape warmup did not")
+    check_inplace_results(family, inputs, results, rec)
+    chunks = rec.of("fwd")
+    check(launches == expected_inplace(family, len(chunks)),
+          f"{family}: batch launches {launches}")
+    by_name = dict(zip(names, results))
+    fwd_s = sum(c["s"] for c in chunks)
+    audio = sum(r["t_frames"] for r in results) * HOP / SR
+    edited = sum(float(r["time_mel_masks"].sum()) for r in results) * HOP / SR
+    stats = dict(params=n_params, csv=csv_stats, requests=len(inputs), audio_s=audio,
+                 edited_span_s=edited, warmup_s=warm_s, warmup_shapes=n_warm, batch_s=wall,
+                 requests_per_s=len(inputs) / wall, audio_s_per_s=audio / wall,
+                 edited_span_s_per_s=edited / wall, fwd_chunks_s=fwd_s,
+                 prepare_s=wall - fwd_s, peak_gib=peak,
+                 chunks=[(c["s_b"], c["t_b"], c["n"], c["b"], round(c["s"], 4)) for c in chunks],
+                 fill=sum(c["n"] for c in chunks) / sum(c["b"] for c in chunks))
+    print(f"[inplace] {family} ({config}, {n_params} parameters): warmup {n_warm} program "
+          f"shapes in {warm_s:.2f} s; batch mode: {len(inputs)} requests ({audio:.1f} s of "
+          f"audio, {edited:.1f} s of it edited) in {wall:.3f} s: "
+          f"{stats['requests_per_s']:.3f} requests/s, {stats['audio_s_per_s']:.3f} audio s/s "
+          f"({stats['edited_span_s_per_s']:.3f} edited s/s); host front end "
+          f"{stats['prepare_s']:.3f} s, {len(chunks)} chunks {fwd_s:.3f} s (fill "
+          f"{stats['fill']:.3f}); peak memory {peak:.3f} GiB; launches {launches}; no shape "
+          f"after warmup; {smi}", flush=True)
+    for c in chunks:
+        print(f"[inplace] {family} chunk S={c['s_b']} T={c['t_b']}: {c['n']}/{c['b']} rows, "
+              f"{c['s'] * 1e3:.3f} ms host", flush=True)
+
+    # one request alone, at another row, and at its exact-fit bucket
+    alone_name = names[SERVE_ALONE]
+    alone = server.edit_many([inputs[SERVE_ALONE]])[0]["mel_out"]
+    row1 = server.edit_many([inputs[SERVE_ALONE + 1], inputs[SERVE_ALONE]])[1]["mel_out"]
+    check(np.array_equal(alone, by_name[alone_name]["mel_out"]) and np.array_equal(row1, alone),
+          f"{family} {alone_name}: alone, co-batched and at row 1 not bit-identical")
+    item = inf.preprocess_input(inputs[SERVE_ALONE])
+    fit = cls.make_server(inf, max_batch=1, frame_buckets=(len(item["mel"]),),
+                          token_buckets=(len(item[inf._token_field]),))
+    got = fit.edit_many([inputs[SERVE_ALONE]])[0]
+    per_item = inf.forward_model(item)
+    check(np.array_equal(got["mel_out"], per_item[2]) and np.array_equal(got["wav_out"],
+                                                                         per_item[0]),
+          f"{family} {alone_name}: exact fit at max_batch 1 differs from the per-item driver")
+    print(f"[inplace] {family} {alone_name} ({len(item['mel'])} frames): alone, in its 16-row "
+          f"chunk and at row 1 bit-identical; at its exact-fit bucket with max_batch 1 the "
+          f"server's mel and wav equal the per-item driver's bit for bit", flush=True)
+    stats["profile"] = inplace_profile(
+        family, server, next(c for c in chunks if c["t_b"] == INPLACE_PROFILE_T
+                             and c["n"] == c["b"]), smi)
+    stats["cpu"] = inplace_cpu_rerun(family, cls, hp, server,
+                                     next(c for c in chunks if c["t_b"] == INPLACE_CPU_T),
+                                     by_name)
+    if family == "campnet":
+        online = serve_cli(argv_hp, rows, os.path.join(work, "online"), ["--warmup"])
+        check(online["served"] == len(rows) and online["shapes"] == online["warmup_shapes"],
+              f"{family} serve CLI: served {online['served']}, {online['shapes']} shapes run, "
+              f"{online['warmup_shapes']} warmed")
+        waves = read_wavs(os.path.join(work, "online"), names)
+        ref_fn = os.path.join(work, "ref.wav")
+        for name in names:
+            save_wav(by_name[name]["wav_out"], ref_fn, SR)
+            check(np.array_equal(wavfile.read(ref_fn)[1], waves[name]),
+                  f"{family} serve CLI {name}.wav: samples differ from batch mode's")
+        print(f"[inplace] {family} online CLI (--warmup, --workers 2, --max-wait-ms 100): "
+              f"{online['served']} requests in {online['wall_s']:.1f} s (process start and "
+              f"model load included), latency p50 {online['p50_ms']:.0f} ms / p99 "
+              f"{online['p99_ms']:.0f} ms, {online['chunks']} chunks, fill "
+              f"{online['fill']:.3f}; warmup {online['warmup_shapes']} shapes in "
+              f"{online['warmup_s']:.1f} s, none added by the traffic; every wav the batch "
+              f"mode's, bit for bit; {smi}", flush=True)
+        stats["online"] = online
+    if family == INPLACE_INT8:
+        inf8 = cls(dict(hp, serve_quant_int8=True), "cuda")
+        server8 = cls.make_server(inf8, max_batch=SERVE_BATCH)
+        t0 = time.perf_counter()
+        res8 = server8.edit_many(inputs)
+        wall8 = time.perf_counter() - t0
+        check(all(np.isfinite(q["mel_out"]).all() for q in res8), f"{family} int8: non-finite")
+        diff8 = max(float(np.abs(r["mel_out"] - q["mel_out"]).max())
+                    for r, q in zip(results, res8))
+        # again with the float run's splice frames: the weights' own effect
+        found: list = []
+        with fusion_indices(found, replay=False):
+            again = server.edit_many(inputs)
+        check(all(np.array_equal(a["mel_out"], r["mel_out"]) for a, r in zip(again, results)),
+              f"{family}: batch mode run again gave other mels")
+        with fusion_indices(found, replay=True) as tally:
+            replayed = server8.edit_many(inputs)
+        diff_same = max(float(np.abs(r["mel_out"] - q["mel_out"]).max())
+                        for r, q in zip(results, replayed))
+        splice = int(sum(f.numel() for f in found))
+        stats["int8"] = dict(bytes=inf8.quant.bytes, f32_bytes=inf8.quant.f32_bytes,
+                             max_quant_err=inf8.quant.max_err, mel_max_abs_diff=diff8,
+                             splice_flips=tally[0], splice_rows=splice,
+                             mel_max_abs_diff_same_splice=diff_same,
+                             batch_s=wall8, requests_per_s=len(inputs) / wall8)
+        print(f"[inplace] {family} int8 weights: {inf8.quant.bytes} bytes against "
+              f"{inf8.quant.f32_bytes} in float32; max quantization error "
+              f"{inf8.quant.max_err:.3e}; mel_out within {diff8:.3e} of the float run's; "
+              f"{tally[0]} of {splice} chunk rows splice at another frame than the float run, "
+              f"and with the float run's splice frames mel_out is within {diff_same:.3e}; "
+              f"batch mode {wall8:.3f} s, {len(inputs) / wall8:.3f} requests/s; {smi}",
+              flush=True)
+    return launches, dict(stats, card=smi)
+
+
+def inplace_path(smi: str, tmp: str, data_dir: str) -> tuple[dict, dict]:
+    """The three in-place families in turn (``inplace_family``), after the
+    serve path, on its requests, the infer path's CSV requests and HiFi-GAN
+    V1 and the run path's phone set. Returns the launches of the three batch
+    runs summed and each family's statistics."""
+    t0 = time.perf_counter()
+    total, stats = {k: 0 for k in COUNTERS}, {}
+    for i, (family, cls, config) in enumerate(INPLACE):
+        launches, stats[family] = inplace_family(family, cls, config, smi, tmp, data_dir, i)
+        total = {k: total[k] + launches[k] for k in COUNTERS}
+    stats["seconds"] = time.perf_counter() - t0
+    print(f"[inplace] three families in {stats['seconds']:.1f} s; launches {total}", flush=True)
+    return total, stats
+
+
 def check_block_serving(gen) -> tuple[float, list]:
     """K1 against its plain version at B=16 and the serving frame buckets,
     each row but the first padded from its own length (a chunk's ragged
@@ -2361,6 +2780,7 @@ def main() -> None:
         infer_launches, csv_launches, infer_stats, infer_frames = infer_path(
             smi, tmp, work, data_dir)
         serve_launches, serve_stats = serve_path(smi, tmp, work, data_dir)
+        inplace_launches, inplace_stats = inplace_path(smi, tmp, data_dir)
     finally:
         shutil.rmtree(tmp)
     block = kernels[0]
@@ -2374,21 +2794,24 @@ def main() -> None:
                                  "run": run_launches[k["name"]],
                                  "infer": infer_launches[k["name"]],
                                  "csv_edit": csv_launches[k["name"]],
-                                 "serve": serve_launches[k["name"]]}
+                                 "serve": serve_launches[k["name"]],
+                                 "inplace": inplace_launches[k["name"]]}
         k["launches"] = sum(k["launches_by_path"].values())
         k["kernel_ms"] = k["ms"]
         check(k["launches"] > 0, f"{k['name']} was not launched on a main path")
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_path",
             "max_abs_err", "tol", "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
+    check(inplace_launches["flash_mha"] > 0, "flash_mha was not launched on the in-place path")
     print(json.dumps({"edit_rtf": rtf, "train_step": train, "run": run_stats,
-                      "infer": infer_stats, "serve": serve_stats, "card": smi}))
+                      "infer": infer_stats, "serve": serve_stats, "inplace": inplace_stats,
+                      "card": smi}))
     print(smi)
     extra = ("warm_ms", "warm_plain_ms", "host_us", "train_ms", "train_plain_ms",
              "train_bound_ms", "train_device_ms", "train_ops_per_call", "train_host_us",
              "device_ms", "ops_per_call", "library_device_ms", "old_bound_ms", "cufft_ms",
              "cufft_device_ms", "cufft_ops_per_call", "shapes", "infer_max_abs_err",
-             "serve_max_abs_err")
+             "serve_max_abs_err", "campnet_shapes")
     print(json.dumps({"kernels": [{key: k[key] for key in keys + extra if key in k}
                                   for k in kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

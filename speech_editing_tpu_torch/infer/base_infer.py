@@ -49,18 +49,25 @@ class BaseInfer:
         """The last checkpoint of ``work_dir`` as the model's ``state_dict``."""
         from speech_editing_tpu_torch.training.checkpoint import (get_last_checkpoint,
                                                                   load_checkpoint)
-        from speech_editing_tpu_torch.utils.convert_jax_params import params_from_jax
 
         ckpt_path, _ = get_last_checkpoint(self.hp["work_dir"])
         if ckpt_path is None:
             raise FileNotFoundError(f"no checkpoint in {self.hp['work_dir']}")
         payload = load_checkpoint(ckpt_path)
         if "jax_params" in payload:
-            sd = params_from_jax(payload["jax_params"], self.hp)
+            sd = self.params_from_jax(payload["jax_params"])
         else:
             sd = payload["state"]["model"]
         print(f"| loaded {ckpt_path} (step {payload['steps']})", flush=True)
         return sd
+
+    def params_from_jax(self, params) -> dict:
+        """A JAX package checkpoint's parameter tree as the model's
+        ``state_dict`` (``utils/convert_jax_params.py``); FluentSpeech's
+        ``GaussianDiffusion`` here, each family's in its driver."""
+        from speech_editing_tpu_torch.utils.convert_jax_params import params_from_jax
+
+        return params_from_jax(params, self.hp)
 
     def maybe_quantize(self, model):
         """``serve_quant_int8``: ``model``'s weights in int8 on the device

@@ -16,7 +16,13 @@ reduction follows its flax counterpart (``utils/convert_jax_params.py``):
 * ``Embedding`` ``[V, D]`` (flax ``[V, D]`` too): per column;
 * attention ``in_proj_weight`` ``[3E, E]``: three flax ``DenseGeneral``
   kernels ``[E, h, d]``, each with one scale per ``d`` shared across the
-  heads, and each sized on its own against ``min_size``.
+  heads, and each sized on its own against ``min_size``;
+* ``LSTM`` ``weight_ih_l{n}`` ``[4H, in]`` and ``weight_hh_l{n}``
+  ``[4H, H]``: four flax gate kernels ``[in, H]`` each, per row, each
+  gate sized on its own;
+* the conformer's ``pos_bias_u``/``pos_bias_v`` ``[h, d]`` (flax ``[h, d]``
+  too) and CampNet's ``mask_emb`` ``[1, 1, M]``: per index of the last
+  axis.
 
 The int8 values and scales equal the JAX package's leaf for leaf: the same
 float32 numpy arithmetic, run on the host.
@@ -32,6 +38,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from speech_editing_tpu_torch.models.campnet import CampNet
+from speech_editing_tpu_torch.modules.conformer import RelPositionMultiHeadAttention
 from speech_editing_tpu_torch.modules.transformer import MultiheadAttention
 
 
@@ -75,6 +83,11 @@ def channel_views(model: nn.Module) -> Dict[str, ChannelView]:
             elif isinstance(mod, MultiheadAttention) and p_name == "in_proj_weight":
                 e, h = mod.dim, mod.num_heads
                 view = ChannelView((3, h, e // h, e), (0, 2), 3)
+            elif isinstance(mod, nn.LSTM) and p_name.startswith("weight_"):
+                view = ChannelView(shape, (0,), 4)
+            elif ((isinstance(mod, RelPositionMultiHeadAttention) and p_name.startswith("pos_bias"))
+                  or (isinstance(mod, CampNet) and p_name == "mask_emb")):
+                view = ChannelView(shape, (len(shape) - 1,))
             else:
                 raise NotImplementedError(f"quantize: no channel layout for "
                                           f"{prefix}{p_name} of {type(mod).__name__}")
@@ -145,21 +158,26 @@ class QuantizedWeights:
         self.model = model
         self._slots = [(model.get_submodule(n.rpartition(".")[0]), n.rpartition(".")[2])
                        for n in self.qstate]
-        for mod, p in self._slots:
-            mod._parameters[p] = None
+        # an LSTM keeps its own list of its weights (cuDNN's), refreshed here
+        self._rnns = {mod for mod, _ in self._slots if isinstance(mod, nn.RNNBase)}
+        self._set(None)
         self._lock = threading.Lock()
+
+    def _set(self, weights) -> None:
+        for i, (mod, p) in enumerate(self._slots):
+            mod._parameters[p] = None if weights is None else weights[i]
+        for rnn in self._rnns:
+            rnn._init_flat_weights()
 
     @contextlib.contextmanager
     def dequantized(self):
         """The model with float32 weights dequantized for this call."""
         with self._lock:
-            for (mod, p), w in zip(self._slots, dequantize(self.qstate).values()):
-                mod._parameters[p] = w
+            self._set(list(dequantize(self.qstate).values()))
             try:
                 yield self.model
             finally:
-                for mod, p in self._slots:
-                    mod._parameters[p] = None
+                self._set(None)
 
 
 def maybe_quantized(hp, model: nn.Module, device, who: str):

@@ -5,7 +5,9 @@
         --exp_name NAME (--jsonl requests.jsonl | --jsonl - | --csv edits.csv) \
         [--warmup] [--max-wait-ms 100] [--out-dir serve_out] [--device cpu]
 
-A serving surface over ``infer/online.py``: requests stream in (JSONL on
+A serving surface over ``infer/online.py`` for FluentSpeech and, picked
+by the config's ``task_cls``, the in-place families (CampNet, A3T,
+EditSpeech: ``infer/editors.py``): requests stream in (JSONL on
 stdin or from a file — one request per line, submitted the moment it is
 read — or a CSV batch), the deadline scheduler batches device work, and
 each result is written as it completes, ``<out-dir>/<item_name>.wav``, with
@@ -89,8 +91,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     args = ap.parse_args(argv)
 
     from speech_editing_tpu_torch.config.hparams import arg_parser, set_hparams
+    from speech_editing_tpu_torch.infer.editors import INFER_BY_TASK, infer_cls_for_hp
     from speech_editing_tpu_torch.infer.online import OnlineEditServer
-    from speech_editing_tpu_torch.infer.serving import check_served
     from speech_editing_tpu_torch.infer.spec_denoiser import (SpecDenoiserInfer,
                                                               load_dataset_info)
     from speech_editing_tpu_torch.training.trainer import cuda_or_cpu, float32_on_card
@@ -105,9 +107,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         + (["--hparams", args.hparams] if args.hparams else [])), print_hparams=False)
     if args.fast_io:
         hp = dict(hp, serve_wav_int16=True, serve_fetch_mel="off")
-    check_served(hp)
-
-    infer_ins = SpecDenoiserInfer(hp, device)
+    task_cls = str(hp.get("task_cls", "")).lower()
+    in_place = any(k in task_cls for k in INFER_BY_TASK)
+    infer_ins = (infer_cls_for_hp(hp) if in_place else SpecDenoiserInfer)(hp, device)
     server = infer_ins.make_server(infer_ins, max_batch=args.max_batch)
 
     os.makedirs(args.out_dir, exist_ok=True)

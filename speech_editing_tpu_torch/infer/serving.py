@@ -1,14 +1,14 @@
-"""Batched region-edit serving (FluentSpeech): the port of the JAX package's
+"""Batched region-edit serving: the port of the JAX package's
 ``infer/serving.py``.
 
-:class:`BatchedEditServer` takes many edit requests at once
+:class:`BatchedEditServer` (FluentSpeech) takes many edit requests at once
 (``edit_many``) and runs their device work in batches: duration inpainting
 and reverse diffusion, each with the composite and HiFi-GAN chained on the
-device. For online traffic, ``infer/online.py::OnlineEditServer`` wraps it
-in a ``submit()``/future API and a deadline scheduler over the same chunk
-pipeline. ``SpecDenoiserInfer.make_server`` builds it; the in-place
-families (CampNet, A3T, EditSpeech) are not ported (ROADMAP Queue 1 item
-10), nor is their server.
+device. :class:`BatchedInPlaceEditServer` does the same for the in-place
+families (CampNet, A3T, EditSpeech, ``infer/editors.py``) with one device
+stage. For online traffic, ``infer/online.py::OnlineEditServer`` wraps
+either in a ``submit()``/future API and a deadline scheduler over the same
+chunk pipeline. Each driver's ``make_server`` builds its family's server.
 
 Design:
 
@@ -53,20 +53,6 @@ from speech_editing_tpu_torch.infer.spec_denoiser import (SpecDenoiserInfer, dur
                                                           request_noise, splice_edit)
 from speech_editing_tpu_torch.infer.vocoder import pcm16
 
-#: task classes of the in-place editing families, whose server is not ported
-IN_PLACE_FAMILIES = ("campnet", "a3t", "editspeech")
-
-
-def check_served(hp: Any) -> None:
-    """Raise for an experiment whose family has no server in the port."""
-    task_cls = str(hp.get("task_cls", "")).lower()
-    if any(k in task_cls for k in IN_PLACE_FAMILIES):
-        raise NotImplementedError(
-            f"serving {hp.get('task_cls')}: the in-place editing families (CampNet, A3T, "
-            "EditSpeech) and their BatchedInPlaceEditServer are not ported "
-            "(ROADMAP Queue 1 item 10)")
-
-
 def _bucket(n: int, buckets: Sequence[int], multiple: int = 1) -> int:
     """Smallest listed bucket >= n (rounded up to `multiple`); sizes past
     the largest bucket round up to the next multiple of the last stride so
@@ -107,7 +93,7 @@ class Request:
     """
 
     __slots__ = ("inp", "item", "spk", "prep", "dur_pred", "splice",
-                 "gen", "stage", "group", "result")
+                 "gen", "tm", "stage", "group", "result")
 
     def __init__(self, inp: dict):
         self.inp = inp
@@ -117,6 +103,7 @@ class Request:
         self.dur_pred: Optional[np.ndarray] = None
         self.splice: Optional[dict] = None
         self.gen: Optional[torch.Generator] = None   # the request's noise generator
+        self.tm: Optional[np.ndarray] = None         # in-place families: the frame mask
         self.stage: str = ""
         self.group: Tuple[int, int] = (0, 0)  # (token bucket, frame bucket)
         self.result: Optional[dict] = None
@@ -537,3 +524,135 @@ def _synthetic_splice(s_b: int, t_b: int) -> dict:
             "uv": np.zeros(t_b, np.float32),
             "time_mel_masks": np.zeros((t_b, 1), np.float32),
             "t_new": t_b}
+
+
+class BatchedInPlaceEditServer(_ServerBase):
+    """Batched serving for the in-place editing families (CampNet, A3T,
+    EditSpeech: ``infer/editors.py``).
+
+    These models keep the source's frame grid and regenerate the masked
+    span with one deterministic forward (no duration inpainting, no
+    diffusion, no noise), so a chunk of static ``(batch, token bucket,
+    frame bucket)`` shape is one device stage: the family's
+    ``_model_mel_out_batch``, the composite on the device, and the vocoder
+    chained after it. Batch-padding rows replicate a real request and are
+    dropped; a chunk is always padded to its bucket's batch.
+
+    Determinism: every family computes row by row and draws nothing, so a
+    request's result depends only on (request, token bucket, frame bucket,
+    batch): row placement, chunk order and the co-batched requests change
+    nothing, bit for bit, and at ``max_batch`` 1 and the exact-fit bucket
+    it is the per-item driver's. Bucket padding, by family:
+
+    * CampNet masks padded tokens and frames at the attention keys and its
+      conv and norm stacks re-mask, so padding is inert up to the float
+      rounding of the longer shapes;
+    * EditSpeech scans its backward LSTM from each row's true end and its
+      other paths are causal or pointwise: inert the same way;
+    * A3T depends on the bucket unless ``serve_pad_safe_a3t`` is set:
+      frame padding sits between the mel and the text segments, shifting
+      their relative positions, and the conformer conv is unmasked (as the
+      reference). The result is still deterministic per (bucket, batch).
+      Under the flag, padding moves to the end of the joint sequence and is
+      inert as for the other two; at exact fit the flag changes nothing.
+    """
+
+    STAGES = ("fwd",)
+
+    def __init__(self, infer_ins, max_batch: int = 8,
+                 frame_buckets: Sequence[int] = (128, 256, 512, 1024, 1536),
+                 token_buckets: Sequence[int] = (32, 64, 128, 256),
+                 frames_batch_budget: Optional[int] = None,
+                 adaptive_tail: Optional[bool] = None,
+                 merge_token_tails: Optional[bool] = None):
+        self.infer = infer_ins
+        self._init_config(infer_ins.hp, max_batch, frame_buckets, token_buckets,
+                          frames_batch_budget, adaptive_tail, merge_token_tails)
+
+    # -- per-chunk pipeline ---------------------------------------------------
+    def prepare(self, inp: dict) -> Request:
+        """Host stage: preprocess, speaker embedding, the frame mask; bucketed
+        by (the family's tokens, frames)."""
+        r = Request(inp)
+        r.item = self.infer.preprocess_input(inp)
+        r.spk = self.infer.spk_embedder(r.item["wav"])
+        r.tm = self.infer._frame_mask(r.item)[:, None]
+        r.stage = "fwd"
+        r.group = (self._tb(len(r.item[self.infer._token_field])),
+                   self._fb(len(r.item["mel"])))
+        return r
+
+    def run_fwd_chunk(self, reqs: List[Request], s_b: int, t_b: int, b_eff: int) -> None:
+        """The device stage: the batched model forward, the composite and
+        the vocoder; sets ``r.result``."""
+        tok_field = self.infer._token_field
+        rows = reqs + [reqs[0]] * (b_eff - len(reqs))
+        txt = np.stack([_pad_to(r.item[tok_field], s_b) for r in rows])
+        mels = np.stack([_pad_to(r.item["mel"], t_b) for r in rows])
+        m2p = np.stack([_pad_to(r.item["mel2ph"], t_b) for r in rows])
+        tm = np.stack([_pad_to(r.tm, t_b) for r in rows])
+        f0 = np.stack([_pad_to(r.item["f0"], t_b) for r in rows])
+        uv = np.stack([_pad_to(r.item["uv"], t_b) for r in rows])
+        spk = np.stack([r.spk for r in rows])
+        self._record("fwd", txt, mels, m2p, tm, spk, f0, uv)
+        # tm and mels go to the device once, for the program and the composite
+        tm_d, mels_d = self.infer._tensor(tm), self.infer._tensor(mels)
+        mel_out = self.infer._model_mel_out_batch(txt, mels_d, m2p, tm_d, spk, f0, uv)
+        comp = mel_out * tm_d + mels_d * (1 - tm_d)
+        vocoder = self.infer.vocoder
+        if vocoder.device_batched:
+            self._record("vocoder", comp)
+            wavs = self._wav_out(vocoder.spec2wav_batch_dev(comp))
+        else:    # a host vocoder: only the real rows
+            wavs = vocoder.spec2wav_batch(comp[:len(reqs)].cpu().numpy())
+            if self.wav_int16:
+                wavs = pcm16(torch.from_numpy(np.asarray(wavs))).numpy()
+        comp = self._mel_out(comp)
+        hop = int(self.hp["hop_size"])
+        for i, r in enumerate(reqs):
+            t_i = len(r.item["mel"])
+            r.result = {
+                "mel_out": None if comp is None else comp[i, :t_i],
+                "wav_out": np.asarray(wavs[i][:t_i * hop]),
+                "t_frames": t_i,
+                "time_mel_masks": r.tm,
+                "ref_mels": r.item["mel"],
+            }
+
+    # -- online scheduler hooks -----------------------------------------------
+    def online_prepare(self, inp: dict, seed: Optional[int]) -> Request:
+        del seed  # deterministic families
+        return self.prepare(inp)
+
+    def online_run(self, stage: str, s_b: int, t_b: int,
+                   reqs: List[Request], b_eff: int) -> None:
+        if stage != "fwd":
+            raise ValueError(f"BatchedInPlaceEditServer: no stage {stage!r}")
+        self.run_fwd_chunk(reqs, s_b, t_b, b_eff)
+
+    # -- warmup ---------------------------------------------------------------
+    def _warm_shape(self, b: int, s_b: int, t_b: int) -> None:
+        r = Request({})
+        r.item = {self.infer._token_field: np.ones(s_b, np.int64),
+                  "mel": np.zeros((t_b, 80), np.float32),
+                  "mel2ph": np.ones(t_b, np.int64),
+                  "f0": np.zeros(t_b, np.float32),
+                  "uv": np.zeros(t_b, np.float32)}
+        r.spk = np.zeros(256, np.float32)
+        r.tm = np.zeros((t_b, 1), np.float32)
+        self.run_fwd_chunk([r], s_b, t_b, b)
+
+    # -- batch driver ---------------------------------------------------------
+    def edit_many(self, inputs: List[dict], seed: Optional[int] = None) -> List[dict]:
+        """One result dict per request; ``seed`` is accepted for the API of
+        :class:`BatchedEditServer` and unused (nothing is drawn)."""
+        del seed
+        if not inputs:
+            return []
+        reqs = [self.prepare(inp) for inp in inputs]
+        groups: Dict[Tuple[int, int], list] = {}
+        for r in reqs:
+            groups.setdefault(r.group, []).append(r)
+        for s_b, t_b, members, b_eff in self._plan_chunks(groups):
+            self.run_fwd_chunk(members, s_b, t_b, b_eff)
+        return [r.result for r in reqs]  # type: ignore[return-value]

@@ -43,7 +43,7 @@ import os
 import shutil
 import subprocess
 import zlib
-from typing import Any, List, Optional, Sequence
+from typing import Any, Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -219,11 +219,9 @@ class SpecDenoiserInfer(BaseInfer):
     @classmethod
     def make_server(cls, infer_ins, **kw):
         """The batched serving engine for this family
-        (``infer/serving.py::BatchedEditServer``); raises for an in-place
-        editing family's experiment, whose server is not ported."""
-        from speech_editing_tpu_torch.infer.serving import BatchedEditServer, check_served
+        (``infer/serving.py::BatchedEditServer``)."""
+        from speech_editing_tpu_torch.infer.serving import BatchedEditServer
 
-        check_served(infer_ins.hp)
         return BatchedEditServer(infer_ins, **kw)
 
     def build_model(self):
@@ -473,8 +471,10 @@ def data_preprocess(file_path: str, input_directory: str,
 
 
 
-def main(argv: Optional[Sequence[str]] = None) -> None:
-    """The CSV edit API's command line (see the module doc)."""
+def main(argv: Optional[Sequence[str]] = None,
+         infer_cls_for: Callable[[Any], type] = lambda hp: SpecDenoiserInfer) -> None:
+    """The CSV edit API's command line (see the module doc), editing with
+    the driver ``infer_cls_for(hp)``."""
     import sys
 
     from speech_editing_tpu_torch.config.hparams import arg_parser, set_hparams
@@ -494,7 +494,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     dataset_info = data_preprocess(
         test_file_path, test_wav_directory, dictionary_path, acoustic_model_path,
         output_directory, align=bool(hp.get("mfa_align", True)))
-    SpecDenoiserInfer.example_run(dataset_info, hp, device=device)
+    infer_cls_for(hp).example_run(dataset_info, hp, device=device)
 
 
 if __name__ == "__main__":

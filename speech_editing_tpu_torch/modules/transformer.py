@@ -1,7 +1,9 @@
 """FFT text encoder: token embedding, sinusoidal positions, self-attention +
-conv-FFN layers. Tensors are ``[B, T, C]``; parameter names follow the
-reference torch FastSpeech encoder (``layers.{i}.op.self_attn.in_proj_weight``
-and so on)."""
+conv-FFN layers; and CampNet's cross-attending mel decoder
+(``TransformerDecoder`` of ``DecSALayer``s). Tensors are ``[B, T, C]``;
+parameter names follow the reference torch modules
+(``layers.{i}.op.self_attn.in_proj_weight``, a causal FFN's conv under
+``ffn.ffn_1.1`` and so on)."""
 
 from __future__ import annotations
 
@@ -13,7 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from speech_editing_tpu_torch.ops.flash_attention import flash_mha, flash_mha_train
+from speech_editing_tpu_torch.ops.flash_attention import NEG_INF, flash_mha, flash_mha_train
 from speech_editing_tpu_torch.ops.seq_ops import make_positions
 
 
@@ -59,9 +61,11 @@ def sinusoidal_positional_embedding(tokens: torch.Tensor, dim: int,
 
 
 class MultiheadAttention(nn.Module):
-    """Bias-free self-attention with packed q/k/v projections; the softmax
-    attention itself is kernel K3 (``flash_mha``), and its backward, when
-    autograd records, kernel K4 (``flash_mha_train``)."""
+    """Bias-free attention with packed q/k/v projections. Without a weight
+    readout the softmax attention is kernel K3 (``flash_mha``), and its
+    backward, when autograd records, kernel K4 (``flash_mha_train``); with
+    ``return_weights`` it is the plain einsum, which also returns the
+    probabilities [B, h, Tq, Tk], as the JAX package's einsum branch does."""
 
     def __init__(self, dim: int, num_heads: int):
         super().__init__()
@@ -70,32 +74,52 @@ class MultiheadAttention(nn.Module):
         self.out_proj = nn.Linear(dim, dim, bias=False)
         nn.init.xavier_uniform_(self.in_proj_weight)
 
-    def forward(self, x: torch.Tensor,
-                key_padding_mask: torch.Tensor | None = None) -> torch.Tensor:
-        b, t, e = x.shape
+    def forward(self, query: torch.Tensor, key_padding_mask: torch.Tensor | None = None,
+                *, key: torch.Tensor | None = None, return_weights: bool = False):
+        """``key_padding_mask`` bool [B, Tk], True at pad keys; ``key``
+        (keys and values, [B, Tk, E]) defaults to ``query``."""
+        kv = query if key is None else key
+        b, tq, e = query.shape
+        tk = kv.shape[1]
         h, d = self.num_heads, e // self.num_heads
         w = self.in_proj_weight
-        q = F.linear(x, w[:e]).view(b, t, h, d) * d ** -0.5
-        k = F.linear(x, w[e:2 * e]).view(b, t, h, d)
-        v = F.linear(x, w[2 * e:]).view(b, t, h, d)
+        q = F.linear(query, w[:e]).view(b, tq, h, d) * d ** -0.5
+        k = F.linear(kv, w[e:2 * e]).view(b, tk, h, d)
+        v = F.linear(kv, w[2 * e:]).view(b, tk, h, d)
+        if return_weights:
+            logits = torch.einsum("bqhd,bkhd->bhqk", q, k)
+            if key_padding_mask is not None:
+                logits = logits + torch.where(key_padding_mask, NEG_INF, 0.0).to(
+                    logits.dtype)[:, None, None, :]
+            weights = torch.softmax(logits, dim=-1)
+            out = torch.einsum("bhqk,bkhd->bqhd", weights, v)
+            return self.out_proj(out.reshape(b, tq, e)), weights
         attend = flash_mha_train if torch.is_grad_enabled() else flash_mha
         out = attend(q, k, v, key_padding_mask)
-        return self.out_proj(out.reshape(b, t, e))
+        return self.out_proj(out.reshape(b, tq, e))
 
 
 class ConvFFN(nn.Module):
     """k-wide conv up-projection (output scaled by k^-0.5), exact GELU, and
-    a linear down-projection; SAME padding ((k-1)//2, k//2)."""
+    a linear down-projection; ``padding`` "SAME" ((k-1)//2, k//2) or
+    "LEFT" (k - 1 frames before: causal, the conv then at ``ffn_1.1``)."""
 
-    def __init__(self, hidden_size: int, filter_size: int, kernel_size: int):
+    def __init__(self, hidden_size: int, filter_size: int, kernel_size: int,
+                 padding: str = "SAME"):
         super().__init__()
-        self.kernel_size = kernel_size
-        self.ffn_1 = nn.Conv1d(hidden_size, filter_size, kernel_size)
+        if padding not in ("SAME", "LEFT"):
+            raise ValueError(f"ConvFFN: padding {padding!r} is not SAME or LEFT")
+        self.kernel_size, self.padding = kernel_size, padding
+        conv = nn.Conv1d(hidden_size, filter_size, kernel_size)
+        self.ffn_1 = conv if padding == "SAME" else nn.Sequential(
+            nn.ConstantPad1d((kernel_size - 1, 0), 0.0), conv)
         self.ffn_2 = nn.Linear(filter_size, hidden_size)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         k = self.kernel_size
-        y = F.pad(x.transpose(1, 2), ((k - 1) // 2, k // 2))
+        y = x.transpose(1, 2)
+        if self.padding == "SAME":
+            y = F.pad(y, ((k - 1) // 2, k // 2))
         y = self.ffn_1(y).transpose(1, 2) * k ** -0.5
         return self.ffn_2(F.gelu(y))
 
@@ -146,3 +170,60 @@ class FastSpeechEncoder(nn.Module):
         for layer in self.layers:
             x = layer.op(x, padding_mask) * nonpad
         return self.layer_norm(x) * nonpad
+
+
+class DecSALayer(nn.Module):
+    """Pre-LN self-attention (K3), cross-attention over the encoder output
+    (the plain einsum: its weights are read out) and a causal conv-FFN.
+    Returns (x, cross-attention weights [B, h, Tq, Tk])."""
+
+    def __init__(self, dim: int, num_heads: int, kernel_size: int):
+        super().__init__()
+        self.layer_norm1 = nn.LayerNorm(dim, eps=1e-5)
+        self.self_attn = MultiheadAttention(dim, num_heads)
+        self.layer_norm2 = nn.LayerNorm(dim, eps=1e-5)
+        self.encoder_attn = MultiheadAttention(dim, num_heads)
+        self.layer_norm3 = nn.LayerNorm(dim, eps=1e-5)
+        self.ffn = ConvFFN(dim, 4 * dim, kernel_size, "LEFT")
+
+    def forward(self, x, encoder_out, encoder_padding_mask=None,
+                self_attn_padding_mask=None):
+        x = x + self.self_attn(self.layer_norm1(x), self_attn_padding_mask)
+        h, weights = self.encoder_attn(self.layer_norm2(x), encoder_padding_mask,
+                                       key=encoder_out, return_weights=True)
+        x = x + h
+        return x + self.ffn(self.layer_norm3(x)), weights
+
+
+class TransformerDecoder(nn.Module):
+    """CampNet's cross-attending mel decoder: learned-alpha sinusoidal
+    positions over the frames that are not padding, ``DecSALayer``s
+    re-masked after each, a last LayerNorm. Returns (x, the first layer's
+    cross-attention weights averaged over heads [B, Tq, Tk])."""
+
+    def __init__(self, hidden_size: int, num_layers: int, ffn_kernel_size: int = 9,
+                 num_heads: int = 2):
+        super().__init__()
+        self.hidden_size = hidden_size
+        self.pos_embed_alpha = nn.Parameter(torch.ones(1))
+        self.layers = nn.ModuleList(
+            _Op(DecSALayer(hidden_size, num_heads, ffn_kernel_size))
+            for _ in range(num_layers))
+        self.layer_norm = nn.LayerNorm(hidden_size, eps=1e-5)
+
+    def forward(self, x, encoder_out, encoder_padding_mask=None,
+                self_attn_padding_mask=None, padding_mask=None):
+        """``padding_mask`` [B, T] bool (True at padded frames) defaults to
+        the frames whose features are all zero."""
+        if padding_mask is None:
+            padding_mask = x.abs().sum(-1) == 0
+        nonpad = (~padding_mask)[:, :, None].to(x.dtype)
+        positions = sinusoidal_positional_embedding((~padding_mask).long(), self.hidden_size)
+        x = (x + self.pos_embed_alpha * positions) * nonpad
+        attn = None
+        for layer in self.layers:
+            x, weights = layer.op(x, encoder_out, encoder_padding_mask, self_attn_padding_mask)
+            x = x * nonpad
+            if attn is None:
+                attn = weights.mean(dim=1)
+        return self.layer_norm(x) * nonpad, attn

@@ -13,7 +13,14 @@ parameter (the same distributions, not the same draws):
 * DiffNet's convolutions: kaiming-normal (variance 2 / fan_in, truncated),
   its final ``output_projection`` zero, so the first x0 prediction is 0;
 * the conv text encoder's convolutions: xavier-uniform;
-* HiFi-GAN's convolutions after ``conv_pre``: normal with std 0.01.
+* HiFi-GAN's convolutions after ``conv_pre``: normal with std 0.01;
+* LSTMs (``OptimizedLSTMCell``): each gate's input kernel lecun-normal,
+  its recurrent kernel orthogonal, biases zero;
+* the conformer's ``pos_bias_u``/``pos_bias_v``: variance scaling 1.0 over
+  fan_avg, uniform; its depthwise and 1-wide convolutions lecun-normal
+  (fan_in = kernel x input channels of a group); BatchNorm's affine one and
+  zero with running statistics 0 and 1;
+* CampNet's ``mask_emb`` zero and the decoder's ``pos_embed_alpha`` one.
 """
 
 from __future__ import annotations
@@ -23,9 +30,11 @@ import math
 import torch
 from torch import nn
 
+from speech_editing_tpu_torch.models.campnet import CampNet
 from speech_editing_tpu_torch.models.vocoder.hifigan import HifiGanGenerator
+from speech_editing_tpu_torch.modules.conformer import RelPositionMultiHeadAttention
 from speech_editing_tpu_torch.modules.conv import ConvBlocks
-from speech_editing_tpu_torch.modules.transformer import MultiheadAttention
+from speech_editing_tpu_torch.modules.transformer import MultiheadAttention, TransformerDecoder
 from speech_editing_tpu_torch.modules.wavenet import DiffNet
 
 # the std of a standard normal truncated to [-2, 2]
@@ -45,6 +54,28 @@ def _reset(layer: nn.Module, init) -> None:
         nn.init.zeros_(layer.bias)
 
 
+def _fan_avg_uniform_(w: torch.Tensor) -> None:
+    """jax's ``variance_scaling(1.0, "fan_avg", "uniform")`` of a 2-axis
+    parameter [fan_in, fan_out]."""
+    limit = math.sqrt(3.0 / ((w.shape[0] + w.shape[1]) / 2))
+    nn.init.uniform_(w, -limit, limit)
+
+
+def _lstm_(lstm: nn.LSTM) -> None:
+    """Each gate's block of the stacked weights as flax's cell draws it."""
+    h = lstm.hidden_size
+    for name, w in lstm.named_parameters():
+        if name.startswith("bias"):
+            nn.init.zeros_(w)
+            continue
+        for g in range(4):
+            block = w[g * h:(g + 1) * h]    # [H, in]: flax's kernel [in, H] transposed
+            if name.startswith("weight_hh"):
+                nn.init.orthogonal_(block)
+            else:
+                lecun_normal_(block)
+
+
 def lecun_normal_(w: torch.Tensor) -> None:
     _variance_scaling_normal_(w, 1.0)
 
@@ -62,9 +93,16 @@ def init_like_flax(model: nn.Module) -> nn.Module:
             nn.init.normal_(m.weight, std=m.embedding_dim ** -0.5)
         elif isinstance(m, (nn.Linear, nn.Conv1d, nn.ConvTranspose1d)):
             _reset(m, lecun_normal_)
-        elif isinstance(m, (nn.LayerNorm, nn.GroupNorm)):
+        elif isinstance(m, (nn.LayerNorm, nn.GroupNorm, nn.BatchNorm1d)):
             nn.init.ones_(m.weight)
             nn.init.zeros_(m.bias)
+            if isinstance(m, nn.BatchNorm1d):
+                m.reset_running_stats()
+        elif isinstance(m, nn.LSTM):
+            _lstm_(m)
+        elif isinstance(m, RelPositionMultiHeadAttention):
+            _fan_avg_uniform_(m.pos_bias_u)
+            _fan_avg_uniform_(m.pos_bias_v)
         elif isinstance(m, MultiheadAttention):
             lecun_normal_(m.in_proj_weight)
     # modules whose flax counterparts name their own initializers
@@ -81,6 +119,10 @@ def init_like_flax(model: nn.Module) -> nn.Module:
             for layer in m.modules():
                 if isinstance(layer, nn.Conv1d):
                     _reset(layer, nn.init.xavier_uniform_)
+        elif isinstance(m, CampNet):
+            nn.init.zeros_(m.mask_emb)
+        elif isinstance(m, TransformerDecoder):
+            nn.init.ones_(m.pos_embed_alpha)
         elif isinstance(m, HifiGanGenerator):
             for layer in m.modules():
                 if isinstance(layer, (nn.Conv1d, nn.ConvTranspose1d)) and layer is not m.conv_pre:

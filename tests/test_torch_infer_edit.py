@@ -212,20 +212,24 @@ def test_griffin_lim_and_the_fallback_match_jax(env, capsys):
 
 
 def test_serving_settings_not_ported_raise(env):
-    """Serving is ported for FluentSpeech (``serve_quant_int8`` and
-    ``serve_batched`` build and run, tests/test_torch_serving.py); the
-    in-place families' server is not, and says which ROADMAP item holds it."""
-    from speech_editing_tpu_torch.infer.serving import check_served
+    """Every serving setting is ported now: ``serve_quant_int8`` builds for
+    FluentSpeech, whose driver makes ``BatchedEditServer``, and each
+    in-place family's driver makes ``BatchedInPlaceEditServer``
+    (tests/test_torch_serving.py and tests/test_torch_inplace_serving.py
+    run them); nothing raises."""
+    from speech_editing_tpu_torch.infer.editors import infer_cls_for_hp
+    from speech_editing_tpu_torch.infer.serving import (BatchedEditServer,
+                                                        BatchedInPlaceEditServer)
 
     hp = env["hp"]
     assert psd.SpecDenoiserInfer(dict(hp, serve_quant_int8=True), device="cpu").quant is not None
-    check_served(hp)
+    stub = types.SimpleNamespace(hp=hp)
+    assert isinstance(psd.SpecDenoiserInfer.make_server(stub), BatchedEditServer)
     for task_cls in ("tasks.campnet.CampNetTask", "tasks.a3t.A3TTask",
                      "tasks.editspeech.EditSpeechTask"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-            check_served(dict(hp, task_cls=task_cls))
-        with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-            psd.SpecDenoiserInfer.make_server(types.SimpleNamespace(hp=dict(hp, task_cls=task_cls)))
+        cls = infer_cls_for_hp(dict(hp, task_cls=task_cls))
+        stub = types.SimpleNamespace(hp=dict(hp, task_cls=task_cls))
+        assert isinstance(cls.make_server(stub), BatchedInPlaceEditServer)
 
 
 def test_csv_command_line_writes_each_edit(env, tmp_path, monkeypatch, capsys):

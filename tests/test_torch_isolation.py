@@ -1,9 +1,11 @@
 """The PyTorch port stands alone: importing every module of
-``speech_editing_tpu_torch`` loads neither JAX, flax, optax, PyYAML nor the
-JAX package, and its entry points (the edit pipeline, the trainer, the
-entry ``run`` with and without ``--infer``, the CSV region-edit API, the
-HiFi-GAN vocoder, the batch server and the serve CLI) refuse to fall back
-to the CPU on their own."""
+``speech_editing_tpu_torch`` (the in-place editing families' models, their
+modules and ``infer/editors.py`` among them) loads neither JAX, flax,
+optax, PyYAML nor the JAX package, and its entry points (the edit
+pipeline, the trainer, the entry ``run`` with and without ``--infer``, the
+CSV region-edit APIs of FluentSpeech and of the in-place families, their
+drivers, the HiFi-GAN vocoder, the batch server and the serve CLI) refuse
+to fall back to the CPU on their own."""
 
 import os
 import subprocess
@@ -19,13 +21,17 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 assert len(names) >= 20, names
-for served in ("online", "quant", "serve", "serving"):
-    assert f"speech_editing_tpu_torch.infer.{served}" in names, served
+for served in ("infer.online", "infer.quant", "infer.serve", "infer.serving",
+               "infer.editors", "models.campnet", "models.editspeech", "models.a3t",
+               "modules.lstm", "modules.conformer"):
+    assert f"speech_editing_tpu_torch.{served}" in names, served
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in
                 ("jax", "jaxlib", "flax", "optax", "yaml", "speech_editing_tpu"))
 assert not leaked, leaked
 if not torch.cuda.is_available():
     from speech_editing_tpu_torch.infer.edit import EditPipeline
+    from speech_editing_tpu_torch.infer.editors import A3TInfer, CampNetInfer, EditSpeechInfer
+    from speech_editing_tpu_torch.infer.editors import main as editors_main
     from speech_editing_tpu_torch.infer.serve import main as serve_main
     from speech_editing_tpu_torch.infer.serving import BatchedEditServer
     from speech_editing_tpu_torch.infer.spec_denoiser import SpecDenoiserInfer, main
@@ -38,6 +44,9 @@ if not torch.cuda.is_available():
                         (run, (train_argv,)), (run, (train_argv + ["--infer"],)),
                         (SpecDenoiserInfer, ({},)), (SpecDenoiserInfer.example_run, ([], {})),
                         (main, (train_argv,)), (HifiGAN, ({},)),
+                        (CampNetInfer, ({},)), (A3TInfer, ({},)), (EditSpeechInfer, ({},)),
+                        (editors_main, (["--config", "egs/campnet.yaml", "--exp_name",
+                                         "never_made"],)),
                         (BatchedEditServer, (None, {})),
                         (serve_main, (train_argv[:4] + ["--jsonl", "never_read.jsonl"],))):
         try:
