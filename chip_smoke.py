@@ -107,6 +107,22 @@ Phases, each of which exits non-zero on a failed check:
    EditSpeech on int8 weights. K3 is held against its plain version and
    timed beside SDPA at CampNet's decoder shapes (B=16, T 256-1536, h=2,
    d=96, ragged key padding) in the kernels phase.
+10. family train path: StutterSpeech, its stutter predictor, CampNet,
+   A3T and EditSpeech in turn through the training entry at their shipped
+   widths (``egs/<family>.yaml``) over one synthetic corpus of 128/16/4
+   utterances of 150-700 frames with per-frame stutter labels (spans on
+   about 10 % of the frames), with the infer path's HiFi-GAN: 30 steps, a
+   validation of 4 batches and a checkpoint, then ``--infer`` of the 4
+   test items from that checkpoint (loaded bit for bit). Every step,
+   validation batch and item moves each launch counter by its expected
+   amount (StutterSpeech K1 and K5 20 a step, CampNet K3 and K4 9, the
+   others nothing); metrics are finite; the predictor's text encoder
+   starts as StutterSpeech's checkpoint's ``fs.encoder`` bit for bit and
+   its ``meta.csv`` holds the block labels; a StutterSpeech and a CampNet
+   step re-run on the CPU agree. Step host p50/p75, steps/s, peak memory
+   and a profiled median step are printed. K4 is held against its plain
+   version and timed beside SDPA's backward at CampNet's decoder shapes in
+   the kernels phase.
 
 ``python3 chip_smoke.py --time-attention`` builds K3 and K4 only and times
 them and SDPA at those shapes, with no checks; ``--time-mel`` does the same
@@ -170,6 +186,7 @@ from speech_editing_tpu_torch.ops.mel import MelConfig, mel_bases
 from speech_editing_tpu_torch.ops.mel import mel_spectrogram as mel_plain
 from speech_editing_tpu_torch.run import run as run_entry
 from speech_editing_tpu_torch.training.checkpoint import save_checkpoint
+from speech_editing_tpu_torch.training.tasks.stutter_speech import StutterPredictorTask
 from speech_editing_tpu_torch.training.trainer import Trainer
 from speech_editing_tpu_torch.utils.audio.dsp import stft_window, wav2spec
 from speech_editing_tpu_torch.utils.audio.io import save_wav
@@ -780,6 +797,37 @@ def bwd_errors(q, k, v, pad, do, rows=None) -> tuple:
     return rel_err(got, ref), err_ag, got, args
 
 
+def check_attention_bwd_at(gen, b: int, t: int) -> dict:
+    """K4 at a CampNet decoder shape (ragged key padding; 64-key tiles and
+    dQ CTAs) against its plain version, K3 + K4 against autograd of the
+    plain forward, pad keys' dk and dv zero; timed beside SDPA's backward,
+    with its bound: 10 h T d sum(len) FLOP (five products over the valid
+    keys) at the 3xTF32 rate against its bytes at the HBM rate."""
+    h, d = CAMPNET_H, 192 // CAMPNET_H
+    lengths = campnet_lengths(b, t)
+    q, k, v, pad = attention_inputs(gen, b, t, lengths, d=d, h=h)
+    do = torch.randn_like(q)
+    err, err_ag, got, args = bwd_errors(q, k, v, pad, do)
+    pad_zero = bool((got[1][pad] == 0).all() and (got[2][pad] == 0).all())
+    times = call_times(lambda: flash_mha_bwd(*args), sdpa_bwd(q, k, v, do, pad))
+    plain_ms = time_ms(lambda: attention_bwd_plain(*args), iters=5)
+    flops = 10 * h * t * d * sum(lengths)
+    bound_ms, bound_by = bound(flops, nbytes(*args, *got))
+    worst = max(err, err_ag)
+    print(f"[kernel] flash_mha_bwd B={b} T={t} h={h} d={d} (CampNet's decoder self-attention "
+          f"in training), valid keys {min(lengths)}..{max(lengths)}: max err vs plain "
+          f"{err:.3e}, vs autograd of the plain forward {err_ag:.3e} (tol {BWD_TOL}, relative "
+          f"to the reference's max); pad keys' dk, dv exactly 0: {pad_zero}; "
+          f"{times_text(times, 'sdpa backward')}; plain {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.6f} ms ({bound_by}, {flops / 1e9:.2f} GFLOP); device "
+          f"{rate(flops, times['device_ms'], bound_ms)}", flush=True)
+    check(worst <= BWD_TOL, f"flash_mha_bwd B={b} T={t} d={d}: error {worst} > {BWD_TOL}")
+    check(pad_zero, f"flash_mha_bwd B={b} T={t}: pad keys got nonzero dk or dv")
+    check_one_op(f"flash_mha_bwd B={b} T={t}", times)
+    return dict(times, b=b, s=t, h=h, d=d, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, gflop=flops / 1e9, max_err=worst)
+
+
 def phase_attention_bwd(gen) -> dict:
     """K3's logsumexp and K4 against their plain versions, and K3 + K4 (the
     autograd Function) against autograd of the plain forward, with key
@@ -815,6 +863,8 @@ def phase_attention_bwd(gen) -> dict:
         shapes.append(dict(t, b=b, s=s, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                            max_err=worst))
     out.update(shapes[-1], shapes=shapes)  # the table's row: the train path's shape
+    out["campnet_shapes"] = [check_attention_bwd_at(gen, CAMPNET_B, t) for t in CAMPNET_T]
+    out["max_abs_err"] = max([out["max_abs_err"]] + [r["max_err"] for r in out["campnet_shapes"]])
 
     # a row whose keys are all padding: dq = dk = dv = 0 there, K4 against
     # its plain version over the whole batch, autograd only on the other rows
@@ -1182,17 +1232,21 @@ def relu_branches(masks: list, replay: bool):
           f"relu_branches: {tally[1]} ReLU calls replayed {len(masks)} recorded ones")
 
 
-def compare_step_with_cpu(label: str, make_twin, state: dict, sub: dict) -> None:
+def compare_step_with_cpu(label: str, make_twin, state: dict, sub: dict,
+                          diffusion: bool = True) -> None:
     """One step on ``sub``, a 2-utterance batch (host arrays of the step's
     keys), on the card and on the CPU (plain versions): twins from
-    ``make_twin(device)`` with dropout off load ``state`` and take the same
-    diffusion draw, and the CPU's ReLUs take the card's branches
-    (``relu_branches``), so both differentiate the same function; losses,
-    gradients, updated parameters and Adam moments must agree."""
+    ``make_twin(device)`` with dropout off load ``state`` and, with
+    ``diffusion``, take the same diffusion draw, and the CPU's ReLUs take
+    the card's branches (``relu_branches``), so both differentiate the same
+    function; losses, gradients, updated parameters and Adam moments must
+    agree."""
     gen = torch.Generator().manual_seed(7)
     b, t = sub["mels"].shape[:2]
-    t_draw = torch.randint(0, FLAGSHIP_HP["timesteps"] + 1, (b,), generator=gen)
-    noise = torch.randn(b, t, 80, generator=gen)
+    draws = {}
+    if diffusion:
+        draws = dict(t=torch.randint(0, FLAGSHIP_HP["timesteps"] + 1, (b,), generator=gen),
+                     noise=torch.randn(b, t, 80, generator=gen))
     masks: list = []
 
     def run(dev: str, replay: bool) -> dict:
@@ -1200,8 +1254,8 @@ def compare_step_with_cpu(label: str, make_twin, state: dict, sub: dict) -> None
         twin.train_step.load_state_dict(copy.deepcopy(state))
         t0 = time.perf_counter()
         with relu_branches(masks, replay) as tally:
-            metrics = twin.train_step(twin.to_device(sub), t=t_draw.to(dev),
-                                      noise=noise.to(dev))
+            metrics = twin.train_step(twin.to_device(sub),
+                                      **{k: v.to(dev) for k, v in draws.items()})
         secs = time.perf_counter() - t0
         step = twin.train_step
         named = dict(step.model.named_parameters())
@@ -1258,12 +1312,26 @@ EXPECTED_PER_RUN_STEP = {"diffnet_block": RUN_LAYERS, "diffnet_block_bwd": RUN_L
 EXPECTED_PER_VALID_BATCH = dict(EXPECTED_PER_RUN_STEP, diffnet_block_bwd=0)
 
 
-def write_run_corpus(data_dir: str, seed: int = 0) -> int:
+def stutter_labels(rs, t: int) -> np.ndarray:
+    """Per-frame stutter labels as the binarizer writes them (0 fluent, 1
+    stutter): spans of 4-23 frames covering about 10 % of the frames."""
+    lab = np.zeros(t, np.int64)
+    for _ in range(max(1, round(0.1 * t / 13.5))):
+        n = rs.randint(4, 24)
+        start = rs.randint(0, t - n)
+        lab[start:start + n] = 1
+    return lab
+
+
+def write_run_corpus(data_dir: str, seed: int = 0, splits: dict | None = None,
+                     stutter: bool = False) -> int:
     """A binarized corpus with every key ``EditingDataset`` reads, written
     by the port's ``IndexedDatasetBuilder``: log-mel-like mels, phone
     tokens with a silence phone about one in four, monotonic mel2ph, raw
     f0 in Hz with 20 % unvoiced frames, coarse pitch, a 256-d speaker
-    embedding per speaker. Returns the bytes of mel written."""
+    embedding per speaker, and with ``stutter`` per-frame stutter labels
+    (``stutter_labels``); ``splits`` items a split (default RUN_SPLITS).
+    Returns the bytes of mel written."""
     rs = np.random.RandomState(seed)
     os.makedirs(data_dir)
     with open(os.path.join(data_dir, "phone_set.json"), "w") as f:
@@ -1271,7 +1339,7 @@ def write_run_corpus(data_dir: str, seed: int = 0) -> int:
     speakers = rs.randn(RUN_SPEAKERS, 256).astype(np.float32)
     n_sil = len(RUN_SIL_PHONES)
     mel_bytes = 0
-    for split, n_items in RUN_SPLITS.items():
+    for split, n_items in (splits or RUN_SPLITS).items():
         builder = IndexedDatasetBuilder(os.path.join(data_dir, split))
         lengths = rs.randint(RUN_MIN_T, RUN_MAX_T + 1, n_items)
         for i, t in enumerate(lengths):
@@ -1284,12 +1352,15 @@ def write_run_corpus(data_dir: str, seed: int = 0) -> int:
             f0 = rs.uniform(80, 300, t) * (rs.rand(t) >= 0.2)
             mel = (rs.randn(t, 80) * 0.5 - 1.0).astype(np.float32)
             mel_bytes += mel.nbytes
-            builder.add_item({
+            item = {
                 "item_name": f"{split}_{i}", "txt": "synthetic", "wav_fn": f"{split}_{i}.wav",
                 "ph_token": tokens.astype(np.int64), "mel": mel,
                 "mel2ph": mel2ph.astype(np.int64), "f0": f0.astype(np.float32),
                 "pitch": rs.randint(1, 256, t).astype(np.int64),
-                "spk_embed": speakers[rs.randint(RUN_SPEAKERS)]})
+                "spk_embed": speakers[rs.randint(RUN_SPEAKERS)]}
+            if stutter:
+                item["stutter_mel_mask"] = stutter_labels(rs, int(t))
+            builder.add_item(item)
         builder.finalize()
         np.save(os.path.join(data_dir, f"{split}_lengths.npy"), lengths)
     return mel_bytes
@@ -1657,20 +1728,22 @@ class InferRecorder:
             ResultSaverPool.drain = orig["drain"]
 
 
-def check_test_set(gen_dir: str, rec: InferRecorder) -> None:
+def check_test_set(gen_dir: str, rec: InferRecorder, n_items: int = RUN_SPLITS["test"],
+                   expected: dict = EXPECTED_PER_EDIT) -> list:
     """``--infer``'s outputs: a [P] and a [G] wav and a [P] mel per item,
-    segment wavs per masked item, ``meta.csv``; K1 only, 160 launches an
-    item; mel_out finite and equal to the ground truth outside the mask."""
+    segment wavs per masked item, ``meta.csv``; ``expected`` launches an
+    item (by default K1 only, 160); mel_out finite and equal to the ground
+    truth outside the mask. Returns the rows of ``meta.csv``."""
     names = [n for b in rec.batches for n in b["names"]]
-    check(len(names) == RUN_SPLITS["test"] and len(set(names)) == len(names),
+    check(len(names) == n_items and len(set(names)) == len(names),
           f"--infer generated {names}")
     wavs = set(os.listdir(os.path.join(gen_dir, "wavs")))
     with open(os.path.join(gen_dir, "meta.csv")) as f:
         meta = list(csv.reader(f))[1:]
     check(sorted(r[0] for r in meta) == sorted(names), f"meta.csv rows {meta}")
     for b in rec.batches:
-        check(b["launches"] == EXPECTED_PER_EDIT,
-              f"--infer batch {b['names']}: launches {b['launches']} != {EXPECTED_PER_EDIT}")
+        check(b["launches"] == expected,
+              f"--infer batch {b['names']}: launches {b['launches']} != {expected}")
         for i, name in enumerate(b["names"]):
             t = b["lengths"][i]
             seg = b["masks"][i, :t] == 1
@@ -1684,6 +1757,7 @@ def check_test_set(gen_dir: str, rec: InferRecorder) -> None:
                   f"--infer {name}: mel_out not finite or not the saved [P] mel")
             check(torch.equal(mel_out[~seg], mels[~seg]),
                   f"--infer {name}: frames outside the mask differ from the ground truth")
+    return meta
 
 
 def check_edit(rec_edit: dict, dur: np.ndarray, out_dir: str) -> dict:
@@ -2713,6 +2787,183 @@ def inplace_path(smi: str, tmp: str, data_dir: str) -> tuple[dict, dict]:
     return total, stats
 
 
+# -- family train path -------------------------------------------------------------
+
+# the five editing families the run path does not train, each through the
+# training entry at its config's widths, in this order: the predictor
+# warm-starts from StutterSpeech's checkpoint
+FAMILIES = ("stutter_speech", "stutter_predictor", "campnet", "a3t", "editspeech")
+FAMILY_TASKS = {"stutter_speech": "StutterSpeechTask", "stutter_predictor":
+                "StutterPredictorTask", "campnet": "CampNetTask", "a3t": "A3TTask",
+                "editspeech": "EditSpeechTask"}
+FAMILY_SPLITS = {"train": 128, "valid": 16, "test": 4}
+FAMILY_STEPS, FAMILY_VALID = 30, 4
+FAMILY_HP = (f"max_updates={FAMILY_STEPS},val_check_interval={FAMILY_STEPS},"
+             f"num_sanity_val_steps=0,eval_max_batches={FAMILY_VALID},tb_log_interval=10,"
+             f"test_num={FAMILY_SPLITS['test']},test_save_workers=1")
+NO_LAUNCH = {k: 0 for k in COUNTERS}
+# launches a step, a validation batch and a --infer item (one a batch)
+FAMILY_LAUNCHES = {
+    "stutter_speech": (dict(NO_LAUNCH, diffnet_block=RUN_LAYERS, diffnet_block_bwd=RUN_LAYERS),
+                       dict(NO_LAUNCH, diffnet_block=RUN_LAYERS), EXPECTED_PER_EDIT),
+    "campnet": (dict(NO_LAUNCH, flash_mha=CAMPNET_K3, flash_mha_bwd=CAMPNET_K3),
+                dict(NO_LAUNCH, flash_mha=CAMPNET_K3), dict(NO_LAUNCH, flash_mha=CAMPNET_K3))}
+FAMILY_CPU_STEP = ("stutter_speech", "campnet")   # stepped on the card and on the CPU
+
+
+@contextlib.contextmanager
+def warm_starts(found: list):
+    """Records the predictor's ``txt_encoder`` right after each warm start
+    (before any step), and the checkpoint it came from."""
+    orig = StutterPredictorTask.warm_start_text_encoder
+
+    def wrapper(task, model, path):
+        ckpt = orig(task, model, path)
+        found.append((ckpt, {k: v.clone() for k, v in model.txt_encoder.state_dict().items()}))
+        return ckpt
+
+    StutterPredictorTask.warm_start_text_encoder = wrapper
+    try:
+        yield found
+    finally:
+        StutterPredictorTask.warm_start_text_encoder = orig
+
+
+def family_train(family: str, smi: str, tmp: str, data_dir: str) -> tuple[dict, dict]:
+    """One family through the training entry on the card at its config's
+    widths: FAMILY_STEPS steps, one validation of FAMILY_VALID batches and a
+    checkpoint, then ``--infer`` on the test split from that checkpoint.
+    Every step's, validation batch's and item's launches are checked, and
+    every metric is finite; the timed steps (after RUN_WARMUP), peak memory
+    and a profiled median step are printed; StutterSpeech and CampNet step
+    once on the card and on the CPU. Returns the launches and statistics."""
+    q = lambda xs, p: float(np.percentile(xs, p))
+    work = os.path.join(tmp, "family", family)
+    extra = (f",spec_denoiser_work_dir={os.path.join(tmp, 'family', 'stutter_speech')}"
+             if family == "stutter_predictor" else "")
+    argv = ["--config", f"egs/{family}.yaml", "--exp_name", work, "-hp",
+            f"binary_data_dir={data_dir},vocoder_ckpt={os.path.join(tmp, 'hifigan')},"
+            f"{FAMILY_HP}{extra}"]
+    per_step, per_valid, per_item = FAMILY_LAUNCHES.get(family, (NO_LAUNCH,) * 3)
+    rec, found = RunRecorder(), []
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with rec.instrumented(), warm_starts(found):
+        trainer = run_entry(argv)
+    train_s = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = counts()
+    check(type(trainer.task).__name__ == FAMILY_TASKS[family],
+          f"{family}: task {type(trainer.task).__name__}")
+    check(len(rec.steps) == FAMILY_STEPS and len(rec.valid) == FAMILY_VALID,
+          f"{family}: {len(rec.steps)} steps, {len(rec.valid)} validation batches")
+    for st in rec.steps:
+        check(st["launches"] == per_step,
+              f"{family} step {st['step']}: launches {st['launches']} != {per_step}")
+        m = {k: float(v) for k, v in st["metrics"].items()}
+        check(all(np.isfinite(v) for v in m.values()) and m["nan_grads"] == 0,
+              f"{family} step {st['step']}: non-finite metrics {m}")
+    for moved in rec.valid:
+        check(moved == per_valid, f"{family} validation batch: launches {moved} != {per_valid}")
+    ckpt = os.path.join(work, f"model_ckpt_steps_{FAMILY_STEPS}.ckpt")
+    check(os.path.exists(ckpt), f"{family}: checkpoints {sorted(os.listdir(work))}")
+    stats = {"task": FAMILY_TASKS[family], "train_s": train_s, "peak_gib": peak_gib,
+             "params": sum(p.numel() for p in trainer.model.parameters())}
+    if family == "stutter_predictor":
+        src = os.path.join(tmp, "family", "stutter_speech",
+                           f"model_ckpt_steps_{FAMILY_STEPS}.ckpt")
+        enc = {k[len("fs.encoder."):]: v for k, v in
+               torch.load(src, map_location="cpu", weights_only=True)["state"]["model"].items()
+               if k.startswith("fs.encoder.")}
+        check(len(found) == 1 and found[0][0] == src and sorted(found[0][1]) == sorted(enc)
+              and all(torch.equal(found[0][1][k].cpu(), v) for k, v in enc.items()),
+              f"{family}: txt_encoder is not {src}'s fs.encoder bit for bit")
+        print(f"[family] {family}: txt_encoder warm-started from {src}: its fs.encoder "
+              f"({len(enc)} tensors) bit for bit", flush=True)
+
+    timed = rec.steps[RUN_WARMUP:]
+    ev, host = [st["event_ms"] for st in timed], [st["host_ms"] for st in timed]
+    m = {k: float(v) for k, v in rec.steps[-1]["metrics"].items()}
+    stats.update(timed_steps=len(timed), launches_per_step=per_step,
+                 host_ms_p50=q(host, 50), host_ms_p75=q(host, 75), event_ms_p50=q(ev, 50),
+                 steps_per_s_host=1e3 / q(host, 50),
+                 padded_frames_p50=q([st["shape"][1] for st in timed], 50),
+                 real_frames_per_step_mean=sum(st["frames"] for st in timed) / len(timed),
+                 last_metrics=m)
+    print(f"[family] {family} (egs/{family}.yaml, {stats['params']} parameters), "
+          f"{len(timed)} timed steps of {FAMILY_STEPS}: host clock p50 "
+          f"{stats['host_ms_p50']:.3f} ms, p75 {stats['host_ms_p75']:.3f} ms "
+          f"({stats['steps_per_s_host']:.2f} steps/s), CUDA events p50 "
+          f"{stats['event_ms_p50']:.3f} ms; padded frames p50 "
+          f"{stats['padded_frames_p50']:.0f}, {stats['real_frames_per_step_mean']:.0f} real "
+          f"frames a step; launches a step {per_step}; peak memory {peak_gib:.3f} GiB; "
+          f"{train_s:.1f} s with the validation and the checkpoint; {smi}", flush=True)
+    print(f"[family] {family} last step: "
+          + " ".join(f"{k}={v:.5f}" for k, v in sorted(m.items())), flush=True)
+    mid = sorted(timed, key=lambda st: st["shape"][1])[len(timed) // 2]
+    raw = {k: v.pin_memory() if isinstance(v, torch.Tensor) else v
+           for k, v in mid["raw"].items()}
+    b, t = mid["shape"]
+    busy_ms = profile_step(trainer, raw, mid["host_ms"], top=8, label=f"{family} B={b} x T={t}")
+    stats.update(profiled_batch=[b, t], profiled_host_ms=mid["host_ms"],
+                 profiled_busy_ms=busy_ms,
+                 profiled_busy_share=None if busy_ms is None else busy_ms / mid["host_ms"])
+    if family in FAMILY_CPU_STEP:
+        keys = trainer.task.effective_batch_keys()
+        compare_step_with_cpu(family, lambda dev: Trainer(trainer.task, trainer.hp, dev,
+                                                          dropout=False),
+                              trainer.train_step.state_dict(), {k: raw[k][:2] for k in keys},
+                              diffusion=family == "stutter_speech")
+
+    # --infer from the checkpoint: the state loaded bit for bit, every item's launches
+    saved = torch.load(ckpt, map_location="cpu", weights_only=True)["state"]
+    rec_t, irec = RunRecorder(), InferRecorder()
+    before = counts()
+    t0 = time.perf_counter()
+    with rec_t.instrumented(), irec.instrumented():
+        tester = run_entry(argv + ["--infer"])
+    infer_s = time.perf_counter() - t0
+    launches = {k: launches[k] + counts()[k] - before[k] for k in COUNTERS}
+    check(states_equal(rec_t.loaded, saved),
+          f"{family} --infer: the loaded state is not the checkpoint's bit for bit")
+    gen_dir = os.path.join(work, f"generated_{FAMILY_STEPS}_test")
+    meta = check_test_set(gen_dir, irec, FAMILY_SPLITS["test"], per_item)
+    if family == "stutter_predictor":
+        with open(os.path.join(gen_dir, "meta.csv")) as f:
+            header = next(csv.reader(f))
+        check(header[-1] == "stutter_pred" and all(
+            set(r[-1].split()) <= {"0", "1", "2"} and r[-1] for r in meta),
+            f"{family}: meta.csv {header} {meta}")
+    stats.update(infer_s=infer_s, infer_items=len(meta), infer_forward_s=irec.seconds["forward"],
+                 infer_vocoder_s=irec.seconds["vocoder"], infer_launches_per_item=per_item)
+    print(f"[family] {family} --infer: {len(meta)} test items from step "
+          f"{tester.global_step}'s checkpoint (loaded bit for bit) in {infer_s:.1f} s "
+          f"(forwards {irec.seconds['forward']:.2f} s, HiFi-GAN {irec.seconds['vocoder']:.2f} "
+          f"s), launches an item {per_item}; frames outside the mask the ground truth's"
+          + ("; block labels in meta.csv" if family == "stutter_predictor" else ""), flush=True)
+    return launches, dict(stats, card=smi)
+
+
+def family_train_path(smi: str, tmp: str) -> tuple[dict, dict]:
+    """The five families (FAMILIES) through the training entry on one
+    synthetic corpus with per-frame stutter labels (FAMILY_SPLITS, 150-700
+    frames) and the infer path's HiFi-GAN. Returns the launches summed and
+    each family's statistics."""
+    t0 = time.perf_counter()
+    data_dir = os.path.join(tmp, "family_data")
+    write_run_corpus(data_dir, seed=3, splits=FAMILY_SPLITS, stutter=True)
+    total, stats = dict(NO_LAUNCH), {}
+    for family in FAMILIES:
+        launches, stats[family] = family_train(family, smi, tmp, data_dir)
+        total = {k: total[k] + launches[k] for k in COUNTERS}
+    stats["seconds"] = time.perf_counter() - t0
+    print(f"[family] five families in {stats['seconds']:.1f} s; launches {total}", flush=True)
+    for name in ("diffnet_block", "diffnet_block_bwd", "flash_mha", "flash_mha_bwd"):
+        check(total[name] > 0, f"{name} was not launched on the family train path")
+    return total, stats
+
+
 def check_block_serving(gen) -> tuple[float, list]:
     """K1 against its plain version at B=16 and the serving frame buckets,
     each row but the first padded from its own length (a chunk's ragged
@@ -2781,6 +3032,7 @@ def main() -> None:
             smi, tmp, work, data_dir)
         serve_launches, serve_stats = serve_path(smi, tmp, work, data_dir)
         inplace_launches, inplace_stats = inplace_path(smi, tmp, data_dir)
+        family_launches, family_stats = family_train_path(smi, tmp)
     finally:
         shutil.rmtree(tmp)
     block = kernels[0]
@@ -2795,7 +3047,8 @@ def main() -> None:
                                  "infer": infer_launches[k["name"]],
                                  "csv_edit": csv_launches[k["name"]],
                                  "serve": serve_launches[k["name"]],
-                                 "inplace": inplace_launches[k["name"]]}
+                                 "inplace": inplace_launches[k["name"]],
+                                 "family_train": family_launches[k["name"]]}
         k["launches"] = sum(k["launches_by_path"].values())
         k["kernel_ms"] = k["ms"]
         check(k["launches"] > 0, f"{k['name']} was not launched on a main path")
@@ -2805,7 +3058,7 @@ def main() -> None:
     check(inplace_launches["flash_mha"] > 0, "flash_mha was not launched on the in-place path")
     print(json.dumps({"edit_rtf": rtf, "train_step": train, "run": run_stats,
                       "infer": infer_stats, "serve": serve_stats, "inplace": inplace_stats,
-                      "card": smi}))
+                      "family_train": family_stats, "card": smi}))
     print(smi)
     extra = ("warm_ms", "warm_plain_ms", "host_us", "train_ms", "train_plain_ms",
              "train_bound_ms", "train_device_ms", "train_ops_per_call", "train_host_us",

@@ -1,6 +1,12 @@
 """EditSpeech: a FastSpeech conditioner and two LSTM decoders, one scanning
 forward and one backward, spliced where they agree best; the port of the
-JAX package's ``models/editspeech.py`` (inference: free-running inputs).
+JAX package's ``models/editspeech.py``.
+
+At inference (``forward``) the decoders read free-running inputs: the
+frame states plus the prenet of the unmasked mel. In training
+(``forward_train``) one coin for the whole batch, heads with p = 0.5
+from a ``torch.Generator`` (or injected), swaps them for teacher-forced
+inputs, ``proj_in`` of the ground-truth frames; the predictors drop out.
 
 The backward decoder scans each row from its true end: the row is
 right-aligned (rolled by T - len), flipped, scanned, flipped back and
@@ -22,6 +28,9 @@ from speech_editing_tpu_torch.models.fs import FastSpeech
 from speech_editing_tpu_torch.modules.lstm import LSTMDecoder
 from speech_editing_tpu_torch.modules.predictors import MelEncoder
 from speech_editing_tpu_torch.modules.transformer import sinusoidal_positional_embedding
+
+
+TEACHER_FORCING_RATIO = 0.5   # the JAX model's teacher_forcing_ratio
 
 
 class _Decoders(nn.Module):
@@ -48,28 +57,55 @@ class EditSpeech(nn.Module):
         self.fs = FastSpeech(vocab_size, hp)
         self.decoder = _Decoders(hp["hidden_size"], int(hp.get("lstm_hidden", 1024)), out_dims)
 
-    def forward(self, txt_tokens, time_mel_masks, mel2ph, spk_embed, ref_mels, f0, uv) -> dict:
-        """txt_tokens [B, S]; time_mel_masks [B, T, 1]; mel2ph [B, T];
-        spk_embed [B, 256] or None; ref_mels [B, T, 80]; f0, uv [B, T] ->
-        ``forward_outputs`` and ``backward_outputs`` [B, T, 80]."""
-        ret = self.fs(txt_tokens, None, mel2ph, spk_embed, f0, uv)
+    def _free_running(self, txt_tokens, time_mel_masks, mel2ph, spk_embed, ref_mels, f0, uv,
+                      train=False, generator=None):
+        ret = self.fs(txt_tokens, None, mel2ph, spk_embed, f0, uv, train=train,
+                      generator=generator)
         decoder_inp = ret["decoder_inp"]
         pos_tokens = (ref_mels[..., 0] != 0).long()
         decoder_inp = decoder_inp + sinusoidal_positional_embedding(pos_tokens,
                                                                     decoder_inp.shape[-1])
         inputs = decoder_inp + self.decoder.prenet(ref_mels * (1 - time_mel_masks))
-        fwd = self.decoder.forward_decoder(inputs)
+        return ret, inputs, pos_tokens
+
+    def _decode(self, ret: dict, inputs, pos_tokens) -> dict:
+        ret["forward_outputs"] = self.decoder.forward_decoder(inputs)
         backward = self.decoder.backward_decoder
         if self.hp.get("ref_pad_compat"):
-            bwd = backward(inputs.flip(1)).flip(1)
-        else:
-            t = inputs.shape[1]
-            shift = (t - pos_tokens.sum(1))[:, None]
-            pos = torch.arange(t, device=inputs.device)[None, :]
-            right_aligned = _gather_frames(inputs, (pos - shift) % t)
-            bwd = backward(right_aligned.flip(1)).flip(1)
-            bwd = _gather_frames(bwd, (pos + shift) % t)
-        return {"forward_outputs": fwd, "backward_outputs": bwd}
+            ret["backward_outputs"] = backward(inputs.flip(1)).flip(1)
+            return ret
+        t = inputs.shape[1]
+        shift = (t - pos_tokens.sum(1))[:, None]
+        pos = torch.arange(t, device=inputs.device)[None, :]
+        right_aligned = _gather_frames(inputs, (pos - shift) % t)
+        bwd = backward(right_aligned.flip(1)).flip(1)
+        ret["backward_outputs"] = _gather_frames(bwd, (pos + shift) % t)
+        return ret
+
+    def forward(self, txt_tokens, time_mel_masks, mel2ph, spk_embed, ref_mels, f0, uv) -> dict:
+        """txt_tokens [B, S]; time_mel_masks [B, T, 1]; mel2ph [B, T];
+        spk_embed [B, 256] or None; ref_mels [B, T, 80]; f0, uv [B, T] ->
+        the conditioner's dict with ``forward_outputs`` and
+        ``backward_outputs`` [B, T, 80] (``dur`` [B, S] among the rest)."""
+        ret, inputs, pos_tokens = self._free_running(txt_tokens, time_mel_masks, mel2ph,
+                                                     spk_embed, ref_mels, f0, uv)
+        return self._decode(ret, inputs, pos_tokens)
+
+    def forward_train(self, txt_tokens, time_mel_masks, mel2ph, spk_embed, ref_mels, f0, uv,
+                      train: bool = True, generator: torch.Generator | None = None,
+                      teacher_forcing=None) -> dict:
+        """As :meth:`forward` with the training inputs: ``teacher_forcing``
+        (1 teacher-forced, 0 free-running; a 0-d tensor or a number) is drawn
+        from ``generator`` when None; ``train`` turns predictor dropout on."""
+        ret, inputs, pos_tokens = self._free_running(txt_tokens, time_mel_masks, mel2ph,
+                                                     spk_embed, ref_mels, f0, uv, train,
+                                                     generator)
+        if teacher_forcing is None:
+            teacher_forcing = (torch.rand((), device=inputs.device, generator=generator)
+                               < TEACHER_FORCING_RATIO)
+        tf = torch.as_tensor(teacher_forcing, device=inputs.device).to(inputs.dtype)
+        inputs = tf * self.decoder.proj_in(ref_mels) + (1 - tf) * inputs
+        return self._decode(ret, inputs, pos_tokens)
 
 
 def fusion_index(forward_outputs, backward_outputs, time_mel_masks) -> torch.Tensor:

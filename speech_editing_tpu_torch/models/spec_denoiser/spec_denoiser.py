@@ -77,15 +77,17 @@ class GaussianDiffusion(nn.Module):
                       ref_mels, f0, uv, t: torch.Tensor | None = None,
                       noise: torch.Tensor | None = None,
                       generator: torch.Generator | None = None,
-                      train: bool = True):
+                      train: bool = True, **cond_kw):
         """The training branch: ``t`` [B] in [0, timesteps] and ``noise``
         [B,T,M] are drawn from ``generator`` when None (JAX's threefry draws
         cannot be reproduced, so tests pass them in); ``x_t`` is the
         q-sample of ``ref_mels``, masked to the frames of ``mel2ph``, and
-        DiffNet predicts x0. ``train`` turns predictor dropout on. Returns
-        the conditioner's dict with ``mel_out`` [B,T,M] (the x0 prediction)."""
+        DiffNet predicts x0. ``train`` turns predictor dropout on;
+        ``cond_kw`` goes to :meth:`compute_cond`. Returns the conditioner's
+        dict with ``mel_out`` [B,T,M] (the x0 prediction)."""
         ret = self.compute_cond(txt_tokens, time_mel_masks, mel2ph, spk_embed,
-                                ref_mels, f0, uv, train=train, generator=generator)
+                                ref_mels, f0, uv, train=train, generator=generator,
+                                **cond_kw)
         cond = ret["cond"]
         tgt_nonpadding = (ret["mel2ph"] > 0)[:, :, None].to(cond.dtype)
         b = txt_tokens.shape[0]

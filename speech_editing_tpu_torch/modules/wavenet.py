@@ -1,9 +1,14 @@
-"""DiffNet: the x0-predicting WaveNet denoiser of FluentSpeech.
+"""DiffNet: the x0-predicting WaveNet denoiser of FluentSpeech; and WN,
+the Glow-TTS gated conv stack of the stutter predictor's decoder.
 
-Spec ``[B, T, M]`` -> ``[B, T, M]``. Every gated residual block runs through
-kernel K1 (``ops/cuda/diffnet_block.py``), and, when autograd records, its
-backward through kernel K5. Parameter names follow the
+DiffNet: spec ``[B, T, M]`` -> ``[B, T, M]``. Every gated residual block
+runs through kernel K1 (``ops/cuda/diffnet_block.py``), and, when autograd
+records, its backward through kernel K5. Parameter names follow the
 reference torch DiffNet (``residual_layers.{i}.dilated_conv`` and so on).
+
+WN is plain convolutions (no kernel of its own), named as the reference's
+``modules/commons/wavenet.py`` (``in_layers.{i}``, ``res_skip_layers.{i}``,
+``cond_layer``) with its weight norm folded.
 """
 
 from __future__ import annotations
@@ -14,8 +19,56 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from speech_editing_tpu_torch.modules.conv import conv_same
+from speech_editing_tpu_torch.modules.predictors import dropout as drop
 from speech_editing_tpu_torch.ops.cuda.diffnet_block import (diffnet_block,
                                                              diffnet_block_train)
+
+
+class WN(nn.Module):
+    """[B, T, H] -> [B, T, H]: ``n_layers`` gated convs (tanh of the first
+    half times sigmoid of the second, dilation ``dilation_rate ** i``, the
+    input dropped out in training) plus each layer's slice of one 1x1
+    ``cond_layer`` over ``cond`` [B, T, c_cond]; residual adds re-masked by
+    ``nonpadding`` [B, T, 1] (default all frames) and a skip sum."""
+
+    def __init__(self, hidden_size: int, kernel_size: int = 5, dilation_rate: int = 1,
+                 n_layers: int = 4, c_cond: int = 0, dropout: float = 0.0):
+        super().__init__()
+        h = self.hidden_size = hidden_size
+        self.dropout = dropout
+        if c_cond:
+            self.cond_layer = nn.Conv1d(c_cond, 2 * h * n_layers, 1)
+        self.in_layers = nn.ModuleList(
+            nn.Conv1d(h, 2 * h, kernel_size, dilation=dilation_rate ** i)
+            for i in range(n_layers))
+        self.res_skip_layers = nn.ModuleList(
+            nn.Conv1d(h, 2 * h if i < n_layers - 1 else h, 1) for i in range(n_layers))
+
+    def forward(self, x, nonpadding=None, cond=None, train: bool = False,
+                generator: torch.Generator | None = None):
+        """``train`` turns dropout on, its masks from ``generator``."""
+        h = self.hidden_size
+        if nonpadding is None:
+            nonpadding = torch.ones_like(x[..., :1])
+        if cond is not None:
+            cond_all = conv_same(self.cond_layer, cond)
+        output = torch.zeros_like(x)
+        last = len(self.in_layers) - 1
+        for i, (conv, res_skip) in enumerate(zip(self.in_layers, self.res_skip_layers)):
+            x_in = conv_same(conv, x)
+            if train and self.dropout > 0:
+                x_in = drop(x_in, self.dropout, generator)
+            if cond is not None:
+                x_in = x_in + cond_all[..., i * 2 * h:(i + 1) * 2 * h]
+            acts = torch.tanh(x_in[..., :h]) * torch.sigmoid(x_in[..., h:])
+            rs = conv_same(res_skip, acts)
+            if i < last:
+                x = (x + rs[..., :h]) * nonpadding
+                output = output + rs[..., h:]
+            else:
+                output = output + rs
+        return output * nonpadding
 
 
 def diffusion_step_embedding(t: torch.Tensor, dim: int) -> torch.Tensor:

@@ -7,10 +7,13 @@ package's ``run.py`` does:
 
 The config's ``task_cls`` names the task; the port resolves it by class
 name among its own tasks (``TASKS``) and never imports the named module.
-It runs on the GPU unless ``--device cpu`` is given. The shipped
-``egs/spec_denoiser.yaml`` sets ``use_bf16: true``, which the port does
-not run yet: pass ``-hp use_bf16=False`` to train in float32, as the
-config's comment describes the reference's training.
+It runs on the GPU unless ``--device cpu`` is given. The ported tasks are
+the six editing families of ``egs/``: FluentSpeech (``spec_denoiser``),
+StutterSpeech and its stutter predictor, CampNet, A3T and EditSpeech. The
+shipped ``egs/spec_denoiser.yaml`` sets ``use_bf16: true``, which the port
+does not run yet: pass ``-hp use_bf16=False`` to train in float32, as the
+config's comment describes the reference's training (the other five
+configs train in float32 as shipped).
 """
 
 from __future__ import annotations
@@ -19,10 +22,17 @@ import sys
 from typing import Optional, Sequence
 
 from speech_editing_tpu_torch.config.hparams import arg_parser, set_hparams
+from speech_editing_tpu_torch.training.tasks.a3t import A3TTask
+from speech_editing_tpu_torch.training.tasks.campnet import CampNetTask
+from speech_editing_tpu_torch.training.tasks.editspeech import EditSpeechTask
 from speech_editing_tpu_torch.training.tasks.spec_denoiser import SpecDenoiserTask
+from speech_editing_tpu_torch.training.tasks.stutter_speech import (StutterPredictorTask,
+                                                                    StutterSpeechTask)
 from speech_editing_tpu_torch.training.trainer import Trainer, cuda_or_cpu, float32_on_card
 
-TASKS = {cls.__name__: cls for cls in (SpecDenoiserTask,)}
+TASKS = {cls.__name__: cls for cls in (SpecDenoiserTask, StutterSpeechTask,
+                                       StutterPredictorTask, CampNetTask, A3TTask,
+                                       EditSpeechTask)}
 
 
 def task_class(task_cls: str):

@@ -140,3 +140,25 @@ def load_checkpoint(path: str, map_location: Any = "cpu") -> dict:
     if zipfile.is_zipfile(path):
         return torch.load(path, map_location=map_location, weights_only=True)
     return load_jax_checkpoint(path)
+
+
+def load_subtree(path: str, prefix: str) -> dict:
+    """One sub-model of a checkpoint, for a warm start: from a port
+    checkpoint the model's tensors under ``prefix`` (e.g. ``fs.encoder``),
+    the prefix and its dot stripped; from a JAX checkpoint the parameter
+    subtree at the same path (``fs/encoder``), numpy leaves in the flax
+    layout, for the caller to convert. A missing path raises ``KeyError``."""
+    payload = load_checkpoint(path)
+    if "jax_params" in payload:
+        node = payload["jax_params"]
+        for part in prefix.split("."):
+            if not isinstance(node, dict) or part not in node:
+                raise KeyError(f"{path}: the JAX checkpoint has no {prefix.replace('.', '/')}")
+            node = node[part]
+        return node
+    head = prefix + "."
+    sub = {k[len(head):]: v for k, v in payload["state"]["model"].items()
+           if k.startswith(head)}
+    if not sub:
+        raise KeyError(f"{path}: the checkpoint has no {prefix}.* tensors")
+    return sub

@@ -1,8 +1,9 @@
-"""Training losses of FluentSpeech, on torch tensors.
+"""Training losses of the editing families, on torch tensors.
 
 Port of the JAX package's ``training/losses.py``: the weighted mel losses
-(spec string "l1:0.5|ssim:0.5"), the phoneme/word/sentence duration losses
-and the uv-BCE + f0-L1 pitch loss. The word-duration sums run over a static
+(spec string "l1:0.5|ssim:0.5"), the phoneme/word/sentence duration losses,
+the uv-BCE + f0-L1 pitch loss, and StutterSpeech's class-weighted focal
+loss and cross entropy. The word-duration sums run over a static
 ``S + 1`` word segments (a word count never exceeds the token count) with
 ``scatter_add``.
 """
@@ -101,6 +102,32 @@ def pitch_loss(losses: dict, pitch_pred: torch.Tensor, f0: torch.Tensor,
         nonpadding = nonpadding * (uv == 0).float()
     f0_l1 = (pitch_pred[:, :, 0] - f0).abs()
     losses["f0"] = _weighted_mean(f0_l1, nonpadding) * hp["lambda_f0"]
+
+
+def multi_focal_loss(logits: torch.Tensor, target: torch.Tensor,
+                     alpha=(1e-3, 1.0, 0.0), gamma: float = 5.0,
+                     smooth: float = 1e-6) -> torch.Tensor:
+    """Class-weighted focal loss over [B, T, C] logits and [B, T] integer
+    targets; ``alpha`` weighs the classes (fluent, stutter, pad)."""
+    probs = torch.softmax(logits, dim=-1)
+    log_probs = torch.log(probs.clamp(min=1e-12))
+    tgt = target.long()[..., None]
+    p_t = probs.gather(-1, tgt)[..., 0] + smooth
+    logp_t = log_probs.gather(-1, tgt)[..., 0] + smooth
+    a = torch.tensor(alpha, dtype=logits.dtype, device=logits.device)[target.long()]
+    return (-a * (1.0 - p_t) ** gamma * logp_t).mean()
+
+
+def cross_entropy_loss(logits: torch.Tensor, target: torch.Tensor,
+                       ignore_index: int = -1) -> torch.Tensor:
+    """Mean cross entropy over [B, T, C] logits and [B, T] integer targets,
+    positions at ``ignore_index`` left out."""
+    tgt = target.long()
+    ignored = tgt == ignore_index
+    valid = (~ignored).to(logits.dtype)
+    safe = tgt.masked_fill(ignored, 0)[..., None]
+    nll = -torch.log_softmax(logits, dim=-1).gather(-1, safe)[..., 0]
+    return (nll * valid).sum() / valid.sum().clamp(min=1.0)
 
 
 def sil_token_mask(txt_tokens: torch.Tensor, sil_token_ids) -> torch.Tensor:

@@ -1,5 +1,6 @@
 """What a model family gives the trainer: its dataset, the batch keys its
-step reads, its model, its loss and its inference forward. The port of the JAX package's
+step reads, its model, its loss, its inference forward and the converter
+of its JAX checkpoints. The port of the JAX package's
 ``training/tasks/base.py``.
 
 The vocabulary comes from the corpus's ``phone_set.json``
@@ -56,6 +57,16 @@ class BaseTask:
         """``loss_fn(batch, generator=None, t=None, noise=None) -> (total,
         losses)``; ``train=False`` is the validation loss (no dropout)."""
         raise NotImplementedError
+
+    def params_from_jax(self, params, hp: Any) -> dict:
+        """A JAX checkpoint's parameter tree (numpy) -> the model's
+        ``state_dict``."""
+        raise NotImplementedError
+
+    def meta_columns(self, out: dict, b: int, t_len: int) -> dict:
+        """Columns of ``meta.csv`` for row ``b`` of an inference output
+        (``t_len`` real frames); none by default."""
+        return {}
 
     def build_infer_fn(self, model):
         """``infer_fn(batch, generator=None, noise=None) -> out``: the

@@ -14,6 +14,7 @@ from speech_editing_tpu_torch.models.spec_denoiser.spec_denoiser import Gaussian
 from speech_editing_tpu_torch.training.tasks.base import BaseTask
 from speech_editing_tpu_torch.training.losses import (add_mel_loss, dur_loss,
                                                       pitch_loss, sil_token_mask)
+from speech_editing_tpu_torch.utils.convert_jax_params import params_from_jax
 from speech_editing_tpu_torch.utils.init import init_like_flax
 
 
@@ -62,3 +63,6 @@ class SpecDenoiserTask(BaseTask):
 
     def make_loss_fn(self, model: GaussianDiffusion, train: bool = True):
         return make_loss_fn(model, self.hp, self.sil_token_ids, train)
+
+    def params_from_jax(self, params, hp: Any) -> dict:
+        return params_from_jax(params, hp)

@@ -11,7 +11,7 @@ the host each step (the JAX step selects on the device instead).
 
 from __future__ import annotations
 
-from typing import Any, Sequence
+from typing import Any, Callable
 
 import torch
 from torch import nn
@@ -19,18 +19,19 @@ from torch import nn
 from speech_editing_tpu_torch.training.optim import (all_finite, build_lr_schedule,
                                                      build_optimizer,
                                                      clip_gradients, global_norm)
-from speech_editing_tpu_torch.training.tasks.spec_denoiser import make_loss_fn
 
 
 class TrainStep:
-    """``step(batch, generator=None, t=None, noise=None) -> metrics``: the
-    loss terms, ``total_loss``, the pre-clip ``grad_norm`` and ``nan_grads``,
-    as 0-d tensors. ``train`` turns predictor dropout on."""
+    """``step(batch, generator=None, t=None, noise=None, **draws) -> metrics``:
+    the loss terms, ``total_loss``, the pre-clip ``grad_norm`` and
+    ``nan_grads``, as 0-d tensors. ``loss_fn(batch, generator=None, **draws)
+    -> (total, losses)`` is the task's loss over ``model``; the draws it
+    fixes (``t`` and ``noise`` of a diffusion step, EditSpeech's
+    ``teacher_forcing``) are passed on when given."""
 
-    def __init__(self, model: nn.Module, hp: Any, sil_token_ids: Sequence[int] = (),
-                 train: bool = True):
+    def __init__(self, model: nn.Module, hp: Any, loss_fn: Callable):
         self.model, self.hp = model, hp
-        self.loss_fn = make_loss_fn(model, hp, sil_token_ids, train)
+        self.loss_fn = loss_fn
         self.params = [p for p in model.parameters() if p.requires_grad]
         self.optimizer = build_optimizer(hp, self.params)
         self.schedule = build_lr_schedule(hp)
@@ -38,10 +39,13 @@ class TrainStep:
         self.updates = 0    # applied updates: Adam's and the schedule's count
 
     def __call__(self, batch: dict, generator: torch.Generator | None = None,
-                 t: torch.Tensor | None = None,
-                 noise: torch.Tensor | None = None) -> dict:
+                 t: torch.Tensor | None = None, noise: torch.Tensor | None = None,
+                 **draws) -> dict:
         self.optimizer.zero_grad(set_to_none=True)
-        total, losses = self.loss_fn(batch, generator=generator, t=t, noise=noise)
+        draws = {k: v for k, v in dict(draws, t=t, noise=noise).items() if v is not None}
+        device = next(iter(batch.values())).device
+        batch = dict(batch, global_step=torch.tensor(float(self.step), device=device))
+        total, losses = self.loss_fn(batch, generator=generator, **draws)
         total.backward()
         for p in self.params:   # an unused parameter's gradient is zero
             if p.grad is None:
@@ -74,15 +78,15 @@ class TrainStep:
 
 
 def make_eval_step(loss_fn):
-    """``eval_step(batch, generator=None, t=None, noise=None) -> metrics``:
-    the loss terms and ``total_loss`` of ``loss_fn`` (built with
-    ``train=False``) under ``torch.no_grad()``, as 0-d tensors."""
+    """``eval_step(batch, generator=None, **draws) -> metrics``: the loss
+    terms and ``total_loss`` of ``loss_fn`` (built with ``train=False``)
+    under ``torch.no_grad()``, as 0-d tensors. The batch carries no
+    ``global_step``, as in the JAX eval step: the losses take their
+    defaults."""
 
     @torch.no_grad()
-    def eval_step(batch: dict, generator: torch.Generator | None = None,
-                  t: torch.Tensor | None = None,
-                  noise: torch.Tensor | None = None) -> dict:
-        total, losses = loss_fn(batch, generator=generator, t=t, noise=noise)
+    def eval_step(batch: dict, generator: torch.Generator | None = None, **draws) -> dict:
+        total, losses = loss_fn(batch, generator=generator, **draws)
         return dict(losses, total_loss=total)
 
     return eval_step

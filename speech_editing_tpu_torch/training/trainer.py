@@ -28,9 +28,8 @@ from speech_editing_tpu_torch.training.checkpoint import (get_last_checkpoint,
                                                           save_checkpoint)
 from speech_editing_tpu_torch.training.tasks.spec_denoiser import SpecDenoiserTask
 from speech_editing_tpu_torch.training.train_state import TrainStep, make_eval_step
-from speech_editing_tpu_torch.utils.convert_jax_params import params_from_jax
 
-_INT_KEYS = ("txt_tokens", "mel2ph", "spk_ids")
+_INT_KEYS = ("txt_tokens", "mel2ph", "spk_ids", "stutter_mel_masks")
 
 
 def check_supported(hp: Any) -> None:
@@ -65,7 +64,7 @@ class Trainer:
     """Trains ``task``'s model on ``device`` (default ``"cuda"``, which
     raises when no GPU is present; ``"cpu"`` runs every kernel's plain
     version). Weights are drawn from ``hp["seed"]`` until a checkpoint
-    loads. ``dropout=False`` turns predictor dropout off. Checkpoints go to
+    loads. ``dropout=False`` turns the model's dropout off. Checkpoints go to
     ``hp["work_dir"]``, by default ``checkpoints/<exp_name>``."""
 
     def __init__(self, task: Any, hp: Any, device: Any = "cuda", dropout: bool = True):
@@ -80,7 +79,8 @@ class Trainer:
             self.model = task.build_model()
         self.model.to(self.device).train()
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
-        self.train_step = TrainStep(self.model, hp, task.sil_token_ids, train=dropout)
+        self.train_step = TrainStep(self.model, hp,
+                                    task.make_loss_fn(self.model, train=dropout))
         self.eval_step = make_eval_step(task.make_loss_fn(self.model, train=False))
         self._nan_intervals = 0
 
@@ -133,12 +133,14 @@ class Trainer:
     def _build_state(self) -> None:
         """Resume from the work dir's last checkpoint, if any: a port
         checkpoint restores the parameters, Adam's moments and the counts; a
-        JAX one the parameters and the step count, with a fresh optimizer."""
+        JAX one, through the task's converter, the parameters and the step
+        count, with a fresh optimizer."""
         ckpt_path, _ = get_last_checkpoint(self.work_dir)
         if ckpt_path is not None:
             payload = load_checkpoint(ckpt_path, map_location=self.device)
             if "jax_params" in payload:
-                self.model.load_state_dict(params_from_jax(payload["jax_params"], self.hp))
+                self.model.load_state_dict(
+                    self.task.params_from_jax(payload["jax_params"], self.hp))
                 self.train_step.step = payload["steps"]
                 print(f"| loaded the parameters of JAX checkpoint {ckpt_path} (step "
                       f"{self.global_step}); the optimizer starts fresh", flush=True)
@@ -258,7 +260,9 @@ class Trainer:
         """``--infer``: the last checkpoint generates the ``test`` split
         (``max_valid_sentences`` a batch, the first ``test_num`` items) with
         the dataset's ``mel2ph`` and inference masks, composited with the
-        ground truth outside the mask; the registry's vocoder
+        ground truth outside the mask (each task's ``build_infer_fn``; the
+        stutter predictor's ``mel_out`` is the ground truth, and its block
+        labels go into ``meta.csv``); the registry's vocoder
         (``hp["vocoder"]``) writes ``[P]`` and, with ``save_gt``, ``[G]``
         wavs, and for each item with a mask ``[P_SEG]``/``[G_SEG]`` wavs of
         the masked frames only, into
@@ -289,6 +293,7 @@ class Trainer:
             generator = torch.Generator(device=self.device).manual_seed(
                 int(hp.get("seed", 1234)))
             n_done, test_num = 0, int(hp.get("test_num", 100))
+            columns: dict = {}
             for raw in loader:
                 if n_done >= test_num:
                     break
@@ -301,6 +306,7 @@ class Trainer:
                         break
                     item_name = raw["item_name"][b]
                     t_len = int(raw["mel_lengths"][b])
+                    columns[item_name] = self.task.meta_columns(out, b, t_len)
                     mel_p, mel_g = mel_pred[b, :t_len], mels[b, :t_len]
                     # vocode here (device work); the file writes go to the pool
                     saver.add_job(save_test_result, (vocoder.spec2wav(mel_p), mel_p,
@@ -319,10 +325,12 @@ class Trainer:
             saver.drain()
         names = sorted(f[3:-8] for f in os.listdir(f"{gen_dir}/wavs")
                        if f.startswith("[P]") and f.endswith("_mel.npy"))
+        extra = sorted({k for c in columns.values() for k in c})
         with open(f"{gen_dir}/meta.csv", "w", newline="") as f:
             w = csv.writer(f)
-            w.writerow(["item_name", "wav_fn_pred", "wav_fn_gt"])
+            w.writerow(["item_name", "wav_fn_pred", "wav_fn_gt"] + extra)
             for name in names:
-                w.writerow([name, f"wavs/[P]{name}.wav", f"wavs/[G]{name}.wav"])
+                w.writerow([name, f"wavs/[P]{name}.wav", f"wavs/[G]{name}.wav"]
+                           + [columns.get(name, {}).get(k, "") for k in extra])
         print(f"| test done: {n_done} items -> {gen_dir}", flush=True)
         return gen_dir

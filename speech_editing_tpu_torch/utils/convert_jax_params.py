@@ -173,6 +173,45 @@ def params_from_jax(params: Mapping, hp: Any) -> dict[str, torch.Tensor]:
     return sd
 
 
+def stutter_speech_params_from_jax(params: Mapping, hp: Any) -> dict[str, torch.Tensor]:
+    """JAX ``StutterGaussianDiffusion`` params -> ``state_dict`` of the
+    port's (the reference layout that ``convert_stutter_gaussian_diffusion``
+    reads)."""
+    params = params.get("params", params)
+    sd = params_from_jax(params, hp)
+    sd["stutter_embed.weight"] = _t(params["stutter_embed"]["embedding"])
+    head = params["stutter_predictor"]
+    _conv(sd, "stutter_predictor.conv.g_prenet", head["conv"]["g_prenet"])
+    _conv_blocks(sd, "stutter_predictor.conv.", head["conv"]["conv"], 4, 2)
+    _linear(sd, "stutter_predictor.linear", head["linear"])
+    return sd
+
+
+def _mel_prenet(sd: dict, name: str, p: Mapping) -> None:
+    for i in range(4):
+        _conv(sd, f"{name}.convs.{i}", p[f"conv_{i}"])
+    _linear(sd, f"{name}.fc_out", p["fc_out"])
+
+
+def stutter_predictor_params_from_jax(params: Mapping, hp: Any) -> dict[str, torch.Tensor]:
+    """JAX ``StutterPredictor`` params -> ``state_dict`` of the port's."""
+    params = params.get("params", params)
+    sd = text_conv_encoder_params_from_jax(params["txt_encoder"], len(hp["enc_dilations"]),
+                                           hp.get("layers_in_block", 2), "txt_encoder.")
+    _mel_prenet(sd, "mel_prenet", params["mel_prenet"])
+    _conv_blocks(sd, "mel_convs.", params["mel_convs"], 5, 2)
+    _mel_prenet(sd, "decoder_text_prenet", params["decoder_text_prenet"])
+    dec = params["decoder"]
+    _conv(sd, "decoder.cond_layer", dec["cond_layer"])
+    i = 0
+    while f"in_{i}" in dec:
+        _conv(sd, f"decoder.in_layers.{i}", dec[f"in_{i}"])
+        _conv(sd, f"decoder.res_skip_layers.{i}", dec[f"res_skip_{i}"])
+        i += 1
+    _linear(sd, "out_proj", params["out_proj"])
+    return sd
+
+
 def campnet_params_from_jax(params: Mapping, hp: Any) -> dict[str, torch.Tensor]:
     """JAX ``CampNet`` params -> ``state_dict`` of the port's CampNet (the
     reference layout that ``convert_campnet`` reads)."""

@@ -20,7 +20,12 @@ parameter (the same distributions, not the same draws):
   fan_avg, uniform; its depthwise and 1-wide convolutions lecun-normal
   (fan_in = kernel x input channels of a group); BatchNorm's affine one and
   zero with running statistics 0 and 1;
-* CampNet's ``mask_emb`` zero and the decoder's ``pos_embed_alpha`` one.
+* CampNet's ``mask_emb`` zero and the decoder's ``pos_embed_alpha`` one;
+* StutterSpeech's ``stutter_embed`` (an embedding: normal with std
+  dim^-0.5), its frame head's convolutions (``ConditionalConvBlocks``, its
+  ``g_prenet`` too) xavier-uniform; the stutter predictor's stride-2
+  prenets and ``WN`` convolutions lecun-normal, its ``ConvBlocks``
+  xavier-uniform.
 """
 
 from __future__ import annotations

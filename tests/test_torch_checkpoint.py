@@ -21,6 +21,7 @@ from speech_editing_tpu_torch.training.checkpoint import (get_all_ckpts,
                                                           get_last_checkpoint,
                                                           load_checkpoint,
                                                           save_checkpoint)
+from speech_editing_tpu_torch.training.tasks.spec_denoiser import make_loss_fn
 from speech_editing_tpu_torch.training.train_state import TrainStep
 from tests.test_torch_train import HP, SIL, _batch, _jax, _jax_batch, _port_model, _torch_batch
 
@@ -36,8 +37,12 @@ def _draws(seed):
                                                 dtype=torch.float32)
 
 
+def _train_step(model):
+    return TrainStep(model, HP, make_loss_fn(model, HP, SIL, train=False))
+
+
 def _step():
-    return TrainStep(_port_model(_jax()[1]), HP, SIL, train=False)
+    return _train_step(_port_model(_jax()[1]))
 
 
 def _assert_states_equal(a: dict, b: dict):
@@ -82,7 +87,7 @@ def test_resumed_step_equals_an_uninterrupted_one(tmp_path):
     for batch, t, noise in batches[:2]:
         first(batch, None, t, noise)
     path = save_checkpoint(str(tmp_path), first.state_dict(), first.step)
-    resumed = TrainStep(_port_model(_randomized_other()), HP, SIL, train=False)
+    resumed = _train_step(_port_model(_randomized_other()))
     resumed.load_state_dict(load_checkpoint(path)["state"])
     _assert_states_equal(resumed.state_dict(), first.state_dict())
     batch, t, noise = batches[2]

@@ -5,25 +5,36 @@ other parameter a spread within a stated tolerance of a flax
 ``model.init`` of the same hp, for both text encoders and for the HiFi-GAN
 generator. Two independent draws of n values have standard deviations
 that differ by about 1/sqrt(n) relatively; the tolerance is 4/sqrt(n),
-and at least 5 %."""
+and at least 5 %. The StutterSpeech editor and its stutter predictor
+(``init_model`` of the JAX tasks) are held the same way."""
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 
 from speech_editing_tpu.models.spec_denoiser.spec_denoiser import \
     GaussianDiffusion as JGD
 from speech_editing_tpu.models.vocoder.hifigan import HifiGanGenerator as JHifiGan
+from speech_editing_tpu.training.tasks.stutter_speech import \
+    StutterPredictorTask as JPredictorTask
+from speech_editing_tpu.training.tasks.stutter_speech import \
+    StutterSpeechTask as JStutterTask
+from speech_editing_tpu_torch.models.stutter_speech import (StutterGaussianDiffusion,
+                                                            StutterPredictor)
 from speech_editing_tpu_torch.models.vocoder.hifigan import HifiGanGenerator
 from speech_editing_tpu_torch.training.tasks.spec_denoiser import build_model
-from speech_editing_tpu_torch.utils.convert_jax_params import (params_from_jax,
-                                                               vocoder_params_from_jax)
+from speech_editing_tpu_torch.utils.convert_jax_params import (
+    params_from_jax, stutter_predictor_params_from_jax, stutter_speech_params_from_jax,
+    vocoder_params_from_jax)
 from speech_editing_tpu_torch.utils.init import init_like_flax
 from tests.helpers import TINY_VOC_HP
 from tests.test_torch_conv_encoder import HP as CONV_HP
 from tests.test_torch_model import HP as FFT_HP
 from tests.test_torch_model import VOCAB
+from tests.test_torch_stutter import HP as STUTTER_HP
+from tests.test_torch_stutter import _batch
 
 WIDE = dict(hidden_size=64, residual_channels=64)   # enough values a tensor to compare spreads
 
@@ -49,10 +60,28 @@ def _flax_vocoder():
             init_like_flax(HifiGanGenerator(TINY_VOC_HP)))
 
 
-@pytest.mark.parametrize("which", ["fft_encoder", "conv_encoder", "hifigan"])
+def _flax_stutter(which):
+    """A JAX StutterSpeech task's ``init_model`` (the editor or the stutter
+    predictor) at the conv encoder's widths and the port's model."""
+    hp = dict(STUTTER_HP, **WIDE)
+    if which == "stutter_speech":
+        jtask, model = JStutterTask(hp), StutterGaussianDiffusion(VOCAB, hp, 80)
+        convert = stutter_speech_params_from_jax
+    else:
+        jtask, model = JPredictorTask(hp), StutterPredictor(VOCAB, hp, 16, 80)
+        convert = stutter_predictor_params_from_jax
+    params = jtask.init_model(jtask.build_model(), _batch(0, t=48), jax.random.PRNGKey(0))
+    torch.manual_seed(0)
+    return convert(jax.tree.map(np.asarray, params["params"]), hp), init_like_flax(model)
+
+
+@pytest.mark.parametrize("which", ["fft_encoder", "conv_encoder", "hifigan", "stutter_speech",
+                                   "stutter_predictor"])
 def test_initial_weights_follow_flax(which):
     if which == "hifigan":
         ref, model = _flax_vocoder()
+    elif which.startswith("stutter"):
+        ref, model = _flax_stutter(which)
     else:
         hp = dict(FFT_HP if which == "fft_encoder" else CONV_HP, use_spk_embed=True, **WIDE)
         ref, model = _flax_model(hp)
@@ -72,6 +101,6 @@ def test_initial_weights_follow_flax(which):
                                       f"{float(want.std()):.4g} (tol {tol:.3f})"
         assert float(mine.abs().max()) <= 2.0 * float(want.abs().max()) + 1e-6, name
     assert n_random >= 10
-    if which != "hifigan":
+    if which in ("fft_encoder", "conv_encoder", "stutter_speech"):
         out = model.denoise_fn.output_projection
         assert not out.weight.any() and not out.bias.any()

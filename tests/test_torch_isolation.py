@@ -1,8 +1,10 @@
 """The PyTorch port stands alone: importing every module of
 ``speech_editing_tpu_torch`` (the in-place editing families' models, their
-modules and ``infer/editors.py`` among them) loads neither JAX, flax,
+modules and ``infer/editors.py``, StutterSpeech's models and the training
+tasks of all six editing families among them) loads neither JAX, flax,
 optax, PyYAML nor the JAX package, and its entry points (the edit
-pipeline, the trainer, the entry ``run`` with and without ``--infer``, the
+pipeline, the trainer, the entry ``run`` with and without ``--infer`` on
+each family's config, the
 CSV region-edit APIs of FluentSpeech and of the in-place families, their
 drivers, the HiFi-GAN vocoder, the batch server and the serve CLI) refuse
 to fall back to the CPU on their own."""
@@ -23,7 +25,9 @@ for name in names:
 assert len(names) >= 20, names
 for served in ("infer.online", "infer.quant", "infer.serve", "infer.serving",
                "infer.editors", "models.campnet", "models.editspeech", "models.a3t",
-               "modules.lstm", "modules.conformer"):
+               "modules.lstm", "modules.conformer", "models.stutter_speech",
+               "training.tasks.stutter_speech", "training.tasks.campnet",
+               "training.tasks.a3t", "training.tasks.editspeech"):
     assert f"speech_editing_tpu_torch.{served}" in names, served
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in
                 ("jax", "jaxlib", "flax", "optax", "yaml", "speech_editing_tpu"))
@@ -48,7 +52,11 @@ if not torch.cuda.is_available():
                         (editors_main, (["--config", "egs/campnet.yaml", "--exp_name",
                                          "never_made"],)),
                         (BatchedEditServer, (None, {})),
-                        (serve_main, (train_argv[:4] + ["--jsonl", "never_read.jsonl"],))):
+                        (serve_main, (train_argv[:4] + ["--jsonl", "never_read.jsonl"],)),
+                        *((run, (["--config", f"egs/{family}.yaml", "--exp_name", "never_made"]
+                                 + infer,))
+                          for family in ("stutter_speech", "stutter_predictor", "campnet",
+                                         "a3t", "editspeech") for infer in ([], ["--infer"]))):
         try:
             entry(*args)
         except RuntimeError as e:

@@ -131,6 +131,10 @@ def test_loss_and_every_gradient_match_jax():
                                    err_msg=name)
 
 
+def _train_step(model):
+    return TrainStep(model, HP, make_loss_fn(model, HP, SIL, train=False))
+
+
 def _adam(opt_state):
     return next(s for s in jax.tree.leaves(
         opt_state, is_leaf=lambda x: isinstance(x, optax.ScaleByAdamState))
@@ -162,7 +166,7 @@ def test_two_train_steps_match_jax_with_warmup():
     _, params, _, _ = _jax()
     tx, j_step = _jax_train_step()
     state = TrainState.create(params, tx)
-    step = TrainStep(_port_model(params), HP, SIL, train=False)
+    step = _train_step(_port_model(params))
     start = {k: v.clone() for k, v in step.model.state_dict().items()}
     for i, seed in enumerate((0, 1)):
         batch = _batch(seed)
@@ -186,7 +190,7 @@ def test_nan_tripwire_skips_the_update_in_both():
     _, params, _, _ = _jax()
     tx, j_step = _jax_train_step()
     good = _batch(0)
-    step = TrainStep(_port_model(params), HP, SIL, train=False)
+    step = _train_step(_port_model(params))
     state = TrainState.create(params, tx)
     rng = jax.random.PRNGKey(3)
     state, _ = j_step(state, _jax_batch(good), rng)
