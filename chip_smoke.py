@@ -22,7 +22,16 @@ Phases, each of which exits non-zero on a failed check:
    pad keys and at a head width of 36; K2 at the edit's three requests, at
    B=4 with a ragged last tile and at hop 128, timed beside a cuFFT
    composite, its bound counted as the least work of the function (a real
-   FFT on the fp32 CUDA cores);
+   FFT on the fp32 CUDA cores); the bf16 forms of K1 (at the edit's three
+   lengths, at B=4 with dilations 1-3 and T=509 ragged, at the bf16 run
+   step's median batch B=16 x T=446 with h) and K5 (B=4 at dilations 2
+   and 3, B=16 x T=446, there also K1 + K5 against autograd of the bf16
+   plain forward) against their bf16 plain versions (BF16_TOL,
+   BF16_AUTOGRAD_TOL), timed at B=16 x T=446 with the device time,
+   operations and host time a call, their bound counted at the bf16
+   tensor-core rate; K1 and K5, float32 and bf16, at the other widths
+   they are compiled for (``WIDTHS``: C=128, H=256) against their plain
+   versions (``check_block_widths``);
 4. edit path: ``EditPipeline`` at the flagship width (seeded random
    weights, DiffNet's output projection drawn non-zero) answers edit
    requests of 512 (``bench.py``'s utterance), 300 and 700 frames; every
@@ -52,6 +61,15 @@ Phases, each of which exits non-zero on a failed check:
    on the card and on the CPU, agrees. Steps/s, real frames/s, the loader
    wait a step, a profiled step, peak memory, validation time and the
    checkpoint's size, save and load times are printed.
+6b. bf16 run path: the same entry on ``egs/spec_denoiser.yaml`` as shipped
+   (``use_bf16: true``, no override) over the same corpus: 30 steps, a
+   validation of 4 batches and a checkpoint, then a resume to 35. Every
+   step launches the bf16 K1 and K5 20 times each and nothing else, every
+   validation batch the float32 K1 20 times; metrics are finite; the
+   checkpoint holds float32 parameters and moments, which the resume
+   restores bit for bit; a 2-utterance bf16 step on the card and on the
+   CPU agree at the BF16_* bars. Steps/s, host p50/p75, a profiled median
+   step and peak memory are printed.
 7. infer path, on the run path's checkpoint and corpus with a HiFi-GAN V1
    checkpoint of seeded weights at ``egs/hifigan.yaml``'s widths (the
    vocoder must load as HiFi-GAN on the card): ``run --infer`` over the 8
@@ -123,16 +141,23 @@ Phases, each of which exits non-zero on a failed check:
    and a profiled median step are printed. K4 is held against its plain
    version and timed beside SDPA's backward at CampNet's decoder shapes in
    the kernels phase.
+11. width override: one bf16 step of ``egs/spec_denoiser.yaml`` at ``-hp
+   residual_channels=128``, a width K1 and K5 are compiled for beside the
+   shipped 256, DiffNet's output projection drawn non-zero so that the
+   blocks get a gradient: the bf16 K1 and K5 launch 20 times each, and the
+   step agrees with the CPU's (BF16_* bars). A DiffNet block, an attention and a
+   mel outside their kernels' envelopes raise on the card (no caller gives
+   way to a plain version there).
 
 ``python3 chip_smoke.py --time-attention`` builds K3 and K4 only and times
 them and SDPA at those shapes, with no checks; ``--time-mel`` does the same
 for K2 at the edit shape beside the cuFFT composite. Run from a copy of
 another commit, either times that commit's kernels in the same call.
 
-Float32 throughout, with TF32 off for matrix products and cuDNN
-convolutions, so the card and the CPU compute the same function. The
-second-to-last line is ``{"kernels": [...]}``, the last
-``{"ok": true, "device": {...}}``.
+Float32 but for the bf16 phases, with TF32 off for matrix products and
+cuDNN convolutions and bf16 products reduced in float32, so the card and
+the CPU compute the same function. The second-to-last line is
+``{"kernels": [...]}``, the last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -170,12 +195,14 @@ from speech_editing_tpu_torch.infer.spec_denoiser import (SpecDenoiserInfer, req
 from speech_editing_tpu_torch.infer.vocoder import HifiGAN, get_vocoder_cls
 from speech_editing_tpu_torch.models.vocoder.hifigan import HifiGanGenerator
 from speech_editing_tpu_torch.ops.cuda import build
-from speech_editing_tpu_torch.ops.cuda.diffnet_block import (_fits64, _tile_plan,
+from speech_editing_tpu_torch.ops.cuda.diffnet_block import (WIDTHS, _fits64, _tile_plan,
                                                              diffnet_block,
                                                              diffnet_block_bwd,
                                                              diffnet_block_bwd_plain,
                                                              diffnet_block_plain,
                                                              diffnet_block_train)
+from speech_editing_tpu_torch.modules.transformer import MultiheadAttention
+from speech_editing_tpu_torch.modules.wavenet import DiffNetResidualBlock
 from speech_editing_tpu_torch.ops.cuda.mel_kernel import mel_spectrogram
 from speech_editing_tpu_torch.ops.flash_attention import (attention_bwd_plain,
                                                           attention_lse_plain,
@@ -186,8 +213,9 @@ from speech_editing_tpu_torch.ops.mel import MelConfig, mel_bases
 from speech_editing_tpu_torch.ops.mel import mel_spectrogram as mel_plain
 from speech_editing_tpu_torch.run import run as run_entry
 from speech_editing_tpu_torch.training.checkpoint import save_checkpoint
+from speech_editing_tpu_torch.training.tasks.spec_denoiser import SpecDenoiserTask
 from speech_editing_tpu_torch.training.tasks.stutter_speech import StutterPredictorTask
-from speech_editing_tpu_torch.training.trainer import Trainer
+from speech_editing_tpu_torch.training.trainer import Trainer, float32_on_card
 from speech_editing_tpu_torch.utils.audio.dsp import stft_window, wav2spec
 from speech_editing_tpu_torch.utils.audio.io import save_wav
 from speech_editing_tpu_torch.utils.init import init_like_flax
@@ -201,15 +229,25 @@ PEAK_FP32_FLOPS = 67e12     # H100 SXM, float32 outside the tensor cores
 # products each (3xTF32, as K1 and K5 run them) at 495 TFLOP/s dense
 PEAK_3XTF32_FLOPS = 495e12 / 3
 PEAK_HBM_BYTES = 3.35e12    # H100 SXM, bytes/s
+PEAK_BF16_FLOPS = 989e12    # H100 SXM, bf16 products on the tensor cores, dense
 SR, HOP = 22050, 256
 REQUEST_FRAMES = (512, 300, 700)
-EXPECTED_PER_REQUEST = {"diffnet_block": FLAGSHIP_HP["residual_layers"] * FLAGSHIP_HP["timesteps"],
-                        "diffnet_block_bwd": 0, "mel_spectrogram": 1,
-                        "flash_mha": FLAGSHIP_HP["enc_layers"], "flash_mha_bwd": 0}
-EXPECTED_PER_STEP = {"diffnet_block": FLAGSHIP_HP["residual_layers"],
-                     "diffnet_block_bwd": FLAGSHIP_HP["residual_layers"],
-                     "mel_spectrogram": 0, "flash_mha": FLAGSHIP_HP["enc_layers"],
-                     "flash_mha_bwd": FLAGSHIP_HP["enc_layers"]}
+# each kernel's launch counter: its wrapper and the attribute it counts in
+# (K1 and K5 count their float32 and bf16 forms apart)
+COUNTERS = {"diffnet_block": (diffnet_block, "launches"),
+            "diffnet_block_bf16": (diffnet_block, "launches_bf16"),
+            "diffnet_block_bwd": (diffnet_block_bwd, "launches"),
+            "diffnet_block_bwd_bf16": (diffnet_block_bwd, "launches_bf16"),
+            "mel_spectrogram": (mel_spectrogram, "launches"),
+            "flash_mha": (flash_mha, "launches"), "flash_mha_bwd": (flash_mha_bwd, "launches")}
+NO_LAUNCH = {k: 0 for k in COUNTERS}
+EXPECTED_PER_REQUEST = dict(
+    NO_LAUNCH, diffnet_block=FLAGSHIP_HP["residual_layers"] * FLAGSHIP_HP["timesteps"],
+    mel_spectrogram=1, flash_mha=FLAGSHIP_HP["enc_layers"])
+EXPECTED_PER_STEP = dict(
+    NO_LAUNCH, diffnet_block=FLAGSHIP_HP["residual_layers"],
+    diffnet_block_bwd=FLAGSHIP_HP["residual_layers"], flash_mha=FLAGSHIP_HP["enc_layers"],
+    flash_mha_bwd=FLAGSHIP_HP["enc_layers"])
 CPU_MEL_TOL = 2e-2
 # the train path: 78 x 512 = 39,936 frames, under the flagship's
 # max_tokens of 40,000 frames per step; 48 text tokens
@@ -220,6 +258,27 @@ SIL_IDS = (1, 2)          # the synthetic batch's silence tokens
 BWD_TOL = 1e-4            # backward kernels, relative to the reference's max
 STEP_LOSS_RTOL, STEP_GRAD_TOL = 1e-4, 1e-3
 STEP_PARAM_TOL, STEP_MOMENT_TOL = 1e-4, 1e-3
+# the bf16 kernels against their bf16 plain versions: two bf16 ulps of the
+# largest element (an f32 sum in another order flips a rounding; measured
+# up to 4.9e-3 on the card); K1 + K5 against autograd of the bf16 plain
+# forward, which rounds its backward at other places: four ulps (9.1e-3 on
+# the CPU)
+BF16_TOL, BF16_AUTOGRAD_TOL = 2.0 ** -6, 2.0 ** -5
+# a bf16 step on the card against the CPU's: the same bf16 arithmetic, the
+# f32 sums in another order, so the bars come from this comparison's own
+# readings (on the H100, after 1 to 35 steps: loss terms 7.6e-4-4.3e-3
+# relative; the worst gradient 2.8e-2-4.1e-2 and the median 4.7e-3-6.4e-3 in
+# relative L2; Adam moments 1.8e-3-3.3e-2; Adam directions 7.8e-3-2.6e-2 at
+# worst, median 5.8e-5-8.7e-4), 2.3-4 times over. An Adam step moves an
+# element by lr times u = m^ / (sqrt(v^) + eps), which rounding can flip only
+# where m is near 0. At the warmup's lr (under 1e-6) the float32 parameter's
+# own rounding hides the step, so u is compared, from each side's moments:
+# on the elements whose first moment is at least half its tensor's largest
+# on the CPU (away from a flip), within BF16_STEP_RTOL of the CPU's. At most
+# BF16_FLIPS of all elements moved apart by half their move (0.0007-0.0036
+# measured)
+BF16_LOSS_RTOL, BF16_GRAD_L2, BF16_GRAD_L2_MEDIAN = 1e-2, 0.1, 0.02
+BF16_STEP_RTOL, BF16_FLIPS = 0.1, 0.01
 
 
 def fail(msg: str) -> None:
@@ -295,12 +354,12 @@ def rel_err(got, ref) -> float:
 
 # -- kernel phases ---------------------------------------------------------------
 
-def block_inputs(gen, b: int, t: int = 512, ragged: bool = False):
-    """A DiffNet block's inputs at the flagship width, the last row with a
-    37-frame padded tail, or with ``ragged`` each row but the first padded
-    from a length drawn in [t/5, t], as a collated batch of utterances is:
-    (x, cond, step, mask, weights)."""
-    c, h = FLAGSHIP_HP["residual_channels"], FLAGSHIP_HP["hidden_size"]
+def block_inputs(gen, b: int, t: int = 512, ragged: bool = False, widths=None):
+    """A DiffNet block's inputs at the flagship width (or ``widths``, (C,
+    H)), the last row with a 37-frame padded tail, or with ``ragged`` each
+    row but the first padded from a length drawn in [t/5, t], as a collated
+    batch of utterances is: (x, cond, step, mask, weights)."""
+    c, h = widths or (FLAGSHIP_HP["residual_channels"], FLAGSHIP_HP["hidden_size"])
     r = lambda *s, scale=1.0: torch.randn(*s, device="cuda", generator=gen) * scale
     x, cond, step = r(b, t, c), r(b, t, h, scale=0.5), r(b, c, scale=0.3)
     mask = torch.ones(b, t, device="cuda")
@@ -331,11 +390,57 @@ def run_block_shapes():
     return [(RUN_B, t, 1) for t in (RUN_MAX_T, 500, 300)]
 
 
-def plan_text(name: str, b: int, t: int, dilation: int) -> str:
-    """The tile plan the wrapper of K1 or K5 (which takes no cluster) picks."""
-    rows, cluster = _tile_plan(b, t, _fits64(name, dilation))
+def plan_text(name: str, b: int, t: int, dilation: int, form: str = "f32",
+              c: int = FLAGSHIP_HP["residual_channels"],
+              h: int = FLAGSHIP_HP["hidden_size"]) -> str:
+    """The tile plan the wrapper of K1 or K5 (which takes no cluster) picks
+    for its ``form`` ("f32" or "bf16") at C=``c``, H=``h``."""
+    rows, cluster = _tile_plan(b, t, _fits64(name, dilation, form, c, h), c)
     split = cluster > 1 and name == "diffnet_block"
     return f"{rows}-row tiles{f' x cluster {cluster}' if split else ''}"
+
+
+def check_block_widths(gen) -> dict:
+    """K1 and K5, float32 and bf16, against their plain versions at the
+    widths they are compiled for beside the flagship's (``WIDTHS``): at B=1
+    x T=300 (16-row tiles, the largest cluster C allows), at B=4 x T=509
+    with dilation 2 and at B=16 x T=512 (64-row tiles), rows padded to
+    their own lengths (B=4, 16), K1 with h. The float32
+    forms at 1e-4 (K1, absolute) and BWD_TOL (K5, of the largest), the
+    bf16 forms at BF16_TOL; returns the worst error of each kernel."""
+    worst = dict.fromkeys(("diffnet_block", "diffnet_block_bf16", "diffnet_block_bwd",
+                           "diffnet_block_bwd_bf16"), 0.0)
+    flagship = (FLAGSHIP_HP["residual_channels"], FLAGSHIP_HP["hidden_size"])
+    for (c, h), dtype, (b, t, dilation, ragged) in itertools.product(
+            [w for w in WIDTHS if w != flagship], (torch.float32, torch.bfloat16),
+            ((1, 300, 1, False), (4, 509, 2, True), (16, 512, 1, True))):
+        bf = dtype == torch.bfloat16
+        x, cond, step, mask, w = block_inputs(gen, b, t, ragged, (c, h))
+        x, cond, step, mask = (v.to(dtype) for v in (x, cond, step, mask))
+        w = tuple(v.to(dtype) for v in w)
+        got = diffnet_block(x, cond, step, mask, *w, dilation=dilation, return_h=True)
+        ref = diffnet_block_plain(x, cond, step, mask, *w, dilation=dilation, return_h=True)
+        dxo, dsk = (torch.randn(b, t, c, device="cuda", generator=gen).to(dtype)
+                    for _ in range(2))
+        args = (got[2], dxo, dsk, mask, w[0], w[4], dilation)
+        got_b, ref_b = diffnet_block_bwd(*args), diffnet_block_bwd_plain(*args)
+        torch.cuda.synchronize()
+        f = lambda ts: [v.float() for v in ts]
+        err = (rel_err(f(got), f(ref)) if bf
+               else max(float((g - e).abs().max()) for g, e in zip(got, ref)))
+        err_b = rel_err(f(got_b), f(ref_b))
+        tol, tol_b = (BF16_TOL, BF16_TOL) if bf else (1e-4, BWD_TOL)
+        suffix, form = ("_bf16", "bf16") if bf else ("", "f32")
+        plan = plan_text("diffnet_block", b, t, dilation, form, c, h)
+        print(f"[kernel] C={c} H={h} {form} B={b} T={t} dilation={dilation}"
+              f"{', rows padded to their own lengths' if ragged else ''}: diffnet_block "
+              f"({plan}) err {err:.3e} (tol {tol:.3e}), diffnet_block_bwd err {err_b:.3e} "
+              f"(tol {tol_b:.3e})", flush=True)
+        check(err <= tol and err_b <= tol_b,
+              f"C={c} H={h} {dtype} B={b}: errors {err}, {err_b}")
+        worst["diffnet_block" + suffix] = max(worst["diffnet_block" + suffix], err)
+        worst["diffnet_block_bwd" + suffix] = max(worst["diffnet_block_bwd" + suffix], err_b)
+    return worst
 
 
 def phase_diffnet_block(gen) -> dict:
@@ -461,6 +566,125 @@ def phase_diffnet_block_bwd(gen) -> dict:
                 source="speech_editing_tpu_torch/csrc/diffnet_block_bwd.cu",
                 replaces="speech_editing_tpu/ops/pallas/diffnet_block.py:231",
                 tol=BWD_TOL, library_ms=None)
+
+
+# the bf16 run step's median batch (PERF.md section 5): B=16 x T=446, each
+# row padded to its own length
+BF16_B, BF16_T = 16, 446
+
+
+def bf16_block_inputs(gen, b: int, t: int, ragged: bool = False):
+    """:func:`block_inputs` in bf16, the mask too, as the bf16 step feeds K1."""
+    x, cond, step, mask, w = block_inputs(gen, b, t, ragged)
+    bf = torch.bfloat16
+    return x.to(bf), cond.to(bf), step.to(bf), mask.to(bf), tuple(v.to(bf) for v in w)
+
+
+def bf16_rate(flops: float, ms: float, bound_ms: float) -> str:
+    if ms <= 0:
+        return "no device time measured"
+    tflops = flops / ms / 1e9
+    return (f"{tflops:.1f} TFLOP/s ({tflops * 1e12 / PEAK_BF16_FLOPS:.3f} of the bf16 "
+            f"tensor-core rate), {bound_ms / ms:.3f} of the bound")
+
+
+def time_bf16_call(out: dict, call, plain, flops: float, n_bytes: int) -> str:
+    """Event time, the plain version's, the bound (bf16 FLOP at 989 TFLOP/s
+    or bytes at the HBM rate), device ms and operations a call and host us
+    a call of ``call``, into ``out``; returns their text."""
+    ms, plain_ms = time_ms(call), time_ms(plain)
+    bound_ms, bound_by = bound(flops, n_bytes, PEAK_BF16_FLOPS)
+    device_ms, ops = profile_calls(call)
+    us = host_us(call)
+    out.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+               device_ms=device_ms, ops_per_call=ops, host_us=us, gflop=flops / 1e9,
+               mbytes=n_bytes / 1e6)
+    return (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by}; {flops / 1e9:.2f} GFLOP, {n_bytes / 1e6:.1f} MB); "
+            f"{bf16_rate(flops, ms, bound_ms)}; {device_ms:.4f} ms device, {ops} device ops "
+            f"a call, host {us:.1f} us a call")
+
+
+def phase_diffnet_block_bf16(gen) -> dict:
+    """K1's bf16 form against its bf16 plain version at the edit's lengths
+    (B=1, T = 512, 300, 700), at B=4 with dilation 1, 2 and 3 (T=509, rows
+    padded to their own lengths) and at the bf16 run step's median batch
+    (B=16 x T=446, ragged, with h), timed there beside the float32 form."""
+    c, h = FLAGSHIP_HP["residual_channels"], FLAGSHIP_HP["hidden_size"]
+    out = {"max_abs_err": 0.0}
+    flops = lambda b, t: 2 * b * t * 2 * c * (3 * c + h + c)
+    shapes = [(1, 512, 1, False, False), (1, 300, 1, False, False), (1, 700, 1, False, False),
+              (4, 509, 1, True, False), (4, 509, 2, True, False), (4, 509, 3, True, False),
+              (BF16_B, BF16_T, 1, True, True)]
+    for b, t, dilation, ragged, train in shapes:
+        x, cond, step, mask, w = bf16_block_inputs(gen, b, t, ragged)
+        call = lambda fn: fn(x, cond, step, mask, *w, dilation=dilation, return_h=train)
+        got, ref = call(diffnet_block), call(diffnet_block_plain)
+        torch.cuda.synchronize()
+        check(all(g.dtype == torch.bfloat16 for g in got), "diffnet_block bf16: not bf16")
+        err = rel_err([g.float() for g in got], [e.float() for e in ref])
+        msg = (f"[kernel] diffnet_block bf16 B={b} T={t} dilation={dilation}"
+               f"{' (with h)' if train else ''}"
+               f"{', rows padded to their own lengths' if ragged else ''}, "
+               f"{plan_text('diffnet_block', b, t, dilation, 'bf16')}: max err {err:.3e} of "
+               f"the plain version's largest (tol {BF16_TOL:.3e})")
+        check(err <= BF16_TOL, f"diffnet_block bf16 B={b} T={t} d={dilation}: error {err}")
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        if train:
+            msg += time_bf16_call(out, lambda: call(diffnet_block),
+                                  lambda: call(diffnet_block_plain), flops(b, t),
+                                  nbytes(x, cond, step, mask, *w, *got))
+            f32 = [v.float() for v in (x, cond, step, mask, *w)]
+            f32_ms = time_ms(lambda: diffnet_block(*f32, dilation=1, return_h=True))
+            out["f32_ms"] = f32_ms
+            msg += f"; the float32 form at this shape {f32_ms:.4f} ms"
+        print(msg, flush=True)
+    return dict(out, name="diffnet_block_bf16", route="cuda",
+                source="speech_editing_tpu_torch/csrc/diffnet_block.cu",
+                replaces="speech_editing_tpu/ops/pallas/diffnet_block.py:139",
+                tol=BF16_TOL, library_ms=None)
+
+
+def phase_diffnet_block_bwd_bf16(gen) -> dict:
+    """K5's bf16 form against its bf16 plain version at B=4 with dilation 2
+    and 3 (T=509) and at the bf16 run step's median batch (B=16 x T=446,
+    rows padded to their own lengths), there also K1 + K5 (the autograd
+    Function) against autograd of the bf16 plain forward, and timed."""
+    c, out = FLAGSHIP_HP["residual_channels"], {"max_abs_err": 0.0}
+    for b, t, dilation in ((4, 509, 2), (4, 509, 3), (BF16_B, BF16_T, 1)):
+        x, cond, step, mask, w = bf16_block_inputs(gen, b, t, ragged=True)
+        dxo, dsk = (torch.randn(b, t, c, device="cuda", generator=gen).to(torch.bfloat16)
+                    for _ in range(2))
+        h = diffnet_block(x, cond, step, mask, *w, dilation=dilation, return_h=True)[2]
+        args = (h, dxo, dsk, mask, w[0], w[4], dilation)
+        got, ref = diffnet_block_bwd(*args), diffnet_block_bwd_plain(*args)
+        torch.cuda.synchronize()
+        err = rel_err([g.float() for g in got], [e.float() for e in ref])
+        check(err <= BF16_TOL, f"diffnet_block_bwd bf16 B={b} d={dilation}: error {err}")
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        msg = (f"[kernel] diffnet_block_bwd bf16 B={b} T={t} dilation={dilation}, rows padded "
+               f"to their own lengths, {plan_text('diffnet_block_bwd', b, t, dilation, 'bf16')}"
+               f": max err vs plain {err:.3e} (tol {BF16_TOL:.3e})")
+        if b == BF16_B:
+            leaves = [a.detach().requires_grad_() for a in (x, cond, step, *w)]
+
+            def grads(block):
+                lx, lc, ls, *lw = leaves
+                outs = block(lx, lc, ls, mask, *lw, dilation=dilation)
+                return [g.float() for g in torch.autograd.grad(outs, leaves, (dxo, dsk))]
+            err_ag = rel_err(grads(diffnet_block_train), grads(diffnet_block_plain))
+            check(err_ag <= BF16_AUTOGRAD_TOL, f"diffnet_block_bwd bf16 autograd: {err_ag}")
+            out["autograd_err"] = err_ag
+            msg += (f", K1 + K5 vs autograd of the plain forward {err_ag:.3e} (tol "
+                    f"{BF16_AUTOGRAD_TOL:.3e})")
+            msg += time_bf16_call(out, lambda: diffnet_block_bwd(*args),
+                                  lambda: diffnet_block_bwd_plain(*args), 16 * b * t * c * c,
+                                  nbytes(h, dxo, dsk, mask, w[0], w[4], *got))
+        print(msg, flush=True)
+    return dict(out, name="diffnet_block_bwd_bf16", route="cuda",
+                source="speech_editing_tpu_torch/csrc/diffnet_block_bwd.cu",
+                replaces="speech_editing_tpu/ops/pallas/diffnet_block.py:231",
+                tol=BF16_TOL, library_ms=None)
 
 
 # K2's shapes (batch, samples, hop): the edit's three requests, a ragged
@@ -920,18 +1144,14 @@ def time_attention(gen) -> None:
 
 # -- edit path -------------------------------------------------------------------
 
-COUNTERS = {"diffnet_block": diffnet_block, "diffnet_block_bwd": diffnet_block_bwd,
-            "mel_spectrogram": mel_spectrogram, "flash_mha": flash_mha,
-            "flash_mha_bwd": flash_mha_bwd}
-
-
 def reset_counts() -> None:
-    for fn in COUNTERS.values():
-        fn.launches = 0
+    """Launch counts to 0."""
+    for fn, attr in COUNTERS.values():
+        setattr(fn, attr, 0)
 
 
 def counts() -> dict:
-    return {name: fn.launches for name, fn in COUNTERS.items()}
+    return {name: getattr(fn, attr) for name, (fn, attr) in COUNTERS.items()}
 
 
 def utterance(n: int, seed: int) -> np.ndarray:
@@ -1233,14 +1453,16 @@ def relu_branches(masks: list, replay: bool):
 
 
 def compare_step_with_cpu(label: str, make_twin, state: dict, sub: dict,
-                          diffusion: bool = True) -> None:
+                          diffusion: bool = True, bf16: bool = False) -> None:
     """One step on ``sub``, a 2-utterance batch (host arrays of the step's
     keys), on the card and on the CPU (plain versions): twins from
     ``make_twin(device)`` with dropout off load ``state`` and, with
     ``diffusion``, take the same diffusion draw, and the CPU's ReLUs take
     the card's branches (``relu_branches``), so both differentiate the same
     function; losses, gradients, updated parameters and Adam moments must
-    agree."""
+    agree: at the float32 tolerances (STEP_*), or with ``bf16`` (a bf16
+    step, whose roundings an f32 sum in another order can flip) at the
+    BF16_* bars, gradients and moments in relative L2."""
     gen = torch.Generator().manual_seed(7)
     b, t = sub["mels"].shape[:2]
     draws = {}
@@ -1261,12 +1483,18 @@ def compare_step_with_cpu(label: str, make_twin, state: dict, sub: dict,
         named = dict(step.model.named_parameters())
         moment = lambda key: {n: step.optimizer.state[p][key].cpu()
                               for n, p in named.items()}
+        group = step.optimizer.param_groups[0]
+        adam = dict(count=float(step.optimizer.state[next(iter(named.values()))]["step"]),
+                    betas=group["betas"], eps=group["eps"])
         return dict(secs=secs, metrics={k: float(v) for k, v in metrics.items()},
                     flips=tally[0], grads={n: p.grad.cpu() for n, p in named.items()},
                     params={n: p.detach().cpu() for n, p in named.items()},
-                    exp_avg=moment("exp_avg"), exp_avg_sq=moment("exp_avg_sq"))
+                    exp_avg=moment("exp_avg"), exp_avg_sq=moment("exp_avg_sq"), adam=adam)
 
     gpu, cpu = (run(dev, replay=i == 1) for i, dev in enumerate(("cuda", "cpu")))
+    if bf16:
+        compare_bf16_step(label, gpu, cpu, state["model"], sum(m.numel() for m in masks))
+        return
     n_relu = sum(m.numel() for m in masks)
     loss_err = max(abs(gpu["metrics"][k] - v) / max(abs(v), 1e-12)
                    for k, v in cpu["metrics"].items() if k != "nan_grads")
@@ -1288,6 +1516,57 @@ def compare_step_with_cpu(label: str, make_twin, state: dict, sub: dict,
         check(worst[key][0] <= STEP_MOMENT_TOL, f"[{label}] B=2 step: {key} error {worst[key]}")
 
 
+def compare_bf16_step(label: str, gpu: dict, cpu: dict, before: dict, n_relu: int) -> None:
+    """The BF16_* bars over one bf16 step's results on the card and the CPU
+    (``compare_step_with_cpu``'s ``run``), from the parameters ``before``."""
+    loss_err = max(abs(gpu["metrics"][k] - v) / max(abs(v), 1e-12)
+                   for k, v in cpu["metrics"].items() if k != "nan_grads")
+    l2 = lambda key: sorted((float((gpu[key][n] - cpu[key][n]).norm()
+                                   / cpu[key][n].norm().clamp(min=1e-30)), n) for n in cpu[key])
+    grads, m1, m2 = l2("grads"), l2("exp_avg"), l2("exp_avg_sq")
+    median = grads[len(grads) // 2][0]
+    adam = cpu["adam"]
+    check(gpu["adam"] == adam, f"[{label}] bf16 step: Adam {gpu['adam']} != {adam}")
+    (b1, b2), eps, k = adam["betas"], adam["eps"], adam["count"]
+    direction = lambda side, n: (side["exp_avg"][n] / (1 - b1 ** k)) / (
+        (side["exp_avg_sq"][n] / (1 - b2 ** k)).sqrt() + eps)
+    worst_step, settled, rels, apart, total = (0.0, ""), 0, [], 0, 0
+    for n, p_cpu in cpu["params"].items():
+        m = cpu["exp_avg"][n].abs()
+        big = m >= 0.5 * float(m.max())
+        if float(m.max()) > 0:
+            u_cpu = direction(cpu, n)[big]
+            rel = (direction(gpu, n)[big] - u_cpu).abs() / u_cpu.abs()
+            settled += rel.numel()
+            rels.append(rel)
+            worst_step = max(worst_step, (float(rel.max()), n))
+        step_gpu = gpu["params"][n] - before[n].cpu()
+        step_cpu = p_cpu - before[n].cpu()
+        diff = (step_gpu - step_cpu).abs()
+        apart += int((diff > 0.5 * torch.maximum(step_gpu.abs(), step_cpu.abs())).sum())
+        total += diff.numel()
+    median_step = float(torch.cat(rels).median())
+    print(f"[{label}] B=2 bf16 step on the card vs the CPU ({cpu['secs']:.1f} s): loss terms "
+          f"max rel err {loss_err:.3e} (tol {BF16_LOSS_RTOL}); gradients in relative L2 max "
+          f"{grads[-1][0]:.3e} ({grads[-1][1]}), median {median:.3e} (tol {BF16_GRAD_L2}, "
+          f"{BF16_GRAD_L2_MEDIAN}); Adam moments {m1[-1][0]:.3e} / {m2[-1][0]:.3e} (tol "
+          f"{BF16_GRAD_L2}); Adam's direction m^ / (sqrt(v^) + eps) on the {settled} elements "
+          f"whose first moment is at least half their tensor's largest: relative error median "
+          f"{median_step:.3e}, worst {worst_step[0]:.3e} ({worst_step[1]}; tol "
+          f"{BF16_STEP_RTOL}); updated params moved apart at {apart} of {total} elements "
+          f"(tol {BF16_FLIPS}); loss {gpu['metrics']['total_loss']:.6f} vs "
+          f"{cpu['metrics']['total_loss']:.6f}; ReLU inputs on the other side of 0 on the "
+          f"CPU, given the card's branch: {cpu['flips']} of {n_relu}", flush=True)
+    check(loss_err <= BF16_LOSS_RTOL, f"[{label}] bf16 step: loss error {loss_err}")
+    check(grads[-1][0] <= BF16_GRAD_L2 and median <= BF16_GRAD_L2_MEDIAN,
+          f"[{label}] bf16 step: gradient error {grads[-1]}, median {median}")
+    check(max(m1[-1][0], m2[-1][0]) <= BF16_GRAD_L2,
+          f"[{label}] bf16 step: moments {m1[-1]}, {m2[-1]}")
+    check(settled > 0 and worst_step[0] <= BF16_STEP_RTOL,
+          f"[{label}] bf16 step: Adam direction error {worst_step} on the settled elements")
+    check(apart <= BF16_FLIPS * total, f"[{label}] bf16 step: {apart} of {total} apart")
+
+
 # -- run path --------------------------------------------------------------------
 
 # the synthetic corpus: VCTK-like utterances (150-700 frames, about 2-8 s at
@@ -1307,8 +1586,7 @@ RUN_RESUME_TO = 70
 RUN_B = 16              # egs/base.yaml's max_sentences: 16 x 700 frames is under max_tokens
 RUN_WARMUP = 5          # steps of the first run left out of its timings
 RUN_LAYERS = FLAGSHIP_HP["residual_layers"]   # egs/spec_denoiser.yaml's, as the flagship's
-EXPECTED_PER_RUN_STEP = {"diffnet_block": RUN_LAYERS, "diffnet_block_bwd": RUN_LAYERS,
-                         "mel_spectrogram": 0, "flash_mha": 0, "flash_mha_bwd": 0}
+EXPECTED_PER_RUN_STEP = dict(NO_LAUNCH, diffnet_block=RUN_LAYERS, diffnet_block_bwd=RUN_LAYERS)
 EXPECTED_PER_VALID_BATCH = dict(EXPECTED_PER_RUN_STEP, diffnet_block_bwd=0)
 
 
@@ -1588,6 +1866,189 @@ def run_path(smi: str, tmp: str) -> tuple[dict, dict]:
     return totals, stats
 
 
+# -- bf16 run path ---------------------------------------------------------------
+
+RUN_BF16_HP = ("max_updates=30,val_check_interval=30,num_sanity_val_steps=0,"
+               "eval_max_batches=4,tb_log_interval=10")
+RUN_BF16_STEPS, RUN_BF16_RESUME_TO, RUN_BF16_VALID = 30, 35, 4
+EXPECTED_PER_BF16_STEP = dict(NO_LAUNCH, diffnet_block_bf16=RUN_LAYERS,
+                              diffnet_block_bwd_bf16=RUN_LAYERS)
+
+
+def float_dtypes(state: dict) -> set:
+    """The dtypes of a saved state's floating parameters and Adam moments."""
+    tensors = list(state["model"].values()) + [
+        v for s in state["optimizer"]["state"].values() for k, v in s.items()
+        if k.startswith("exp_avg")]
+    return {t.dtype for t in tensors if t.is_floating_point()}
+
+
+def run_bf16_path(smi: str, tmp: str, data_dir: str) -> tuple[dict, dict]:
+    """``egs/spec_denoiser.yaml`` as shipped (``use_bf16: true``, no override)
+    through the training entry over the run path's corpus: 30 steps, a
+    validation of 4 batches and a checkpoint into ``tmp/checkpoints/run_bf16``,
+    then a resume to 35. Every step launches the bf16 K1 and K5 20 times each
+    and nothing else; every validation batch the float32 K1 20 times (JAX
+    validates in float32); the checkpoint holds float32
+    parameters and moments, which the resume restores bit for bit; a
+    2-utterance step on the card agrees with the CPU's at the BF16_* bars."""
+    q = lambda xs, p: float(np.percentile(xs, p))
+    work = os.path.join(tmp, "checkpoints", "run_bf16")
+    argv = ["--config", "egs/spec_denoiser.yaml", "--exp_name", work, "-hp",
+            f"binary_data_dir={data_dir},{RUN_BF16_HP}"]
+    first, second = RunRecorder(), RunRecorder()
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with first.instrumented():
+        trainer = run_entry(argv)
+    train_s = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(trainer.hp["use_bf16"] is True, "run bf16: the shipped config is not use_bf16")
+    with second.instrumented():
+        resumed = run_entry(argv[:-1] + [argv[-1] + f",max_updates={RUN_BF16_RESUME_TO}"])
+    totals = counts()
+    print(f"[run bf16] launches per step {first.steps[-1]['launches']}, per validation "
+          f"batch {first.valid[-1]}; totals {totals}", flush=True)
+    for rec in (first, second):
+        for st in rec.steps:
+            check(st["launches"] == EXPECTED_PER_BF16_STEP,
+                  f"run bf16 step {st['step']}: launches {st['launches']} != "
+                  f"{EXPECTED_PER_BF16_STEP}")
+            m = {k: float(v) for k, v in st["metrics"].items()}
+            check(all(np.isfinite(v) for v in m.values()) and m["nan_grads"] == 0,
+                  f"run bf16 step {st['step']}: non-finite metrics {m}")
+        for moved in rec.valid:
+            check(moved == EXPECTED_PER_VALID_BATCH,
+                  f"run bf16 validation batch: launches {moved} != {EXPECTED_PER_VALID_BATCH}")
+    check(len(first.steps) == RUN_BF16_STEPS and len(first.valid) == RUN_BF16_VALID,
+          f"run bf16: {len(first.steps)} steps, {len(first.valid)} validation batches")
+    ckpt = os.path.join(work, f"model_ckpt_steps_{RUN_BF16_STEPS}.ckpt")
+    saved = torch.load(ckpt, map_location="cpu", weights_only=True)["state"]
+    check(float_dtypes(saved) == {torch.float32},
+          f"run bf16: the checkpoint holds {float_dtypes(saved)}, not float32 only")
+    check(all(torch.isfinite(v).all() for v in saved["model"].values()),
+          "run bf16: non-finite parameters in the checkpoint")
+    check(second.steps[0]["step"] == RUN_BF16_STEPS + 1
+          and len(second.steps) == RUN_BF16_RESUME_TO - RUN_BF16_STEPS
+          and states_equal(second.loaded, saved),
+          "run bf16 resume: not from the checkpoint's float32 state bit for bit")
+    print(f"[run bf16] the checkpoint at {RUN_BF16_STEPS} holds float32 parameters and Adam "
+          f"moments; the resume started from them bit for bit and ran to "
+          f"{resumed.global_step}", flush=True)
+    timed = first.steps[RUN_WARMUP:]
+    ev = [st["event_ms"] for st in timed]
+    host = [st["host_ms"] for st in timed]
+    frames = sum(st["frames"] for st in timed)
+    stats = {"steps": len(first.steps) + len(second.steps), "timed_steps": len(timed),
+             "padded_frames_p50": q([st["shape"][1] for st in timed], 50),
+             "real_frames_per_step_mean": frames / len(timed),
+             "event_ms_p50": q(ev, 50), "event_ms_p75": q(ev, 75),
+             "host_ms_p50": q(host, 50), "host_ms_p75": q(host, 75),
+             "steps_per_s_host": 1e3 / q(host, 50),
+             "real_frames_per_s_host": frames / (sum(host) / 1e3),
+             "validation_s": first.validate_s, "peak_gib": peak_gib,
+             "train_s": train_s, "card": smi}
+    print(f"[run bf16] egs/spec_denoiser.yaml as shipped (bf16 steps, float32 masters and "
+          f"validation), {len(timed)} timed steps (of {RUN_BF16_STEPS}, after "
+          f"{RUN_WARMUP}), padded frames p50 {stats['padded_frames_p50']:.0f}, "
+          f"{stats['real_frames_per_step_mean']:.0f} real frames a step: host clock p50 "
+          f"{stats['host_ms_p50']:.3f} ms, p75 {stats['host_ms_p75']:.3f} ms "
+          f"({stats['steps_per_s_host']:.2f} steps/s, {stats['real_frames_per_s_host']:.0f} "
+          f"real frames/s); CUDA events p50 {stats['event_ms_p50']:.3f} ms; peak memory "
+          f"{peak_gib:.3f} GiB; validation {[round(v, 3) for v in first.validate_s]} s; "
+          f"{train_s:.1f} s for the first run; {smi}", flush=True)
+    mid = sorted(timed, key=lambda st: st["shape"][1])[len(timed) // 2]
+    raw = {k: v.pin_memory() if isinstance(v, torch.Tensor) else v
+           for k, v in mid["raw"].items()}
+    b, t = mid["shape"]
+    print(f"[run bf16] profiled batch: B={b} x T={t} ({mid['frames']} real frames; "
+          f"{plan_text('diffnet_block', b, t, 1, 'bf16')} for K1, "
+          f"{plan_text('diffnet_block_bwd', b, t, 1, 'bf16')} for K5), {mid['host_ms']:.3f} "
+          f"ms host clock in the run", flush=True)
+    busy_ms = profile_step(trainer, raw, mid["host_ms"], label=f"run bf16 B={b} x T={t}")
+    stats.update(profiled_batch=[b, t], profiled_host_ms=mid["host_ms"],
+                 profiled_busy_ms=busy_ms,
+                 profiled_busy_share=None if busy_ms is None else busy_ms / mid["host_ms"])
+    keys = resumed.task.effective_batch_keys()
+    compare_step_with_cpu("run bf16", lambda dev: Trainer(resumed.task, resumed.hp, dev,
+                                                          dropout=False),
+                          resumed.train_step.state_dict(), {k: raw[k][:2] for k in keys},
+                          bf16=True)
+    return totals, stats
+
+
+WIDTH_OVERRIDE = 128      # -hp residual_channels: compiled beside the shipped 256
+EXPECTED_WIDTH_STEP = dict(NO_LAUNCH, diffnet_block_bf16=RUN_LAYERS,
+                           diffnet_block_bwd_bf16=RUN_LAYERS)
+
+
+def check_outside_raises() -> list:
+    """On the card, a call outside a kernel's envelope raises, through the
+    module that calls it: a DiffNet block of 96 channels, a bf16 attention
+    and a mel with hop 250. Returns the messages."""
+    gen = torch.Generator().manual_seed(3)
+    block = DiffNetResidualBlock(FLAGSHIP_HP["hidden_size"], 96, dilation=1).cuda()
+    attn = MultiheadAttention(64, 2).cuda().to(torch.bfloat16)
+    x = torch.randn(2, 9, 96, generator=gen).cuda()
+    cases = [("diffnet_block", lambda: block(x, torch.randn(2, 9, FLAGSHIP_HP["hidden_size"],
+                                                            generator=gen).cuda(),
+                                            torch.randn(2, 96, generator=gen).cuda(), None)),
+             ("flash_mha", lambda: attn(torch.randn(2, 7, 64, generator=gen).cuda()
+                                        .to(torch.bfloat16))),
+             ("mel_spectrogram", lambda: mel_spectrogram(
+                 torch.randn(1, 4000, generator=gen).cuda(), MelConfig(hop_size=250)))]
+    messages = []
+    for name, call in cases:
+        before = counts()
+        try:
+            call()
+        except ValueError as e:
+            messages.append(str(e))
+            check(str(e).startswith(f"{name}: ") and "envelope" in str(e),
+                  f"outside the envelope: {name} raised {e}")
+        else:
+            fail(f"outside the envelope: {name} ran on the card")
+        check(counts() == before, f"outside the envelope: {name} launched a kernel")
+    print(f"[width] outside the envelopes the card raises: {messages}", flush=True)
+    return messages
+
+
+def width_override_path(smi: str, data_dir: str) -> dict:
+    """One step of ``egs/spec_denoiser.yaml`` (bf16, as shipped) at ``-hp
+    residual_channels=128`` on a batch of the run path's corpus: the bf16
+    K1 and K5 at C=128 launch 20 times each and nothing else, and the step
+    agrees with the CPU's (BF16_* bars); then :func:`check_outside_raises`."""
+    hp = load_config("egs/spec_denoiser.yaml")
+    hp.update(binary_data_dir=data_dir, residual_channels=WIDTH_OVERRIDE, ds_workers=0)
+    task = SpecDenoiserTask(hp)
+    trainer = Trainer(task, task.hp, "cuda")
+    # DiffNet's output projection drawn non-zero: at flax's zero init (and
+    # the warmup's lr of 0 at the first step) no gradient reaches the blocks
+    out = trainer.model.denoise_fn.output_projection.weight
+    with torch.no_grad():
+        out.copy_(0.02 * torch.randn(out.shape, generator=torch.Generator().manual_seed(5)))
+    with trainer._loader("train", shuffle=False) as loader:
+        raw = next(iter(loader))
+    reset_counts()
+    metrics = {k: float(v) for k, v in trainer.step(raw).items()}
+    torch.cuda.synchronize()
+    launches = counts()
+    b, t = raw["mels"].shape[:2]
+    print(f"[width] residual_channels={WIDTH_OVERRIDE}, bf16, B={b} x T={t} "
+          f"({plan_text('diffnet_block', b, t, 1, 'bf16', WIDTH_OVERRIDE)} for K1): launches "
+          f"{launches}; metrics finite {all(np.isfinite(v) for v in metrics.values())}",
+          flush=True)
+    check(launches == EXPECTED_WIDTH_STEP,
+          f"width override: launches {launches} != {EXPECTED_WIDTH_STEP}")
+    check(all(np.isfinite(v) for v in metrics.values()) and metrics["nan_grads"] == 0,
+          f"width override: metrics {metrics}")
+    compare_step_with_cpu("width", lambda dev: Trainer(task, task.hp, dev, dropout=False),
+                          trainer.train_step.state_dict(),
+                          {k: raw[k][:2] for k in task.effective_batch_keys()}, bf16=True)
+    return dict(batch=[b, t], launches=launches, raises=check_outside_raises(), card=smi)
+
+
 # -- infer path ------------------------------------------------------------------
 
 # the CSV edit API's requests: (seconds of source audio, f0, text, edited text,
@@ -1607,9 +2068,7 @@ CSV_ROWS = [
 CSV_ROUNDS = 10           # timed passes over the four requests
 CSV_TOL = 1e-3            # card vs CPU mel_out of one CSV request
 DUR_TOL = 1e-4            # card vs CPU predicted durations
-EXPECTED_PER_EDIT = {"diffnet_block": RUN_LAYERS * FLAGSHIP_HP["timesteps"],
-                     "diffnet_block_bwd": 0, "mel_spectrogram": 0, "flash_mha": 0,
-                     "flash_mha_bwd": 0}
+EXPECTED_PER_EDIT = dict(NO_LAUNCH, diffnet_block=RUN_LAYERS * FLAGSHIP_HP["timesteps"])
 
 
 def csv_wav(seconds: float, f0: float, seed: int) -> np.ndarray:
@@ -2801,7 +3260,6 @@ FAMILY_STEPS, FAMILY_VALID = 30, 4
 FAMILY_HP = (f"max_updates={FAMILY_STEPS},val_check_interval={FAMILY_STEPS},"
              f"num_sanity_val_steps=0,eval_max_batches={FAMILY_VALID},tb_log_interval=10,"
              f"test_num={FAMILY_SPLITS['test']},test_save_workers=1")
-NO_LAUNCH = {k: 0 for k in COUNTERS}
 # launches a step, a validation batch and a --infer item (one a batch)
 FAMILY_LAUNCHES = {
     "stutter_speech": (dict(NO_LAUNCH, diffnet_block=RUN_LAYERS, diffnet_block_bwd=RUN_LAYERS),
@@ -3000,9 +3458,9 @@ def main() -> None:
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
     print(f"[device] {kind} x{count}; torch {torch.__version__}, CUDA {torch.version.cuda}",
           flush=True)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    print("[device] float32 everywhere; TF32 off for matmul and cuDNN", flush=True)
+    float32_on_card()
+    print("[device] TF32 off for matmul and cuDNN; bf16 products reduce in float32",
+          flush=True)
 
     t0 = time.perf_counter()
     if timing:
@@ -3020,19 +3478,27 @@ def main() -> None:
                 print(f"[build] {name}: {line.strip()}", flush=True)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    kernels = [phase_diffnet_block(gen), phase_diffnet_block_bwd(gen), phase_mel(),
+    kernels = [phase_diffnet_block(gen), phase_diffnet_block_bf16(gen),
+               phase_diffnet_block_bwd(gen), phase_diffnet_block_bwd_bf16(gen), phase_mel(),
                phase_attention(gen), phase_attention_bwd(gen)]
+    widths = check_block_widths(gen)
+    for k in kernels:       # the other widths' errors count in each K1 and K5 form's
+        if k["name"] in widths:
+            k["widths_max_abs_err"] = widths[k["name"]]
+            k["max_abs_err"] = max(k["max_abs_err"], widths[k["name"]])
     edit_launches, rtf = edit_path(gen)
     train_launches, train = train_path()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_run_")
     try:
         run_launches, run_stats = run_path(smi, tmp)
         work, data_dir = os.path.join(tmp, "checkpoints", "run"), os.path.join(tmp, "data")
+        run_bf16_launches, run_bf16_stats = run_bf16_path(smi, tmp, data_dir)
         infer_launches, csv_launches, infer_stats, infer_frames = infer_path(
             smi, tmp, work, data_dir)
         serve_launches, serve_stats = serve_path(smi, tmp, work, data_dir)
         inplace_launches, inplace_stats = inplace_path(smi, tmp, data_dir)
         family_launches, family_stats = family_train_path(smi, tmp)
+        width_stats = width_override_path(smi, data_dir)
     finally:
         shutil.rmtree(tmp)
     block = kernels[0]
@@ -3044,6 +3510,7 @@ def main() -> None:
         k["launches_by_path"] = {"edit": edit_launches[k["name"]],
                                  "train": train_launches[k["name"]],
                                  "run": run_launches[k["name"]],
+                                 "run_bf16": run_bf16_launches[k["name"]],
                                  "infer": infer_launches[k["name"]],
                                  "csv_edit": csv_launches[k["name"]],
                                  "serve": serve_launches[k["name"]],
@@ -3057,14 +3524,16 @@ def main() -> None:
             "library_ms")
     check(inplace_launches["flash_mha"] > 0, "flash_mha was not launched on the in-place path")
     print(json.dumps({"edit_rtf": rtf, "train_step": train, "run": run_stats,
-                      "infer": infer_stats, "serve": serve_stats, "inplace": inplace_stats,
-                      "family_train": family_stats, "card": smi}))
+                      "run_bf16": run_bf16_stats, "infer": infer_stats, "serve": serve_stats,
+                      "inplace": inplace_stats, "family_train": family_stats,
+                      "width_override": width_stats, "card": smi}))
     print(smi)
     extra = ("warm_ms", "warm_plain_ms", "host_us", "train_ms", "train_plain_ms",
              "train_bound_ms", "train_device_ms", "train_ops_per_call", "train_host_us",
              "device_ms", "ops_per_call", "library_device_ms", "old_bound_ms", "cufft_ms",
              "cufft_device_ms", "cufft_ops_per_call", "shapes", "infer_max_abs_err",
-             "serve_max_abs_err", "campnet_shapes")
+             "serve_max_abs_err", "campnet_shapes", "f32_ms", "autograd_err", "gflop",
+             "mbytes", "widths_max_abs_err")
     print(json.dumps({"kernels": [{key: k[key] for key in keys + extra if key in k}
                                   for k in kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,4 +1,4 @@
-// DiffNet gated residual block, forward, float32, for sm_90a.
+// DiffNet gated residual block, forward, float32 and bf16, for sm_90a.
 //
 // Replaces the forward Pallas TPU kernel of
 // speech_editing_tpu/ops/pallas/diffnet_block.py (fused_diffnet_block ->
@@ -40,21 +40,37 @@
 //    through distributed shared memory and computes its share of x' and
 //    skip. That puts 128 CTAs on the card at T=512 instead of 32.
 // Nothing but x', skip and (for training) h is written to device memory.
+//
+// The bf16 form (diffnet_block_fwd_bf16) computes what _fwd_kernel computes
+// for bf16 inputs, and rounds where it rounds: y = (x + step) * mask is
+// formed in bf16; the products take bf16 operands and accumulate in f32
+// (bf16mma.cuh: one mma.sync m16n8k16 a k16 step); h = conv + cond @ Wc +
+// bf16(bd + bc) stays f32 for the gate and is stored as bf16; g is rounded to
+// bf16 before the Wo product; x' = (x + o[:C]) / sqrt(2) is computed in f32
+// and stored as bf16, skip = o[C:] too. The same tile plan, cluster split,
+// window and mbarrier ring as the float32 form, with bf16 tiles (the weight
+// ring read by ldmatrix .trans). Bound on the H100 at the run step's batch
+// (B=16, T=446): 2*B*T*2C*(3C + H + C) = 8.98 GFLOP at 989 TFLOP/s bf16,
+// 9.1 us, against about 22 MB moved (x, cond, x', skip, h; 6.6 us at
+// 3.35 TB/s): operations.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "bf16mma.cuh"
 #include "tf32x3.cuh"
 
 namespace cg = cooperative_groups;
 using namespace tf32x3;
+using bf16mma::bf16;
 
 namespace {
 
-// The DiffNet widths of every configuration (config/flagship.py,
-// egs/*.yaml): residual channels C, conditioner hidden size H. Compiled in,
-// so that every stride and chunk index is a constant.
-constexpr int C = 256, H = 192;
+// The residual channels C and conditioner hidden size H are template
+// parameters, so that every stride and chunk index is a constant. with_widths
+// below lists the pairs compiled: those of every shipped configuration
+// (config/flagship.py, egs/*.yaml: C = 256, H = 192) and C = 128 or H = 256
+// beside them.
 constexpr int NTHREADS = 256;    // 8 warps
 constexpr float RSQRT2 = 0.70710678118654752440f;
 
@@ -83,7 +99,7 @@ struct Plan<16> {
 
 // The weight ring and the y window, cond and g tiles, rows padded by 8 or 4
 // floats.
-template <int M>
+template <int C, int H, int M>
 size_t smem_bytes(int dil) {
   using P = Plan<M>;
   const int span = dil < M ? dil : M;
@@ -92,7 +108,7 @@ size_t smem_bytes(int dil) {
                           (size_t)M * (C + 4));
 }
 
-template <int M, int NC, int BK, int S, int MINB>
+template <int C, int H, int M, int NC, int BK, int S, int MINB>
 __global__ void __launch_bounds__(NTHREADS, MINB) diffnet_block_kernel(
     const float* __restrict__ x, const float* __restrict__ cond,
     const float* __restrict__ step, const float* __restrict__ mask,
@@ -101,6 +117,7 @@ __global__ void __launch_bounds__(NTHREADS, MINB) diffnet_block_kernel(
     const float* __restrict__ wo, const float* __restrict__ bo,
     float* __restrict__ xout, float* __restrict__ skip,
     float* __restrict__ hout, int T, int dil) {
+  static_assert(C % NC == 0 && C % BK == 0 && H % BK == 0, "widths off the plan's chunks");
   using Tl = Tiling<M, NC>;
   constexpr int MW = Tl::MW, WN = Tl::WN, NW = Tl::NW, WLD = ring_ld<NC>();
   extern __shared__ float4 smem4[];
@@ -273,19 +290,19 @@ __global__ void __launch_bounds__(NTHREADS, MINB) diffnet_block_kernel(
   }
 }
 
-template <int M>
+template <int C, int H, int M>
 auto kernel_of() {
   using P = Plan<M>;
-  return diffnet_block_kernel<M, P::NC, P::BK, P::S, P::MINB>;
+  return diffnet_block_kernel<C, H, M, P::NC, P::BK, P::S, P::MINB>;
 }
 
-template <int M>
+template <int C, int H, int M>
 int launch(const float* x, const float* cond, const float* step, const float* mask,
            const float* wd, const float* bd, const float* wc, const float* bc,
            const float* wo, const float* bo, float* xout, float* skip, float* hout,
            int B, int T, int dil, int cluster, cudaStream_t stream) {
-  const size_t smem = smem_bytes<M>(dil);
-  auto kernel = kernel_of<M>();
+  const size_t smem = smem_bytes<C, H, M>(dil);
+  auto kernel = kernel_of<C, H, M>();
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -306,24 +323,307 @@ int launch(const float* x, const float* cond, const float* step, const float* ma
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
+// -- bf16 ----------------------------------------------------------------------
+
+// A ring row of the bf16 form: a weight row's NC columns n, NC columns C + n
+// and 8 bf16 of padding (4 NC + 16 bytes, 16 mod 128: ldmatrix's row reads
+// fall on distinct banks). Activation tiles: rows of C + 8 and H + 8 bf16
+// (4 mod 32 words).
+template <int NC>
+__host__ __device__ constexpr int ring_ld_bf16() {
+  return 2 * NC + 8;
+}
+
+template <int M>
+struct PlanBf16;
+template <>
+struct PlanBf16<64> {
+  static constexpr int NC = 128, BK = 32, S = 3, MINB = 1;
+};
+template <>
+struct PlanBf16<16> {
+  static constexpr int NC = 64, BK = 32, S = 3, MINB = 2;
+};
+
+template <int C, int H, int M>
+size_t smem_bytes_bf16(int dil) {
+  using P = PlanBf16<M>;
+  const int span = dil < M ? dil : M;
+  return sizeof(bf16) * ((size_t)P::S * P::BK * ring_ld_bf16<P::NC>() +
+                         (size_t)(M + 2 * span) * (C + 8) + (size_t)M * (H + 8) +
+                         (size_t)M * (C + 8));
+}
+
+template <int C, int H, int M, int NC, int BK, int S, int MINB>
+__global__ void __launch_bounds__(NTHREADS, MINB) diffnet_block_bf16_kernel(
+    const bf16* __restrict__ x, const bf16* __restrict__ cond,
+    const bf16* __restrict__ step, const bf16* __restrict__ mask,
+    const bf16* __restrict__ wd, const bf16* __restrict__ bd,
+    const bf16* __restrict__ wc, const bf16* __restrict__ bc,
+    const bf16* __restrict__ wo, const bf16* __restrict__ bo,
+    bf16* __restrict__ xout, bf16* __restrict__ skip,
+    bf16* __restrict__ hout, int T, int dil) {
+  static_assert(C % NC == 0 && C % BK == 0 && H % BK == 0, "widths off the plan's chunks");
+  using Tl = Tiling<M, NC>;
+  constexpr int MW = Tl::MW, WN = Tl::WN, NW = Tl::NW, WLD = ring_ld_bf16<NC>();
+  extern __shared__ float4 smem4[];
+  __shared__ Ring<S, NTHREADS / 32> bars;
+  const int span = min(dil, M);
+  constexpr int ldy = C + 8, ldc = H + 8;
+  bf16* ring = reinterpret_cast<bf16*>(smem4);       // [S][BK][WLD]
+  bf16* ys = ring + S * BK * WLD;                    // [M + 2 span][C + 8]
+  bf16* cs = ys + (M + 2 * span) * ldy;              // [M][H + 8]
+  bf16* gs = cs + M * ldc;                           // [M][C + 8]
+
+  const int csize = gridDim.x, rank = blockIdx.x;    // cluster (csize, 1, 1)
+  const int b = blockIdx.z, t0 = blockIdx.y * M;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int row0 = warp / WN * MW * 16;
+  const int col0 = warp % WN * NW * 8;
+  constexpr int C2 = 2 * C, K1 = 3 * C + H;
+  constexpr int q1 = K1 / BK, q2 = C / BK;
+  const int cq = C / csize;
+  const int n1 = cq / NC * q1, n_all = n1 + cq / NC * q2;
+  const int yrows = M + 2 * span;
+  constexpr int cv = C / 8, hv = H / 8;              // 16-byte vectors a row
+
+  auto chunk = [&](int i, int& nc, int& k0) {
+    if (i < n1) {
+      nc = i / q1;
+      k0 = i % q1 * BK;
+      return false;
+    }
+    nc = (i - n1) / q2;
+    k0 = (i - n1) % q2 * BK;
+    return true;
+  };
+  auto source = [&](int i) -> const bf16* {
+    if (i >= n_all) return nullptr;
+    int nc, k0;
+    const bool p2 = chunk(i, nc, k0);
+    const bf16* w = p2 ? wo + (size_t)k0 * C2
+                       : k0 < 3 * C ? wd + (size_t)k0 * C2 : wc + (size_t)(k0 - 3 * C) * C2;
+    return w + rank * cq + nc * NC;
+  };
+  auto fill = [&](int c) {
+    const bf16* w = source(c);
+    if (w == nullptr) return;
+    bars.acquire(c);
+    bf16* dst = ring + c % S * BK * WLD;
+    for (int e = tid; e < BK * NC / 4; e += NTHREADS) {
+      const int r = e / (NC / 4), half = e / (NC / 8) % 2, col = e % (NC / 8) * 8;
+      cp_async16(dst + r * WLD + half * NC + col, w + (size_t)r * C2 + half * C + col);
+    }
+    bars.commit(c);
+  };
+
+  if (tid == 0) bars.init();
+  __syncthreads();
+
+  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int e = tid; e < yrows * cv; e += NTHREADS) {
+    const int w = e / cv, c = e % cv * 8, t = window_time(w, t0, M, dil);
+    if (t >= 0 && t < T)
+      cp_async16(ys + w * ldy + c, x + ((size_t)b * T + t) * C + c);
+    else
+      *reinterpret_cast<float4*>(ys + w * ldy + c) = zero4;
+  }
+  for (int e = tid; e < M * hv; e += NTHREADS) {
+    const int r = e / hv, c = e % hv * 8, t = t0 + r;
+    if (t < T)
+      cp_async16(cs + r * ldc + c, cond + ((size_t)b * T + t) * H + c);
+    else
+      *reinterpret_cast<float4*>(cs + r * ldc + c) = zero4;
+  }
+  cp_async_commit();
+  for (int c = 0; c < S - 1; ++c) fill(c);
+  cp_async_wait_all();
+  __syncthreads();
+  // y = bf16(x + step) * mask, each product rounded to bf16 as the Pallas
+  // kernel's bf16 arithmetic rounds it
+  for (int e = tid; e < yrows * (C / 2); e += NTHREADS) {
+    const int w = e / (C / 2), c = e % (C / 2) * 2, t = window_time(w, t0, M, dil);
+    if (t < 0 || t >= T) continue;
+    const float m = mask != nullptr ? __bfloat162float(mask[(size_t)b * T + t]) : 1.f;
+    const float2 xv = bf16mma::ld2(ys + w * ldy + c);
+    const float2 sv = bf16mma::ld2(step + (size_t)b * C + c);
+    bf16mma::st2(ys + w * ldy + c, bf16mma::round_bf16(xv.x + sv.x) * m,
+                 bf16mma::round_bf16(xv.y + sv.y) * m);
+  }
+  __syncthreads();
+
+  float acc[MW][2 * NW][4];
+  zero(acc);
+  const auto bofs = [](int n) { return n / NW * NC + n % NW * 8; };
+
+  for (int i = 0; i < n_all; ++i) {
+    if (i == n1) __syncthreads();  // g is complete
+    if (i == n1 && csize > 1) {
+      cg::cluster_group cluster = cg::this_cluster();
+      cluster.sync();
+      const int qv = cq / 8;
+      for (int p = 0; p < csize; ++p) {
+        if (p == rank) continue;
+        const bf16* peer = cluster.map_shared_rank(gs, p);
+        for (int e = tid; e < M * qv; e += NTHREADS) {
+          const int off = e / qv * ldy + p * cq + e % qv * 8;
+          *reinterpret_cast<float4*>(gs + off) = *reinterpret_cast<const float4*>(peer + off);
+        }
+      }
+      cluster.sync();
+    }
+
+    int nc, k0;
+    const bool p2 = chunk(i, nc, k0);
+    const bf16* a;
+    int lda = ldy;
+    if (p2) {
+      a = gs + k0;
+    } else if (k0 < 3 * C) {
+      const int tap = k0 / C;
+      a = ys + tap * span * ldy + (k0 - tap * C);
+    } else {
+      a = cs + (k0 - 3 * C);
+      lda = ldc;
+    }
+    bars.wait(i);
+    bf16mma::chunk_mma<BK, true>(acc, a + row0 * lda, lda, ring + i % S * BK * WLD + col0, WLD,
+                                 bofs, lane, [&](int j) {
+                                   if (j == BK / 16 - 1) fill(i + S - 1);
+                                 });
+    bars.release(i, lane);
+    if (k0 + BK != (p2 ? C : K1)) continue;
+
+    const int gc = rank * cq + nc * NC + col0;
+#pragma unroll
+    for (int mi = 0; mi < MW; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < NW; ++ni)
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int r = row0 + mi * 16 + (lane >> 2) + hr * 8, t = t0 + r;
+          const int j = gc + ni * 8 + 2 * (lane & 3);
+          const float lo0 = acc[mi][ni][2 * hr], lo1 = acc[mi][ni][2 * hr + 1];
+          const float hi0 = acc[mi][NW + ni][2 * hr], hi1 = acc[mi][NW + ni][2 * hr + 1];
+          if (!p2) {
+            // the biases add in bf16 (bd + bc), then into the f32 sum
+            const float2 b0 = bf16mma::ld2(bd + j), b1 = bf16mma::ld2(bc + j);
+            const float2 b2 = bf16mma::ld2(bd + C + j), b3 = bf16mma::ld2(bc + C + j);
+            const float ha0 = lo0 + bf16mma::round_bf16(b0.x + b1.x);
+            const float ha1 = lo1 + bf16mma::round_bf16(b0.y + b1.y);
+            const float hb0 = hi0 + bf16mma::round_bf16(b2.x + b3.x);
+            const float hb1 = hi1 + bf16mma::round_bf16(b2.y + b3.y);
+            bf16mma::st2(gs + r * ldy + j, 1.f / (1.f + expf(-ha0)) * tanhf(hb0),
+                         1.f / (1.f + expf(-ha1)) * tanhf(hb1));
+            if (hout != nullptr && t < T) {
+              bf16* hrow = hout + ((size_t)b * T + t) * C2;
+              bf16mma::st2(hrow + j, ha0, ha1);
+              bf16mma::st2(hrow + C + j, hb0, hb1);
+            }
+          } else if (t < T) {
+            const size_t idx = ((size_t)b * T + t) * C + j;
+            const float2 xv = bf16mma::ld2(x + idx), o0 = bf16mma::ld2(bo + j);
+            const float2 o1 = bf16mma::ld2(bo + C + j);
+            bf16mma::st2(xout + idx, (xv.x + (lo0 + o0.x)) * RSQRT2,
+                         (xv.y + (lo1 + o0.y)) * RSQRT2);
+            bf16mma::st2(skip + idx, hi0 + o1.x, hi1 + o1.y);
+          }
+        }
+    zero(acc);
+  }
+}
+
+template <int C, int H, int M>
+auto kernel_of_bf16() {
+  using P = PlanBf16<M>;
+  return diffnet_block_bf16_kernel<C, H, M, P::NC, P::BK, P::S, P::MINB>;
+}
+
+template <int C, int H, int M>
+int launch_bf16(const bf16* x, const bf16* cond, const bf16* step, const bf16* mask,
+                const bf16* wd, const bf16* bd, const bf16* wc, const bf16* bc,
+                const bf16* wo, const bf16* bo, bf16* xout, bf16* skip, bf16* hout,
+                int B, int T, int dil, int cluster, cudaStream_t stream) {
+  const size_t smem = smem_bytes_bf16<C, H, M>(dil);
+  auto kernel = kernel_of_bf16<C, H, M>();
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, (T + M - 1) / M, B);
+  cfg.blockDim = dim3(NTHREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, x, cond, step, mask, wd, bd, wc, bc, wo, bo, xout,
+                           skip, hout, T, dil);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+}
+
+// The pairs (C, H) compiled, as ops/cuda/diffnet_block.py's WIDTHS lists
+// them: f(Widths<C, H>{}) for the pair (c, h), `other` for any other.
+template <int C_, int H_>
+struct Widths {
+  static constexpr int C = C_, H = H_;
+};
+
+template <typename F>
+int with_widths(int c, int h, int other, F&& f) {
+  if (c == 256 && h == 192) return f(Widths<256, 192>{});
+  if (c == 128 && h == 192) return f(Widths<128, 192>{});
+  if (c == 256 && h == 256) return f(Widths<256, 256>{});
+  if (c == 128 && h == 256) return f(Widths<128, 256>{});
+  return other;
+}
+
+// Whether the plan of m rows a tile takes this cluster at C: 64-row tiles no
+// cluster; 16-row tiles 1, 2 or 4 CTAs, each with whole NC-column chunks.
+template <int C>
+bool plan_ok(int m, int cluster, int nc16) {
+  if (m == 64) return cluster == 1;
+  return m == 16 && (cluster == 1 || cluster == 2 || cluster == 4) && C / cluster % nc16 == 0;
+}
+
 }  // namespace
 
 // 1 if the plan of m rows a tile (64 or 16) fits in a block's shared memory
-// on the current device at dilation dil, else 0. The wrapper's tile plan
-// asks this before it takes 64-row tiles.
-extern "C" int diffnet_block_fwd_fits(int m, int dil) {
-  if (m == 64) return smem_bytes<64>(dil) <= max_dynamic_smem(kernel_of<64>());
-  if (m == 16) return smem_bytes<16>(dil) <= max_dynamic_smem(kernel_of<16>());
-  return 0;
+// on the current device at dilation dil and widths (c, h), else 0. The
+// wrapper's tile plan asks this before it takes 64-row tiles.
+extern "C" int diffnet_block_fwd_fits(int m, int dil, int c, int h) {
+  return with_widths(c, h, 0, [&](auto w) -> int {
+    constexpr int C = decltype(w)::C, H = decltype(w)::H;
+    if (m == 64) return smem_bytes<C, H, 64>(dil) <= max_dynamic_smem(kernel_of<C, H, 64>());
+    if (m == 16) return smem_bytes<C, H, 16>(dil) <= max_dynamic_smem(kernel_of<C, H, 16>());
+    return 0;
+  });
+}
+
+// The same for the bf16 form.
+extern "C" int diffnet_block_fwd_bf16_fits(int m, int dil, int c, int h) {
+  return with_widths(c, h, 0, [&](auto w) -> int {
+    constexpr int C = decltype(w)::C, H = decltype(w)::H;
+    if (m == 64)
+      return smem_bytes_bf16<C, H, 64>(dil) <= max_dynamic_smem(kernel_of_bf16<C, H, 64>());
+    if (m == 16)
+      return smem_bytes_bf16<C, H, 16>(dil) <= max_dynamic_smem(kernel_of_bf16<C, H, 16>());
+    return 0;
+  });
 }
 
 // x, xout, skip [B, T, C]; cond [B, T, H]; step [B, C]; mask [B, T] or null;
 // hout [B, T, 2C] or null; wd [3C, 2C]; wc [H, 2C]; wo [C, 2C]; biases [2C];
 // every pointer 16-byte aligned. The tile plan: m rows per CTA (64 or 16) and
-// cluster CTAs splitting the gate columns (1 at 64 rows; 1, 2 or 4 at 16).
-// Requires C = 256 and H = 192 (the wrapper checks both); returns
-// cudaErrorInvalidValue otherwise, and the launch's error where the plan's
-// shared memory does not fit (diffnet_block_fwd_fits).
+// cluster CTAs splitting the gate columns (1 at 64 rows; 1, 2 or 4 at 16,
+// each CTA with a multiple of 64 of them). Returns cudaErrorInvalidValue for
+// widths not compiled (with_widths) or a plan it does not take, and the
+// launch's error where the plan's shared memory does not fit
+// (diffnet_block_fwd_fits).
 extern "C" int diffnet_block_fwd_f32(const float* x, const float* cond,
                                      const float* step, const float* mask,
                                      const float* wd, const float* bd,
@@ -333,12 +633,33 @@ extern "C" int diffnet_block_fwd_f32(const float* x, const float* cond,
                                      int B, int T, int c, int h, int dil,
                                      int m, int cluster, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (c != C || h != H) return (int)cudaErrorInvalidValue;
-  if (m == 64 && cluster == 1)
-    return launch<64>(x, cond, step, mask, wd, bd, wc, bc, wo, bo, xout, skip, hout, B, T, dil,
-                      1, s);
-  if (m == 16 && (cluster == 1 || cluster == 2 || cluster == 4))
-    return launch<16>(x, cond, step, mask, wd, bd, wc, bc, wo, bo, xout, skip, hout, B, T, dil,
-                      cluster, s);
-  return (int)cudaErrorInvalidValue;
+  return with_widths(c, h, (int)cudaErrorInvalidValue, [&](auto w) -> int {
+    constexpr int C = decltype(w)::C, H = decltype(w)::H;
+    if (!plan_ok<C>(m, cluster, Plan<16>::NC)) return (int)cudaErrorInvalidValue;
+    return m == 64 ? launch<C, H, 64>(x, cond, step, mask, wd, bd, wc, bc, wo, bo, xout, skip,
+                                      hout, B, T, dil, 1, s)
+                   : launch<C, H, 16>(x, cond, step, mask, wd, bd, wc, bc, wo, bo, xout, skip,
+                                      hout, B, T, dil, cluster, s);
+  });
+}
+
+// The bf16 form: every tensor bf16 (mask too), the same shapes, plan and
+// rules as diffnet_block_fwd_f32 (its fit: diffnet_block_fwd_bf16_fits).
+extern "C" int diffnet_block_fwd_bf16(const bf16* x, const bf16* cond,
+                                      const bf16* step, const bf16* mask,
+                                      const bf16* wd, const bf16* bd,
+                                      const bf16* wc, const bf16* bc,
+                                      const bf16* wo, const bf16* bo,
+                                      bf16* xout, bf16* skip, bf16* hout,
+                                      int B, int T, int c, int h, int dil,
+                                      int m, int cluster, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return with_widths(c, h, (int)cudaErrorInvalidValue, [&](auto w) -> int {
+    constexpr int C = decltype(w)::C, H = decltype(w)::H;
+    if (!plan_ok<C>(m, cluster, PlanBf16<16>::NC)) return (int)cudaErrorInvalidValue;
+    return m == 64 ? launch_bf16<C, H, 64>(x, cond, step, mask, wd, bd, wc, bc, wo, bo, xout,
+                                           skip, hout, B, T, dil, 1, s)
+                   : launch_bf16<C, H, 16>(x, cond, step, mask, wd, bd, wc, bc, wo, bo, xout,
+                                           skip, hout, B, T, dil, cluster, s);
+  });
 }

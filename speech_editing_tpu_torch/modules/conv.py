@@ -22,6 +22,7 @@ from torch import nn
 
 from speech_editing_tpu_torch.modules.predictors import dropout as drop
 from speech_editing_tpu_torch.modules.transformer import TokenEmbedding
+from speech_editing_tpu_torch.utils.dtypes import gelu, weak
 
 
 class _GroupNorm(nn.GroupNorm):
@@ -70,8 +71,8 @@ class ResidualBlock(nn.Module):
         for norm, conv, _, _, proj in self.blocks:
             # the norm's output is masked before the conv, so a padded frame
             # reads as zeros in its neighbours' windows
-            h = conv_same(conv, norm(x) * nonpadding) * self.kernel_size ** -0.5
-            h = conv_same(proj, F.gelu(h))
+            h = conv_same(conv, norm(x) * nonpadding) * weak(self.kernel_size ** -0.5, x)
+            h = conv_same(proj, gelu(h))
             if train and self.dropout > 0:
                 h = drop(h, self.dropout, generator)
             x = (x + h) * nonpadding
@@ -116,7 +117,8 @@ class TextConvEncoder(ConvBlocks):
 
     def forward(self, txt_tokens: torch.Tensor) -> torch.Tensor:
         """txt_tokens [B, S] -> [B, S, out_dims], zero at padding."""
-        x = math.sqrt(self.hidden_size) * self.embed_tokens(txt_tokens)
+        x = self.embed_tokens(txt_tokens)
+        x = weak(math.sqrt(self.hidden_size), x) * x
         nonpadding = (txt_tokens != 0)[:, :, None].to(x.dtype)
         return super().forward(x, nonpadding)
 

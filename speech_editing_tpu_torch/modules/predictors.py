@@ -8,6 +8,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from speech_editing_tpu_torch.utils.dtypes import Softplus
+
 
 def dropout(x: torch.Tensor, rate: float,
             generator: torch.Generator | None = None) -> torch.Tensor:
@@ -56,7 +58,7 @@ class DurationPredictor(_ConvStack):
     def __init__(self, idim: int, n_chans: int = 384, n_layers: int = 2,
                  kernel_size: int = 3, dropout_rate: float = 0.1):
         super().__init__(idim, n_chans, n_layers, kernel_size,
-                         nn.Sequential(nn.Linear(n_chans, 1), nn.Softplus()),
+                         nn.Sequential(nn.Linear(n_chans, 1), Softplus()),
                          dropout_rate)
 
     def forward(self, x, x_padding=None, train=False, generator=None):

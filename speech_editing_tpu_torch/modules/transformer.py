@@ -17,6 +17,7 @@ from torch import nn
 
 from speech_editing_tpu_torch.ops.flash_attention import NEG_INF, flash_mha, flash_mha_train
 from speech_editing_tpu_torch.ops.seq_ops import make_positions
+from speech_editing_tpu_torch.utils.dtypes import gelu, weak
 
 
 class TokenEmbedding(nn.Embedding):
@@ -83,7 +84,8 @@ class MultiheadAttention(nn.Module):
         tk = kv.shape[1]
         h, d = self.num_heads, e // self.num_heads
         w = self.in_proj_weight
-        q = F.linear(query, w[:e]).view(b, tq, h, d) * d ** -0.5
+        q = F.linear(query, w[:e]).view(b, tq, h, d)
+        q = q * weak(d ** -0.5, q)
         k = F.linear(kv, w[e:2 * e]).view(b, tk, h, d)
         v = F.linear(kv, w[2 * e:]).view(b, tk, h, d)
         if return_weights:
@@ -120,8 +122,9 @@ class ConvFFN(nn.Module):
         y = x.transpose(1, 2)
         if self.padding == "SAME":
             y = F.pad(y, ((k - 1) // 2, k // 2))
-        y = self.ffn_1(y).transpose(1, 2) * k ** -0.5
-        return self.ffn_2(F.gelu(y))
+        y = self.ffn_1(y).transpose(1, 2)
+        y = y * weak(k ** -0.5, y)
+        return self.ffn_2(gelu(y))
 
 
 class EncSALayer(nn.Module):
@@ -165,7 +168,8 @@ class FastSpeechEncoder(nn.Module):
     def forward(self, txt_tokens: torch.Tensor) -> torch.Tensor:
         padding_mask = txt_tokens == 0
         nonpad = (~padding_mask)[:, :, None].float()
-        x = math.sqrt(self.hidden_size) * self.embed_tokens(txt_tokens)
+        x = self.embed_tokens(txt_tokens)
+        x = weak(math.sqrt(self.hidden_size), x) * x
         x = (x + sinusoidal_positional_embedding(txt_tokens, self.hidden_size)) * nonpad
         for layer in self.layers:
             x = layer.op(x, padding_mask) * nonpad

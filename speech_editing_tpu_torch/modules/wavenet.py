@@ -3,7 +3,9 @@ the Glow-TTS gated conv stack of the stutter predictor's decoder.
 
 DiffNet: spec ``[B, T, M]`` -> ``[B, T, M]``. Every gated residual block
 runs through kernel K1 (``ops/cuda/diffnet_block.py``), and, when autograd
-records, its backward through kernel K5. Parameter names follow the
+records, its backward through kernel K5; on the card a block outside the
+kernels' envelope (``diffnet_block_takes``: the widths compiled, float32 or
+bf16) raises, and runs with ``--device cpu``. Parameter names follow the
 reference torch DiffNet (``residual_layers.{i}.dilated_conv`` and so on).
 
 WN is plain convolutions (no kernel of its own), named as the reference's
@@ -23,6 +25,7 @@ from speech_editing_tpu_torch.modules.conv import conv_same
 from speech_editing_tpu_torch.modules.predictors import dropout as drop
 from speech_editing_tpu_torch.ops.cuda.diffnet_block import (diffnet_block,
                                                              diffnet_block_train)
+from speech_editing_tpu_torch.utils.dtypes import Mish, weak
 
 
 class WN(nn.Module):
@@ -119,7 +122,7 @@ class DiffNet(nn.Module):
         super().__init__()
         c = residual_channels
         self.input_projection = nn.Conv1d(in_dims, c, 1)
-        self.mlp = nn.Sequential(nn.Linear(c, 4 * c), nn.Mish(), nn.Linear(4 * c, c))
+        self.mlp = nn.Sequential(nn.Linear(c, 4 * c), Mish(), nn.Linear(4 * c, c))
         self.residual_layers = nn.ModuleList(
             DiffNetResidualBlock(encoder_hidden, c, 2 ** (i % dilation_cycle_length))
             for i in range(residual_layers))
@@ -135,13 +138,15 @@ class DiffNet(nn.Module):
         x = F.relu(F.linear(spec, self.input_projection.weight[:, :, 0],
                             self.input_projection.bias))
         c = x.shape[-1]
-        step = self.mlp(diffusion_step_embedding(diffusion_step, c))
+        # in the activations' dtype before the MLP, as JAX casts it: a
+        # float32 embedding would meet bf16 weights
+        step = self.mlp(diffusion_step_embedding(diffusion_step, c).to(x.dtype))
         weights = self.kernel_weights() if weights is None else weights
         skip_sum = torch.zeros_like(x)
         for layer, w in zip(self.residual_layers, weights):
             x, skip = layer(x, cond, step, nonpadding, w)
             skip_sum = skip_sum + skip
-        x = skip_sum / math.sqrt(len(self.residual_layers))
+        x = skip_sum / weak(math.sqrt(len(self.residual_layers)), skip_sum)
         x = F.relu(F.linear(x, self.skip_projection.weight[:, :, 0],
                             self.skip_projection.bias))
         return F.linear(x, self.output_projection.weight[:, :, 0],

@@ -101,13 +101,13 @@ def kernel_function(name: str, symbol: str, argtypes: list):
 
 # -- launch helpers shared by the wrappers -------------------------------------
 
-def check_tensor(t, name: str, shape: tuple, device) -> None:
-    """Raise unless ``t`` is a contiguous float32 tensor of ``shape`` on
-    ``device`` (what every kernel of this package takes)."""
+def check_tensor(t, name: str, shape: tuple, device, dtype=torch.float32) -> None:
+    """Raise unless ``t`` is a contiguous tensor of ``dtype`` (float32, or
+    bfloat16 for the kernels that take it) and ``shape`` on ``device``."""
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise ValueError(f"{name}: dtype {t.dtype}, expected float32")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():

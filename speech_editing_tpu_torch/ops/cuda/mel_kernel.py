@@ -5,6 +5,8 @@ Its plain version is ``ops/mel.py::mel_spectrogram``; the source note in
 the ``.cu`` file gives the bound and the design (a real FFT of n_fft = 1024
 in shared memory, one launch). The host tables it reads are made here:
 the window, the FFT's twiddles and the mel filterbank packed band by band.
+:func:`mel_kernel_takes` states K2's envelope; on the card a call outside it
+raises, naming the kernel and the configuration.
 """
 
 from __future__ import annotations
@@ -81,12 +83,19 @@ def _device_tables(cfg: MelConfig, device: torch.device) -> tuple[torch.Tensor, 
                  for a in mel_tables(cfg))
 
 
+def mel_kernel_takes(cfg: MelConfig, dtype=torch.float32) -> bool:
+    """Whether K2 runs this configuration: n_fft = 1024, a hop that is a
+    multiple of 4 up to n_fft, at most 128 mel bands, a float32 wav."""
+    hop = cfg.hop_size
+    return (cfg.fft_size == N_FFT and hop % 4 == 0 and 0 < hop <= N_FFT
+            and cfg.num_mels <= MAX_MELS and dtype == torch.float32)
+
+
 def mel_spectrogram(wav: torch.Tensor, cfg: MelConfig = MelConfig()) -> torch.Tensor:
     """[B, N] (or [N]) float32 wav -> [B, N // hop + 1, num_mels] log10 mel.
 
-    A CPU tensor takes the plain version; a CUDA tensor launches K2, which
-    takes n_fft = 1024, a hop that is a multiple of 4 up to n_fft, and at
-    most 128 mel bands."""
+    A CPU tensor takes the plain version; a CUDA tensor launches K2, and
+    raises outside :func:`mel_kernel_takes`."""
     if wav.dim() == 1:
         wav = wav[None]
     if wav.device.type == "cpu":
@@ -94,9 +103,10 @@ def mel_spectrogram(wav: torch.Tensor, cfg: MelConfig = MelConfig()) -> torch.Te
     if wav.device.type != "cuda":
         raise ValueError(f"mel_spectrogram: unsupported device {wav.device}")
     hop = cfg.hop_size
-    if cfg.fft_size != N_FFT or hop % 4 or not 0 < hop <= N_FFT or cfg.num_mels > MAX_MELS:
-        raise ValueError(f"mel_spectrogram: unsupported n_fft={cfg.fft_size}, hop={hop}, "
-                         f"num_mels={cfg.num_mels}")
+    if not mel_kernel_takes(cfg, wav.dtype):
+        raise ValueError(f"mel_spectrogram: n_fft={cfg.fft_size}, hop={hop}, "
+                         f"num_mels={cfg.num_mels}, dtype {wav.dtype} is outside the kernel's "
+                         "envelope; run it on the CPU")
     b, n = wav.shape
     check_tensor(wav, "wav", (b, n), wav.device)
     window, twiddles, weights, bands = _device_tables(cfg, wav.device)

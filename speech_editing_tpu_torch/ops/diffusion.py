@@ -81,15 +81,20 @@ class DiffusionSchedule:
             num_timesteps=int(timesteps))
 
 
-def _bcast(buf: torch.Tensor, t: torch.Tensor, ndim: int) -> torch.Tensor:
-    return buf[t].reshape(t.shape[0], *([1] * (ndim - 1)))
+def _bcast(buf: torch.Tensor, t: torch.Tensor, ndim: int, dtype=None) -> torch.Tensor:
+    """``buf[t]`` shaped to broadcast over an ``ndim`` tensor with a leading
+    batch, cast to ``dtype`` when given: the activations' dtype, so that a
+    float32 coefficient does not promote a bf16 path back to float32."""
+    out = buf[t].reshape(t.shape[0], *([1] * (ndim - 1)))
+    return out if dtype is None else out.to(dtype)
 
 
 def q_sample(sched: DiffusionSchedule, x_start: torch.Tensor, t: torch.Tensor,
              noise: torch.Tensor) -> torch.Tensor:
-    """Forward-diffuse x0 to x_t."""
-    return (_bcast(sched.sqrt_alphas_cumprod, t, x_start.ndim) * x_start
-            + _bcast(sched.sqrt_one_minus_alphas_cumprod, t, x_start.ndim) * noise)
+    """Forward-diffuse x0 to x_t, in the dtype of ``x_start``."""
+    d, nd = x_start.dtype, x_start.ndim
+    return (_bcast(sched.sqrt_alphas_cumprod, t, nd, d) * x_start
+            + _bcast(sched.sqrt_one_minus_alphas_cumprod, t, nd, d) * noise.to(d))
 
 
 def diffuse(sched: DiffusionSchedule, x_start: torch.Tensor, t: torch.Tensor,
@@ -105,9 +110,9 @@ def q_posterior_sample(sched: DiffusionSchedule, x0_pred: torch.Tensor,
                        noise: torch.Tensor) -> torch.Tensor:
     """Sample x_{t-1} ~ q(x_{t-1} | x_t, x0_pred) with the given noise;
     deterministic at t=0."""
-    nd = x_t.ndim
-    mean = (_bcast(sched.posterior_mean_coef1, t, nd) * x0_pred
-            + _bcast(sched.posterior_mean_coef2, t, nd) * x_t)
-    log_var = _bcast(sched.posterior_log_variance_clipped, t, nd)
+    d, nd = x_t.dtype, x_t.ndim
+    mean = (_bcast(sched.posterior_mean_coef1, t, nd, d) * x0_pred.to(d)
+            + _bcast(sched.posterior_mean_coef2, t, nd, d) * x_t)
+    log_var = _bcast(sched.posterior_log_variance_clipped, t, nd, d)
     nonzero = (t > 0).to(x_t.dtype).reshape(-1, *([1] * (nd - 1)))
-    return mean + nonzero * torch.exp(0.5 * log_var) * noise
+    return mean + nonzero * torch.exp(0.5 * log_var) * noise.to(d)

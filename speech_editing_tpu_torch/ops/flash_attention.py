@@ -8,7 +8,9 @@ custom VJP. The plain forward is the einsum path of ``MultiheadAttention``
 logsumexp only when a gradient is needed; :class:`FlashAttentionFunction`
 ties K3 and K4 together. Each is one launch per call, its products on the
 tensor cores at float32 accuracy; the source notes in the ``.cu`` files
-give each kernel's bound and design.
+give each kernel's bound and design. :func:`flash_mha_takes` states their
+envelope (head widths up to 128, float32); on the card a call outside it
+raises, naming the kernel and the shape.
 """
 
 from __future__ import annotations
@@ -25,6 +27,19 @@ NEG_INF = -1e9
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _FWD_ARGTYPES = [_P] * 6 + [_I] * 5 + [_P]
 _BWD_ARGTYPES = [_P] * 10 + [_I] * 5 + [_P]
+_MAX_D = 128        # the widest head the kernels are compiled for
+
+
+def flash_mha_takes(d: int, dtype) -> bool:
+    """Whether K3 and K4 run heads of width ``d`` in ``dtype``: d up to 128,
+    float32."""
+    return 0 < d <= _MAX_D and dtype == torch.float32
+
+
+def _check_envelope(who: str, d: int, dtype) -> None:
+    if not flash_mha_takes(d, dtype):
+        raise ValueError(f"{who}: head width {d}, dtype {dtype} is outside the kernel's "
+                         f"envelope (d up to {_MAX_D}, float32); run it on the CPU")
 
 
 def attention_plain(q, k, v, key_padding_mask=None):
@@ -75,8 +90,7 @@ def flash_mha(q, k, v, key_padding_mask=None, return_lse: bool = False):
         raise ValueError(f"flash_mha: unsupported device {q.device}")
     b, tq, h, d = q.shape
     tk = k.shape[1]
-    if d > 128:
-        raise ValueError(f"flash_mha: head width {d} > 128")
+    _check_envelope("flash_mha", d, q.dtype)
     check_tensor(q, "q", (b, tq, h, d), q.device)
     check_tensor(k, "k", (b, tk, h, d), q.device)
     check_tensor(v, "v", (b, tk, h, d), q.device)
@@ -120,8 +134,7 @@ def flash_mha_bwd(q, k, v, o, lse, do, key_padding_mask=None):
         raise ValueError(f"flash_mha_bwd: unsupported device {q.device}")
     b, tq, h, d = q.shape
     tk = k.shape[1]
-    if d > 128:
-        raise ValueError(f"flash_mha_bwd: head width {d} > 128")
+    _check_envelope("flash_mha_bwd", d, q.dtype)
     for name, tensor, shape in (("q", q, (b, tq, h, d)), ("k", k, (b, tk, h, d)),
                                 ("v", v, (b, tk, h, d)), ("o", o, (b, tq, h, d)),
                                 ("do", do, (b, tq, h, d)), ("lse", lse, (b, h, tq))):

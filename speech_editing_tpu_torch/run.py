@@ -10,10 +10,11 @@ name among its own tasks (``TASKS``) and never imports the named module.
 It runs on the GPU unless ``--device cpu`` is given. The ported tasks are
 the six editing families of ``egs/``: FluentSpeech (``spec_denoiser``),
 StutterSpeech and its stutter predictor, CampNet, A3T and EditSpeech. The
-shipped ``egs/spec_denoiser.yaml`` sets ``use_bf16: true``, which the port
-does not run yet: pass ``-hp use_bf16=False`` to train in float32, as the
-config's comment describes the reference's training (the other five
-configs train in float32 as shipped).
+shipped ``egs/spec_denoiser.yaml`` sets ``use_bf16: true``: its steps run
+in bf16 against float32 master weights (``training/train_state.py``), its
+validation and ``--infer`` in float32, as in the JAX package; ``-hp
+use_bf16=False`` trains it in float32 (the other five configs train in
+float32 as shipped).
 """
 
 from __future__ import annotations

@@ -8,7 +8,8 @@ in ``model_ckpt_best.pt`` replaces it, as in the JAX package's
 ``training/checkpoint.py``.
 
 The JAX package's checkpoints (a pickled flax ``TrainState`` and optax
-states of numpy arrays) load too, their parameters only: a restricted
+states of numpy arrays) load too, their parameters and the adamw chain's
+state (Adam's count and moments, the schedule's count): a restricted
 unpickler maps every JAX, flax, optax and JAX-package class to a plain
 stand-in, so loading one imports none of them.
 """
@@ -116,8 +117,41 @@ def _plain_tree(node: Any) -> Any:
     raise TypeError(f"unexpected {type(node).__name__} in a JAX parameter tree")
 
 
+def _optax_states(node: Any, found: dict) -> None:
+    """Every optax state stand-in in ``node`` (an optimizer state: nested
+    tuples of states), by class name. The chain's layout depends on the
+    clip transforms before adamw, so the states are found by name."""
+    if isinstance(node, _StandIn):
+        found.setdefault(type(node).__name__, []).append(node)
+        children = node.args
+    elif isinstance(node, (tuple, list)):
+        children = node
+    else:
+        return
+    for child in children:
+        _optax_states(child, found)
+
+
+def _adam_state(opt_state: Any) -> Optional[dict]:
+    """``{"count", "mu", "nu", "schedule_count"}`` of the adamw chain of
+    ``build_optimizer`` (``ScaleByAdamState`` and, for a scheduled lr,
+    ``ScaleByScheduleState``), or None where there is no Adam state."""
+    found: dict = {}
+    _optax_states(opt_state, found)
+    adam, sched = found.get("ScaleByAdamState", []), found.get("ScaleByScheduleState", [])
+    if not adam:
+        return None
+    if len(adam) > 1 or len(sched) > 1:
+        raise ValueError(f"a JAX optimizer state with {len(adam)} Adam and {len(sched)} "
+                         "schedule states")
+    count, mu, nu = adam[0].args
+    return {"count": int(np.asarray(count)), "mu": _plain_tree(mu), "nu": _plain_tree(nu),
+            "schedule_count": int(np.asarray(sched[0].args[0])) if sched else None}
+
+
 def load_jax_checkpoint(path: str) -> dict:
-    """A JAX package checkpoint -> ``{"jax_params": numpy tree, "steps",
+    """A JAX package checkpoint -> ``{"jax_params": numpy tree, "jax_adam":
+    see :func:`_adam_state` (None where the state holds none), "steps",
     "epoch", "val_loss"}``, without importing JAX. A HiFi-GAN checkpoint
     gives its generator's parameters: a ``GanTrainState`` keeps them in its
     ``gen_params`` field (its ``params`` is a property, which pickle does
@@ -130,8 +164,9 @@ def load_jax_checkpoint(path: str) -> dict:
     params = _plain_tree(fields["gen_params"] if "gen_params" in fields else fields["params"])
     if "gen" in params and "disc" in params:
         params = params["gen"]
-    return {"jax_params": params, "steps": int(payload["steps"]),
-            "epoch": int(payload.get("epoch", 0)), "val_loss": payload.get("val_loss")}
+    return {"jax_params": params, "jax_adam": _adam_state(fields.get("opt_state")),
+            "steps": int(payload["steps"]), "epoch": int(payload.get("epoch", 0)),
+            "val_loss": payload.get("val_loss")}
 
 
 def load_checkpoint(path: str, map_location: Any = "cpu") -> dict:

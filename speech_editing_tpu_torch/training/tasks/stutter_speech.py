@@ -31,6 +31,7 @@ from speech_editing_tpu_torch.training.losses import (add_mel_loss, cross_entrop
                                                       dur_loss, multi_focal_loss,
                                                       pitch_loss, sil_token_mask)
 from speech_editing_tpu_torch.training.tasks.base import BaseTask
+from speech_editing_tpu_torch.training.tasks.spec_denoiser import SpecDenoiserTask
 from speech_editing_tpu_torch.utils.convert_jax_params import (
     stutter_predictor_params_from_jax, stutter_speech_params_from_jax,
     text_conv_encoder_params_from_jax)
@@ -60,6 +61,7 @@ def _step(batch: dict, default: float, like: torch.Tensor) -> torch.Tensor:
 class StutterSpeechTask(BaseTask):
     array_batch_keys = ("txt_tokens", "mels", "mel2ph", "f0", "uv", "time_mel_masks",
                         "stutter_mel_masks")
+    runs_bf16 = SpecDenoiserTask.runs_bf16     # the same text encoder
 
     def build_model(self) -> StutterGaussianDiffusion:
         return init_like_flax(StutterGaussianDiffusion(
@@ -101,6 +103,7 @@ class StutterSpeechTask(BaseTask):
 
 
 class StutterPredictorTask(BaseTask):
+    runs_bf16 = SpecDenoiserTask.runs_bf16
     array_batch_keys = ("txt_tokens", "mels", "mel2ph", "stutter_mel_masks")
 
     @property

@@ -2,11 +2,20 @@
 and the validation step.
 
 The counterpart of the JAX package's ``make_train_step`` and
-``make_eval_step`` without a mesh or bf16. When any gradient is non-finite
+``make_eval_step`` without a mesh. When any gradient is non-finite
 the update is skipped whole: the parameters, Adam's moments, Adam's count
 and the schedule's count stay as they were, ``nan_grads`` is 1, and the
 step counter still advances. The finiteness check reads one scalar back to
 the host each step (the JAX step selects on the device instead).
+
+``use_bf16`` is JAX's ``bf16_wrap``: the loss runs the model on bf16 copies
+of its float parameters and on the batch with every floating entry cast to
+bf16 (``global_step`` too, which the step adds first), and its total is
+cast back to float32. The casts' backward returns float32 gradients to the
+float32 masters; the gradient norm, clipping, the NaN tripwire, AdamW and
+the checkpoints stay float32. Not ``torch.autocast``, whose per-op lists
+keep some ops in float32, and no loss scaling: bf16 keeps float32's
+exponent range. The eval step is never wrapped, as in JAX.
 """
 
 from __future__ import annotations
@@ -15,10 +24,46 @@ from typing import Any, Callable
 
 import torch
 from torch import nn
+from torch.func import functional_call
 
 from speech_editing_tpu_torch.training.optim import (all_finite, build_lr_schedule,
                                                      build_optimizer,
                                                      clip_gradients, global_norm)
+
+
+def cast_floats(batch: dict, dtype) -> dict:
+    """``batch`` with every floating tensor cast to ``dtype``; integer and
+    boolean entries as they are (JAX's ``_cast_floats``)."""
+    return {k: v.to(dtype) if torch.is_tensor(v) and v.is_floating_point() else v
+            for k, v in batch.items()}
+
+
+class _LossCall(nn.Module):
+    """Holds the model as a submodule so that ``functional_call`` can swap
+    its parameters for the duration of one call of ``loss_fn``."""
+
+    def __init__(self, model: nn.Module, loss_fn: Callable):
+        super().__init__()
+        self.model, self.loss_fn = model, loss_fn
+
+    def forward(self, batch, generator, draws):
+        return self.loss_fn(batch, generator=generator, **draws)
+
+
+def bf16_loss(model: nn.Module, loss_fn: Callable) -> Callable:
+    """``loss_fn`` run in bf16 against float32 master parameters (JAX's
+    ``bf16_wrap``): ``wrapped(batch, generator=None, **draws) -> (total
+    float32, losses)``."""
+    call = _LossCall(model, loss_fn)
+
+    def wrapped(batch, generator=None, **draws):
+        params = {f"model.{name}": p.to(torch.bfloat16) if p.is_floating_point() else p
+                  for name, p in model.named_parameters()}
+        total, losses = functional_call(call, params,
+                                        (cast_floats(batch, torch.bfloat16), generator, draws))
+        return total.float(), losses
+
+    return wrapped
 
 
 class TrainStep:
@@ -27,11 +72,12 @@ class TrainStep:
     ``nan_grads``, as 0-d tensors. ``loss_fn(batch, generator=None, **draws)
     -> (total, losses)`` is the task's loss over ``model``; the draws it
     fixes (``t`` and ``noise`` of a diffusion step, EditSpeech's
-    ``teacher_forcing``) are passed on when given."""
+    ``teacher_forcing``) are passed on when given. ``hp["use_bf16"]`` runs
+    it through :func:`bf16_loss`."""
 
     def __init__(self, model: nn.Module, hp: Any, loss_fn: Callable):
         self.model, self.hp = model, hp
-        self.loss_fn = loss_fn
+        self.loss_fn = bf16_loss(model, loss_fn) if hp.get("use_bf16") else loss_fn
         self.params = [p for p in model.parameters() if p.requires_grad]
         self.optimizer = build_optimizer(hp, self.params)
         self.schedule = build_lr_schedule(hp)
@@ -69,6 +115,22 @@ class TrainStep:
         return {"model": self.model.state_dict(),
                 "optimizer": self.optimizer.state_dict(),
                 "step": self.step, "updates": self.updates}
+
+    def load_moments(self, mu: dict, nu: dict, count: int,
+                     schedule_count: int | None = None) -> None:
+        """Adam's moments (``state_dict``s in the model's names, as a task's
+        ``params_from_jax`` maps optax's ``mu`` and ``nu``) and its count,
+        which is also the count the schedule reads (``updates``); a JAX
+        schedule count that differs from Adam's raises."""
+        if schedule_count is not None and schedule_count != count:
+            raise ValueError(f"Adam's count {count} != the schedule's count {schedule_count}")
+        names = {p: name for name, p in self.model.named_parameters()}
+        for p in self.params:
+            self.optimizer.state[p] = {
+                "step": torch.tensor(float(count)),
+                "exp_avg": mu[names[p]].to(p.device, p.dtype).clone(),
+                "exp_avg_sq": nu[names[p]].to(p.device, p.dtype).clone()}
+        self.updates = count
 
     def load_state_dict(self, state: dict) -> None:
         """Load a state from any device onto this step's device."""

@@ -34,9 +34,6 @@ _INT_KEYS = ("txt_tokens", "mel2ph", "spk_ids", "stutter_mel_masks")
 
 def check_supported(hp: Any) -> None:
     """Raise on the settings the port does not run yet."""
-    if hp.get("use_bf16"):
-        raise NotImplementedError("use_bf16: true is not ported (ROADMAP Queue 2 item 1); "
-                                  "set use_bf16=False to train in float32")
     if int(hp.get("accumulate_grad_batches", 1) or 1) > 1:
         raise NotImplementedError("accumulate_grad_batches > 1 is not ported (ROADMAP Queue 1)")
     if int(hp.get("tp_size", 1) or 1) > 1:
@@ -55,9 +52,12 @@ def cuda_or_cpu(device: Any, who: str) -> torch.device:
 def float32_on_card() -> None:
     """Float32 matrix products and cuDNN convolutions on the card, not TF32
     (cuDNN's default): the port computes in float32, as its checks against
-    the CPU hold it. The command lines call it."""
+    the CPU hold it; and bf16 products that reduce in float32 (no bf16
+    split-K reduction), as JAX's ``preferred_element_type=f32`` asks. The
+    command lines call it."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 class Trainer:
@@ -69,6 +69,12 @@ class Trainer:
 
     def __init__(self, task: Any, hp: Any, device: Any = "cuda", dropout: bool = True):
         check_supported(hp)
+        if hp.get("use_bf16") and not task.runs_bf16(hp):
+            raise NotImplementedError(
+                f"use_bf16 with {type(task).__name__} and encoder_type "
+                f"{hp.get('encoder_type')} is not ported: its modules meet float32 tensors "
+                "with bf16 weights, which flax promotes and torch refuses (ROADMAP Queue 1 "
+                "item 1); set use_bf16=False")
         self.device = cuda_or_cpu(device, "Trainer")
         self.task, self.hp = task, hp
         self.work_dir = hp.get("work_dir") or os.path.join(
@@ -133,17 +139,23 @@ class Trainer:
     def _build_state(self) -> None:
         """Resume from the work dir's last checkpoint, if any: a port
         checkpoint restores the parameters, Adam's moments and the counts; a
-        JAX one, through the task's converter, the parameters and the step
-        count, with a fresh optimizer."""
+        JAX one, through the task's converter (a layout map, which carries
+        Adam's moments as it carries the parameters), the parameters, Adam's
+        moments and count, the schedule's count and the step count."""
         ckpt_path, _ = get_last_checkpoint(self.work_dir)
         if ckpt_path is not None:
             payload = load_checkpoint(ckpt_path, map_location=self.device)
             if "jax_params" in payload:
-                self.model.load_state_dict(
-                    self.task.params_from_jax(payload["jax_params"], self.hp))
+                to_sd = lambda tree: self.task.params_from_jax(tree, self.hp)
+                self.model.load_state_dict(to_sd(payload["jax_params"]))
                 self.train_step.step = payload["steps"]
-                print(f"| loaded the parameters of JAX checkpoint {ckpt_path} (step "
-                      f"{self.global_step}); the optimizer starts fresh", flush=True)
+                adam = payload["jax_adam"]
+                if adam is None:
+                    raise ValueError(f"{ckpt_path}: no Adam state in the JAX checkpoint")
+                self.train_step.load_moments(to_sd(adam["mu"]), to_sd(adam["nu"]),
+                                             adam["count"], adam["schedule_count"])
+                print(f"| loaded JAX checkpoint {ckpt_path} (step {self.global_step}): "
+                      f"parameters, Adam's moments and {adam['count']} updates", flush=True)
             else:
                 self.train_step.load_state_dict(payload["state"])
                 print(f"| loaded checkpoint {ckpt_path} (step {self.global_step})",

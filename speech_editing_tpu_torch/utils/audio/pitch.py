@@ -11,6 +11,8 @@ import math
 import numpy as np
 import torch
 
+from speech_editing_tpu_torch.utils.dtypes import weak
+
 
 def f0_to_coarse(f0: torch.Tensor, f0_bin: int = 256, f0_max: float = 900.0,
                  f0_min: float = 50.0) -> torch.Tensor:
@@ -20,9 +22,12 @@ def f0_to_coarse(f0: torch.Tensor, f0_bin: int = 256, f0_max: float = 900.0,
     """
     f0_mel_min = 1127 * math.log(1 + f0_min / 700)
     f0_mel_max = 1127 * math.log(1 + f0_max / 700)
-    f0_mel = 1127 * torch.log(1 + f0 / 700)
-    scaled = (f0_mel - f0_mel_min) * (f0_bin - 2) / (f0_mel_max - f0_mel_min) + 1
-    f0_mel = torch.where(f0_mel > 0, scaled, f0_mel)
+    # as the JAX package computes it in bf16: f0_mel in the input's dtype,
+    # with the scalars rounded to it; the scaling in float32 (its constants
+    # are numpy float32 there, which promote)
+    f0_mel = weak(1127, f0) * torch.log(1 + f0 / weak(700, f0))
+    scaled = (f0_mel.float() - f0_mel_min) * (f0_bin - 2) / (f0_mel_max - f0_mel_min) + 1
+    f0_mel = torch.where(f0_mel > 0, scaled, f0_mel.float())
     return torch.round(f0_mel.clamp(1, f0_bin - 1)).long()
 
 

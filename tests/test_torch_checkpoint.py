@@ -122,9 +122,11 @@ print("LOADED")
 
 def test_jax_checkpoint_loads_into_the_port_without_jax(tmp_path):
     """JAX ``save_checkpoint`` of a ``TrainState`` with its optax states ->
-    the port's ``Trainer`` resumes from it (parameters and step count, a
-    fresh optimizer) in a process without JAX, and its conditioner's
-    outputs equal the JAX model's with those parameters."""
+    the port's ``Trainer`` resumes from it (parameters, step count, and the
+    fresh state's Adam moments and count of 0 updates; a state that has
+    taken steps: ``test_torch_resume_jax.py``) in a process without JAX,
+    and its conditioner's outputs equal the JAX model's with those
+    parameters."""
     jm, params, _, _ = _jax()
     state = TrainState.create(params, j_optimizer(HP)).replace(step=np.int32(7))
     work = tmp_path / "work"
@@ -142,7 +144,7 @@ def test_jax_checkpoint_loads_into_the_port_without_jax(tmp_path):
     res = subprocess.run([sys.executable, "-c", _LOAD_IN_PORT, arg], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
-    assert "LOADED" in res.stdout and "the optimizer starts fresh" in res.stdout
+    assert "LOADED" in res.stdout and "Adam's moments and 0 updates" in res.stdout
     got = np.load(out)
     for key in ("dur", "pitch_pred", "cond"):
         np.testing.assert_allclose(got[key], np.asarray(ref[key]), **TOL, err_msg=key)

@@ -3,8 +3,9 @@ on the CPU: a tiny config over ``egs/spec_denoiser.yaml`` and a tiny
 synthetic corpus train N steps with sanity and interval validation and
 rolling checkpoints, a second run resumes at N, ``--validate`` validates
 the last checkpoint, the eval loss of one validation batch equals the JAX
-package's eval step with the same injected draws, and the settings the
-port does not run yet raise (``--infer`` itself is tested in
+package's eval step with the same injected draws, the shipped config
+(``use_bf16: true``) trains in bf16, and the settings the port does not
+run yet raise (``--infer`` itself is tested in
 ``test_torch_infer_run.py``)."""
 
 import functools
@@ -117,8 +118,26 @@ def test_eval_loss_equals_jax(setup):
                                    err_msg=k)
 
 
+def test_the_shipped_config_trains_in_bf16(setup, tmp_path):
+    """``egs/spec_denoiser.yaml`` as shipped (``use_bf16: true``, no
+    override) takes two steps in bf16 against float32 master weights, and
+    checkpoints float32 parameters and moments."""
+    trainer = run(["--config", setup[0], "--exp_name", str(tmp_path / "bf16"), "--device",
+                   "cpu", "-hp", "max_updates=2"])
+    assert trainer.hp["use_bf16"] is True and trainer.global_step == 2
+    assert trainer.train_step.updates == 2
+    state = torch.load(get_all_ckpts(str(tmp_path / "bf16"))[0], weights_only=True)["state"]
+    assert all(v.dtype == torch.float32 for v in state["model"].values()
+               if v.is_floating_point())
+    moments = [m for s in state["optimizer"]["state"].values()
+               for k, m in s.items() if k.startswith("exp_avg")]
+    assert moments and all(m.dtype == torch.float32 and torch.isfinite(m).all()
+                           for m in moments)
+    assert any(float(m.abs().max()) > 0 for m in moments)
+
+
 @pytest.mark.parametrize("extra", [
-    [], ["--infer", "-hp", "use_bf16=False,use_masked_cond=False"],
+    ["-hp", "encoder_type=fft"], ["--infer", "-hp", "use_bf16=False,use_masked_cond=False"],
     ["-hp", "use_bf16=False,accumulate_grad_batches=2"],
     ["-hp", "use_bf16=False,tp_size=2"],
 ])

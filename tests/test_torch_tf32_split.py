@@ -163,6 +163,16 @@ def test_tile_plan_without_room_for_64_rows(b, t):
     assert cluster == next((k for k in (1, 2, 4) if tiles * k >= _MIN_GRID), 4)
 
 
+@pytest.mark.parametrize("b,t", SHAPES)
+def test_tile_plan_at_128_channels(b, t):
+    """At C=128 a cluster of 16-row tiles holds at most 2 CTAs, so that each
+    keeps a whole chunk of 64 gate columns; 64-row tiles as at C=256."""
+    m, cluster = _tile_plan(b, t, c=128)
+    m256, cluster256 = _tile_plan(b, t)
+    assert m == m256 and cluster == min(cluster256, 2)
+    assert 128 // cluster % 64 == 0
+
+
 def test_unaligned_tensor_is_refused():
     """The kernels move 16-byte vectors, so a view off that alignment is
     refused before any launch."""
