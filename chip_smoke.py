@@ -31,7 +31,13 @@ Phases, each of which exits non-zero on a failed check:
    operations and host time a call, their bound counted at the bf16
    tensor-core rate; K1 and K5, float32 and bf16, at the other widths
    they are compiled for (``WIDTHS``: C=128, H=256) against their plain
-   versions (``check_block_widths``);
+   versions (``check_block_widths``); the bf16 forms of K3 (with its float32
+   logsumexp) and K4 against their bf16 plain versions (BF16_TOL), K3 + K4
+   against autograd of the bf16 plain forward (BF16_AUTOGRAD_TOL), at the
+   bf16 flagship step's shape (B=78 x S=48) and CampNet's decoder shapes
+   (B=16, T 256-1536), timed beside SDPA in bf16 and the float32 forms,
+   their bound at the bf16 tensor-core rate; and on a row of only pad keys
+   and a head width of 36;
 4. edit path: ``EditPipeline`` at the flagship width (seeded random
    weights, DiffNet's output projection drawn non-zero) answers edit
    requests of 512 (``bench.py``'s utterance), 300 and 700 frames; every
@@ -47,16 +53,19 @@ Phases, each of which exits non-zero on a failed check:
    versions, same weights, optimizer state, diffusion draw, dropout off),
    agrees in losses, gradients, parameters and Adam moments; step time,
    frames per second, peak memory and a profiled step are printed;
+5b. bf16 train path: the same steps under ``use_bf16``, each launching
+   the bf16 forms of K1 and K5 20 times and of K3 and K4 4 times (the fft
+   text encoder), nothing else; timed and profiled the same way;
 6. run path: the training entry ``speech_editing_tpu_torch.run`` on
    ``egs/spec_denoiser.yaml`` as shipped (conv text encoder, speaker
    embeddings, ``max_sentences`` 16, ``max_tokens`` 40,000, two loader
    workers, alignment-aware masks; float32 through ``use_bf16=False``) over
    a synthetic binarized corpus of 512/32/8 utterances of 150-700 frames,
-   in a temporary directory: 60 steps with sanity validation, validation
-   and a checkpoint every 30 steps, then a second run resumes to 70. Every
+   in a temporary directory: 30 steps with sanity validation, validation
+   and a checkpoint every 15 steps, then a second run resumes to 35. Every
    step launches K1 and K5 20 times each and nothing else, every
-   validation batch K1 20 times; metrics are finite; the checkpoints at 30
-   and 60 exist; the resume starts at step 60 with the saved parameters and
+   validation batch K1 20 times; metrics are finite; the checkpoints at 15
+   and 30 exist; the resume starts at step 30 with the saved parameters and
    Adam moments bit for bit; a 2-utterance slice of a corpus batch, stepped
    on the card and on the CPU, agrees. Steps/s, real frames/s, the loader
    wait a step, a profiled step, peak memory, validation time and the
@@ -127,10 +136,10 @@ Phases, each of which exits non-zero on a failed check:
    d=96, ragged key padding) in the kernels phase.
 10. family train path: StutterSpeech, its stutter predictor, CampNet,
    A3T and EditSpeech in turn through the training entry at their shipped
-   widths (``egs/<family>.yaml``) over one synthetic corpus of 128/16/4
+   widths (``egs/<family>.yaml``) over one synthetic corpus of 128/16/2
    utterances of 150-700 frames with per-frame stutter labels (spans on
-   about 10 % of the frames), with the infer path's HiFi-GAN: 30 steps, a
-   validation of 4 batches and a checkpoint, then ``--infer`` of the 4
+   about 10 % of the frames), with the infer path's HiFi-GAN: 12 steps, a
+   validation of 2 batches and a checkpoint, then ``--infer`` of the 2
    test items from that checkpoint (loaded bit for bit). Every step,
    validation batch and item moves each launch counter by its expected
    amount (StutterSpeech K1 and K5 20 a step, CampNet K3 and K4 9, the
@@ -140,14 +149,20 @@ Phases, each of which exits non-zero on a failed check:
    step re-run on the CPU agree. Step host p50/p75, steps/s, peak memory
    and a profiled median step are printed. K4 is held against its plain
    version and timed beside SDPA's backward at CampNet's decoder shapes in
-   the kernels phase.
+   the kernels phase. Then the same five under ``-hp use_bf16=true``:
+   10 steps, a validation batch (float32, as JAX validates) and a
+   checkpoint of float32 masters each; every step launches the bf16 forms
+   (StutterSpeech K1 and K5 20 times, CampNet K3 and K4 9), every
+   validation batch the float32 ones; a CampNet step re-run on the CPU
+   agrees at the BF16_* bars; EditSpeech's profiled step runs its LSTMs
+   through cuDNN's recurrence (``aten::_cudnn_rnn``), not a per-step cell.
 11. width override: one bf16 step of ``egs/spec_denoiser.yaml`` at ``-hp
    residual_channels=128``, a width K1 and K5 are compiled for beside the
    shipped 256, DiffNet's output projection drawn non-zero so that the
    blocks get a gradient: the bf16 K1 and K5 launch 20 times each, and the
-   step agrees with the CPU's (BF16_* bars). A DiffNet block, an attention and a
-   mel outside their kernels' envelopes raise on the card (no caller gives
-   way to a plain version there).
+   step agrees with the CPU's (BF16_* bars). A DiffNet block, attentions
+   (160-wide heads; float16) and a mel outside their kernels' envelopes
+   raise on the card (no caller gives way to a plain version there).
 
 ``python3 chip_smoke.py --time-attention`` builds K3 and K4 only and times
 them and SDPA at those shapes, with no checks; ``--time-mel`` does the same
@@ -233,13 +248,15 @@ PEAK_BF16_FLOPS = 989e12    # H100 SXM, bf16 products on the tensor cores, dense
 SR, HOP = 22050, 256
 REQUEST_FRAMES = (512, 300, 700)
 # each kernel's launch counter: its wrapper and the attribute it counts in
-# (K1 and K5 count their float32 and bf16 forms apart)
+# (K1, K3, K4 and K5 count their float32 and bf16 forms apart)
 COUNTERS = {"diffnet_block": (diffnet_block, "launches"),
             "diffnet_block_bf16": (diffnet_block, "launches_bf16"),
             "diffnet_block_bwd": (diffnet_block_bwd, "launches"),
             "diffnet_block_bwd_bf16": (diffnet_block_bwd, "launches_bf16"),
             "mel_spectrogram": (mel_spectrogram, "launches"),
-            "flash_mha": (flash_mha, "launches"), "flash_mha_bwd": (flash_mha_bwd, "launches")}
+            "flash_mha": (flash_mha, "launches"), "flash_mha_bf16": (flash_mha, "launches_bf16"),
+            "flash_mha_bwd": (flash_mha_bwd, "launches"),
+            "flash_mha_bwd_bf16": (flash_mha_bwd, "launches_bf16")}
 NO_LAUNCH = {k: 0 for k in COUNTERS}
 EXPECTED_PER_REQUEST = dict(
     NO_LAUNCH, diffnet_block=FLAGSHIP_HP["residual_layers"] * FLAGSHIP_HP["timesteps"],
@@ -248,6 +265,11 @@ EXPECTED_PER_STEP = dict(
     NO_LAUNCH, diffnet_block=FLAGSHIP_HP["residual_layers"],
     diffnet_block_bwd=FLAGSHIP_HP["residual_layers"], flash_mha=FLAGSHIP_HP["enc_layers"],
     flash_mha_bwd=FLAGSHIP_HP["enc_layers"])
+# the flagship's step under use_bf16: the bf16 forms of all four
+EXPECTED_PER_BF16_TRAIN_STEP = dict(
+    NO_LAUNCH, diffnet_block_bf16=FLAGSHIP_HP["residual_layers"],
+    diffnet_block_bwd_bf16=FLAGSHIP_HP["residual_layers"],
+    flash_mha_bf16=FLAGSHIP_HP["enc_layers"], flash_mha_bwd_bf16=FLAGSHIP_HP["enc_layers"])
 CPU_MEL_TOL = 2e-2
 # the train path: 78 x 512 = 39,936 frames, under the flagship's
 # max_tokens of 40,000 frames per step; 48 text tokens
@@ -1121,6 +1143,142 @@ def phase_attention_bwd(gen) -> dict:
                 tol=BWD_TOL)
 
 
+def bf16_attention_shapes() -> list:
+    """The bf16 attention phases' shapes, (B, T, valid keys, h, d): the bf16
+    flagship step's (B=78 x S=48, the train batch's token counts) first,
+    then CampNet's decoder at B=16 and T 256-1536 (ragged key padding)."""
+    h = FLAGSHIP_HP["num_heads"]
+    return ([(TRAIN_B, TRAIN_S, train_lengths(), h, FLAGSHIP_HP["hidden_size"] // h)]
+            + [(CAMPNET_B, t, campnet_lengths(CAMPNET_B, t), CAMPNET_H, 192 // CAMPNET_H)
+               for t in CAMPNET_T])
+
+
+def bf16_attention_inputs(gen, b: int, s: int, lengths, d: int, h: int):
+    q, k, v, pad = attention_inputs(gen, b, s, lengths, d=d, h=h)
+    return q.bfloat16(), k.bfloat16(), v.bfloat16(), pad
+
+
+def phase_attention_bf16(gen) -> dict:
+    """K3's bf16 form (with its float32 logsumexp, as the bf16 training
+    steps call it) against its bf16 plain version at the bf16 flagship
+    step's shape and at CampNet's decoder shapes, timed beside SDPA in bf16
+    and the float32 form; then a row of only pad keys and a head width of
+    36. The row of the kernel table is the flagship step's shape."""
+    out, shapes = {"max_abs_err": 0.0}, []
+    for b, s, lengths, h, d in bf16_attention_shapes():
+        q, k, v, pad = bf16_attention_inputs(gen, b, s, lengths, d, h)
+        got, lse = flash_mha(q, k, v, pad, return_lse=True)
+        ref, ref_lse = attention_plain(q, k, v, pad), attention_lse_plain(q, k, pad)
+        torch.cuda.synchronize()
+        check(got.dtype == torch.bfloat16 and lse.dtype == torch.float32,
+              f"flash_mha bf16: out {got.dtype}, lse {lse.dtype}")
+        err = rel_err([got.float(), lse], [ref.float(), ref_lse])
+        call = lambda: flash_mha(q, k, v, pad, return_lse=True)
+        t = call_times(call, sdpa_fwd(q, k, v, pad))
+        plain_ms = time_ms(lambda: (attention_plain(q, k, v, pad),
+                                    attention_lse_plain(q, k, pad)), iters=5)
+        f32 = [a.float() for a in (q, k, v)]
+        f32_ms = time_ms(lambda: flash_mha(*f32, pad, return_lse=True))
+        flops = 4 * h * s * d * sum(lengths)    # q k^T and p v over valid keys
+        bound_ms, bound_by = bound(flops, nbytes(q, k, v, pad, got, lse), PEAK_BF16_FLOPS)
+        print(f"[kernel] flash_mha bf16 B={b} T={s} h={h} d={d} with logsumexp, valid keys "
+              f"{min(lengths)}..{max(lengths)}: max err {err:.3e} of the bf16 plain version's "
+              f"largest (tol {BF16_TOL:.3e}); {times_text(t, 'sdpa bf16')}; float32 form "
+              f"{f32_ms:.4f} ms; plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by}, "
+              f"{flops / 1e9:.2f} GFLOP at the bf16 rate); device "
+              f"{bf16_rate(flops, t['device_ms'], bound_ms)}", flush=True)
+        check(err <= BF16_TOL, f"flash_mha bf16 B={b} T={s}: error {err} > {BF16_TOL}")
+        check_one_op(f"flash_mha bf16 B={b} T={s}", t)
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        shapes.append(dict(t, b=b, s=s, h=h, d=d, plain_ms=plain_ms, f32_ms=f32_ms,
+                           bound_ms=bound_ms, bound_by=bound_by, gflop=flops / 1e9,
+                           max_err=err))
+    out.update(shapes[0], shapes=shapes)
+
+    # a row of only pad keys (zeros, lse -inf, as the bf16 plain version
+    # gives) and a head width that is not a multiple of 16
+    for lengths, d in ((PAD_ROW_LENGTHS, FLAGSHIP_HP["hidden_size"] // 2),
+                       (NARROW_LENGTHS, NARROW_D)):
+        q, k, v, pad = bf16_attention_inputs(gen, 3, 48, lengths, d, 2)
+        got, lse = flash_mha(q, k, v, pad, return_lse=True)
+        ref, ref_lse = attention_plain(q, k, v, pad), attention_lse_plain(q, k, pad)
+        rows = [i for i, n in enumerate(lengths) if n > 0]
+        err = rel_err([got[rows].float(), lse[rows]], [ref[rows].float(), ref_lse[rows]])
+        zero = all(bool((got[i] == 0).all() and (lse[i] == float("-inf")).all())
+                   for i, n in enumerate(lengths) if n == 0)
+        print(f"[kernel] flash_mha bf16 B=3 S=48 d={d}, valid keys {lengths}: max err "
+              f"{err:.3e} (tol {BF16_TOL:.3e}); rows with no valid key give out 0 and lse "
+              f"-inf: {zero}", flush=True)
+        check(err <= BF16_TOL and zero, f"flash_mha bf16 d={d} {lengths}: {err}, {zero}")
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+    return dict(out, name="flash_mha_bf16", route="cuda",
+                source="speech_editing_tpu_torch/csrc/flash_attention.cu",
+                replaces="speech_editing_tpu/ops/flash_attention.py:85 (in bf16)",
+                tol=BF16_TOL)
+
+
+def phase_attention_bwd_bf16(gen) -> dict:
+    """K4's bf16 form (fed K3's bf16 output and logsumexp) against its bf16
+    plain version, K3 + K4 against autograd of the bf16 plain forward (which
+    rounds its backward at other places), pad keys' dk and dv zero, at the
+    bf16 flagship step's shape and CampNet's decoder shapes; timed beside
+    SDPA's backward in bf16 and the float32 form; then a row of only pad
+    keys and a head width of 36."""
+    out, shapes = {"max_abs_err": 0.0}, []
+    cases = [(b, s, lengths, h, d, True) for b, s, lengths, h, d in bf16_attention_shapes()]
+    cases += [(3, 48, PAD_ROW_LENGTHS, 2, FLAGSHIP_HP["hidden_size"] // 2, False),
+              (3, 48, NARROW_LENGTHS, 2, NARROW_D, False)]
+    for b, s, lengths, h, d, timed in cases:
+        q, k, v, pad = bf16_attention_inputs(gen, b, s, lengths, d, h)
+        do = torch.randn_like(q)
+        rows = [i for i, n in enumerate(lengths) if n > 0]
+        o, lse = flash_mha(q, k, v, pad, return_lse=True)
+        args = (q, k, v, o, lse, do, pad)
+        got, ref = flash_mha_bwd(*args), attention_bwd_plain(*args)
+        torch.cuda.synchronize()
+        check(all(g.dtype == torch.bfloat16 for g in got), "flash_mha_bwd bf16: not bf16")
+        err = rel_err([g.float() for g in got], [r.float() for r in ref])
+        leaves = [a.detach().requires_grad_() for a in (q, k, v)]
+        grads = lambda attend: [g[rows].float() for g in
+                                torch.autograd.grad(attend(*leaves, pad), leaves, do)]
+        err_ag = rel_err(grads(flash_mha_train), grads(attention_plain))
+        zero = bool((got[1][pad] == 0).all() and (got[2][pad] == 0).all()) and all(
+            bool((g[i] == 0).all()) for g in got for i, n in enumerate(lengths) if n == 0)
+        msg = (f"[kernel] flash_mha_bwd bf16 B={b} T={s} h={h} d={d}, valid keys "
+               f"{min(lengths)}..{max(lengths)}: max err vs the bf16 plain version {err:.3e} "
+               f"(tol {BF16_TOL:.3e}), K3 + K4 vs autograd of the plain forward {err_ag:.3e} "
+               f"(tol {BF16_AUTOGRAD_TOL:.3e}); pad keys' dk, dv and rows with no valid key "
+               f"exactly 0: {zero}")
+        check(err <= BF16_TOL and err_ag <= BF16_AUTOGRAD_TOL and zero,
+              f"flash_mha_bwd bf16 B={b} T={s} d={d}: {err}, {err_ag}, {zero}")
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        out["autograd_err"] = max(out.get("autograd_err", 0.0), err_ag)
+        if timed:
+            t = call_times(lambda: flash_mha_bwd(*args), sdpa_bwd(q, k, v, do, pad))
+            plain_ms = time_ms(lambda: attention_bwd_plain(*args), iters=5)
+            f32 = [a.float() for a in (q, k, v)]
+            o32, lse32 = flash_mha(*f32, pad, return_lse=True)
+            f32_ms = time_ms(lambda: flash_mha_bwd(*f32, o32, lse32, do.float(), pad))
+            flops = 10 * h * s * d * sum(lengths)   # five products over valid keys
+            bound_ms, bound_by = bound(flops, nbytes(*args, *got), PEAK_BF16_FLOPS)
+            msg += (f"; {times_text(t, 'sdpa backward bf16')}; float32 form {f32_ms:.4f} ms; "
+                    f"plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by}, "
+                    f"{flops / 1e9:.2f} GFLOP at the bf16 rate); device "
+                    f"{bf16_rate(flops, t['device_ms'], bound_ms)}")
+            check_one_op(f"flash_mha_bwd bf16 B={b} T={s}", t)
+            shapes.append(dict(t, b=b, s=s, h=h, d=d, plain_ms=plain_ms, f32_ms=f32_ms,
+                               bound_ms=bound_ms, bound_by=bound_by, gflop=flops / 1e9,
+                               max_err=err, autograd_err=err_ag))
+        print(msg, flush=True)
+    worst_ag = out["autograd_err"]
+    out.update(shapes[0], shapes=shapes, autograd_err=worst_ag)
+    return dict(out, name="flash_mha_bwd_bf16", route="cuda",
+                source="speech_editing_tpu_torch/csrc/flash_attention_bwd.cu",
+                replaces="speech_editing_tpu/ops/flash_attention.py:85 (the bundled "
+                         "kernel's _flash_attention_bwd_dkv :941 and _bwd_dq :1287, in bf16)",
+                tol=BF16_TOL)
+
+
 def time_attention(gen) -> None:
     """``--time-attention``: K3 and K4 as the installed package builds them,
     timed at the phases' shapes with no checks, so that two versions of the
@@ -1340,11 +1498,17 @@ def train_batch(b: int, t: int, s: int, seed: int) -> dict:
     return batch
 
 
-def train_path() -> tuple[dict, dict]:
+def train_path(bf16: bool = False) -> tuple[dict, dict]:
+    """The flagship's train step at B=78 x T=512, float32 or (``bf16``)
+    under ``use_bf16``: TRAIN_WARMUP + TRAIN_TIMED steps, each launching
+    its kernels' forms as expected; timed, profiled, and in float32 a B=2
+    step re-run on the CPU."""
+    label, expected = ("train bf16", EXPECTED_PER_BF16_TRAIN_STEP) if bf16 else \
+        ("train", EXPECTED_PER_STEP)
     batch = train_batch(TRAIN_B, TRAIN_T, TRAIN_S, seed=0)
     real_frames = int((batch["mel2ph"] > 0).sum())
-    trainer = Trainer.from_hp(FLAGSHIP_HP, device="cuda", seed=0, vocab_size=80,
-                              sil_token_ids=SIL_IDS)
+    trainer = Trainer.from_hp(dict(FLAGSHIP_HP, use_bf16=bf16), device="cuda", seed=0,
+                              vocab_size=80, sil_token_ids=SIL_IDS)
     reset_counts()
     per_step, ev_ms, host_ms = [], [], []
     torch.cuda.reset_peak_memory_stats()
@@ -1363,14 +1527,13 @@ def train_path() -> tuple[dict, dict]:
         per_step.append({k: counts()[k] - before[k] for k in COUNTERS})
         m = {k: float(v) for k, v in metrics.items()}
         check(all(np.isfinite(v) for v in m.values()) and m["nan_grads"] == 0,
-              f"train step {i}: non-finite metrics {m}")
+              f"{label} step {i}: non-finite metrics {m}")
     totals = counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    print(f"[train] launches per step {per_step[-1]}; totals {totals}", flush=True)
+    print(f"[{label}] launches per step {per_step[-1]}; totals {totals}", flush=True)
     for i, moved in enumerate(per_step):
-        check(moved == EXPECTED_PER_STEP,
-              f"train step {i}: launches {moved} != expected {EXPECTED_PER_STEP}")
-    print("[train] last step: " + " ".join(f"{k}={v:.5f}" for k, v in sorted(m.items())),
+        check(moved == expected, f"{label} step {i}: launches {moved} != expected {expected}")
+    print(f"[{label}] last step: " + " ".join(f"{k}={v:.5f}" for k, v in sorted(m.items())),
           flush=True)
     q = lambda xs, p: float(np.percentile(xs, p))
     stats = {"batch": [TRAIN_B, TRAIN_T], "frames": TRAIN_B * TRAIN_T,
@@ -1380,13 +1543,17 @@ def train_path() -> tuple[dict, dict]:
              "peak_gib": peak_gib}
     stats["frames_per_s"] = stats["frames"] / (stats["event_ms_p50"] / 1e3)
     stats["real_frames_per_s"] = real_frames / (stats["event_ms_p50"] / 1e3)
-    print(f"[train] B={TRAIN_B} x T={TRAIN_T} ({real_frames} real frames), "
+    print(f"[{label}] B={TRAIN_B} x T={TRAIN_T} ({real_frames} real frames), "
           f"{TRAIN_TIMED} steps after {TRAIN_WARMUP} warm-up: CUDA events p50 "
           f"{stats['event_ms_p50']:.3f} ms, p75 {stats['event_ms_p75']:.3f} ms; host "
           f"clock p50 {stats['host_ms_p50']:.3f} ms, p75 {stats['host_ms_p75']:.3f} ms; "
           f"{stats['frames_per_s']:.0f} frames/s ({stats['real_frames_per_s']:.0f} real); "
           f"peak memory {peak_gib:.3f} GiB", flush=True)
-    profile_step(trainer, batch, stats["host_ms_p50"])
+    busy_ms = profile_step(trainer, batch, stats["host_ms_p50"], label=label)
+    stats.update(launches_per_step=expected, profiled_busy_ms=busy_ms,
+                 profiled_busy_share=None if busy_ms is None else busy_ms / stats["host_ms_p50"])
+    if bf16:
+        return totals, stats
     compare_step_with_cpu("train", lambda dev: Trainer.from_hp(
         FLAGSHIP_HP, device=dev, seed=1, vocab_size=80, sil_token_ids=SIL_IDS,
         dropout=False), trainer.train_step.state_dict(), {k: v[:2] for k, v in batch.items()})
@@ -1394,13 +1561,15 @@ def train_path() -> tuple[dict, dict]:
 
 
 def profile_step(trainer, batch, step_ms: float, top: int = 15,
-                 label: str = "train") -> float | None:
+                 label: str = "train", keep: list | None = None) -> float | None:
     """Device time by kernel over one train step (``torch.profiler``, after
     one profiled warm-up step), and its share of ``step_ms``, the step's
     host-clock time without the profiler; then the host's own time by
     operation (under the profiler, which adds to it). Returns the device's
-    busy ms, None if the profiler saw none."""
+    busy ms, None if the profiler saw none; the events go into ``keep``."""
     events = profiled(lambda: trainer.step(batch))
+    if keep is not None:
+        keep.extend(events)
     kernels = device_ops(events)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if busy_ms == 0:
@@ -1580,9 +1749,9 @@ G2P_PHONES = sorted({p for _, phs in _FallbackG2p.DIGRAPHS for p in phs}
 RUN_PHONES = RUN_SIL_PHONES + G2P_PHONES + [
     f"P{i}" for i in range(80 - len(RUN_SIL_PHONES) - len(G2P_PHONES))]
 RUN_SPEAKERS = 24
-RUN_HP = ("use_bf16=False,max_updates=60,val_check_interval=30,num_sanity_val_steps=2,"
-          "eval_max_batches=8,tb_log_interval=10")
-RUN_RESUME_TO = 70
+RUN_STEPS, RUN_RESUME_TO = 30, 35   # a validation and a checkpoint every RUN_STEPS / 2
+RUN_HP = (f"use_bf16=False,max_updates={RUN_STEPS},val_check_interval={RUN_STEPS // 2},"
+          "num_sanity_val_steps=2,eval_max_batches=8,tb_log_interval=10")
 RUN_B = 16              # egs/base.yaml's max_sentences: 16 x 700 frames is under max_tokens
 RUN_WARMUP = 5          # steps of the first run left out of its timings
 RUN_LAYERS = FLAGSHIP_HP["residual_layers"]   # egs/spec_denoiser.yaml's, as the flagship's
@@ -1755,9 +1924,9 @@ def states_equal(a: dict, b: dict) -> bool:
 def run_path(smi: str, tmp: str) -> tuple[dict, dict]:
     """The training entry (``speech_editing_tpu_torch.run``) on
     ``egs/spec_denoiser.yaml`` at its shipped widths and batch budget, float32,
-    over a synthetic corpus in ``tmp/data``: 60 steps with sanity and
-    interval validation and checkpoints into ``tmp/checkpoints/run``, then a
-    resume to 70."""
+    over a synthetic corpus in ``tmp/data``: RUN_STEPS steps with sanity
+    and interval validation and checkpoints into ``tmp/checkpoints/run``,
+    then a resume to RUN_RESUME_TO."""
     q = lambda xs, p: float(np.percentile(xs, p))
     t0 = time.perf_counter()
     mel_bytes = write_run_corpus(os.path.join(tmp, "data"))
@@ -1788,17 +1957,19 @@ def run_path(smi: str, tmp: str) -> tuple[dict, dict]:
         for moved in rec.valid:
             check(moved == EXPECTED_PER_VALID_BATCH,
                   f"validation batch: launches {moved} != {EXPECTED_PER_VALID_BATCH}")
-    check(len(first.steps) == 60 and len(first.valid) == 2 + 8 + 8,
+    check(len(first.steps) == RUN_STEPS and len(first.valid) == 2 + 8 + 8,
           f"run: {len(first.steps)} steps, {len(first.valid)} validation batches")
-    ckpts = {n: os.path.join(work, f"model_ckpt_steps_{n}.ckpt") for n in (30, 60, 70)}
+    ckpts = {n: os.path.join(work, f"model_ckpt_steps_{n}.ckpt")
+             for n in (RUN_STEPS // 2, RUN_STEPS, RUN_RESUME_TO)}
     check(all(os.path.exists(p) for p in ckpts.values()),
           f"run: checkpoints {sorted(os.listdir(work))}")
-    saved = torch.load(ckpts[60], map_location="cpu", weights_only=True)["state"]
-    check(second.steps[0]["step"] == 61 and len(second.steps) == RUN_RESUME_TO - 60
+    saved = torch.load(ckpts[RUN_STEPS], map_location="cpu", weights_only=True)["state"]
+    check(second.steps[0]["step"] == RUN_STEPS + 1
+          and len(second.steps) == RUN_RESUME_TO - RUN_STEPS
           and states_equal(second.loaded, saved),
-          "resume: the second run did not start from step 60 with the saved "
+          f"resume: the second run did not start from step {RUN_STEPS} with the saved "
           "parameters and Adam moments, bit for bit")
-    print(f"[run] resume: started at step 60 with the checkpoint's parameters, Adam "
+    print(f"[run] resume: started at step {RUN_STEPS} with the checkpoint's parameters, Adam "
           f"moments and counts bit for bit; ran to {resumed.global_step}", flush=True)
 
     timed = first.steps[RUN_WARMUP:]
@@ -1820,11 +1991,11 @@ def run_path(smi: str, tmp: str) -> tuple[dict, dict]:
              "loader_wait_ms_p50": q(waits, 50), "loader_wait_ms_p75": q(waits, 75),
              "loader_wait_ms_max": max(waits), "first_batch_wait_ms": first.waits[0],
              "validation_s": first.validate_s, "peak_gib": peak_gib,
-             "ckpt_mb": os.path.getsize(ckpts[60]) / 1e6,
+             "ckpt_mb": os.path.getsize(ckpts[RUN_STEPS]) / 1e6,
              "ckpt_save_s": first.save_s, "ckpt_load_s": second.load_s[0],
              "corpus_mel_mb": mel_bytes / 1e6, "corpus_write_s": corpus_s, "card": smi}
     print(f"[run] egs/spec_denoiser.yaml, float32, {stats['timed_steps']} timed steps "
-          f"(of 60, after {RUN_WARMUP}), batches of {stats['batch_sizes']} utterances "
+          f"(of {RUN_STEPS}, after {RUN_WARMUP}), batches of {stats['batch_sizes']} utterances "
           f"padded to {stats['padded_frames_range']} frames (p50 "
           f"{stats['padded_frames_p50']:.0f}), "
           f"{stats['real_frames_per_step_mean']:.0f} real frames a step: CUDA "
@@ -1985,17 +2156,21 @@ EXPECTED_WIDTH_STEP = dict(NO_LAUNCH, diffnet_block_bf16=RUN_LAYERS,
 
 def check_outside_raises() -> list:
     """On the card, a call outside a kernel's envelope raises, through the
-    module that calls it: a DiffNet block of 96 channels, a bf16 attention
-    and a mel with hop 250. Returns the messages."""
+    module that calls it: a DiffNet block of 96 channels, an attention with
+    160-wide heads (past the 128 K3 and K4 are compiled for), a float16
+    attention (they take float32 and bf16) and a mel with hop 250. Returns
+    the messages."""
     gen = torch.Generator().manual_seed(3)
     block = DiffNetResidualBlock(FLAGSHIP_HP["hidden_size"], 96, dilation=1).cuda()
-    attn = MultiheadAttention(64, 2).cuda().to(torch.bfloat16)
+    wide = MultiheadAttention(320, 2).cuda()
+    half = MultiheadAttention(64, 2).cuda().to(torch.float16)
     x = torch.randn(2, 9, 96, generator=gen).cuda()
     cases = [("diffnet_block", lambda: block(x, torch.randn(2, 9, FLAGSHIP_HP["hidden_size"],
                                                             generator=gen).cuda(),
                                             torch.randn(2, 96, generator=gen).cuda(), None)),
-             ("flash_mha", lambda: attn(torch.randn(2, 7, 64, generator=gen).cuda()
-                                        .to(torch.bfloat16))),
+             ("flash_mha", lambda: wide(torch.randn(2, 7, 320, generator=gen).cuda())),
+             ("flash_mha", lambda: half(torch.randn(2, 7, 64, generator=gen).cuda()
+                                        .to(torch.float16))),
              ("mel_spectrogram", lambda: mel_spectrogram(
                  torch.randn(1, 4000, generator=gen).cuda(), MelConfig(hop_size=250)))]
     messages = []
@@ -3255,8 +3430,8 @@ FAMILIES = ("stutter_speech", "stutter_predictor", "campnet", "a3t", "editspeech
 FAMILY_TASKS = {"stutter_speech": "StutterSpeechTask", "stutter_predictor":
                 "StutterPredictorTask", "campnet": "CampNetTask", "a3t": "A3TTask",
                 "editspeech": "EditSpeechTask"}
-FAMILY_SPLITS = {"train": 128, "valid": 16, "test": 4}
-FAMILY_STEPS, FAMILY_VALID = 30, 4
+FAMILY_SPLITS = {"train": 128, "valid": 16, "test": 2}
+FAMILY_STEPS, FAMILY_VALID = 12, 2
 FAMILY_HP = (f"max_updates={FAMILY_STEPS},val_check_interval={FAMILY_STEPS},"
              f"num_sanity_val_steps=0,eval_max_batches={FAMILY_VALID},tb_log_interval=10,"
              f"test_num={FAMILY_SPLITS['test']},test_save_workers=1")
@@ -3267,6 +3442,19 @@ FAMILY_LAUNCHES = {
     "campnet": (dict(NO_LAUNCH, flash_mha=CAMPNET_K3, flash_mha_bwd=CAMPNET_K3),
                 dict(NO_LAUNCH, flash_mha=CAMPNET_K3), dict(NO_LAUNCH, flash_mha=CAMPNET_K3))}
 FAMILY_CPU_STEP = ("stutter_speech", "campnet")   # stepped on the card and on the CPU
+# the same families under -hp use_bf16=true: a few steps, one validation
+# batch (float32, as JAX validates) and a checkpoint of float32 masters
+FAMILY_BF16_STEPS = RUN_WARMUP + 5
+FAMILY_BF16_HP = (f"use_bf16=true,max_updates={FAMILY_BF16_STEPS},"
+                  f"val_check_interval={FAMILY_BF16_STEPS},num_sanity_val_steps=0,"
+                  f"eval_max_batches=1,tb_log_interval=10")
+FAMILY_BF16_LAUNCHES = {
+    "stutter_speech": (dict(NO_LAUNCH, diffnet_block_bf16=RUN_LAYERS,
+                            diffnet_block_bwd_bf16=RUN_LAYERS),
+                       dict(NO_LAUNCH, diffnet_block=RUN_LAYERS)),
+    "campnet": (dict(NO_LAUNCH, flash_mha_bf16=CAMPNET_K3, flash_mha_bwd_bf16=CAMPNET_K3),
+                dict(NO_LAUNCH, flash_mha=CAMPNET_K3))}
+FAMILY_BF16_CPU_STEP = ("campnet",)
 
 
 @contextlib.contextmanager
@@ -3287,22 +3475,34 @@ def warm_starts(found: list):
         StutterPredictorTask.warm_start_text_encoder = orig
 
 
-def family_train(family: str, smi: str, tmp: str, data_dir: str) -> tuple[dict, dict]:
+def family_train(family: str, smi: str, tmp: str, data_dir: str,
+                 bf16: bool = False) -> tuple[dict, dict]:
     """One family through the training entry on the card at its config's
     widths: FAMILY_STEPS steps, one validation of FAMILY_VALID batches and a
     checkpoint, then ``--infer`` on the test split from that checkpoint.
     Every step's, validation batch's and item's launches are checked, and
     every metric is finite; the timed steps (after RUN_WARMUP), peak memory
     and a profiled median step are printed; StutterSpeech and CampNet step
-    once on the card and on the CPU. Returns the launches and statistics."""
+    once on the card and on the CPU. With ``bf16``, under ``-hp
+    use_bf16=true``: FAMILY_BF16_STEPS steps, one validation batch and a
+    checkpoint of float32 masters, no ``--infer``; CampNet steps on the card
+    and on the CPU at the BF16_* bars, and EditSpeech's profile must show
+    cuDNN's recurrence. Returns the launches and statistics."""
     q = lambda xs, p: float(np.percentile(xs, p))
-    work = os.path.join(tmp, "family", family)
-    extra = (f",spec_denoiser_work_dir={os.path.join(tmp, 'family', 'stutter_speech')}"
+    root = os.path.join(tmp, "family_bf16" if bf16 else "family")
+    work = os.path.join(root, family)
+    extra = (f",spec_denoiser_work_dir={os.path.join(root, 'stutter_speech')}"
              if family == "stutter_predictor" else "")
+    steps, n_valid = (FAMILY_BF16_STEPS, 1) if bf16 else (FAMILY_STEPS, FAMILY_VALID)
     argv = ["--config", f"egs/{family}.yaml", "--exp_name", work, "-hp",
             f"binary_data_dir={data_dir},vocoder_ckpt={os.path.join(tmp, 'hifigan')},"
-            f"{FAMILY_HP}{extra}"]
-    per_step, per_valid, per_item = FAMILY_LAUNCHES.get(family, (NO_LAUNCH,) * 3)
+            f"{FAMILY_BF16_HP if bf16 else FAMILY_HP}{extra}"]
+    if bf16:
+        per_step, per_valid = FAMILY_BF16_LAUNCHES.get(family, (NO_LAUNCH,) * 2)
+        per_item = NO_LAUNCH
+    else:
+        per_step, per_valid, per_item = FAMILY_LAUNCHES.get(family, (NO_LAUNCH,) * 3)
+    label = f"{family} bf16" if bf16 else family
     rec, found = RunRecorder(), []
     reset_counts()
     torch.cuda.reset_peak_memory_stats()
@@ -3314,23 +3514,26 @@ def family_train(family: str, smi: str, tmp: str, data_dir: str) -> tuple[dict, 
     launches = counts()
     check(type(trainer.task).__name__ == FAMILY_TASKS[family],
           f"{family}: task {type(trainer.task).__name__}")
-    check(len(rec.steps) == FAMILY_STEPS and len(rec.valid) == FAMILY_VALID,
-          f"{family}: {len(rec.steps)} steps, {len(rec.valid)} validation batches")
+    check(bool(trainer.hp.get("use_bf16")) == bf16, f"{label}: use_bf16 {trainer.hp.get('use_bf16')}")
+    check(len(rec.steps) == steps and len(rec.valid) == n_valid,
+          f"{label}: {len(rec.steps)} steps, {len(rec.valid)} validation batches")
     for st in rec.steps:
         check(st["launches"] == per_step,
-              f"{family} step {st['step']}: launches {st['launches']} != {per_step}")
+              f"{label} step {st['step']}: launches {st['launches']} != {per_step}")
         m = {k: float(v) for k, v in st["metrics"].items()}
         check(all(np.isfinite(v) for v in m.values()) and m["nan_grads"] == 0,
-              f"{family} step {st['step']}: non-finite metrics {m}")
+              f"{label} step {st['step']}: non-finite metrics {m}")
     for moved in rec.valid:
-        check(moved == per_valid, f"{family} validation batch: launches {moved} != {per_valid}")
-    ckpt = os.path.join(work, f"model_ckpt_steps_{FAMILY_STEPS}.ckpt")
-    check(os.path.exists(ckpt), f"{family}: checkpoints {sorted(os.listdir(work))}")
+        check(moved == per_valid, f"{label} validation batch: launches {moved} != {per_valid}")
+    ckpt = os.path.join(work, f"model_ckpt_steps_{steps}.ckpt")
+    check(os.path.exists(ckpt), f"{label}: checkpoints {sorted(os.listdir(work))}")
+    saved = torch.load(ckpt, map_location="cpu", weights_only=True)["state"]
+    check(float_dtypes(saved) == {torch.float32},
+          f"{label}: the checkpoint holds {float_dtypes(saved)}, not float32 only")
     stats = {"task": FAMILY_TASKS[family], "train_s": train_s, "peak_gib": peak_gib,
              "params": sum(p.numel() for p in trainer.model.parameters())}
     if family == "stutter_predictor":
-        src = os.path.join(tmp, "family", "stutter_speech",
-                           f"model_ckpt_steps_{FAMILY_STEPS}.ckpt")
+        src = os.path.join(root, "stutter_speech", f"model_ckpt_steps_{steps}.ckpt")
         enc = {k[len("fs.encoder."):]: v for k, v in
                torch.load(src, map_location="cpu", weights_only=True)["state"]["model"].items()
                if k.startswith("fs.encoder.")}
@@ -3349,33 +3552,38 @@ def family_train(family: str, smi: str, tmp: str, data_dir: str) -> tuple[dict, 
                  padded_frames_p50=q([st["shape"][1] for st in timed], 50),
                  real_frames_per_step_mean=sum(st["frames"] for st in timed) / len(timed),
                  last_metrics=m)
-    print(f"[family] {family} (egs/{family}.yaml, {stats['params']} parameters), "
-          f"{len(timed)} timed steps of {FAMILY_STEPS}: host clock p50 "
+    print(f"[family] {label} (egs/{family}.yaml, {stats['params']} parameters), "
+          f"{len(timed)} timed steps of {steps}: host clock p50 "
           f"{stats['host_ms_p50']:.3f} ms, p75 {stats['host_ms_p75']:.3f} ms "
           f"({stats['steps_per_s_host']:.2f} steps/s), CUDA events p50 "
           f"{stats['event_ms_p50']:.3f} ms; padded frames p50 "
           f"{stats['padded_frames_p50']:.0f}, {stats['real_frames_per_step_mean']:.0f} real "
           f"frames a step; launches a step {per_step}; peak memory {peak_gib:.3f} GiB; "
           f"{train_s:.1f} s with the validation and the checkpoint; {smi}", flush=True)
-    print(f"[family] {family} last step: "
+    print(f"[family] {label} last step: "
           + " ".join(f"{k}={v:.5f}" for k, v in sorted(m.items())), flush=True)
     mid = sorted(timed, key=lambda st: st["shape"][1])[len(timed) // 2]
     raw = {k: v.pin_memory() if isinstance(v, torch.Tensor) else v
            for k, v in mid["raw"].items()}
     b, t = mid["shape"]
-    busy_ms = profile_step(trainer, raw, mid["host_ms"], top=8, label=f"{family} B={b} x T={t}")
+    events: list = []
+    busy_ms = profile_step(trainer, raw, mid["host_ms"], top=8,
+                           label=f"{label} B={b} x T={t}", keep=events)
     stats.update(profiled_batch=[b, t], profiled_host_ms=mid["host_ms"],
                  profiled_busy_ms=busy_ms,
                  profiled_busy_share=None if busy_ms is None else busy_ms / mid["host_ms"])
-    if family in FAMILY_CPU_STEP:
+    if bf16 and family == "editspeech":
+        stats["recurrence"] = check_cudnn_recurrence(events)
+    if family in (FAMILY_BF16_CPU_STEP if bf16 else FAMILY_CPU_STEP):
         keys = trainer.task.effective_batch_keys()
-        compare_step_with_cpu(family, lambda dev: Trainer(trainer.task, trainer.hp, dev,
-                                                          dropout=False),
+        compare_step_with_cpu(label, lambda dev: Trainer(trainer.task, trainer.hp, dev,
+                                                         dropout=False),
                               trainer.train_step.state_dict(), {k: raw[k][:2] for k in keys},
-                              diffusion=family == "stutter_speech")
+                              diffusion=family == "stutter_speech", bf16=bf16)
+    if bf16:
+        return launches, dict(stats, card=smi)
 
     # --infer from the checkpoint: the state loaded bit for bit, every item's launches
-    saved = torch.load(ckpt, map_location="cpu", weights_only=True)["state"]
     rec_t, irec = RunRecorder(), InferRecorder()
     before = counts()
     t0 = time.perf_counter()
@@ -3403,23 +3611,44 @@ def family_train(family: str, smi: str, tmp: str, data_dir: str) -> tuple[dict, 
     return launches, dict(stats, card=smi)
 
 
-def family_train_path(smi: str, tmp: str) -> tuple[dict, dict]:
+def family_train_path(smi: str, tmp: str, bf16: bool = False) -> tuple[dict, dict]:
     """The five families (FAMILIES) through the training entry on one
     synthetic corpus with per-frame stutter labels (FAMILY_SPLITS, 150-700
-    frames) and the infer path's HiFi-GAN. Returns the launches summed and
+    frames, written by the float32 pass and read again by the ``bf16``
+    one) and the infer path's HiFi-GAN. Returns the launches summed and
     each family's statistics."""
     t0 = time.perf_counter()
     data_dir = os.path.join(tmp, "family_data")
-    write_run_corpus(data_dir, seed=3, splits=FAMILY_SPLITS, stutter=True)
+    if not bf16:
+        write_run_corpus(data_dir, seed=3, splits=FAMILY_SPLITS, stutter=True)
     total, stats = dict(NO_LAUNCH), {}
     for family in FAMILIES:
-        launches, stats[family] = family_train(family, smi, tmp, data_dir)
+        launches, stats[family] = family_train(family, smi, tmp, data_dir, bf16)
         total = {k: total[k] + launches[k] for k in COUNTERS}
     stats["seconds"] = time.perf_counter() - t0
-    print(f"[family] five families in {stats['seconds']:.1f} s; launches {total}", flush=True)
-    for name in ("diffnet_block", "diffnet_block_bwd", "flash_mha", "flash_mha_bwd"):
+    print(f"[family] five families{' in bf16' if bf16 else ''} in {stats['seconds']:.1f} s; "
+          f"launches {total}", flush=True)
+    names = ("diffnet_block_bf16", "diffnet_block_bwd_bf16", "flash_mha_bf16",
+             "flash_mha_bwd_bf16") if bf16 else ("diffnet_block", "diffnet_block_bwd",
+                                                 "flash_mha", "flash_mha_bwd")
+    for name in names:
         check(total[name] > 0, f"{name} was not launched on the family train path")
     return total, stats
+
+
+def check_cudnn_recurrence(events: list) -> dict:
+    """EditSpeech's bf16 step runs its LSTMs through cuDNN's recurrence
+    (``aten::_cudnn_rnn``, a few launches a layer), not PyTorch's per-time-
+    step cell (``aten::_thnn_fused_lstm_cell``, launches a frame): the
+    operation counts from a profiled step."""
+    host = {e.key: e.count for e in host_ops(events)}
+    cudnn = sum(n for k, n in host.items() if "_cudnn_rnn" in k)
+    cells = sum(n for k, n in host.items() if "lstm_cell" in k)
+    print(f"[family] editspeech bf16 recurrence: {cudnn} aten::_cudnn_rnn calls (forward and "
+          f"backward), {cells} per-step LSTM cell calls", flush=True)
+    check(cudnn > 0 and cells == 0,
+          f"editspeech bf16: the LSTMs left cuDNN ({cudnn} cuDNN calls, {cells} cell calls)")
+    return dict(cudnn_rnn_calls=cudnn, lstm_cell_calls=cells)
 
 
 def check_block_serving(gen) -> tuple[float, list]:
@@ -3439,6 +3668,18 @@ def check_block_serving(gen) -> tuple[float, list]:
         worst = max(worst, err)
         shapes.append(dict(b=SERVE_BATCH, t=t, ragged=True, path="serve", max_err=err))
     return worst, shapes
+
+
+PHASE_S: dict = {}
+_PHASE_T0 = [time.perf_counter()]
+
+
+def phase_done(name: str) -> None:
+    """Records and prints the seconds since the last phase ended."""
+    now = time.perf_counter()
+    PHASE_S[name] = now - _PHASE_T0[0]
+    _PHASE_T0[0] = now
+    print(f"[phase] {name}: {PHASE_S[name]:.1f} s", flush=True)
 
 
 # the timing-only modes: the kernels they build and the function that times them
@@ -3470,6 +3711,7 @@ def main() -> None:
         run(torch.Generator(device="cuda").manual_seed(0))
         return
     reports = build.build_all()
+    phase_done("build")
     print(f"[build] {len(build.SOURCES)} kernels ({', '.join(build.SOURCES)}) in "
           f"{time.perf_counter() - t0:.1f} s; built now: {sorted(reports)}", flush=True)
     for name, text in reports.items():
@@ -3480,25 +3722,40 @@ def main() -> None:
     gen = torch.Generator(device="cuda").manual_seed(0)
     kernels = [phase_diffnet_block(gen), phase_diffnet_block_bf16(gen),
                phase_diffnet_block_bwd(gen), phase_diffnet_block_bwd_bf16(gen), phase_mel(),
-               phase_attention(gen), phase_attention_bwd(gen)]
+               phase_attention(gen), phase_attention_bf16(gen), phase_attention_bwd(gen),
+               phase_attention_bwd_bf16(gen)]
     widths = check_block_widths(gen)
+    phase_done("kernels")
     for k in kernels:       # the other widths' errors count in each K1 and K5 form's
         if k["name"] in widths:
             k["widths_max_abs_err"] = widths[k["name"]]
             k["max_abs_err"] = max(k["max_abs_err"], widths[k["name"]])
     edit_launches, rtf = edit_path(gen)
+    phase_done("edit")
     train_launches, train = train_path()
+    phase_done("train")
+    train_bf16_launches, train_bf16 = train_path(bf16=True)
+    phase_done("train bf16")
     tmp = tempfile.mkdtemp(prefix="chip_smoke_run_")
     try:
         run_launches, run_stats = run_path(smi, tmp)
+        phase_done("run")
         work, data_dir = os.path.join(tmp, "checkpoints", "run"), os.path.join(tmp, "data")
         run_bf16_launches, run_bf16_stats = run_bf16_path(smi, tmp, data_dir)
+        phase_done("run bf16")
         infer_launches, csv_launches, infer_stats, infer_frames = infer_path(
             smi, tmp, work, data_dir)
+        phase_done("infer")
         serve_launches, serve_stats = serve_path(smi, tmp, work, data_dir)
+        phase_done("serve")
         inplace_launches, inplace_stats = inplace_path(smi, tmp, data_dir)
+        phase_done("inplace")
         family_launches, family_stats = family_train_path(smi, tmp)
+        phase_done("family train")
+        family_bf16_launches, family_bf16_stats = family_train_path(smi, tmp, bf16=True)
+        phase_done("family train bf16")
         width_stats = width_override_path(smi, data_dir)
+        phase_done("width")
     finally:
         shutil.rmtree(tmp)
     block = kernels[0]
@@ -3509,13 +3766,15 @@ def main() -> None:
     for k in kernels:
         k["launches_by_path"] = {"edit": edit_launches[k["name"]],
                                  "train": train_launches[k["name"]],
+                                 "train_bf16": train_bf16_launches[k["name"]],
                                  "run": run_launches[k["name"]],
                                  "run_bf16": run_bf16_launches[k["name"]],
                                  "infer": infer_launches[k["name"]],
                                  "csv_edit": csv_launches[k["name"]],
                                  "serve": serve_launches[k["name"]],
                                  "inplace": inplace_launches[k["name"]],
-                                 "family_train": family_launches[k["name"]]}
+                                 "family_train": family_launches[k["name"]],
+                                 "family_train_bf16": family_bf16_launches[k["name"]]}
         k["launches"] = sum(k["launches_by_path"].values())
         k["kernel_ms"] = k["ms"]
         check(k["launches"] > 0, f"{k['name']} was not launched on a main path")
@@ -3523,9 +3782,11 @@ def main() -> None:
             "max_abs_err", "tol", "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     check(inplace_launches["flash_mha"] > 0, "flash_mha was not launched on the in-place path")
-    print(json.dumps({"edit_rtf": rtf, "train_step": train, "run": run_stats,
+    print(json.dumps({"edit_rtf": rtf, "train_step": train, "train_step_bf16": train_bf16,
+                      "run": run_stats,
                       "run_bf16": run_bf16_stats, "infer": infer_stats, "serve": serve_stats,
                       "inplace": inplace_stats, "family_train": family_stats,
+                      "family_train_bf16": family_bf16_stats, "phase_s": PHASE_S,
                       "width_override": width_stats, "card": smi}))
     print(smi)
     extra = ("warm_ms", "warm_plain_ms", "host_us", "train_ms", "train_plain_ms",

@@ -36,11 +36,30 @@
 //    m), out = sum O_w e^(m_w - m) / l.
 // The attribute that lets a CTA take more than 48 KB of shared memory is
 // set once per process.
+//
+// The bf16 form (attention_fwd_bf16) replaces the same Pallas kernel run
+// on bf16 q, k, v (the JAX package's use_bf16 training: the fft text
+// encoder, CampNet's decoder). It rounds where that kernel rounds
+// (jax/experimental/pallas/ops/tpu/flash_attention.py, _flash_attention_kernel
+// _single_batch): s = q k^T accumulated in f32 from the bf16 operands, the
+// online softmax in f32, p = exp(s - m) cast to bf16 for P V with f32
+// accumulation, the sum l of the f32 p; out is rounded once to bf16, lse
+// stays f32. Bound on the H100: bytes, as above, and half of them at bf16
+// (5.8 MB at the train shape, 1.7 us at 3.35 TB/s; 0.25 GFLOP at 989
+// TFLOP/s is 0.26 us). Design: the float32 form's CTA (4 warps, 16 query
+// rows, 64 keys staged a tile with cp.async, a per-warp online softmax and
+// one merge), its products one bf16 mma.sync.m16n8k16 each (bf16mma.cuh)
+// where 3xTF32 takes three m16n8k8. Each warp takes 16 adjacent keys of a
+// tile, so the two n8 accumulator tiles of its S are the A fragment of
+// P V as they stand (rounded in pairs to bf16), and V's B fragments come
+// by ldmatrix .trans. d is zero-filled to the k16 step (any d <= 128) and
+// the keys to 16 a warp.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "bf16mma.cuh"
 #include "tf32x3.cuh"
 
 using namespace tf32x3;
@@ -250,6 +269,187 @@ int launch(const float* q, const float* k, const float* v, const unsigned char* 
   return (int)cudaGetLastError();
 }
 
+
+// -- the bf16 form -------------------------------------------------------------
+
+namespace bf16_form {
+
+namespace bm = bf16mma;
+using bm::bf16;
+
+constexpr int KTILE = 64;   // keys staged at a time: 16 a warp
+
+// Q, then K and V, bf16 rows of DP + 8 (4 mod 8 words); the merge of the
+// warps' partial outputs takes their place as floats (rows of DP + 4).
+template <int DP>
+constexpr size_t smem_bytes() {
+  static_assert(NWARPS * QROWS * (DP + 4) * sizeof(float) <=
+                    2 * KTILE * (DP + 8) * sizeof(bf16),
+                "the merge does not fit over K and V");
+  return sizeof(bf16) * (size_t)(QROWS + 2 * KTILE) * (DP + 8);
+}
+
+template <int DP>
+__global__ void __launch_bounds__(NTHREADS) attention_fwd_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const unsigned char* __restrict__ key_pad, bf16* __restrict__ out,
+    float* __restrict__ lse, int Tq, int Tk, int H, int D, int vec) {
+  constexpr int LD = DP + 8, NDT = DP / 8, LDM = DP + 4;
+  extern __shared__ float4 smem4[];
+  __shared__ float valid_s[KTILE];
+  __shared__ float m_s[NWARPS][QROWS], l_s[NWARPS][QROWS], scale_s[NWARPS][QROWS];
+  bf16* q_s = reinterpret_cast<bf16*>(smem4);   // [QROWS][LD]
+  bf16* k_s = q_s + QROWS * LD;                  // [KTILE][LD]
+  bf16* v_s = k_s + KTILE * LD;                  // [KTILE][LD]
+  float* o_s = reinterpret_cast<float*>(k_s);    // merge: [NWARPS][QROWS][LDM]
+
+  const int b = blockIdx.z, hh = blockIdx.y, q0 = blockIdx.x * QROWS;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+
+  // this lane's rows g and g + 8: running max, partial sum, output tiles
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float o[NDT][4] = {};
+
+  bm::stage_rows<DP, LD>(q_s, q, b, q0, QROWS, Tq, H, D, hh, vec, tid, NTHREADS);
+  for (int k0 = 0; k0 < Tk; k0 += KTILE) {
+    const int nk16 = (min(KTILE, Tk - k0) + 15) / 16 * 16;
+    if (k0 > 0) __syncthreads();   // every warp is done with the last tile
+    bm::stage_rows<DP, LD>(k_s, k, b, k0, nk16, Tk, H, D, hh, vec, tid, NTHREADS);
+    bm::stage_rows<DP, LD>(v_s, v, b, k0, nk16, Tk, H, D, hh, vec, tid, NTHREADS);
+    cp_async_commit();
+    for (int j = tid; j < nk16; j += NTHREADS) {
+      const int key = k0 + j;
+      valid_s[j] = key < Tk && (key_pad == nullptr || !key_pad[(size_t)b * Tk + key]);
+    }
+    cp_async_wait_all();
+    __syncthreads();
+    if (16 * warp >= nk16) continue;   // no key of this tile for this warp
+
+    // S = Q K^T over this warp's keys 16 warp .. + 15 (two n8 tiles)
+    const bf16* kw = k_s + 16 * warp * LD;
+    float s[2][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < DP; kk += 16) {
+      uint32_t a[4], b0[2], b1[2];
+      bm::load_a(q_s + kk, LD, lane, a);
+      bm::load_b_nmajor(kw + kk, LD, lane, b0);
+      bm::load_b_nmajor(kw + 8 * LD + kk, LD, lane, b1);
+      bm::mma_bf16(s[0], a, b0);
+      bm::mma_bf16(s[1], a, b1);
+    }
+    // online softmax of rows g (e = 0, 1) and g + 8 (e = 2, 3), in f32
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 16 * warp + 8 * u + 2 * t4 + (e & 1);
+        s[u][e] = valid_s[col] > 0.f ? s[u][e] : -INFINITY;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[u][e]);
+      }
+    float mu[2], alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m_new = fmaxf(m[r], quad_max(mx[r]));
+      mu[r] = m_new == -INFINITY ? 0.f : m_new;   // no valid key yet: p = 0
+      alpha[r] = expf(m[r] - mu[r]);
+      m[r] = m_new;
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int nt = 0; nt < NDT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[nt][e] *= alpha[e >> 1];
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[u][e] = expf(s[u][e] - mu[e >> 1]);
+        l[e >> 1] += s[u][e];
+      }
+    // O += P V: P's A fragment is S's two accumulator tiles, rounded to bf16
+    const uint32_t pa[4] = {bm::pack2(s[0][0], s[0][1]), bm::pack2(s[0][2], s[0][3]),
+                            bm::pack2(s[1][0], s[1][1]), bm::pack2(s[1][2], s[1][3])};
+    const bf16* vw = v_s + 16 * warp * LD;
+#pragma unroll
+    for (int nt = 0; nt < NDT; nt += 2) {
+      uint32_t b0[2], b1[2];
+      bm::load_b_kmajor_x2(vw + nt * 8, vw + (nt + 1) * 8, LD, lane, b0, b1);
+      bm::mma_bf16(o[nt], pa, b0);
+      bm::mma_bf16(o[nt + 1], pa, b1);
+    }
+  }
+  cp_async_wait_all();   // Tk = 0: the Q copies
+  __syncthreads();       // K and V are no longer read: the merge takes their rows
+
+  // merge the warps: each writes its (m, l, O) of the 16 rows
+  float* ow = o_s + warp * QROWS * LDM;
+#pragma unroll
+  for (int nt = 0; nt < NDT; ++nt)
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr)
+      st2(ow + (g + 8 * hr) * LDM + nt * 8 + 2 * t4, o[nt][2 * hr], o[nt][2 * hr + 1]);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float lr = quad_sum(l[r]);
+    if (t4 == 0) {
+      m_s[warp][g + 8 * r] = m[r];
+      l_s[warp][g + 8 * r] = lr;
+    }
+  }
+  __syncthreads();
+  if (tid < QROWS) {
+    float mm = -INFINITY;
+    for (int w = 0; w < NWARPS; ++w) mm = fmaxf(mm, m_s[w][tid]);
+    float sc[NWARPS], sum = 0.f;
+    for (int w = 0; w < NWARPS; ++w) {
+      sc[w] = mm == -INFINITY ? 0.f : expf(m_s[w][tid] - mm);
+      sum += l_s[w][tid] * sc[w];
+    }
+    const float inv = sum > 0.f ? 1.f / sum : 0.f;
+    for (int w = 0; w < NWARPS; ++w) scale_s[w][tid] = sc[w] * inv;
+    if (lse != nullptr && q0 + tid < Tq)
+      lse[((size_t)b * H + hh) * Tq + q0 + tid] = sum > 0.f ? mm + logf(sum) : -INFINITY;
+  }
+  __syncthreads();
+  // out: NTHREADS / QROWS threads a row, two columns at a time, rounded once
+  constexpr int TPR = NTHREADS / QROWS;
+  const int r = tid / TPR;
+  if (q0 + r >= Tq) return;
+  float sc[NWARPS];
+#pragma unroll
+  for (int w = 0; w < NWARPS; ++w) sc[w] = scale_s[w][r];
+  bf16* dst = out + ((size_t)b * Tq + q0 + r) * H * D + (size_t)hh * D;
+  for (int c = tid % TPR * 2; c < D; c += TPR * 2) {
+    float a0 = 0.f, a1 = 0.f;
+#pragma unroll
+    for (int w = 0; w < NWARPS; ++w) {
+      const float2 x = ld2(o_s + (w * QROWS + r) * LDM + c);
+      a0 += sc[w] * x.x;
+      a1 += sc[w] * x.y;
+    }
+    if (D % 2 == 0) {
+      bm::st2(dst + c, a0, a1);
+    } else {
+      dst[c] = __float2bfloat16_rn(a0);
+      if (c + 1 < D) dst[c + 1] = __float2bfloat16_rn(a1);
+    }
+  }
+}
+
+template <int DP>
+int launch(const bf16* q, const bf16* k, const bf16* v, const unsigned char* key_pad,
+           bf16* out, float* lse, int B, int Tq, int Tk, int H, int D, bool vec,
+           cudaStream_t stream) {
+  const dim3 grid((Tq + QROWS - 1) / QROWS, H, B);
+  attention_fwd_kernel<DP><<<grid, NTHREADS, smem_bytes<DP>(), stream>>>(
+      q, k, v, key_pad, out, lse, Tq, Tk, H, D, vec);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace bf16_form
+
 }  // namespace
 
 // q, out [B, Tq, H, D]; k, v [B, Tk, H, D]; key_pad [B, Tk] bytes (nonzero =
@@ -268,4 +468,19 @@ extern "C" int attention_fwd_f32(const float* q, const float* k, const float* v,
   if (D <= 64) return launch<8>(q, k, v, key_pad, out, lse, B, Tq, Tk, H, D, vec, s);
   if (D <= 96) return launch<12>(q, k, v, key_pad, out, lse, B, Tq, Tk, H, D, vec, s);
   return launch<16>(q, k, v, key_pad, out, lse, B, Tq, Tk, H, D, vec, s);
+}
+
+// The bf16 form: q, k, v, out bf16 as above; lse float32 [B, H, Tq] or null.
+extern "C" int attention_fwd_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                                  const __nv_bfloat16* v, const unsigned char* key_pad,
+                                  __nv_bfloat16* out, float* lse, int B, int Tq, int Tk,
+                                  int H, int D, void* stream) {
+  if (D < 1 || D > 128) return (int)cudaErrorInvalidValue;
+  if ((size_t)B * Tq * H == 0) return 0;
+  const bool vec = D % 8 == 0 && ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16 == 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D <= 32) return bf16_form::launch<32>(q, k, v, key_pad, out, lse, B, Tq, Tk, H, D, vec, s);
+  if (D <= 64) return bf16_form::launch<64>(q, k, v, key_pad, out, lse, B, Tq, Tk, H, D, vec, s);
+  if (D <= 96) return bf16_form::launch<96>(q, k, v, key_pad, out, lse, B, Tq, Tk, H, D, vec, s);
+  return bf16_form::launch<128>(q, k, v, key_pad, out, lse, B, Tq, Tk, H, D, vec, s);
 }

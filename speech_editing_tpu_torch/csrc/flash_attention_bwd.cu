@@ -50,11 +50,30 @@
 //    bit-reproducible from run to run.
 // The attribute that lets a CTA take more than 48 KB of shared memory is
 // set once per process.
+//
+// The bf16 form (attention_bwd_bf16) replaces the same backward run on bf16
+// q, k, v, o and do (the JAX package's use_bf16 training). It rounds where
+// the Pallas backward rounds (_flash_attention_dkv_kernel,
+// _flash_attention_dq_kernel): s = q k^T and dp = do v^T accumulated in
+// f32 from the bf16 operands, p and ds = p (dp - di) in f32 with di =
+// rowsum(o do) in f32; dv = p^T do with p cast to bf16, dk = ds^T q and dq
+// = ds k with ds cast to bf16, each accumulated in f32 and rounded once to
+// bf16. Bound: bytes, half the float32 form's (11.5 MB at the train shape,
+// 3.4 us; 0.25 GFLOP at 989 TFLOP/s, 0.25 us). Design: the float32 form's
+// grid, tiles and passes, its products one bf16 mma.sync.m16n8k16 each
+// (bf16mma.cuh). P and dS are stored in shared memory as the bf16 the
+// last three products read, so the rounding happens once, where it is
+// stored; the transposed operands (P^T, dS^T as A; dO, Q, K as k-major B)
+// come by ldmatrix .trans. dV (warps 0-3) and dK (warps 4-7): a warp an
+// m16 key tile, every d column; dQ: a warp an m16 query tile and half the
+// d columns. di is read from O in device memory as the query tile is
+// staged. d is zero-filled to the k16 step (any d <= 128).
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "bf16mma.cuh"
 #include "tf32x3.cuh"
 
 using namespace tf32x3;
@@ -367,6 +386,273 @@ int launch(const float* q, const float* k, const float* v, const float* o, const
   return (int)cudaGetLastError();
 }
 
+
+// -- the bf16 form -------------------------------------------------------------
+
+namespace bf16_form {
+
+namespace bm = bf16mma;
+using bm::bf16;
+
+constexpr int LDPB = TILE + 8;   // row stride of P and dS: 4 mod 8 words
+
+// Q and dO, K and V (rows of DP + 8 bf16), P and dS, for the first
+// (largest) tiles of Tq and Tk.
+template <int DP>
+size_t smem_bytes(int Tq, int Tk) {
+  const int qc = first_tile(Tq), kc = first_tile(Tk);
+  return sizeof(bf16) * ((size_t)(2 * qc + 2 * kc) * (DP + 8) + (size_t)2 * qc * LDPB);
+}
+
+struct Smem {
+  bf16 *q, *dout, *k, *v, *p, *ds;
+  float *lse, *di, *valid;   // [TILE] each
+};
+
+// Stages the query tile (Q, dO, lse, and di from O in device memory and the
+// staged dO) and/or the key tile (K, V, which keys are valid). Returns
+// live_rows of a new key tile.
+template <int DP>
+__device__ __forceinline__ int stage_tiles(const Smem& sm, bool new_q, bool new_k,
+                                            const bf16* q, const bf16* k, const bf16* v,
+                                            const bf16* o, const bf16* dout, const float* lse,
+                                            const unsigned char* key_pad, int b, int hh, int q0,
+                                            int nq, int k0, int nk, int Tq, int Tk, int H, int D,
+                                            bool vec) {
+  constexpr int LD = DP + 8;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int qr = tile_rows(nq), kr = tile_rows(nk);
+  if (new_q) {
+    bm::stage_rows<DP, LD>(sm.q, q, b, q0, qr, Tq, H, D, hh, vec, tid, NTHREADS);
+    bm::stage_rows<DP, LD>(sm.dout, dout, b, q0, qr, Tq, H, D, hh, vec, tid, NTHREADS);
+  }
+  if (new_k) {
+    bm::stage_rows<DP, LD>(sm.k, k, b, k0, kr, Tk, H, D, hh, vec, tid, NTHREADS);
+    bm::stage_rows<DP, LD>(sm.v, v, b, k0, kr, Tk, H, D, hh, vec, tid, NTHREADS);
+  }
+  cp_async_commit();
+  if (new_k) {
+    for (int r = tid; r < kr; r += NTHREADS) {
+      const int key = k0 + r;
+      sm.valid[r] = r < nk && (key_pad == nullptr || !key_pad[(size_t)b * Tk + key]);
+    }
+  }
+  if (new_q) {
+    for (int r = tid; r < qr; r += NTHREADS)
+      sm.lse[r] = r < nq ? lse[((size_t)b * H + hh) * Tq + q0 + r] : -INFINITY;
+  }
+  cp_async_wait_all();
+  __syncthreads();
+  const int live = new_k ? live_rows(sm.valid, kr) : 0;
+  if (!new_q) return live;
+  // di = rowsum(o * do) in f32, a warp a row
+  for (int r = warp; r < qr; r += NWARPS) {
+    float acc = 0.f;
+    if (r < nq) {
+      const bf16* orow = o + (((size_t)b * Tq + q0 + r) * H + hh) * D;
+      for (int c = lane; c < D; c += 32)
+        acc = fmaf(__bfloat162float(orow[c]), __bfloat162float(sm.dout[r * LD + c]), acc);
+    }
+    acc = warp_sum(acc);
+    if (lane == 0) sm.di[r] = acc;
+  }
+  __syncthreads();
+  return live;
+}
+
+// P and dS [qr][kl] of the staged tiles as bf16, one (m16, n8) tile a job:
+// S = Q K^T and dP = dO V^T in f32, each formed once.
+template <int DP>
+__device__ __forceinline__ void p_and_ds(const Smem& sm, int qr, int kl) {
+  constexpr int LD = DP + 8;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int nnt = kl / 8, n_jobs = qr / 16 * nnt;
+  for (int job = warp; job < n_jobs; job += NWARPS) {
+    const int r0 = job / nnt * 16, c0 = job % nnt * 8;
+    float s[4] = {}, dp[4] = {};
+#pragma unroll
+    for (int kk = 0; kk < DP; kk += 16) {
+      uint32_t qa[4], da[4], kb[2], vb[2];
+      bm::load_a(sm.q + r0 * LD + kk, LD, lane, qa);
+      bm::load_a(sm.dout + r0 * LD + kk, LD, lane, da);
+      bm::load_b_nmajor(sm.k + c0 * LD + kk, LD, lane, kb);
+      bm::load_b_nmajor(sm.v + c0 * LD + kk, LD, lane, vb);
+      bm::mma_bf16(s, qa, kb);
+      bm::mma_bf16(dp, da, vb);
+    }
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int r = r0 + g + 8 * hr, c = c0 + 2 * t4;
+      const float lse_r = sm.lse[r], di_r = sm.di[r];
+      float p[2], ds[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const bool live = lse_r != -INFINITY && sm.valid[c + e] > 0.f;
+        p[e] = live ? expf(s[2 * hr + e] - lse_r) : 0.f;
+        ds[e] = live ? p[e] * (dp[2 * hr + e] - di_r) : 0.f;
+      }
+      bm::st2(sm.p + r * LDPB + c, p[0], p[1]);
+      bm::st2(sm.ds + r * LDPB + c, ds[0], ds[1]);
+    }
+  }
+}
+
+// dV += P^T dO (or dK += dS^T Q) over the qr staged query rows, for the m16
+// key tile kt (below kl), every d column.
+template <int DP>
+__device__ __forceinline__ void add_kv(const Smem& sm, float (&acc)[DP / 8][4], bool is_dk,
+                                       int kt, int qr, int kl) {
+  constexpr int LD = DP + 8, NDT = DP / 8;
+  const int lane = threadIdx.x & 31;
+  if (16 * kt >= kl) return;
+  const bf16* a = is_dk ? sm.ds : sm.p;
+  const bf16* bs = is_dk ? sm.q : sm.dout;
+  for (int kq = 0; kq < qr; kq += 16) {
+    uint32_t af[4];
+    bm::load_a_kmajor(a + kq * LDPB + 16 * kt, LDPB, lane, af);
+#pragma unroll
+    for (int nt = 0; nt < NDT; nt += 2) {
+      uint32_t b0[2], b1[2];
+      bm::load_b_kmajor_x2(bs + kq * LD + nt * 8, bs + kq * LD + (nt + 1) * 8, LD, lane, b0,
+                           b1);
+      bm::mma_bf16(acc[nt], af, b0);
+      bm::mma_bf16(acc[nt + 1], af, b1);
+    }
+  }
+}
+
+// dQ += dS K over the key rows below kl, for the m16 query tile mt (below
+// qr) and the DP / 16 n8 column tiles from n0.
+template <int DP>
+__device__ __forceinline__ void add_dq(const Smem& sm, float (&acc)[DP / 16][4], int mt,
+                                       int n0, int qr, int kl) {
+  constexpr int LD = DP + 8, NH = DP / 16;
+  const int lane = threadIdx.x & 31;
+  if (16 * mt >= qr) return;
+  for (int kk = 0; kk < kl; kk += 16) {
+    uint32_t af[4];
+    bm::load_a(sm.ds + 16 * mt * LDPB + kk, LDPB, lane, af);
+#pragma unroll
+    for (int i = 0; i < NH; i += 2) {
+      uint32_t b0[2], b1[2];
+      const bf16* kr = sm.k + kk * LD + (n0 + i) * 8;
+      bm::load_b_kmajor_x2(kr, kr + 8, LD, lane, b0, b1);
+      bm::mma_bf16(acc[i], af, b0);
+      bm::mma_bf16(acc[i + 1], af, b1);
+    }
+  }
+}
+
+// Writes a warp's accumulator tiles acc[i], rows t0 .. t0 + 15 and columns
+// 8 (n0 + i) .., to head hh of batch row b of x [B, T, H, D] (bf16), rows
+// < T and columns < D, rounded once.
+template <int NI>
+__device__ __forceinline__ void store_tiles(bf16* x, const float (&acc)[NI][4], int b, int t0,
+                                            int T, int H, int D, int hh, int n0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int t = t0 + g + 8 * hr;
+    if (t >= T) continue;
+    bf16* row = x + ((size_t)b * T + t) * H * D + (size_t)hh * D;
+#pragma unroll
+    for (int i = 0; i < NI; ++i) {
+      const int c = (n0 + i) * 8 + 2 * t4;
+      const float v0 = acc[i][2 * hr], v1 = acc[i][2 * hr + 1];
+      if (D % 2 == 0) {
+        if (c < D) bm::st2(row + c, v0, v1);
+      } else {
+        if (c < D) row[c] = __float2bfloat16_rn(v0);
+        if (c + 1 < D) row[c + 1] = __float2bfloat16_rn(v1);
+      }
+    }
+  }
+}
+
+// blockIdx.x < n_kv: the CTA of key tile blockIdx.x, over every query tile
+// (and dq too when n_kv == 1); else the dq CTA of query tile blockIdx.x -
+// n_kv, over every key tile.
+template <int DP>
+__global__ void __launch_bounds__(NTHREADS, 2) attention_bwd_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const bf16* __restrict__ o, const bf16* __restrict__ dout, const float* __restrict__ lse,
+    const unsigned char* __restrict__ key_pad, bf16* __restrict__ dq, bf16* __restrict__ dk,
+    bf16* __restrict__ dv, int Tq, int Tk, int H, int D, int n_kv, int vec) {
+  constexpr int LD = DP + 8, NDT = DP / 8, NH = DP / 16;
+  extern __shared__ float4 smem4[];
+  __shared__ float lse_s[TILE], di_s[TILE], valid_s[TILE];
+  const int qc = first_tile(Tq), kc = first_tile(Tk);
+  Smem sm;
+  sm.q = reinterpret_cast<bf16*>(smem4);   // [qc][LD]
+  sm.dout = sm.q + qc * LD;                 // [qc][LD]
+  sm.k = sm.dout + qc * LD;                 // [kc][LD]
+  sm.v = sm.k + kc * LD;                    // [kc][LD]
+  sm.p = sm.v + kc * LD;                    // [qc][LDPB]
+  sm.ds = sm.p + qc * LDPB;                 // [qc][LDPB]
+  sm.lse = lse_s;
+  sm.di = di_s;
+  sm.valid = valid_s;
+
+  const int b = blockIdx.z, hh = blockIdx.y, warp = threadIdx.x >> 5;
+  const int w4 = warp & 3, hq = warp >> 2;   // hq: which half of d for dQ
+  if (blockIdx.x < n_kv) {
+    const int k0 = blockIdx.x * TILE, nk = max(0, min(TILE, Tk - k0));
+    const int n_qt = max(1, (Tq + TILE - 1) / TILE);
+    const bool is_dk = warp >= 4;
+    float kv_acc[NDT][4] = {};   // dV or dK of key tile w4
+    int kl = 0;
+    for (int it = 0; it < n_qt; ++it) {
+      const int q0 = it * TILE, nq = max(0, min(TILE, Tq - q0)), qr = tile_rows(nq);
+      if (it > 0) __syncthreads();   // the last query tile is no longer read
+      const int live = stage_tiles<DP>(sm, true, it == 0, q, k, v, o, dout, lse, key_pad, b, hh,
+                                       q0, nq, k0, nk, Tq, Tk, H, D, vec);
+      if (it == 0) kl = live;
+      p_and_ds<DP>(sm, qr, kl);
+      __syncthreads();
+      add_kv<DP>(sm, kv_acc, is_dk, w4, qr, kl);
+      if (n_kv == 1) {   // every key is here: this query tile's dq is whole
+        float dq_acc[NH][4] = {};
+        add_dq<DP>(sm, dq_acc, w4, hq * NH, qr, kl);
+        store_tiles<NH>(dq, dq_acc, b, q0 + 16 * w4, Tq, H, D, hh, hq * NH);
+      }
+    }
+    store_tiles<NDT>(is_dk ? dk : dv, kv_acc, b, k0 + 16 * w4, Tk, H, D, hh, 0);
+  } else {
+    const int q0 = (blockIdx.x - n_kv) * TILE, nq = max(0, min(TILE, Tq - q0));
+    const int qr = tile_rows(nq);
+    float dq_acc[NH][4] = {};
+    for (int it = 0; it < n_kv; ++it) {
+      const int k0 = it * TILE, nk = max(0, min(TILE, Tk - k0));
+      if (it > 0) __syncthreads();   // the last key tile is no longer read
+      const int kl = stage_tiles<DP>(sm, it == 0, true, q, k, v, o, dout, lse, key_pad, b, hh,
+                                     q0, nq, k0, nk, Tq, Tk, H, D, vec);
+      p_and_ds<DP>(sm, qr, kl);
+      __syncthreads();
+      add_dq<DP>(sm, dq_acc, w4, hq * NH, qr, kl);
+    }
+    store_tiles<NH>(dq, dq_acc, b, q0 + 16 * w4, Tq, H, D, hh, hq * NH);
+  }
+}
+
+template <int DP>
+int launch(const bf16* q, const bf16* k, const bf16* v, const bf16* o, const bf16* dout,
+           const float* lse, const unsigned char* key_pad, bf16* dq, bf16* dk, bf16* dv, int B,
+           int Tq, int Tk, int H, int D, bool vec, cudaStream_t stream) {
+  auto kernel = attention_bwd_kernel<DP>;
+  // once per process: room for the largest tiles (64 x 64)
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes<DP>(TILE, TILE));
+  if (attr != cudaSuccess) return (int)attr;
+  const int n_kv = Tk > TILE ? (Tk + TILE - 1) / TILE : 1;
+  const int n_q = n_kv == 1 ? 0 : Tq > TILE ? (Tq + TILE - 1) / TILE : 1;
+  kernel<<<dim3(n_kv + n_q, H, B), NTHREADS, smem_bytes<DP>(Tq, Tk), stream>>>(
+      q, k, v, o, dout, lse, key_pad, dq, dk, dv, Tq, Tk, H, D, n_kv, vec);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace bf16_form
+
 }  // namespace
 
 // q, o, dout, dq [B, Tq, H, D]; k, v, dk, dv [B, Tk, H, D]; lse [B, H, Tq];
@@ -387,4 +673,25 @@ extern "C" int attention_bwd_f32(const float* q, const float* k, const float* v,
   if (D <= 96)
     return launch<12>(q, k, v, o, dout, lse, key_pad, dq, dk, dv, B, Tq, Tk, H, D, vec, s);
   return launch<16>(q, k, v, o, dout, lse, key_pad, dq, dk, dv, B, Tq, Tk, H, D, vec, s);
+}
+
+// The bf16 form: every tensor bf16 as above but lse, float32 [B, H, Tq].
+extern "C" int attention_bwd_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                                  const __nv_bfloat16* v, const __nv_bfloat16* o,
+                                  const __nv_bfloat16* dout, const float* lse,
+                                  const unsigned char* key_pad, __nv_bfloat16* dq,
+                                  __nv_bfloat16* dk, __nv_bfloat16* dv, int B, int Tq, int Tk,
+                                  int H, int D, void* stream) {
+  if (D < 1 || D > 128) return (int)cudaErrorInvalidValue;
+  if ((size_t)B * H == 0) return 0;
+  const bool vec =
+      D % 8 == 0 && ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)dout) % 16 == 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D <= 32)
+    return bf16_form::launch<32>(q, k, v, o, dout, lse, key_pad, dq, dk, dv, B, Tq, Tk, H, D, vec, s);
+  if (D <= 64)
+    return bf16_form::launch<64>(q, k, v, o, dout, lse, key_pad, dq, dk, dv, B, Tq, Tk, H, D, vec, s);
+  if (D <= 96)
+    return bf16_form::launch<96>(q, k, v, o, dout, lse, key_pad, dq, dk, dv, B, Tq, Tk, H, D, vec, s);
+  return bf16_form::launch<128>(q, k, v, o, dout, lse, key_pad, dq, dk, dv, B, Tq, Tk, H, D, vec, s);
 }

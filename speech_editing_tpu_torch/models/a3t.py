@@ -31,6 +31,7 @@ from speech_editing_tpu_torch.modules.conformer import (ConformerLayers, espnet_
 from speech_editing_tpu_torch.modules.conv import conv_same
 from speech_editing_tpu_torch.modules.predictors import MelEncoder
 from speech_editing_tpu_torch.modules.transformer import TokenEmbedding
+from speech_editing_tpu_torch.utils.dtypes import weak
 
 
 class Postnet(nn.Module):
@@ -86,7 +87,7 @@ class A3T(nn.Module):
         [B, T, 80]."""
         enc = self.encoder
         h, dev = self.hidden_size, mels.device
-        xscale = math.sqrt(h)
+        xscale = weak(math.sqrt(h), mels)
         txt_nonpadding = (txt_tokens > 0).to(mels.dtype)
         mel_nonpadding = (mel2ph > 0).to(mels.dtype)
         t_mel, s_txt = mels.shape[1], txt_tokens.shape[1]

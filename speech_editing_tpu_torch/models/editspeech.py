@@ -63,8 +63,8 @@ class EditSpeech(nn.Module):
                       generator=generator)
         decoder_inp = ret["decoder_inp"]
         pos_tokens = (ref_mels[..., 0] != 0).long()
-        decoder_inp = decoder_inp + sinusoidal_positional_embedding(pos_tokens,
-                                                                    decoder_inp.shape[-1])
+        decoder_inp = decoder_inp + sinusoidal_positional_embedding(
+            pos_tokens, decoder_inp.shape[-1]).to(decoder_inp.dtype)
         inputs = decoder_inp + self.decoder.prenet(ref_mels * (1 - time_mel_masks))
         return ret, inputs, pos_tokens
 

@@ -39,6 +39,7 @@ from speech_editing_tpu_torch.modules.conv import (ConditionalConvBlocks, ConvBl
 from speech_editing_tpu_torch.modules.predictors import dropout as drop
 from speech_editing_tpu_torch.modules.wavenet import WN
 from speech_editing_tpu_torch.ops.seq_ops import expand_states
+from speech_editing_tpu_torch.utils.dtypes import promoted
 
 
 class FrameStutterHead(nn.Module):
@@ -127,16 +128,20 @@ class StutterPredictor(nn.Module):
         dropout on (0.3 on both embeddings and in the decoder), its masks
         from ``generator``."""
         b, t = mel2ph.shape
-        txt_nonpadding = (txt_tokens > 0).to(mels.dtype)[:, :, None]
+        # float32 masks, as the JAX model's: under use_bf16 the embeddings
+        # they multiply, and every layer after them, compute in float32
+        txt_nonpadding = (txt_tokens > 0).float()[:, :, None]
         txt_embed = self.txt_encoder(txt_tokens) * txt_nonpadding
         blocks = (mel2ph > 0).reshape(b, t // self.block_size, self.block_size)
-        block_nonpadding = blocks.any(-1).to(mels.dtype)[:, :, None]
+        block_nonpadding = blocks.any(-1).float()[:, :, None]
         mel_embed = self.mel_prenet(mels)
         mel_nonpadding = (mel_embed.abs().sum(-1, keepdim=True) > 0).to(mels.dtype)
         mel_embed = self.mel_convs(mel_embed, mel_nonpadding) * block_nonpadding
         if train:
             txt_embed = drop(txt_embed, 0.3, generator)
             mel_embed = drop(mel_embed, 0.3, generator)
-        condition = self.decoder_text_prenet(expand_states(txt_embed, mel2ph)) * block_nonpadding
-        dec = self.decoder(mel_embed, cond=condition, train=train, generator=generator)
-        return {"logits": self.out_proj(dec) * block_nonpadding}
+        condition = promoted(self.decoder_text_prenet,
+                             expand_states(txt_embed, mel2ph)) * block_nonpadding
+        dec = promoted(self.decoder, mel_embed, cond=condition, train=train,
+                       generator=generator)
+        return {"logits": promoted(self.out_proj, dec) * block_nonpadding}

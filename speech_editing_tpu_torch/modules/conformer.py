@@ -26,6 +26,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from speech_editing_tpu_torch.utils.dtypes import promoted, widen
+
 ESPNET_MAX_LEN = 5000  # the reference RelPositionalEncoding's max_len
 
 
@@ -75,8 +77,8 @@ class RelPositionMultiHeadAttention(nn.Module):
     """Legacy ESPnet RelPositionMultiHeadedAttention: biased q/k/v/out
     linears, a bias-free position projection, ``pos_bias_u``/``pos_bias_v``
     [h, d], content scores plus rel-shifted position scores over sqrt(d),
-    pad keys filled with float32's least value before the softmax and with
-    zero after it."""
+    in float32, pad keys filled with float32's least value before the
+    softmax and with zero after it."""
 
     def __init__(self, hidden_size: int, num_heads: int = 4):
         super().__init__()
@@ -98,15 +100,19 @@ class RelPositionMultiHeadAttention(nn.Module):
         q = self.linear_q(x).view(b, t, nh, d)
         k = self.linear_k(x).view(b, t, nh, d)
         v = self.linear_v(x).view(b, t, nh, d)
-        p = self.linear_pos(pos_emb).view(pos_emb.shape[0], -1, nh, d).expand(b, -1, -1, -1)
-        ac = torch.einsum("bthd,bshd->bhts", q + self.pos_bias_u, k)
-        bd = torch.einsum("bthd,bshd->bhts", q + self.pos_bias_v, p)
+        # flax promotes the float32 table over bf16 weights: float32 here
+        p = promoted(self.linear_pos, pos_emb)
+        p = p.view(pos_emb.shape[0], -1, nh, d).expand(b, -1, -1, -1)
+        # scores in f32 (from bf16 operands under use_bf16, as JAX's
+        # preferred_element_type forms them); the weights meet v in its dtype
+        ac = torch.einsum("bthd,bshd->bhts", widen(q + self.pos_bias_u), widen(k))
+        bd = torch.einsum("bthd,bshd->bhts", widen(q + self.pos_bias_v), widen(p))
         bd = legacy_rel_shift(bd) if true_len is None else true_len_rel_shift(bd, true_len)
         scores = (ac + bd) / math.sqrt(d)
         pad = (nonpadding <= 0)[:, None, None, :]
         scores = scores.masked_fill(pad, torch.finfo(torch.float32).min)
         attn = torch.softmax(scores, dim=-1).masked_fill(pad, 0.0)
-        out = torch.einsum("bhts,bshd->bthd", attn, v)
+        out = torch.einsum("bhts,bshd->bthd", attn.to(v.dtype), v)
         return self.linear_out(out.reshape(b, t, hid))
 
 

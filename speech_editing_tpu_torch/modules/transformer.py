@@ -17,7 +17,7 @@ from torch import nn
 
 from speech_editing_tpu_torch.ops.flash_attention import NEG_INF, flash_mha, flash_mha_train
 from speech_editing_tpu_torch.ops.seq_ops import make_positions
-from speech_editing_tpu_torch.utils.dtypes import gelu, weak
+from speech_editing_tpu_torch.utils.dtypes import gelu, weak, widen
 
 
 class TokenEmbedding(nn.Embedding):
@@ -66,7 +66,8 @@ class MultiheadAttention(nn.Module):
     readout the softmax attention is kernel K3 (``flash_mha``), and its
     backward, when autograd records, kernel K4 (``flash_mha_train``); with
     ``return_weights`` it is the plain einsum, which also returns the
-    probabilities [B, h, Tq, Tk], as the JAX package's einsum branch does."""
+    probabilities [B, h, Tq, Tk] (float32), as the JAX package's einsum
+    branch does. In bf16 (``use_bf16``) K3 and K4 take their bf16 forms."""
 
     def __init__(self, dim: int, num_heads: int):
         super().__init__()
@@ -89,12 +90,14 @@ class MultiheadAttention(nn.Module):
         k = F.linear(kv, w[e:2 * e]).view(b, tk, h, d)
         v = F.linear(kv, w[2 * e:]).view(b, tk, h, d)
         if return_weights:
-            logits = torch.einsum("bqhd,bkhd->bhqk", q, k)
+            # logits and weights in f32 (from bf16 q, k under use_bf16, as
+            # JAX's preferred_element_type forms them); the weights meet v
+            # in its dtype
+            logits = torch.einsum("bqhd,bkhd->bhqk", widen(q), widen(k))
             if key_padding_mask is not None:
-                logits = logits + torch.where(key_padding_mask, NEG_INF, 0.0).to(
-                    logits.dtype)[:, None, None, :]
+                logits = logits + torch.where(key_padding_mask, NEG_INF, 0.0)[:, None, None, :]
             weights = torch.softmax(logits, dim=-1)
-            out = torch.einsum("bhqk,bkhd->bqhd", weights, v)
+            out = torch.einsum("bhqk,bkhd->bqhd", weights.to(v.dtype), v)
             return self.out_proj(out.reshape(b, tq, e)), weights
         attend = flash_mha_train if torch.is_grad_enabled() else flash_mha
         out = attend(q, k, v, key_padding_mask)
@@ -167,10 +170,11 @@ class FastSpeechEncoder(nn.Module):
 
     def forward(self, txt_tokens: torch.Tensor) -> torch.Tensor:
         padding_mask = txt_tokens == 0
-        nonpad = (~padding_mask)[:, :, None].float()
         x = self.embed_tokens(txt_tokens)
         x = weak(math.sqrt(self.hidden_size), x) * x
-        x = (x + sinusoidal_positional_embedding(txt_tokens, self.hidden_size)) * nonpad
+        # the float32 table and mask cast to x's dtype at the add, as in JAX
+        nonpad = (~padding_mask)[:, :, None].to(x.dtype)
+        x = (x + sinusoidal_positional_embedding(txt_tokens, self.hidden_size).to(x.dtype)) * nonpad
         for layer in self.layers:
             x = layer.op(x, padding_mask) * nonpad
         return self.layer_norm(x) * nonpad
@@ -223,7 +227,7 @@ class TransformerDecoder(nn.Module):
             padding_mask = x.abs().sum(-1) == 0
         nonpad = (~padding_mask)[:, :, None].to(x.dtype)
         positions = sinusoidal_positional_embedding((~padding_mask).long(), self.hidden_size)
-        x = (x + self.pos_embed_alpha * positions) * nonpad
+        x = (x + self.pos_embed_alpha * positions.to(x.dtype)) * nonpad
         attn = None
         for layer in self.layers:
             x, weights = layer.op(x, encoder_out, encoder_padding_mask, self_attn_padding_mask)

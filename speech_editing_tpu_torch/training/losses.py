@@ -124,7 +124,7 @@ def cross_entropy_loss(logits: torch.Tensor, target: torch.Tensor,
     positions at ``ignore_index`` left out."""
     tgt = target.long()
     ignored = tgt == ignore_index
-    valid = (~ignored).to(logits.dtype)
+    valid = (~ignored).float()   # float32 whatever the logits' dtype, as in JAX
     safe = tgt.masked_fill(ignored, 0)[..., None]
     nll = -torch.log_softmax(logits, dim=-1).gather(-1, safe)[..., 0]
     return (nll * valid).sum() / valid.sum().clamp(min=1.0)

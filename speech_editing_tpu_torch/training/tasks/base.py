@@ -42,13 +42,6 @@ class BaseTask:
             self.sil_token_ids = tuple(sorted({i for p in enc.sil_phonemes()
                                                for i in enc.encode(p)}))
 
-    def runs_bf16(self, hp: Any) -> bool:
-        """Whether the family's modules run under ``use_bf16`` with ``hp``:
-        where a float32 table meets bf16 weights, flax promotes the op to
-        float32 and torch refuses it, so a family runs in bf16 only once its
-        modules follow the promotion (ROADMAP Queue 1 item 1)."""
-        return False
-
     def effective_batch_keys(self) -> tuple:
         keys = list(self.array_batch_keys)
         if self.hp.get("use_spk_embed"):

@@ -61,10 +61,6 @@ class SpecDenoiserTask(BaseTask):
     def build_model(self) -> GaussianDiffusion:
         return build_model(self.vocab_size, self.hp)
 
-    def runs_bf16(self, hp: Any) -> bool:
-        # with the conv text encoder: the fft one's position table is float32
-        return hp.get("encoder_type") != "fft"
-
     def make_loss_fn(self, model: GaussianDiffusion, train: bool = True):
         return make_loss_fn(model, self.hp, self.sil_token_ids, train)
 

@@ -31,10 +31,10 @@ from speech_editing_tpu_torch.training.losses import (add_mel_loss, cross_entrop
                                                       dur_loss, multi_focal_loss,
                                                       pitch_loss, sil_token_mask)
 from speech_editing_tpu_torch.training.tasks.base import BaseTask
-from speech_editing_tpu_torch.training.tasks.spec_denoiser import SpecDenoiserTask
 from speech_editing_tpu_torch.utils.convert_jax_params import (
     stutter_predictor_params_from_jax, stutter_speech_params_from_jax,
     text_conv_encoder_params_from_jax)
+from speech_editing_tpu_torch.utils.dtypes import weak
 from speech_editing_tpu_torch.utils.init import init_like_flax
 
 
@@ -61,7 +61,6 @@ def _step(batch: dict, default: float, like: torch.Tensor) -> torch.Tensor:
 class StutterSpeechTask(BaseTask):
     array_batch_keys = ("txt_tokens", "mels", "mel2ph", "f0", "uv", "time_mel_masks",
                         "stutter_mel_masks")
-    runs_bf16 = SpecDenoiserTask.runs_bf16     # the same text encoder
 
     def build_model(self) -> StutterGaussianDiffusion:
         return init_like_flax(StutterGaussianDiffusion(
@@ -92,7 +91,8 @@ class StutterSpeechTask(BaseTask):
                            batch["mel2ph"], hp)
             logits = out["stutter_predictor_out"]
             step = _step(batch, 0.0, logits)
-            losses["ce"] = cross_entropy_loss(logits, labels) * (8e-3 + 5e-3 * (step + 1.0) / 1e5)
+            ce_w = weak(8e-3, step) + weak(5e-3, step) * (step + 1.0) / weak(1e5, step)
+            losses["ce"] = cross_entropy_loss(logits, labels) * ce_w
             losses["focal"] = multi_focal_loss(logits, labels)
             return sum(losses.values()), losses
 
@@ -103,7 +103,6 @@ class StutterSpeechTask(BaseTask):
 
 
 class StutterPredictorTask(BaseTask):
-    runs_bf16 = SpecDenoiserTask.runs_bf16
     array_batch_keys = ("txt_tokens", "mels", "mel2ph", "stutter_mel_masks")
 
     @property

@@ -69,12 +69,6 @@ class Trainer:
 
     def __init__(self, task: Any, hp: Any, device: Any = "cuda", dropout: bool = True):
         check_supported(hp)
-        if hp.get("use_bf16") and not task.runs_bf16(hp):
-            raise NotImplementedError(
-                f"use_bf16 with {type(task).__name__} and encoder_type "
-                f"{hp.get('encoder_type')} is not ported: its modules meet float32 tensors "
-                "with bf16 weights, which flax promotes and torch refuses (ROADMAP Queue 1 "
-                "item 1); set use_bf16=False")
         self.device = cuda_or_cpu(device, "Trainer")
         self.task, self.hp = task, hp
         self.work_dir = hp.get("work_dir") or os.path.join(

@@ -1,9 +1,13 @@
-"""Python scalars applied as the JAX package's weak typing applies them.
+"""Python scalars applied as the JAX package's weak typing applies them,
+and layers applied as flax promotes their inputs and parameters.
 
 JAX rounds a Python scalar to the dtype of the array it meets before the
 operation (``math.sqrt(192) * x`` multiplies a bf16 ``x`` by 13.875, not by
 13.8564); torch multiplies in float32 by the scalar as given. Under
 ``use_bf16`` the port's modules pass such scalars through :func:`weak`.
+A flax layer given a float32 input computes in float32 with its bf16
+parameters promoted; a torch layer refuses the mix: :func:`promoted`
+applies a module the flax way.
 """
 
 from __future__ import annotations
@@ -11,6 +15,7 @@ from __future__ import annotations
 import functools
 
 import torch
+from torch.func import functional_call
 
 
 @functools.lru_cache(maxsize=256)
@@ -28,6 +33,13 @@ def weak(value: float, like: torch.Tensor) -> float:
 
 def _low(x: torch.Tensor) -> bool:
     return x.dtype in (torch.bfloat16, torch.float16)
+
+
+def widen(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in float32 where its dtype is narrower (bf16, fp16), as JAX's
+    ``preferred_element_type=jnp.float32`` takes a product's operands (their
+    products are exact in float32); as it is otherwise."""
+    return x.float() if _low(x) else x
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -68,3 +80,20 @@ class Mish(torch.nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return mish(x)
+
+
+def promoted(module: torch.nn.Module, *args, **kwargs):
+    """``module(*args, **kwargs)`` in the widest floating dtype among its
+    tensor arguments and parameters, both cast to it, as flax's
+    ``promote_dtype`` applies a layer: bf16 weights that meet a float32
+    input compute in float32 (their gradients return through the casts). A
+    plain call where everything already has that dtype."""
+    tensors = [t for t in (*args, *kwargs.values(), *module.parameters())
+               if torch.is_tensor(t) and t.is_floating_point()]
+    if len({t.dtype for t in tensors}) <= 1:
+        return module(*args, **kwargs)
+    wide = functools.reduce(torch.promote_types, (t.dtype for t in tensors))
+    cast = lambda t: t.to(wide) if torch.is_tensor(t) and t.is_floating_point() else t
+    params = {name: cast(p) for name, p in module.named_parameters()}
+    return functional_call(module, params, tuple(cast(a) for a in args),
+                           {k: cast(v) for k, v in kwargs.items()})

@@ -7,7 +7,7 @@ version: the modules call the wrappers at every width. There is no card
 here: fake CUDA tensors (``FakeTensorMode``, shapes and dtypes without
 data) stand for it, which reach the wrappers' envelope checks; a call
 inside the envelope is stopped where the wrapper asks the kernel's library
-for its tile plan."""
+for its tile plan or its entry point."""
 
 import pytest
 import torch
@@ -42,7 +42,8 @@ def test_diffnet_block_envelope(args, takes):
 
 @pytest.mark.parametrize("args, takes", [
     ((64, torch.float32), True), ((128, torch.float32), True), ((36, torch.float32), True),
-    ((160, torch.float32), False), ((64, torch.bfloat16), False),
+    ((160, torch.float32), False), ((64, torch.bfloat16), True),
+    ((128, torch.bfloat16), True), ((160, torch.bfloat16), False), ((64, torch.float16), False),
 ])
 def test_attention_envelope(args, takes):
     assert flash_mha_takes(*args) is takes
@@ -124,7 +125,8 @@ def test_a_block_runs_on_the_cpu_at_any_width(c, h, monkeypatch):
     assert block.dilated_conv.weight.grad is not None
 
 
-@pytest.mark.parametrize("d, dtype", [(160, torch.float32), (32, torch.bfloat16)])
+@pytest.mark.parametrize("d, dtype", [(160, torch.float32), (32, torch.float16),
+                                      (160, torch.bfloat16)])
 def test_attention_outside_the_envelope_raises_on_the_card(card, d, dtype):
     q = torch.empty(2, 7, 2, d, device=card, dtype=dtype)
     pad = torch.zeros(2, 7, dtype=torch.bool, device=card)
@@ -133,6 +135,27 @@ def test_attention_outside_the_envelope_raises_on_the_card(card, d, dtype):
         flash_mha(q, q, q, pad)
     with pytest.raises(ValueError, match=rf"flash_mha_bwd: head width {d}.*envelope"):
         flash_mha_bwd(q, q, q, q, torch.empty(2, 2, 7, device=card), q, pad)
+
+
+@pytest.mark.parametrize("dtype, suffix", [(torch.float32, "f32"), (torch.bfloat16, "bf16")])
+def test_attention_inside_the_envelope_goes_to_its_form(card, monkeypatch, dtype, suffix):
+    """float32 and bf16 heads of width 96 pass the envelope: K3 and K4 ask
+    for the entry point of their dtype's form (``attention_{fwd,bwd}_f32`` or
+    ``_bf16``), with the logsumexp in float32."""
+    from speech_editing_tpu_torch.ops import flash_attention as k3_module
+
+    def entry(name, symbol, argtypes):
+        raise LaunchReached(symbol)
+    monkeypatch.setattr(k3_module, "kernel_function", entry)
+    q = torch.empty(2, 7, 2, 96, device=card, dtype=dtype)
+    pad = torch.zeros(2, 7, dtype=torch.bool, device=card)
+    with pytest.raises(LaunchReached, match=f"attention_fwd_{suffix}"):
+        flash_mha(q, q, q, pad, return_lse=True)
+    with pytest.raises(LaunchReached, match=f"attention_bwd_{suffix}"):
+        flash_mha_bwd(q, q, q, q, torch.empty(2, 2, 7, device=card), q, pad)
+    with pytest.raises(ValueError, match="lse: dtype"):
+        flash_mha_bwd(q, q, q, q, torch.empty(2, 2, 7, device=card, dtype=torch.bfloat16), q,
+                      pad)
 
 
 @pytest.mark.parametrize("dim, heads", [(320, 2), (64, 2)])

@@ -45,11 +45,23 @@ def test_replay_takes_the_recorded_branch(style):
     assert torch.relu is TORCH_RELU
 
 
-def test_flagship_step_gradients_hold_under_rounding_with_replay():
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for the test: the suite runs several workers on
+    the host's cores, and each one's full-width steps on as many threads as
+    cores oversubscribed them (610 s for this test there, 52 s alone)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def test_flagship_step_gradients_hold_under_rounding_with_replay(one_thread):
     """The flagship model's B=2 step, its weights perturbed at the level of
     rounding (3e-7 relative) four times: replaying the unperturbed step's
     ReLU branches, every gradient stays within 1e-5 of each tensor's max,
-    a hundredth of the card-vs-CPU check's tolerance."""
+    a hundredth of the card-vs-CPU check's tolerance. One twin trainer
+    takes every step, loading each state whole."""
     torch.manual_seed(0)
     batch = chip_smoke.train_batch(4, 512, 48, seed=0)
     trainer = Trainer.from_hp(FLAGSHIP_HP, device="cpu", seed=0, vocab_size=80,
@@ -62,10 +74,10 @@ def test_flagship_step_gradients_hold_under_rounding_with_replay():
     t_draw = torch.randint(0, FLAGSHIP_HP["timesteps"] + 1, (2,), generator=gen)
     noise = torch.randn(2, 512, 80, generator=gen)
     masks: list = []
+    twin = Trainer.from_hp(FLAGSHIP_HP, device="cpu", seed=1, vocab_size=80,
+                           sil_token_ids=chip_smoke.SIL_IDS, dropout=False)
 
     def grads(st, replay):
-        twin = Trainer.from_hp(FLAGSHIP_HP, device="cpu", seed=1, vocab_size=80,
-                               sil_token_ids=chip_smoke.SIL_IDS, dropout=False)
         twin.train_step.load_state_dict(copy.deepcopy(st))
         with chip_smoke.relu_branches(masks, replay):
             twin.train_step(twin.to_device(sub), t=t_draw, noise=noise)

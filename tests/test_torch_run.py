@@ -137,7 +137,7 @@ def test_the_shipped_config_trains_in_bf16(setup, tmp_path):
 
 
 @pytest.mark.parametrize("extra", [
-    ["-hp", "encoder_type=fft"], ["--infer", "-hp", "use_bf16=False,use_masked_cond=False"],
+    ["-hp", "no_diffusion=True"], ["--infer", "-hp", "use_bf16=False,use_masked_cond=False"],
     ["-hp", "use_bf16=False,accumulate_grad_batches=2"],
     ["-hp", "use_bf16=False,tp_size=2"],
 ])
