@@ -36,8 +36,13 @@ Phases, each of which exits non-zero on a failed check:
    against autograd of the bf16 plain forward (BF16_AUTOGRAD_TOL), at the
    bf16 flagship step's shape (B=78 x S=48) and CampNet's decoder shapes
    (B=16, T 256-1536), timed beside SDPA in bf16 and the float32 forms,
-   their bound at the bf16 tensor-core rate; and on a row of only pad keys
-   and a head width of 36;
+   their bound at the bf16 tensor-core rate; and on a row of only pad keys,
+   a head width of 36 and a key mask with holes (pad keys inside CampNet's
+   T=1024 rows, a whole 64-key tile of one row, a row of only pad keys; the
+   bf16 kernels skip all-pad tiles), K4's bf16 form run twice on the same
+   inputs and required bit-identical; the build phase counts each
+   attention library's HGMMA (wgmma) and HMMA (mma.sync) instructions in
+   its SASS and requires the bf16 kernels to run on wgmma alone;
 4. edit path: ``EditPipeline`` at the flagship width (seeded random
    weights, DiffNet's output projection drawn non-zero) answers edit
    requests of 512 (``bench.py``'s utterance), 300 and 700 frames; every
@@ -165,7 +170,9 @@ Phases, each of which exits non-zero on a failed check:
    raise on the card (no caller gives way to a plain version there).
 
 ``python3 chip_smoke.py --time-attention`` builds K3 and K4 only and times
-them and SDPA at those shapes, with no checks; ``--time-mel`` does the same
+them, float32 and bf16 (the flagship step's, CampNet's and the holes
+shapes), beside SDPA at those shapes, with each kernel's TFLOP/s and share
+of its bound and the SASS counts, with no checks; ``--time-mel`` does the same
 for K2 at the edit shape beside the cuFFT composite. Run from a copy of
 another commit, either times that commit's kernels in the same call.
 
@@ -183,6 +190,7 @@ import csv
 import itertools
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -1158,59 +1166,94 @@ def bf16_attention_inputs(gen, b: int, s: int, lengths, d: int, h: int):
     return q.bfloat16(), k.bfloat16(), v.bfloat16(), pad
 
 
+# a key mask with holes at CampNet's T=1024: about one key in five padded
+# inside each ragged row, keys 448-511 of row 0 (a whole 64-key tile in its
+# middle) padded, row 1 only pad keys
+HOLES_T, HOLES_TILE = 1024, (448, 512)
+
+
+def holes_inputs(gen):
+    h, d = CAMPNET_H, 192 // CAMPNET_H
+    q, k, v, pad = bf16_attention_inputs(gen, CAMPNET_B, HOLES_T,
+                                         campnet_lengths(CAMPNET_B, HOLES_T), d, h)
+    pad = pad | (torch.rand(pad.shape, device="cuda", generator=gen) < 0.2)
+    pad[0, HOLES_TILE[0]:HOLES_TILE[1]] = True
+    pad[1] = True
+    return q, k, v, pad
+
+
+def bf16_attention_cases(gen) -> list:
+    """The bf16 attention phases' cases, (label, q, k, v, pad, timed): the
+    shapes of bf16_attention_shapes, a row of only pad keys and a head
+    width that is not a multiple of 16 (untimed), and the key mask with
+    holes."""
+    cases = [(f"B={b} T={s} h={h} d={d}, valid keys {min(lengths)}..{max(lengths)}",
+              *bf16_attention_inputs(gen, b, s, lengths, d, h), True)
+             for b, s, lengths, h, d in bf16_attention_shapes()]
+    cases += [(f"B=3 S=48 d={d}, valid keys {lengths}",
+               *bf16_attention_inputs(gen, 3, 48, lengths, d, 2), False)
+              for lengths, d in ((PAD_ROW_LENGTHS, FLAGSHIP_HP["hidden_size"] // 2),
+                                 (NARROW_LENGTHS, NARROW_D))]
+    q, k, v, pad = holes_inputs(gen)
+    return cases + [(f"B={CAMPNET_B} T={HOLES_T} d={q.shape[3]} with holes (keys "
+                     f"{HOLES_TILE[0]}-{HOLES_TILE[1] - 1} of row 0 and all of row 1 "
+                     f"padded; {int((~pad).sum())} valid keys of {pad.numel()})",
+                     q, k, v, pad, True)]
+
+
+def live_rows(pad) -> list:
+    """The batch rows with a valid key."""
+    return [i for i in range(pad.shape[0]) if not bool(pad[i].all())]
+
+
+def attention_work(q, pad, backward: bool = False) -> float:
+    """The FLOP of K3 (q k^T and p v, 4 h T d a valid key) or K4 (five
+    products, 10 h T d) over the valid keys of this mask."""
+    _, t, h, d = q.shape
+    return (10 if backward else 4) * h * t * d * int((~pad).sum())
+
+
 def phase_attention_bf16(gen) -> dict:
     """K3's bf16 form (with its float32 logsumexp, as the bf16 training
     steps call it) against its bf16 plain version at the bf16 flagship
     step's shape and at CampNet's decoder shapes, timed beside SDPA in bf16
-    and the float32 form; then a row of only pad keys and a head width of
-    36. The row of the kernel table is the flagship step's shape."""
+    and the float32 form; then a row of only pad keys, a head width of 36
+    and a key mask with holes (timed too). The row of the kernel table is
+    the flagship step's shape."""
     out, shapes = {"max_abs_err": 0.0}, []
-    for b, s, lengths, h, d in bf16_attention_shapes():
-        q, k, v, pad = bf16_attention_inputs(gen, b, s, lengths, d, h)
+    for label, q, k, v, pad, timed in bf16_attention_cases(gen):
         got, lse = flash_mha(q, k, v, pad, return_lse=True)
         ref, ref_lse = attention_plain(q, k, v, pad), attention_lse_plain(q, k, pad)
         torch.cuda.synchronize()
         check(got.dtype == torch.bfloat16 and lse.dtype == torch.float32,
               f"flash_mha bf16: out {got.dtype}, lse {lse.dtype}")
-        err = rel_err([got.float(), lse], [ref.float(), ref_lse])
-        call = lambda: flash_mha(q, k, v, pad, return_lse=True)
-        t = call_times(call, sdpa_fwd(q, k, v, pad))
-        plain_ms = time_ms(lambda: (attention_plain(q, k, v, pad),
-                                    attention_lse_plain(q, k, pad)), iters=5)
-        f32 = [a.float() for a in (q, k, v)]
-        f32_ms = time_ms(lambda: flash_mha(*f32, pad, return_lse=True))
-        flops = 4 * h * s * d * sum(lengths)    # q k^T and p v over valid keys
-        bound_ms, bound_by = bound(flops, nbytes(q, k, v, pad, got, lse), PEAK_BF16_FLOPS)
-        print(f"[kernel] flash_mha bf16 B={b} T={s} h={h} d={d} with logsumexp, valid keys "
-              f"{min(lengths)}..{max(lengths)}: max err {err:.3e} of the bf16 plain version's "
-              f"largest (tol {BF16_TOL:.3e}); {times_text(t, 'sdpa bf16')}; float32 form "
-              f"{f32_ms:.4f} ms; plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by}, "
-              f"{flops / 1e9:.2f} GFLOP at the bf16 rate); device "
-              f"{bf16_rate(flops, t['device_ms'], bound_ms)}", flush=True)
-        check(err <= BF16_TOL, f"flash_mha bf16 B={b} T={s}: error {err} > {BF16_TOL}")
-        check_one_op(f"flash_mha bf16 B={b} T={s}", t)
-        out["max_abs_err"] = max(out["max_abs_err"], err)
-        shapes.append(dict(t, b=b, s=s, h=h, d=d, plain_ms=plain_ms, f32_ms=f32_ms,
-                           bound_ms=bound_ms, bound_by=bound_by, gflop=flops / 1e9,
-                           max_err=err))
-    out.update(shapes[0], shapes=shapes)
-
-    # a row of only pad keys (zeros, lse -inf, as the bf16 plain version
-    # gives) and a head width that is not a multiple of 16
-    for lengths, d in ((PAD_ROW_LENGTHS, FLAGSHIP_HP["hidden_size"] // 2),
-                       (NARROW_LENGTHS, NARROW_D)):
-        q, k, v, pad = bf16_attention_inputs(gen, 3, 48, lengths, d, 2)
-        got, lse = flash_mha(q, k, v, pad, return_lse=True)
-        ref, ref_lse = attention_plain(q, k, v, pad), attention_lse_plain(q, k, pad)
-        rows = [i for i, n in enumerate(lengths) if n > 0]
+        rows = live_rows(pad)
         err = rel_err([got[rows].float(), lse[rows]], [ref[rows].float(), ref_lse[rows]])
         zero = all(bool((got[i] == 0).all() and (lse[i] == float("-inf")).all())
-                   for i, n in enumerate(lengths) if n == 0)
-        print(f"[kernel] flash_mha bf16 B=3 S=48 d={d}, valid keys {lengths}: max err "
-              f"{err:.3e} (tol {BF16_TOL:.3e}); rows with no valid key give out 0 and lse "
-              f"-inf: {zero}", flush=True)
-        check(err <= BF16_TOL and zero, f"flash_mha bf16 d={d} {lengths}: {err}, {zero}")
+                   for i in range(q.shape[0]) if i not in rows)
+        msg = (f"[kernel] flash_mha bf16 {label} with logsumexp: max err {err:.3e} of the bf16 "
+               f"plain version's largest (tol {BF16_TOL:.3e}); rows with no valid key give out 0 "
+               f"and lse -inf: {zero}")
+        check(err <= BF16_TOL and zero, f"flash_mha bf16 {label}: error {err}, zero rows {zero}")
         out["max_abs_err"] = max(out["max_abs_err"], err)
+        if timed:
+            t = call_times(lambda: flash_mha(q, k, v, pad, return_lse=True), sdpa_fwd(q, k, v, pad))
+            plain_ms = time_ms(lambda: (attention_plain(q, k, v, pad),
+                                        attention_lse_plain(q, k, pad)), iters=5)
+            f32 = [a.float() for a in (q, k, v)]
+            f32_ms = time_ms(lambda: flash_mha(*f32, pad, return_lse=True))
+            flops = attention_work(q, pad)
+            bound_ms, bound_by = bound(flops, nbytes(q, k, v, pad, got, lse), PEAK_BF16_FLOPS)
+            msg += (f"; {times_text(t, 'sdpa bf16')}; float32 form {f32_ms:.4f} ms; plain "
+                    f"{plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by}, {flops / 1e9:.2f} "
+                    f"GFLOP at the bf16 rate); device {bf16_rate(flops, t['device_ms'], bound_ms)}")
+            check_one_op(f"flash_mha bf16 {label}", t)
+            b, s, h, d = q.shape[0], q.shape[1], q.shape[2], q.shape[3]
+            shapes.append(dict(t, b=b, s=s, h=h, d=d, plain_ms=plain_ms, f32_ms=f32_ms,
+                               bound_ms=bound_ms, bound_by=bound_by, gflop=flops / 1e9,
+                               max_err=err))
+        print(msg, flush=True)
+    out.update(shapes[0], shapes=shapes)
     return dict(out, name="flash_mha_bf16", route="cuda",
                 source="speech_editing_tpu_torch/csrc/flash_attention.cu",
                 replaces="speech_editing_tpu/ops/flash_attention.py:85 (in bf16)",
@@ -1220,37 +1263,34 @@ def phase_attention_bf16(gen) -> dict:
 def phase_attention_bwd_bf16(gen) -> dict:
     """K4's bf16 form (fed K3's bf16 output and logsumexp) against its bf16
     plain version, K3 + K4 against autograd of the bf16 plain forward (which
-    rounds its backward at other places), pad keys' dk and dv zero, at the
-    bf16 flagship step's shape and CampNet's decoder shapes; timed beside
-    SDPA's backward in bf16 and the float32 form; then a row of only pad
-    keys and a head width of 36."""
+    rounds its backward at other places), pad keys' dk and dv zero, the
+    same inputs twice bit-identical, at the bf16 flagship step's shape and
+    CampNet's decoder shapes; timed beside SDPA's backward in bf16 and the
+    float32 form; then a row of only pad keys, a head width of 36 and a key
+    mask with holes (timed too)."""
     out, shapes = {"max_abs_err": 0.0}, []
-    cases = [(b, s, lengths, h, d, True) for b, s, lengths, h, d in bf16_attention_shapes()]
-    cases += [(3, 48, PAD_ROW_LENGTHS, 2, FLAGSHIP_HP["hidden_size"] // 2, False),
-              (3, 48, NARROW_LENGTHS, 2, NARROW_D, False)]
-    for b, s, lengths, h, d, timed in cases:
-        q, k, v, pad = bf16_attention_inputs(gen, b, s, lengths, d, h)
+    for label, q, k, v, pad, timed in bf16_attention_cases(gen):
         do = torch.randn_like(q)
-        rows = [i for i, n in enumerate(lengths) if n > 0]
+        rows = live_rows(pad)
         o, lse = flash_mha(q, k, v, pad, return_lse=True)
         args = (q, k, v, o, lse, do, pad)
-        got, ref = flash_mha_bwd(*args), attention_bwd_plain(*args)
+        got, again, ref = flash_mha_bwd(*args), flash_mha_bwd(*args), attention_bwd_plain(*args)
         torch.cuda.synchronize()
         check(all(g.dtype == torch.bfloat16 for g in got), "flash_mha_bwd bf16: not bf16")
+        same = all(torch.equal(g, a) for g, a in zip(got, again))
         err = rel_err([g.float() for g in got], [r.float() for r in ref])
         leaves = [a.detach().requires_grad_() for a in (q, k, v)]
         grads = lambda attend: [g[rows].float() for g in
                                 torch.autograd.grad(attend(*leaves, pad), leaves, do)]
         err_ag = rel_err(grads(flash_mha_train), grads(attention_plain))
         zero = bool((got[1][pad] == 0).all() and (got[2][pad] == 0).all()) and all(
-            bool((g[i] == 0).all()) for g in got for i, n in enumerate(lengths) if n == 0)
-        msg = (f"[kernel] flash_mha_bwd bf16 B={b} T={s} h={h} d={d}, valid keys "
-               f"{min(lengths)}..{max(lengths)}: max err vs the bf16 plain version {err:.3e} "
-               f"(tol {BF16_TOL:.3e}), K3 + K4 vs autograd of the plain forward {err_ag:.3e} "
-               f"(tol {BF16_AUTOGRAD_TOL:.3e}); pad keys' dk, dv and rows with no valid key "
-               f"exactly 0: {zero}")
-        check(err <= BF16_TOL and err_ag <= BF16_AUTOGRAD_TOL and zero,
-              f"flash_mha_bwd bf16 B={b} T={s} d={d}: {err}, {err_ag}, {zero}")
+            bool((g[i] == 0).all()) for g in got for i in range(q.shape[0]) if i not in rows)
+        msg = (f"[kernel] flash_mha_bwd bf16 {label}: max err vs the bf16 plain version "
+               f"{err:.3e} (tol {BF16_TOL:.3e}), K3 + K4 vs autograd of the plain forward "
+               f"{err_ag:.3e} (tol {BF16_AUTOGRAD_TOL:.3e}); pad keys' dk, dv and rows with no "
+               f"valid key exactly 0: {zero}; two runs bit-identical: {same}")
+        check(err <= BF16_TOL and err_ag <= BF16_AUTOGRAD_TOL and zero and same,
+              f"flash_mha_bwd bf16 {label}: {err}, {err_ag}, zero {zero}, bit-identical {same}")
         out["max_abs_err"] = max(out["max_abs_err"], err)
         out["autograd_err"] = max(out.get("autograd_err", 0.0), err_ag)
         if timed:
@@ -1259,13 +1299,14 @@ def phase_attention_bwd_bf16(gen) -> dict:
             f32 = [a.float() for a in (q, k, v)]
             o32, lse32 = flash_mha(*f32, pad, return_lse=True)
             f32_ms = time_ms(lambda: flash_mha_bwd(*f32, o32, lse32, do.float(), pad))
-            flops = 10 * h * s * d * sum(lengths)   # five products over valid keys
+            flops = attention_work(q, pad, backward=True)
             bound_ms, bound_by = bound(flops, nbytes(*args, *got), PEAK_BF16_FLOPS)
             msg += (f"; {times_text(t, 'sdpa backward bf16')}; float32 form {f32_ms:.4f} ms; "
                     f"plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by}, "
                     f"{flops / 1e9:.2f} GFLOP at the bf16 rate); device "
                     f"{bf16_rate(flops, t['device_ms'], bound_ms)}")
-            check_one_op(f"flash_mha_bwd bf16 B={b} T={s}", t)
+            check_one_op(f"flash_mha_bwd bf16 {label}", t)
+            b, s, h, d = q.shape[0], q.shape[1], q.shape[2], q.shape[3]
             shapes.append(dict(t, b=b, s=s, h=h, d=d, plain_ms=plain_ms, f32_ms=f32_ms,
                                bound_ms=bound_ms, bound_by=bound_by, gflop=flops / 1e9,
                                max_err=err, autograd_err=err_ag))
@@ -1279,25 +1320,77 @@ def phase_attention_bwd_bf16(gen) -> dict:
                 tol=BF16_TOL)
 
 
+def sass_counts(name: str) -> dict:
+    """Tensor-core instructions in the SASS of ``csrc/<name>.cu``'s library
+    (``cuobjdump --dump-sass``), summed over its bf16 kernels (namespace
+    ``bf16_form``) and its float32 ones: HGMMA (wgmma) and HMMA
+    (mma.sync)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "--dump-sass", str(build.library_path(name))],
+                          capture_output=True, text=True, check=True).stdout
+    counts = {form: {"HGMMA": 0, "HMMA": 0} for form in ("bf16", "float32")}
+    for function in sass.split("Function : ")[1:]:
+        form = counts["bf16" if "bf16_form" in function.splitlines()[0] else "float32"]
+        for op in form:
+            form[op] += function.count(op)
+    return counts
+
+
+def print_attention_sass() -> dict:
+    counts = {name: sass_counts(name) for name in ("flash_attention", "flash_attention_bwd")}
+    for name, c in counts.items():
+        print(f"[build] {name} SASS: bf16 kernels {c['bf16']['HGMMA']} HGMMA (wgmma), "
+              f"{c['bf16']['HMMA']} HMMA (mma.sync); float32 kernels {c['float32']['HMMA']} HMMA",
+              flush=True)
+    return counts
+
+
 def time_attention(gen) -> None:
     """``--time-attention``: K3 and K4 as the installed package builds them,
-    timed at the phases' shapes with no checks, so that two versions of the
-    package can be timed in one call; one JSON line."""
+    float32 and bf16, timed at the phases' shapes (bf16: the flagship step's,
+    CampNet's T 256-1536 and the key mask with holes) with no checks, each
+    beside SDPA with its achieved TFLOP/s and share of the bound, so that
+    two versions of the package can be timed in one call; one JSON line."""
     rows = []
     for (b, s, lengths, with_lse), (_, _, bwd_lengths) in zip(FWD_SHAPES, BWD_SHAPES):
         q, k, v, pad = attention_inputs(gen, b, s, lengths or train_lengths())
         fwd = call_times(lambda: flash_mha(q, k, v, pad, return_lse=with_lse),
                          sdpa_fwd(q, k, v, pad))
+        out = flash_mha(q, k, v, pad, return_lse=with_lse)
+        fwd_flops = attention_work(q, pad)
+        fwd_bound, _ = bound(fwd_flops, nbytes(q, k, v, pad, *(out if with_lse else (out,))))
         q, k, v, pad = attention_inputs(gen, b, s, bwd_lengths or train_lengths())
         do = torch.randn_like(q)
         o, lse = flash_mha(q, k, v, pad, return_lse=True)
         bwd = call_times(lambda: flash_mha_bwd(q, k, v, o, lse, do, pad),
                          sdpa_bwd(q, k, v, do, pad))
+        bwd_flops = attention_work(q, pad, True)
+        bwd_bound, _ = bound(bwd_flops, nbytes(q, k, v, o, lse, do, pad, q, k, v))   # + dq, dk, dv
         print(f"[time] B={b} S={s}: flash_mha{' with logsumexp' if with_lse else ''} "
-              f"{times_text(fwd, 'sdpa')}; flash_mha_bwd {times_text(bwd, 'sdpa backward')}",
-              flush=True)
+              f"{times_text(fwd, 'sdpa')}; device {rate(fwd_flops, fwd['device_ms'], fwd_bound)}; "
+              f"flash_mha_bwd {times_text(bwd, 'sdpa backward')}; device "
+              f"{rate(bwd_flops, bwd['device_ms'], bwd_bound)}", flush=True)
         rows.append({"b": b, "s": s, "flash_mha": fwd, "flash_mha_bwd": bwd})
-    print(json.dumps({"attention_times": rows}))
+    bf16_cases = [(f"B={b} T={s}", *bf16_attention_inputs(gen, b, s, lengths, d, h))
+                  for b, s, lengths, h, d in bf16_attention_shapes()]
+    bf16_cases.append((f"B={CAMPNET_B} T={HOLES_T} with holes", *holes_inputs(gen)))
+    for label, q, k, v, pad in bf16_cases:
+        fwd = call_times(lambda: flash_mha(q, k, v, pad, return_lse=True), sdpa_fwd(q, k, v, pad))
+        o, lse = flash_mha(q, k, v, pad, return_lse=True)
+        do = torch.randn_like(q)
+        bwd = call_times(lambda: flash_mha_bwd(q, k, v, o, lse, do, pad),
+                         sdpa_bwd(q, k, v, do, pad))
+        fwd_flops, bwd_flops = attention_work(q, pad), attention_work(q, pad, True)
+        fwd["bound_ms"], _ = bound(fwd_flops, nbytes(q, k, v, pad, o, lse), PEAK_BF16_FLOPS)
+        # the outputs dq, dk, dv are the sizes of q, k, v
+        bwd["bound_ms"], _ = bound(bwd_flops, nbytes(q, k, v, o, lse, do, pad, q, k, v),
+                                   PEAK_BF16_FLOPS)
+        print(f"[time] bf16 {label}: flash_mha {times_text(fwd, 'sdpa bf16')}; device "
+              f"{bf16_rate(fwd_flops, fwd['device_ms'], fwd['bound_ms'])}; flash_mha_bwd "
+              f"{times_text(bwd, 'sdpa backward bf16')}; device "
+              f"{bf16_rate(bwd_flops, bwd['device_ms'], bwd['bound_ms'])}", flush=True)
+        rows.append({"bf16": label, "flash_mha": fwd, "flash_mha_bwd": bwd})
+    print(json.dumps({"attention_times": rows, "sass": print_attention_sass()}))
 
 
 # -- edit path -------------------------------------------------------------------
@@ -1560,6 +1653,11 @@ def train_path(bf16: bool = False) -> tuple[dict, dict]:
     return totals, stats
 
 
+# the kernels of csrc/ by their function names, with their template arguments
+PORT_KERNEL = (r"(diffnet_block\w*|gate_bwd\w*|shift_scatter\w*|attention_(fwd|bwd)_kernel|"
+               r"mel_kernel)(<[^>]*>)?")
+
+
 def profile_step(trainer, batch, step_ms: float, top: int = 15,
                  label: str = "train", keep: list | None = None) -> float | None:
     """Device time by kernel over one train step (``torch.profiler``, after
@@ -1581,6 +1679,10 @@ def profile_step(trainer, batch, step_ms: float, top: int = 15,
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         print(f"[profile] {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d}x "
               f"{e.key[:90]}", flush=True)
+    ours = [(re.search(PORT_KERNEL, e.key), e) for e in kernels]
+    print(f"[profile] {label} step, the port's kernels: " + ("; ".join(
+        f"{m.group(0)} {e.self_device_time_total / 1e3:.3f} ms {e.count}x"
+        for m, e in ours if m) or "none"), flush=True)
     host = host_ops(events)
     print(f"[profile] {label} step, host: {sum(e.count for e in host)} operations and "
           f"runtime calls, {sum(e.self_cpu_time_total for e in host) / 1e3:.3f} ms of "
@@ -3432,9 +3534,11 @@ FAMILY_TASKS = {"stutter_speech": "StutterSpeechTask", "stutter_predictor":
                 "editspeech": "EditSpeechTask"}
 FAMILY_SPLITS = {"train": 128, "valid": 16, "test": 2}
 FAMILY_STEPS, FAMILY_VALID = 12, 2
+# the loader in process (ds_workers=0): the run path drives the spawned
+# workers, and their start-up was much of each family's minute on a slow host
 FAMILY_HP = (f"max_updates={FAMILY_STEPS},val_check_interval={FAMILY_STEPS},"
              f"num_sanity_val_steps=0,eval_max_batches={FAMILY_VALID},tb_log_interval=10,"
-             f"test_num={FAMILY_SPLITS['test']},test_save_workers=1")
+             f"test_num={FAMILY_SPLITS['test']},test_save_workers=1,ds_workers=0")
 # launches a step, a validation batch and a --infer item (one a batch)
 FAMILY_LAUNCHES = {
     "stutter_speech": (dict(NO_LAUNCH, diffnet_block=RUN_LAYERS, diffnet_block_bwd=RUN_LAYERS),
@@ -3447,7 +3551,7 @@ FAMILY_CPU_STEP = ("stutter_speech", "campnet")   # stepped on the card and on t
 FAMILY_BF16_STEPS = RUN_WARMUP + 5
 FAMILY_BF16_HP = (f"use_bf16=true,max_updates={FAMILY_BF16_STEPS},"
                   f"val_check_interval={FAMILY_BF16_STEPS},num_sanity_val_steps=0,"
-                  f"eval_max_batches=1,tb_log_interval=10")
+                  f"eval_max_batches=1,tb_log_interval=10,ds_workers=0")
 FAMILY_BF16_LAUNCHES = {
     "stutter_speech": (dict(NO_LAUNCH, diffnet_block_bf16=RUN_LAYERS,
                             diffnet_block_bwd_bf16=RUN_LAYERS),
@@ -3718,6 +3822,9 @@ def main() -> None:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}", flush=True)
+    for name, c in print_attention_sass().items():
+        check(c["bf16"]["HGMMA"] > 0 and c["bf16"]["HMMA"] == 0,
+              f"{name}: the bf16 kernels must run on wgmma (HGMMA), not mma.sync")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     kernels = [phase_diffnet_block(gen), phase_diffnet_block_bf16(gen),

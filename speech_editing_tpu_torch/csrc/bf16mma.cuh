@@ -1,8 +1,8 @@
-// bf16 tile products on the H100's tensor cores, f32 accumulation. Shared by
-// the bf16 forms of K1 (diffnet_block.cu) and K5 (diffnet_block_bwd.cu),
-// which take the cp.async ring, the tiling and the window rows of
-// tf32x3.cuh as they are, and of K3 (flash_attention.cu) and K4
-// (flash_attention_bwd.cu), which stage their rows with stage_rows below.
+// bf16 tile products on the H100's tensor cores, f32 accumulation, by
+// mma.sync. Used by the bf16 forms of K1 (diffnet_block.cu) and K5
+// (diffnet_block_bwd.cu), which take the cp.async ring, the tiling and the
+// window rows of tf32x3.cuh as they are. (The bf16 K3 and K4 run on wgmma,
+// wgmma.cuh.)
 //
 // A bf16 product is exact in f32, so one mma.sync.m16n8k16 a k16 step gives
 // what the Pallas kernel's jnp.dot(..., preferred_element_type=f32) gives,
@@ -27,10 +27,6 @@
 //    distinct banks.
 //  * n-major (b[n * ldb + k], a weight read transposed): one 32-bit load a
 //    register, at a row stride of 4 mod 32 words.
-// An A stored k-major (a[k * lda + m], the transpose of a row-major tile)
-// comes by ldmatrix .trans as well (load_a_kmajor). A row stride of 4 mod 8
-// words (ld = 8 mod 16 bf16) keeps both the 32-bit loads and ldmatrix's
-// row reads on distinct banks.
 
 #pragma once
 
@@ -88,55 +84,6 @@ __device__ __forceinline__ void load_b_kmajor_x2(const bf16* b0, const bf16* b1,
                : "=r"(f0[0]), "=r"(f0[1]), "=r"(f1[0]), "=r"(f1[1])
                : "r"(tf32x3::smem_u32(p))
                : "memory");
-}
-
-// The A fragment of the 16 x 16 tile whose transpose is stored row-major at
-// a (a[k * lda + m], 16-byte aligned rows): matrix i of ldmatrix.x4.trans
-// is rows k 8 (i / 2) .., columns m 8 (i % 2) .., which .trans hands out as
-// a0..a3 (m pair g / g + 8, k pair 2t / 2t + 8).
-__device__ __forceinline__ void load_a_kmajor(const bf16* a, int lda, int lane, uint32_t* r) {
-  const int i = lane >> 3, row = lane & 7;
-  const bf16* p = a + ((i >> 1) * 8 + row) * lda + (i & 1) * 8;
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(tf32x3::smem_u32(p))
-               : "memory");
-}
-
-// Two floats rounded to nearest into one register of a bf16 fragment (a at
-// the low half).
-__device__ __forceinline__ uint32_t pack2(float a, float b) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// Stages rows [t0, t0 + R) of head hh of batch row b of x [B, T, H, D]
-// (bf16) into dst [R][LD]: copied where t < T and c < D, zero up to DP
-// columns (a multiple of 16) and past T, so every k16 step and m16 tile
-// reads finite values. vec: D % 8 == 0 and x 16-byte aligned (16-byte
-// cp.async copies); else one element at a time, synchronously.
-template <int DP, int LD>
-__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* x, int b, int t0, int R,
-                                           int T, int H, int D, int hh, bool vec, int tid,
-                                           int nthreads) {
-  const size_t rs = (size_t)H * D;
-  const bf16* src = x + (size_t)b * T * rs + (size_t)hh * D;
-  if (vec) {
-    constexpr int cv = DP / 8;
-    for (int e = tid; e < R * cv; e += nthreads) {
-      const int r = e / cv, c = e % cv * 8, t = t0 + r;
-      bf16* d = dst + r * LD + c;
-      if (t < T && c < D)
-        tf32x3::cp_async16(d, src + (size_t)t * rs + c);
-      else
-        *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
-    }
-  } else {
-    for (int e = tid; e < R * DP; e += nthreads) {
-      const int r = e / DP, c = e % DP, t = t0 + r;
-      dst[r * LD + c] = t < T && c < D ? src[(size_t)t * rs + c] : __float2bfloat16_rn(0.f);
-    }
-  }
 }
 
 // The B fragment of the n8 tile stored n-major at b (row stride ldb).

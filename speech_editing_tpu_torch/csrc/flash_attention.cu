@@ -44,23 +44,41 @@
 // _single_batch): s = q k^T accumulated in f32 from the bf16 operands, the
 // online softmax in f32, p = exp(s - m) cast to bf16 for P V with f32
 // accumulation, the sum l of the f32 p; out is rounded once to bf16, lse
-// stays f32. Bound on the H100: bytes, as above, and half of them at bf16
-// (5.8 MB at the train shape, 1.7 us at 3.35 TB/s; 0.25 GFLOP at 989
-// TFLOP/s is 0.26 us). Design: the float32 form's CTA (4 warps, 16 query
-// rows, 64 keys staged a tile with cp.async, a per-warp online softmax and
-// one merge), its products one bf16 mma.sync.m16n8k16 each (bf16mma.cuh)
-// where 3xTF32 takes three m16n8k8. Each warp takes 16 adjacent keys of a
-// tile, so the two n8 accumulator tiles of its S are the A fragment of
-// P V as they stand (rounded in pairs to bf16), and V's B fragments come
-// by ldmatrix .trans. d is zero-filled to the k16 step (any d <= 128) and
-// the keys to 16 a warp.
+// stays f32. Bound on the H100: bytes at the flagship's B = 78 x S = 48
+// (5.8 MB, 1.7 us at 3.35 TB/s, against 0.10 GFLOP, 0.1 us at 989 TFLOP/s);
+// operations on CampNet's decoder rows (B = 16, h = 2, d = 96, T = 1536:
+// 20.3 GFLOP over the valid keys, 20.5 us, against 19 MB, 5.7 us).
+// Design, for Hopper's warpgroup products (wgmma.cuh):
+//  * A CTA is one or two warpgroups, each owning 64 query rows across all
+//    keys, so no merge between warps is needed; two (128 rows, K and V
+//    staged half as often; at most 128 registers a thread, so two CTAs
+//    share an SM) where Tq > 64 and that still gives a CTA for each SM.
+//    Q is staged once.
+//  * K and V tiles of 64 keys move through a two-stage ring by cp.async:
+//    tile j + 1 copies while tile j computes, one barrier a tile. Tiles lie
+//    in wgmma's 64-byte-swizzled layout; d is zero-filled to DP = 32, 64,
+//    96 or 128 (32-element swizzle atoms, so d = 96 is not filled to 128).
+//  * S = Q K^T: d / 16 wgmma.m64n64k16 steps, both operands K-major in
+//    shared memory. The online softmax runs in f32 on the accumulator
+//    (each thread holds rows g and g + 8 of its warp's 16: row max and sum
+//    by quad shuffles), pad keys -inf from the tile's 64-bit valid mask,
+//    p = 2^(s log2 e - m log2 e) by ex2.approx.
+//  * O += P V: register-A wgmma, P's accumulator tiles rounded in pairs to
+//    bf16 as they stand; V MN-major (transposed) from shared memory.
+//  * A key tile with no valid key is neither staged nor computed (it adds
+//    p = 0 to every row): the masks of up to 256 tiles are read at a time,
+//    a warp a tile by ballots over the bool key mask, and the ring walks
+//    the tiles that have a valid key. The bound counts only valid keys.
+//  * Epilogue: O / l rounded once to bf16, lse = m + log l in f32 (-inf and
+//    out = 0 for a row with no valid key).
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "bf16mma.cuh"
+#include "attention_bf16.cuh"
 #include "tf32x3.cuh"
+#include "wgmma.cuh"
 
 using namespace tf32x3;
 
@@ -274,178 +292,148 @@ int launch(const float* q, const float* k, const float* v, const unsigned char* 
 
 namespace bf16_form {
 
-namespace bm = bf16mma;
-using bm::bf16;
+using namespace attention_bf16;
+using bf16 = __nv_bfloat16;
+using wgmma::Tile;
+using wgmma::align1024;
+using wgmma::stage_tile;
 
-constexpr int KTILE = 64;   // keys staged at a time: 16 a warp
+constexpr int ROWS = wgmma::ROWS;   // query rows of a warpgroup; keys of a tile
+constexpr int WG_THREADS = 128;
+constexpr float LOG2E = 1.4426950408889634f;
 
-// Q, then K and V, bf16 rows of DP + 8 (4 mod 8 words); the merge of the
-// warps' partial outputs takes their place as floats (rows of DP + 4).
-template <int DP>
-constexpr size_t smem_bytes() {
-  static_assert(NWARPS * QROWS * (DP + 4) * sizeof(float) <=
-                    2 * KTILE * (DP + 8) * sizeof(bf16),
-                "the merge does not fit over K and V");
-  return sizeof(bf16) * (size_t)(QROWS + 2 * KTILE) * (DP + 8);
-}
-
-template <int DP>
-__global__ void __launch_bounds__(NTHREADS) attention_fwd_kernel(
+// NWG = 2: at most 128 registers a thread, so two CTAs share an SM.
+template <int DP, int NWG>
+__global__ void __launch_bounds__(NWG * WG_THREADS, NWG == 2 ? 2 : 1) attention_fwd_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const unsigned char* __restrict__ key_pad, bf16* __restrict__ out,
     float* __restrict__ lse, int Tq, int Tk, int H, int D, int vec) {
-  constexpr int LD = DP + 8, NDT = DP / 8, LDM = DP + 4;
-  extern __shared__ float4 smem4[];
-  __shared__ float valid_s[KTILE];
-  __shared__ float m_s[NWARPS][QROWS], l_s[NWARPS][QROWS], scale_s[NWARPS][QROWS];
-  bf16* q_s = reinterpret_cast<bf16*>(smem4);   // [QROWS][LD]
-  bf16* k_s = q_s + QROWS * LD;                  // [KTILE][LD]
-  bf16* v_s = k_s + KTILE * LD;                  // [KTILE][LD]
-  float* o_s = reinterpret_cast<float*>(k_s);    // merge: [NWARPS][QROWS][LDM]
+  constexpr int NT = NWG * WG_THREADS, NACC = DP / 2, TB = Tile<DP>::BYTES;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ uint64_t masks[MASK_TILES];
+  // NWG Q tiles, then two ring stages of (K, V)
+  uint8_t* const q_s = align1024(smem_raw);
+  uint8_t* const kv_s = q_s + NWG * TB;
 
-  const int b = blockIdx.z, hh = blockIdx.y, q0 = blockIdx.x * QROWS;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int b = blockIdx.z, hh = blockIdx.y, tid = threadIdx.x;
+  const int wg = tid / WG_THREADS, warp = tid / 32 % 4, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
+  const int q0 = blockIdx.x * NWG * ROWS;
 
-  // this lane's rows g and g + 8: running max, partial sum, output tiles
+  for (int w = 0; w < NWG; ++w)
+    stage_tile<DP>(q_s + w * TB, q, b, q0 + w * ROWS, Tq, H, D, hh, vec, tid, NT);
+  cp_async_commit();
+  const uint32_t q_addr = smem_u32(q_s + wg * TB);
+
+  // this thread's rows g and g + 8 of its warp: running max, partial sum, output
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  float o[NDT][4] = {};
-
-  bm::stage_rows<DP, LD>(q_s, q, b, q0, QROWS, Tq, H, D, hh, vec, tid, NTHREADS);
-  for (int k0 = 0; k0 < Tk; k0 += KTILE) {
-    const int nk16 = (min(KTILE, Tk - k0) + 15) / 16 * 16;
-    if (k0 > 0) __syncthreads();   // every warp is done with the last tile
-    bm::stage_rows<DP, LD>(k_s, k, b, k0, nk16, Tk, H, D, hh, vec, tid, NTHREADS);
-    bm::stage_rows<DP, LD>(v_s, v, b, k0, nk16, Tk, H, D, hh, vec, tid, NTHREADS);
-    cp_async_commit();
-    for (int j = tid; j < nk16; j += NTHREADS) {
-      const int key = k0 + j;
-      valid_s[j] = key < Tk && (key_pad == nullptr || !key_pad[(size_t)b * Tk + key]);
-    }
-    cp_async_wait_all();
-    __syncthreads();
-    if (16 * warp >= nk16) continue;   // no key of this tile for this warp
-
-    // S = Q K^T over this warp's keys 16 warp .. + 15 (two n8 tiles)
-    const bf16* kw = k_s + 16 * warp * LD;
-    float s[2][4] = {};
+  float o[NACC];
 #pragma unroll
-    for (int kk = 0; kk < DP; kk += 16) {
-      uint32_t a[4], b0[2], b1[2];
-      bm::load_a(q_s + kk, LD, lane, a);
-      bm::load_b_nmajor(kw + kk, LD, lane, b0);
-      bm::load_b_nmajor(kw + 8 * LD + kk, LD, lane, b1);
-      bm::mma_bf16(s[0], a, b0);
-      bm::mma_bf16(s[1], a, b1);
-    }
-    // online softmax of rows g (e = 0, 1) and g + 8 (e = 2, 3), in f32
+  for (int i = 0; i < NACC; ++i) o[i] = 0.f;
+
+  const auto stage = [&](int j, int st) {   // K, then V, of key tile j
+    uint8_t* t = kv_s + st * 2 * TB;
+    stage_tile<DP>(t, k, b, j * ROWS, Tk, H, D, hh, vec, tid, NT);
+    stage_tile<DP>(t + TB, v, b, j * ROWS, Tk, H, D, hh, vec, tid, NT);
+    cp_async_commit();
+  };
+  const auto compute = [&](int st, uint64_t valid) {
+    const uint32_t k_addr = smem_u32(kv_s + st * 2 * TB), v_addr = k_addr + TB;
+
+    // S = Q K^T: DP / 16 steps, both operands K-major in shared memory
+    float s[32];
+    wgmma::fence_operands(s);
+    wgmma::fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk)
+      wgmma::mma_ss<0, 0>(s, wgmma::desc_k(q_addr, kk), wgmma::desc_k(k_addr, kk), kk > 0);
+    wgmma::commit();
+    wgmma::wait<0>();
+    wgmma::fence_operands(s);
+
+    // online softmax of rows g (e < 2) and g + 8, in f32; pad keys -inf
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int u = 0; u < 2; ++u)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = 16 * warp + 8 * u + 2 * t4 + (e & 1);
-        s[u][e] = valid_s[col] > 0.f ? s[u][e] : -INFINITY;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[u][e]);
-      }
+    for (int i = 0; i < 32; ++i) {
+      const int col = 8 * (i >> 2) + 2 * t4 + (i & 1);
+      s[i] = (valid >> col) & 1 ? s[i] : -INFINITY;
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+    }
     float mu[2], alpha[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const float m_new = fmaxf(m[r], quad_max(mx[r]));
-      mu[r] = m_new == -INFINITY ? 0.f : m_new;   // no valid key yet: p = 0
-      alpha[r] = expf(m[r] - mu[r]);
+      mu[r] = m_new == -INFINITY ? 0.f : m_new * LOG2E;   // no valid key yet: p = 0
+      alpha[r] = exp2_approx(fmaf(m[r], LOG2E, -mu[r]));
       m[r] = m_new;
       l[r] *= alpha[r];
     }
 #pragma unroll
-    for (int nt = 0; nt < NDT; ++nt)
+    for (int i = 0; i < NACC; ++i) o[i] *= alpha[(i >> 1) & 1];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) o[nt][e] *= alpha[e >> 1];
-#pragma unroll
-    for (int u = 0; u < 2; ++u)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[u][e] = expf(s[u][e] - mu[e >> 1]);
-        l[e >> 1] += s[u][e];
-      }
-    // O += P V: P's A fragment is S's two accumulator tiles, rounded to bf16
-    const uint32_t pa[4] = {bm::pack2(s[0][0], s[0][1]), bm::pack2(s[0][2], s[0][3]),
-                            bm::pack2(s[1][0], s[1][1]), bm::pack2(s[1][2], s[1][3])};
-    const bf16* vw = v_s + 16 * warp * LD;
-#pragma unroll
-    for (int nt = 0; nt < NDT; nt += 2) {
-      uint32_t b0[2], b1[2];
-      bm::load_b_kmajor_x2(vw + nt * 8, vw + (nt + 1) * 8, LD, lane, b0, b1);
-      bm::mma_bf16(o[nt], pa, b0);
-      bm::mma_bf16(o[nt + 1], pa, b1);
+    for (int i = 0; i < 32; ++i) {
+      s[i] = exp2_approx(fmaf(s[i], LOG2E, -mu[(i >> 1) & 1]));
+      l[(i >> 1) & 1] += s[i];
     }
-  }
-  cp_async_wait_all();   // Tk = 0: the Q copies
-  __syncthreads();       // K and V are no longer read: the merge takes their rows
+    // O += P V: P's A operand is S's accumulator, rounded to bf16; V MN-major
+    uint32_t pa[ROWS / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < ROWS / 16; ++kk) wgmma::acc_to_a(s, kk, pa[kk]);
+    wgmma::fence_operands(pa);
+    wgmma::fence_operands(o);
+    wgmma::fence();
+#pragma unroll
+    for (int kk = 0; kk < ROWS / 16; ++kk)
+      wgmma::mma_rs<1>(o, pa[kk], wgmma::desc_mn(v_addr, kk), 1);
+    wgmma::commit();
+    wgmma::wait<0>();
+    wgmma::fence_operands(o);
+  };
+  for_live_tiles(masks, key_pad, b, Tk, stage, compute);
+  cp_async_wait_all();   // no live tile: the Q copies
 
-  // merge the warps: each writes its (m, l, O) of the 16 rows
-  float* ow = o_s + warp * QROWS * LDM;
-#pragma unroll
-  for (int nt = 0; nt < NDT; ++nt)
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr)
-      st2(ow + (g + 8 * hr) * LDM + nt * 8 + 2 * t4, o[nt][2 * hr], o[nt][2 * hr + 1]);
+  // out = O / l, rounded once; lse = m + log l (-inf for a row with no valid key)
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const float lr = quad_sum(l[r]);
-    if (t4 == 0) {
-      m_s[warp][g + 8 * r] = m[r];
-      l_s[warp][g + 8 * r] = lr;
-    }
-  }
-  __syncthreads();
-  if (tid < QROWS) {
-    float mm = -INFINITY;
-    for (int w = 0; w < NWARPS; ++w) mm = fmaxf(mm, m_s[w][tid]);
-    float sc[NWARPS], sum = 0.f;
-    for (int w = 0; w < NWARPS; ++w) {
-      sc[w] = mm == -INFINITY ? 0.f : expf(m_s[w][tid] - mm);
-      sum += l_s[w][tid] * sc[w];
-    }
-    const float inv = sum > 0.f ? 1.f / sum : 0.f;
-    for (int w = 0; w < NWARPS; ++w) scale_s[w][tid] = sc[w] * inv;
-    if (lse != nullptr && q0 + tid < Tq)
-      lse[((size_t)b * H + hh) * Tq + q0 + tid] = sum > 0.f ? mm + logf(sum) : -INFINITY;
-  }
-  __syncthreads();
-  // out: NTHREADS / QROWS threads a row, two columns at a time, rounded once
-  constexpr int TPR = NTHREADS / QROWS;
-  const int r = tid / TPR;
-  if (q0 + r >= Tq) return;
-  float sc[NWARPS];
+    const float inv = lr > 0.f ? 1.f / lr : 0.f;
+    const int row = q0 + wg * ROWS + 16 * warp + g + 8 * r;
+    if (row >= Tq) continue;
+    if (lse != nullptr && t4 == 0)
+      lse[((size_t)b * H + hh) * Tq + row] = lr > 0.f ? m[r] + logf(lr) : -INFINITY;
+    bf16* dst = out + ((size_t)b * Tq + row) * H * D + (size_t)hh * D;
 #pragma unroll
-  for (int w = 0; w < NWARPS; ++w) sc[w] = scale_s[w][r];
-  bf16* dst = out + ((size_t)b * Tq + q0 + r) * H * D + (size_t)hh * D;
-  for (int c = tid % TPR * 2; c < D; c += TPR * 2) {
-    float a0 = 0.f, a1 = 0.f;
-#pragma unroll
-    for (int w = 0; w < NWARPS; ++w) {
-      const float2 x = ld2(o_s + (w * QROWS + r) * LDM + c);
-      a0 += sc[w] * x.x;
-      a1 += sc[w] * x.y;
-    }
-    if (D % 2 == 0) {
-      bm::st2(dst + c, a0, a1);
-    } else {
-      dst[c] = __float2bfloat16_rn(a0);
-      if (c + 1 < D) dst[c + 1] = __float2bfloat16_rn(a1);
+    for (int jj = 0; jj < DP / 8; ++jj) {
+      const int c = 8 * jj + 2 * t4;
+      store2(dst, c, D, o[4 * jj + 2 * r] * inv, o[4 * jj + 2 * r + 1] * inv);
     }
   }
 }
 
+template <int DP, int NWG>
+int launch_wg(const bf16* q, const bf16* k, const bf16* v, const unsigned char* key_pad,
+              bf16* out, float* lse, int B, int Tq, int Tk, int H, int D, bool vec,
+              cudaStream_t stream) {
+  auto kernel = attention_fwd_kernel<DP, NWG>;
+  constexpr int smem = 1024 + (NWG + 4) * Tile<DP>::BYTES;
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return (int)attr;
+  const dim3 grid((Tq + NWG * ROWS - 1) / (NWG * ROWS), H, B);
+  kernel<<<grid, NWG * WG_THREADS, smem, stream>>>(q, k, v, key_pad, out, lse, Tq, Tk, H, D, vec);
+  return (int)cudaGetLastError();
+}
+
+// Two warpgroups a CTA (128 query rows, K and V staged half as often) where
+// the second has rows and that still gives a CTA for each SM, else one.
 template <int DP>
 int launch(const bf16* q, const bf16* k, const bf16* v, const unsigned char* key_pad,
            bf16* out, float* lse, int B, int Tq, int Tk, int H, int D, bool vec,
            cudaStream_t stream) {
-  const dim3 grid((Tq + QROWS - 1) / QROWS, H, B);
-  attention_fwd_kernel<DP><<<grid, NTHREADS, smem_bytes<DP>(), stream>>>(
-      q, k, v, key_pad, out, lse, Tq, Tk, H, D, vec);
-  return (int)cudaGetLastError();
+  const long ctas = (long)((Tq + 2 * ROWS - 1) / (2 * ROWS)) * B * H;
+  if (Tq > ROWS && ctas >= sm_count())
+    return launch_wg<DP, 2>(q, k, v, key_pad, out, lse, B, Tq, Tk, H, D, vec, stream);
+  return launch_wg<DP, 1>(q, k, v, key_pad, out, lse, B, Tq, Tk, H, D, vec, stream);
 }
 
 }  // namespace bf16_form

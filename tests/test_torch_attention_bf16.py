@@ -1,9 +1,11 @@
 """PyTorch port, the bf16 forms of kernels K3 and K4 (softmax attention and
 its backward) on the CPU: their plain versions, which ``chip_smoke.py``
 holds the card's kernels to, against JAX's bundled Pallas flash attention
-itself in interpret mode, in bf16, at one small ragged shape;
-``FlashAttentionFunction`` in bf16 against autograd of the plain forward;
-and the envelope predicate.
+itself in interpret mode, in bf16, at a small ragged shape, at rows long
+enough for the Pallas kernel to run two of its 512-key blocks, and with a
+key mask that has holes (pad keys inside rows, a whole 64-key tile of
+them); ``FlashAttentionFunction`` in bf16 against autograd of the plain
+forward; and the envelope predicate.
 
 The Pallas backward lowers after ``_flash_bhtd``'s own interpret context
 has closed, so the VJP is taken inside
@@ -16,6 +18,7 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
@@ -29,6 +32,31 @@ from speech_editing_tpu_torch.ops.flash_attention import (attention_bwd_plain,
 BF = torch.bfloat16
 B, T, H, D = 2, 100, 2, 96
 LENGTHS = (100, 61)
+# (T, key padding [B, T]) of each case: "short" is the B=2 x T=100 one above;
+# "long" pads to 1024 keys, two of the Pallas kernel's 512-key blocks
+# (speech_editing_tpu/ops/flash_attention.py::_flash_bhtd); "holes" pads
+# about one key in five inside both rows and keys 64-127 of row 0, a whole
+# 64-key tile of the card's kernels, which they skip
+CASES = ("short", "long", "holes")
+# the long and holes cases: one bf16 ulp of an element as large as the
+# largest, 2^-7 of it at most. A stored output whose f32 value lies near a
+# rounding boundary rounds either way when the sums run in another order.
+# Measured: long 1.7e-3 (K3), 2.6e-3 (K4); holes 4.4e-3 (K3: one element of
+# 0.68 one ulp apart, against a largest of 0.89), 1.6e-3 (K4)
+ULP_BAR = 2.0 ** -7
+
+
+def _padding(case):
+    if case == "short":
+        return T, np.arange(T)[None, :] >= np.array(LENGTHS)[:, None]
+    if case == "long":
+        t = 1000
+        return t, np.arange(t)[None, :] >= np.array([1000, 300])[:, None]
+    t = 256
+    pad = np.random.RandomState(1).rand(B, t) < 0.2
+    pad[0, 64:128] = True
+    pad[1, 200:] = True
+    return t, pad
 # within 2^-8 of each output's largest element: half a bf16 ulp of it, the
 # rounding the f32 sums' order may flip
 BAR = 2.0 ** -8
@@ -47,14 +75,14 @@ def _err(got, ref):
     return float(np.abs(got - ref).max() / np.abs(ref).max())
 
 
-@functools.lru_cache(maxsize=1)
-def _pallas():
+@functools.lru_cache(maxsize=None)
+def _pallas(case="short"):
     """bf16 inputs (q pre-scaled), the key padding, the output cotangent,
     and the Pallas kernel's output and (dq, dk, dv) in interpret mode."""
     rs = np.random.RandomState(0)
-    q, k, v, do = (rs.randn(B, T, H, D).astype(np.float32) for _ in range(4))
+    t, pad = _padding(case)
+    q, k, v, do = (rs.randn(B, t, H, D).astype(np.float32) for _ in range(4))
     q *= D ** -0.5
-    pad = np.arange(T)[None, :] >= np.array(LENGTHS)[:, None]
     jq, jk, jv, jdo = (jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v, do))
     with pltpu.force_tpu_interpret_mode():
         out, vjp = jax.vjp(lambda *a: j_flash_mha(*a, jnp.asarray(pad), interpret=True),
@@ -105,6 +133,35 @@ def test_flash_attention_function_bf16_matches_autograd_of_the_plain_forward():
         assert g.dtype == BF, name
         assert _err(g, r) <= 2.0 ** -5, (name, _err(g, r))
     assert _err(out, flash_mha(q, k, v, pad)) == 0.0
+
+
+@pytest.mark.parametrize("case", CASES[1:])
+def test_k3_bf16_plain_matches_pallas_interpret_at(case):
+    """The long rows and the mask with holes, within ULP_BAR."""
+    (q, k, v, _), pad, out, _ = _pallas(case)
+    got = attention_plain(q, k, v, pad)
+    assert _err(got, out) <= ULP_BAR, _err(got, out)
+
+
+@pytest.mark.parametrize("case", CASES[1:])
+def test_k4_bf16_plain_matches_pallas_interpret_at(case):
+    (q, k, v, do), pad, out, grads = _pallas(case)
+    o = torch.tensor(_np(out)).to(BF)
+    got = attention_bwd_plain(q, k, v, o, attention_lse_plain(q, k, pad), do, pad)
+    for name, g, ref in zip(("dq", "dk", "dv"), got, grads):
+        assert _err(g, ref) <= ULP_BAR, (case, name, _err(g, ref))
+    assert (got[1][pad] == 0).all() and (got[2][pad] == 0).all()
+
+
+@pytest.mark.parametrize("case", CASES[1:])
+def test_flash_attention_function_bf16_matches_autograd_at(case):
+    (q, k, v, do), pad, _, _ = _pallas(case)
+    leaves = [a.clone().requires_grad_(True) for a in (q, k, v)]
+    got = torch.autograd.grad(flash_mha_train(*leaves, pad), leaves, do)
+    ref_leaves = [a.clone().requires_grad_(True) for a in (q, k, v)]
+    ref = torch.autograd.grad(attention_plain(*ref_leaves, pad), ref_leaves, do)
+    for name, g, r in zip("qkv", got, ref):
+        assert _err(g, r) <= 2.0 ** -5, (case, name, _err(g, r))
 
 
 def test_a_row_with_no_valid_key_gives_zeros_in_bf16():

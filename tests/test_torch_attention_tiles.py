@@ -1,5 +1,6 @@
 """PyTorch port, kernels K3 and K4: the tile arithmetic of their CUDA
-sources, emulated on the CPU.
+sources, emulated on the CPU. The float32 forms first, then the bf16 forms
+(``wgmma``, ``csrc/wgmma.cuh``).
 
 Both kernels run their products as mma.sync m16n8k8 fragments
 (``csrc/tf32x3.cuh``); K3 feeds P from accumulator registers to P V, and K4
@@ -12,13 +13,23 @@ kernels use. It then replays, in float64, K3's per-warp online softmax and
 merge and K4's split into key-tile and query-tile CTAs, with the same tile
 sizes, against the plain versions. The kernels themselves run only on the
 card, where ``chip_smoke.py`` holds them against those plain versions.
+
+The bf16 forms read their operands from 64-byte-swizzled shared-memory
+tiles through wgmma descriptors. The emulation computes where the
+descriptors' canonical layouts (PTX ISA: K-major ((8,m),(8,2)) and MN-major
+((8,4,m),(8,2)) in bf16 elements) put each element of each k16 step, with
+the hardware's swizzle applied to the address, and shows that it is where
+``Tile<DP>::chunk`` stored it. It then replays the bf16 kernels' tile
+loops, all-pad key tiles skipped, in float32 with their bf16 roundings,
+against the bf16 plain versions.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from speech_editing_tpu_torch.ops.flash_attention import attention_bwd_plain, attention_plain
+from speech_editing_tpu_torch.ops.flash_attention import (attention_bwd_plain,
+                                                          attention_lse_plain, attention_plain)
 
 LANE = np.arange(32)
 G, T4 = LANE >> 2, LANE & 3      # lane = 4 g + t
@@ -271,3 +282,219 @@ def test_k4_tile_split_matches_plain_backward(t, lengths):
             np.testing.assert_allclose(got[name], r[i, :, 0].numpy(), rtol=1e-10, atol=1e-12,
                                        err_msg=name)
         assert (got["dk"][pad[i]] == 0).all() and (got["dv"][pad[i]] == 0).all()
+
+
+# -- the bf16 forms: wgmma tiles -----------------------------------------------
+
+BF = torch.bfloat16
+ROW_BYTES, BLOCK_BYTES = 64, 4096    # a row of a 32-column block; a 64-row block
+LOG2E = 1.4426950408889634
+
+
+def chunk(r: int, c: int) -> int:
+    """wgmma.cuh's Tile<DP>::chunk: the byte offset of the 16 bytes holding
+    columns c..c+7 (c % 8 == 0) of row r of a [64][DP] bf16 tile."""
+    return (c >> 5) * BLOCK_BYTES + r * ROW_BYTES + ((((c >> 3) & 3) ^ ((r >> 1) & 3)) << 4)
+
+
+def element(r: int, c: int) -> int:
+    return chunk(r, c & ~7) + (c & 7) * 2
+
+
+def swizzle64(addr: int) -> int:
+    """The 64-byte swizzle (descriptor layout type 2): address bits 4-5 XOR
+    bits 7-8, on an address whose tile starts 1024-byte aligned."""
+    return addr ^ (((addr >> 7) & 3) << 4)
+
+
+def kmajor(start: int, sbo: int, row: int, k: int) -> int:
+    """Where wgmma reads element (row, k) of a K-major operand, k < 16 of
+    one k16 step: ((8, m), (8, 2)) : ((64 B, SBO), (2 B, 16 B))."""
+    return swizzle64(start + row // 8 * sbo + row % 8 * 64 + k // 8 * 16 + k % 8 * 2)
+
+
+def mnmajor(start: int, lbo: int, sbo: int, k: int, n: int) -> int:
+    """Where wgmma reads element (k, n) of an MN-major operand:
+    ((8, 4, m), (8, 2)) : ((2 B, 16 B, LBO), (64 B, SBO))."""
+    return swizzle64(start + n % 8 * 2 + n % 32 // 8 * 16 + n // 32 * lbo
+                     + k % 8 * 64 + k // 8 * sbo)
+
+
+@pytest.mark.parametrize("dp", [32, 64, 96, 128])
+def test_wgmma_descriptors_read_what_the_tiles_hold(dp):
+    """Every element of a [64][DP] tile has its own two bytes; the K-major
+    descriptors of desc_k (k16 step s: block s / 2, 32 (s % 2) bytes in,
+    SBO 512) and the MN-major ones of desc_mn (row 16 s, LBO 4096, SBO 512)
+    address exactly the elements each step multiplies; and eight rows'
+    16-byte chunks of one column fall in eight distinct bank groups."""
+    offsets = {element(r, c) for r in range(64) for c in range(dp)}
+    assert len(offsets) == 64 * dp and max(offsets) < 64 * dp * 2
+    for s in range(dp // 16):          # Q K^T, K Q^T, dO V^T, V dO^T: the k16 steps over d
+        start = s // 2 * BLOCK_BYTES + s % 2 * 32
+        for row in range(64):
+            for k in range(16):
+                assert kmajor(start, 512, row, k) == element(row, 16 * s + k)
+    for s in range(64 // 16):          # P V, P^T dO, dS^T Q, dS K: the k16 steps over rows
+        for k in range(16):
+            for n in range(dp):
+                assert mnmajor(1024 * s, BLOCK_BYTES, 512, k, n) == element(16 * s + k, n)
+    for c in range(0, dp, 8):
+        assert len({chunk(r, c) % 128 // 16 for r in range(8)}) == 8
+
+
+def _bf16_inputs(seed, tq, tk, d, pad):
+    rs = np.random.RandomState(seed)
+    q = torch.tensor(rs.randn(1, tq, 1, d) * d ** -0.5, dtype=torch.float32).to(BF)
+    k, v = (torch.tensor(rs.randn(1, tk, 1, d), dtype=torch.float32).to(BF) for _ in range(2))
+    return q, k, v, torch.tensor(pad)[None]
+
+
+def _tile_masks(valid: torch.Tensor, j0: int, n: int) -> list:
+    """attention_bf16.cuh::tile_masks: key tile j's valid keys, as a bool row."""
+    tk = valid.shape[0]
+    return [valid[64 * (j0 + i):min(tk, 64 * (j0 + i + 1))] for i in range(n)]
+
+
+def _live_tiles(tk: int, valid: torch.Tensor, mask_tiles: int):
+    """The key tiles a kernel computes, in order: those with a valid key,
+    their masks read mask_tiles at a time."""
+    n_tiles = -(-tk // 64)
+    for c0 in range(0, n_tiles, mask_tiles):
+        masks = _tile_masks(valid, c0, min(mask_tiles, n_tiles - c0))
+        for i, m in enumerate(masks):
+            if m.any():
+                yield c0 + i, m
+
+
+def k3_bf16(q, k, v, valid, mask_tiles=256):
+    """K3's bf16 form for one (b, h) [T, d]: every query row runs the same
+    online softmax over the live key tiles (a warpgroup's 64 rows at a time
+    on the card); s in f32 from the bf16 operands, p = 2^(s log2e - m log2e)
+    in f32, rounded to bf16 for P V, l summed from the f32 p; out = O / l
+    rounded once. Returns out, lse and the tiles computed."""
+    tq, tk = q.shape[0], k.shape[0]
+    qf, kf, vf = q.float(), k.float(), v.float()
+    m = torch.full((tq,), float("-inf"))
+    l, o, done = torch.zeros(tq), torch.zeros(tq, q.shape[1]), []
+    for j, tile_valid in _live_tiles(tk, valid, mask_tiles):
+        keys = slice(64 * j, 64 * j + len(tile_valid))
+        s = (qf @ kf[keys].T).masked_fill(~tile_valid[None], float("-inf"))
+        m_new = torch.maximum(m, s.amax(1))
+        mu = torch.where(m_new == float("-inf"), torch.zeros_like(m_new), m_new * LOG2E)
+        alpha = torch.exp2(m * LOG2E - mu)
+        p = torch.exp2(s * LOG2E - mu[:, None])
+        l = l * alpha + p.sum(1)
+        o = o * alpha[:, None] + p.to(BF).float() @ vf[keys]
+        m = m_new
+        done.append(j)
+    inv = torch.where(l > 0, 1.0 / l, torch.zeros_like(l))
+    lse = torch.where(l > 0, m + torch.log(l), torch.full_like(l, float("-inf")))
+    return (o * inv[:, None]).to(BF), lse, done
+
+
+def _holes(t: int, dead: tuple, length: int, seed: int = 3) -> np.ndarray:
+    pad = np.random.RandomState(seed).rand(t) < 0.2
+    pad[dead[0]:dead[1]] = True
+    pad[length:] = True
+    return pad
+
+
+BF16_CASES = {   # name: (Tq, Tk, key padding [Tk])
+    "single": (48, 48, np.arange(48) >= 31),
+    "ragged": (130, 130, np.arange(130) >= 100),
+    "holes": (300, 300, _holes(300, (64, 128), 250)),
+    "no valid key": (70, 130, np.ones(130, bool)),
+    "cross": (100, 200, _holes(200, (128, 192), 200)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BF16_CASES))
+@pytest.mark.parametrize("mask_tiles", [256, 2])
+def test_k3_bf16_tiles_match_the_plain_version(case, mask_tiles):
+    """The live tiles (in chunks of mask_tiles masks) and the online
+    softmax give the bf16 plain version within BF16_TOL (2^-6) of its
+    largest element (p rounds against the running, not the final, max);
+    only tiles with a valid key are computed; a row with no valid key gives
+    0 and lse -inf."""
+    tq, tk, pad = BF16_CASES[case]
+    q, k, v, tpad = _bf16_inputs(tq + tk, tq, tk, 36, pad)
+    valid = ~tpad[0]
+    out, lse, done = k3_bf16(q[0, :, 0], k[0, :, 0], v[0, :, 0], valid, mask_tiles)
+    assert done == [j for j in range(-(-tk // 64)) if valid[64 * j:64 * j + 64].any()]
+    if not valid.any():
+        assert (out == 0).all() and torch.isinf(lse).all()
+        return
+    ref = attention_plain(q, k, v, tpad)[0, :, 0].float()
+    assert float((out.float() - ref).abs().max() / ref.abs().max()) <= 2.0 ** -6
+    torch.testing.assert_close(lse, attention_lse_plain(q, k, tpad)[0, 0], rtol=1e-5, atol=1e-5)
+
+
+def k4_bf16(q, k, v, o, lse, do, valid):
+    """K4's bf16 form for one (b, h): key CTAs (64 keys over every 64-row
+    query tile: P^T, dS^T in f32, rounded to bf16 for dV += P^T dO and dK +=
+    dS^T Q; a CTA of only pad keys writes zeros) and dQ CTAs (64 query rows
+    over the live key tiles, dQ += dS K with dS rounded); with one key tile
+    (Tk <= 64) the key CTA forms dQ from its rounded dS^T and there are no
+    dQ CTAs. Returns dq, dk, dv (bf16) and how often each row was written."""
+    tq, tk = q.shape[0], k.shape[0]
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    di = (o.float() * dof).sum(1)
+    grads = {"dq": torch.zeros(tq, q.shape[1]), "dk": torch.zeros(tk, q.shape[1]),
+             "dv": torch.zeros(tk, q.shape[1])}
+    writes = {name: torch.zeros(len(g), dtype=torch.int64) for name, g in grads.items()}
+    with_dq = 0 < tk <= 64
+
+    def p_ds(qs, keys, key_ok):
+        live = torch.isfinite(lse[qs])[:, None] & key_ok[None]
+        s = qf[qs] @ kf[keys].T
+        p = torch.where(live, torch.exp2(s * LOG2E - (lse[qs] * LOG2E)[:, None]),
+                        torch.zeros_like(s))
+        ds = torch.where(live, p * (dof[qs] @ vf[keys].T - di[qs][:, None]), torch.zeros_like(s))
+        return p.to(BF).float(), ds.to(BF).float()
+
+    for j in range(-(-tk // 64)):
+        keys = slice(64 * j, min(tk, 64 * j + 64))
+        key_ok = valid[keys]
+        dk, dv = torch.zeros(len(key_ok), q.shape[1]), torch.zeros(len(key_ok), q.shape[1])
+        for i0 in range(0, tq, 64) if key_ok.any() else ():
+            qs = slice(i0, min(tq, i0 + 64))
+            p, ds = p_ds(qs, keys, key_ok)
+            dv += p.T @ dof[qs]
+            dk += ds.T @ qf[qs]
+            if with_dq:
+                grads["dq"][qs] = ds @ kf[keys]
+                writes["dq"][qs] += 1
+        if with_dq and not key_ok.any():
+            writes["dq"] += 1   # only pad keys: dq = 0
+        grads["dk"][keys], grads["dv"][keys] = dk, dv
+        writes["dk"][keys] += 1
+        writes["dv"][keys] += 1
+    for i0 in range(0, tq, 64) if not with_dq else ():
+        qs = slice(i0, min(tq, i0 + 64))
+        for j, key_ok in _live_tiles(tk, valid, 256):
+            _, ds = p_ds(qs, slice(64 * j, 64 * j + len(key_ok)), key_ok)
+            grads["dq"][qs] += ds @ kf[64 * j:64 * j + len(key_ok)]
+        writes["dq"][qs] += 1
+    return {name: g.to(BF) for name, g in grads.items()}, writes
+
+
+@pytest.mark.parametrize("case", sorted(BF16_CASES))
+def test_k4_bf16_ctas_match_the_plain_backward(case):
+    """Key CTAs and dQ CTAs (or key CTAs that form dQ, Tk <= 64): every row
+    of dq, dk, dv written once, within BF16_TOL of the bf16 plain version's
+    largest element, exactly 0 for pad keys and rows with no valid key."""
+    tq, tk, pad = BF16_CASES[case]
+    q, k, v, tpad = _bf16_inputs(tq + 2 * tk, tq, tk, 36, pad)
+    do = torch.tensor(np.random.RandomState(tq).randn(*q.shape), dtype=torch.float32).to(BF)
+    o, lse = attention_plain(q, k, v, tpad), attention_lse_plain(q, k, tpad)
+    grads, writes = k4_bf16(q[0, :, 0], k[0, :, 0], v[0, :, 0], o[0, :, 0], lse[0, 0],
+                            do[0, :, 0], ~tpad[0])
+    ref = attention_bwd_plain(q, k, v, o, lse, do, tpad)
+    for name, r in zip(("dq", "dk", "dv"), ref):
+        assert (writes[name] == 1).all(), name
+        r = r[0, :, 0].float()
+        if r.abs().max() > 0:
+            assert float((grads[name].float() - r).abs().max() / r.abs().max()) <= 2.0 ** -6, name
+        else:
+            assert (grads[name] == 0).all(), name
+    assert (grads["dk"][tpad[0]] == 0).all() and (grads["dv"][tpad[0]] == 0).all()
