@@ -24,12 +24,14 @@ Phases, each of which exits non-zero on a failed check:
    composite, its bound counted as the least work of the function (a real
    FFT on the fp32 CUDA cores); the bf16 forms of K1 (at the edit's three
    lengths, at B=4 with dilations 1-3 and T=509 ragged, at the bf16 run
-   step's median batch B=16 x T=446 with h) and K5 (B=4 at dilations 2
-   and 3, B=16 x T=446, there also K1 + K5 against autograd of the bf16
-   plain forward) against their bf16 plain versions (BF16_TOL,
-   BF16_AUTOGRAD_TOL), timed at B=16 x T=446 with the device time,
-   operations and host time a call, their bound counted at the bf16
-   tensor-core rate; K1 and K5, float32 and bf16, at the other widths
+   step's median batch B=16 x T=446 and the bf16 flagship step's B=78 x
+   T=512, both with h) and K5 (B=4 at dilations 2 and 3, B=16 x T=446,
+   there also K1 + K5 against autograd of the bf16 plain forward, and B=78
+   x T=512) against their bf16 plain versions (BF16_TOL,
+   BF16_AUTOGRAD_TOL), timed at B=16 x T=446 and B=78 x T=512 with the
+   device time, operations and host time a call beside a cuBLAS composite
+   of the same function, their bound counted at the bf16 tensor-core
+   rate; K1 and K5, float32 and bf16, at the other widths
    they are compiled for (``WIDTHS``: C=128, H=256) against their plain
    versions (``check_block_widths``); the bf16 forms of K3 (with its float32
    logsumexp) and K4 against their bf16 plain versions (BF16_TOL), K3 + K4
@@ -41,8 +43,9 @@ Phases, each of which exits non-zero on a failed check:
    T=1024 rows, a whole 64-key tile of one row, a row of only pad keys; the
    bf16 kernels skip all-pad tiles), K4's bf16 form run twice on the same
    inputs and required bit-identical; the build phase counts each
-   attention library's HGMMA (wgmma) and HMMA (mma.sync) instructions in
-   its SASS and requires the bf16 kernels to run on wgmma alone;
+   attention and DiffNet library's HGMMA (wgmma) and HMMA (mma.sync)
+   instructions in its SASS and requires the bf16 kernels to run on wgmma
+   alone;
 4. edit path: ``EditPipeline`` at the flagship width (seeded random
    weights, DiffNet's output projection drawn non-zero) answers edit
    requests of 512 (``bench.py``'s utterance), 300 and 700 frames; every
@@ -76,7 +79,8 @@ Phases, each of which exits non-zero on a failed check:
    wait a step, a profiled step, peak memory, validation time and the
    checkpoint's size, save and load times are printed.
 6b. bf16 run path: the same entry on ``egs/spec_denoiser.yaml`` as shipped
-   (``use_bf16: true``, no override) over the same corpus: 30 steps, a
+   (``use_bf16: true``, no override) over the same corpus, the loader in
+   process: 30 steps, a
    validation of 4 batches and a checkpoint, then a resume to 35. Every
    step launches the bf16 K1 and K5 20 times each and nothing else, every
    validation batch the float32 K1 20 times; metrics are finite; the
@@ -113,8 +117,9 @@ Phases, each of which exits non-zero on a failed check:
    the CPU with the card's noise (pitch bins replayed, CSV_TOL); a B=16 x
    T=512 diff chunk is profiled (host, busy, K1's and HiFi-GAN's shares).
    Then the serve CLI in a subprocess over the same requests as JSONL, with
-   ``--warmup --workers 2 --max-wait-ms 100`` and again with ``--fast-io``:
-   all served, 16-bit wavs bit-identical across the two runs and batch
+   ``--warmup --workers 2 --max-wait-ms 100`` and again with ``--fast-io``
+   (unwarmed, every other request): all served, 16-bit wavs bit-identical
+   across the two runs and batch
    mode, no shape added after warmup; latency p50/p99 and chunk fill. Then
    the same requests on int8 weights (``serve_quant_int8``): bytes against
    float32 and the largest mel_out difference. K1 is held against its plain
@@ -135,7 +140,8 @@ Phases, each of which exits non-zero on a failed check:
    chunk (host, busy, K3's and HiFi-GAN's shares); a 128-frame chunk run
    again bit-identical and on the CPU (EditSpeech's splice frames
    replayed and counted, INPLACE_CPU_TOL). CampNet also online through the
-   serve CLI (``--warmup``; wavs bit-identical to batch mode's) and
+   serve CLI (``--warmup``, every other request; wavs bit-identical to
+   batch mode's) and
    EditSpeech on int8 weights. K3 is held against its plain version and
    timed beside SDPA at CampNet's decoder shapes (B=16, T 256-1536, h=2,
    d=96, ragged key padding) in the kernels phase.
@@ -173,8 +179,11 @@ Phases, each of which exits non-zero on a failed check:
 them, float32 and bf16 (the flagship step's, CampNet's and the holes
 shapes), beside SDPA at those shapes, with each kernel's TFLOP/s and share
 of its bound and the SASS counts, with no checks; ``--time-mel`` does the same
-for K2 at the edit shape beside the cuFFT composite. Run from a copy of
-another commit, either times that commit's kernels in the same call.
+for K2 at the edit shape beside the cuFFT composite, and ``--time-diffnet``
+for the bf16 K1 (with h) and K5 at the bf16 run step's B=16 x T=446 and
+the bf16 flagship step's B=78 x T=512 beside their cuBLAS composites. Run
+from a copy of another commit, each times that commit's kernels in the
+same call.
 
 Float32 but for the bf16 phases, with TF32 off for matrix products and
 cuDNN convolutions and bf16 products reduced in float32, so the card and
@@ -218,8 +227,9 @@ from speech_editing_tpu_torch.infer.spec_denoiser import (SpecDenoiserInfer, req
 from speech_editing_tpu_torch.infer.vocoder import HifiGAN, get_vocoder_cls
 from speech_editing_tpu_torch.models.vocoder.hifigan import HifiGanGenerator
 from speech_editing_tpu_torch.ops.cuda import build
-from speech_editing_tpu_torch.ops.cuda.diffnet_block import (WIDTHS, _fits64, _tile_plan,
-                                                             diffnet_block,
+from speech_editing_tpu_torch.ops.cuda.diffnet_block import (RSQRT2, WIDTHS, _conv_input,
+                                                             _fits64, _shift, _tile_plan,
+                                                             _tile_plan_bf16, diffnet_block,
                                                              diffnet_block_bwd,
                                                              diffnet_block_bwd_plain,
                                                              diffnet_block_plain,
@@ -423,8 +433,13 @@ def run_block_shapes():
 def plan_text(name: str, b: int, t: int, dilation: int, form: str = "f32",
               c: int = FLAGSHIP_HP["residual_channels"],
               h: int = FLAGSHIP_HP["hidden_size"]) -> str:
-    """The tile plan the wrapper of K1 or K5 (which takes no cluster) picks
-    for its ``form`` ("f32" or "bf16") at C=``c``, H=``h``."""
+    """The tile plan the wrapper of K1 or K5 picks for its ``form`` ("f32":
+    rows and K1's split; "bf16": 64-row tiles, K1's split or the cluster
+    that shares the weights) at C=``c``, H=``h``."""
+    if form == "bf16":
+        split, share = _tile_plan_bf16(b, t, c, name == "diffnet_block")
+        return (f"64-row tiles x cluster {split} splitting the gate columns" if split > 1
+                else f"64-row tiles x cluster {share} sharing the weights")
     rows, cluster = _tile_plan(b, t, _fits64(name, dilation, form, c, h), c)
     split = cluster > 1 and name == "diffnet_block"
     return f"{rows}-row tiles{f' x cluster {cluster}' if split else ''}"
@@ -618,34 +633,78 @@ def bf16_rate(flops: float, ms: float, bound_ms: float) -> str:
             f"tensor-core rate), {bound_ms / ms:.3f} of the bound")
 
 
-def time_bf16_call(out: dict, call, plain, flops: float, n_bytes: int) -> str:
+def time_bf16_call(out: dict, call, plain, composite, flops: float, n_bytes: int,
+                   prefix: str = "") -> str:
     """Event time, the plain version's, the bound (bf16 FLOP at 989 TFLOP/s
     or bytes at the HBM rate), device ms and operations a call and host us
-    a call of ``call``, into ``out``; returns their text."""
-    ms, plain_ms = time_ms(call), time_ms(plain)
+    a call of ``call``, and the event and device times of its cuBLAS
+    ``composite`` (the yardstick: no one PyTorch call computes the
+    function), into ``out`` under ``prefix``; returns their text."""
+    t = call_times(call, composite)
+    plain_ms = time_ms(plain)
     bound_ms, bound_by = bound(flops, n_bytes, PEAK_BF16_FLOPS)
-    device_ms, ops = profile_calls(call)
-    us = host_us(call)
-    out.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-               device_ms=device_ms, ops_per_call=ops, host_us=us, gflop=flops / 1e9,
-               mbytes=n_bytes / 1e6)
-    return (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-            f"({bound_by}; {flops / 1e9:.2f} GFLOP, {n_bytes / 1e6:.1f} MB); "
-            f"{bf16_rate(flops, ms, bound_ms)}; {device_ms:.4f} ms device, {ops} device ops "
-            f"a call, host {us:.1f} us a call")
+    out.update({prefix + k: v for k, v in dict(
+        ms=t["ms"], plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        device_ms=t["device_ms"], ops_per_call=t["ops_per_call"], host_us=t["host_us"],
+        gflop=flops / 1e9, mbytes=n_bytes / 1e6, cublas_ms=t["library_ms"],
+        cublas_device_ms=t["library_device_ms"],
+        cublas_ops_per_call=t["library_ops_per_call"]).items()})
+    return (f"; plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
+            f"{flops / 1e9:.2f} GFLOP, {n_bytes / 1e6:.1f} MB); {times_text(t, CUBLAS)}; device "
+            f"{bf16_rate(flops, t['device_ms'], bound_ms)}")
+
+
+CUBLAS = "cublas composite (bf16 products, elementwise gate: several calls)"
+
+
+def cublas_block(x, cond, step, mask, w, dilation: int):
+    """K1's yardstick in bf16: the im2col product [B T, 3C + H] @ [3C + H,
+    2C] (cuBLAS), the gate, g @ Wo and the residual, as PyTorch calls; the
+    stacked weight made once, outside the timed call."""
+    wd, bd, wc, bc, wo, bo = w
+    c = x.shape[-1]
+    w1, b1 = torch.cat([wd, wc]), bd + bc
+
+    def run():
+        a = torch.cat([_conv_input(x, step, mask, dilation), cond], -1).flatten(0, 1)
+        h = torch.addmm(b1, a, w1)
+        g = torch.sigmoid(h[:, :c]) * torch.tanh(h[:, c:])
+        o = torch.addmm(bo, g, wo)
+        return (x.flatten(0, 1) + o[:, :c]) * RSQRT2, o[:, c:], h
+    return run
+
+
+def cublas_block_bwd(h, dxo, dsk, mask, wd, wo, dilation: int):
+    """K5's yardstick in bf16: do @ Wo^T, the gate backward, dh @ Wd^T
+    (cuBLAS) and the shift-scatter, as PyTorch calls."""
+    b, t, c = dxo.shape
+
+    def run():
+        do = torch.cat([dxo * RSQRT2, dsk], -1).flatten(0, 1)
+        dg = do @ wo.t()
+        hf = h.flatten(0, 1)
+        s, th = torch.sigmoid(hf[:, :c]), torch.tanh(hf[:, c:])
+        dh = torch.cat([dg * th * s * (1 - s), dg * s * (1 - th * th)], -1)
+        dy3 = (dh @ wd.t()).view(b, t, 3 * c)
+        dy = (_shift(dy3[..., :c], dilation) + dy3[..., c:2 * c]
+              + _shift(dy3[..., 2 * c:], -dilation))
+        return dy * mask[..., None] + dxo * RSQRT2, dh, s * th
+    return run
 
 
 def phase_diffnet_block_bf16(gen) -> dict:
     """K1's bf16 form against its bf16 plain version at the edit's lengths
     (B=1, T = 512, 300, 700), at B=4 with dilation 1, 2 and 3 (T=509, rows
-    padded to their own lengths) and at the bf16 run step's median batch
-    (B=16 x T=446, ragged, with h), timed there beside the float32 form."""
+    padded to their own lengths), at the bf16 run step's median batch (B=16
+    x T=446, ragged, with h) and at the bf16 flagship step's (B=78 x
+    T=512, ragged, with h); timed at the last two beside its cuBLAS
+    composite (the run step's also beside the float32 form)."""
     c, h = FLAGSHIP_HP["residual_channels"], FLAGSHIP_HP["hidden_size"]
     out = {"max_abs_err": 0.0}
     flops = lambda b, t: 2 * b * t * 2 * c * (3 * c + h + c)
     shapes = [(1, 512, 1, False, False), (1, 300, 1, False, False), (1, 700, 1, False, False),
               (4, 509, 1, True, False), (4, 509, 2, True, False), (4, 509, 3, True, False),
-              (BF16_B, BF16_T, 1, True, True)]
+              (BF16_B, BF16_T, 1, True, True), (TRAIN_B, TRAIN_T, 1, True, True)]
     for b, t, dilation, ragged, train in shapes:
         x, cond, step, mask, w = bf16_block_inputs(gen, b, t, ragged)
         call = lambda fn: fn(x, cond, step, mask, *w, dilation=dilation, return_h=train)
@@ -662,8 +721,11 @@ def phase_diffnet_block_bf16(gen) -> dict:
         out["max_abs_err"] = max(out["max_abs_err"], err)
         if train:
             msg += time_bf16_call(out, lambda: call(diffnet_block),
-                                  lambda: call(diffnet_block_plain), flops(b, t),
-                                  nbytes(x, cond, step, mask, *w, *got))
+                                  lambda: call(diffnet_block_plain),
+                                  cublas_block(x, cond, step, mask, w, dilation), flops(b, t),
+                                  nbytes(x, cond, step, mask, *w, *got),
+                                  "train_" if b == TRAIN_B else "")
+        if train and b == BF16_B:
             f32 = [v.float() for v in (x, cond, step, mask, *w)]
             f32_ms = time_ms(lambda: diffnet_block(*f32, dilation=1, return_h=True))
             out["f32_ms"] = f32_ms
@@ -677,11 +739,13 @@ def phase_diffnet_block_bf16(gen) -> dict:
 
 def phase_diffnet_block_bwd_bf16(gen) -> dict:
     """K5's bf16 form against its bf16 plain version at B=4 with dilation 2
-    and 3 (T=509) and at the bf16 run step's median batch (B=16 x T=446,
-    rows padded to their own lengths), there also K1 + K5 (the autograd
-    Function) against autograd of the bf16 plain forward, and timed."""
+    and 3 (T=509), at the bf16 run step's median batch (B=16 x T=446) and
+    at the bf16 flagship step's (B=78 x T=512), rows padded to their own
+    lengths; at the run step's also K1 + K5 (the autograd Function) against
+    autograd of the bf16 plain forward; timed at the last two beside its
+    cuBLAS composite."""
     c, out = FLAGSHIP_HP["residual_channels"], {"max_abs_err": 0.0}
-    for b, t, dilation in ((4, 509, 2), (4, 509, 3), (BF16_B, BF16_T, 1)):
+    for b, t, dilation in ((4, 509, 2), (4, 509, 3), (BF16_B, BF16_T, 1), (TRAIN_B, TRAIN_T, 1)):
         x, cond, step, mask, w = bf16_block_inputs(gen, b, t, ragged=True)
         dxo, dsk = (torch.randn(b, t, c, device="cuda", generator=gen).to(torch.bfloat16)
                     for _ in range(2))
@@ -707,9 +771,12 @@ def phase_diffnet_block_bwd_bf16(gen) -> dict:
             out["autograd_err"] = err_ag
             msg += (f", K1 + K5 vs autograd of the plain forward {err_ag:.3e} (tol "
                     f"{BF16_AUTOGRAD_TOL:.3e})")
+        if b in (BF16_B, TRAIN_B):
             msg += time_bf16_call(out, lambda: diffnet_block_bwd(*args),
-                                  lambda: diffnet_block_bwd_plain(*args), 16 * b * t * c * c,
-                                  nbytes(h, dxo, dsk, mask, w[0], w[4], *got))
+                                  lambda: diffnet_block_bwd_plain(*args),
+                                  cublas_block_bwd(*args), 16 * b * t * c * c,
+                                  nbytes(h, dxo, dsk, mask, w[0], w[4], *got),
+                                  "train_" if b == TRAIN_B else "")
         print(msg, flush=True)
     return dict(out, name="diffnet_block_bwd_bf16", route="cuda",
                 source="speech_editing_tpu_torch/csrc/diffnet_block_bwd.cu",
@@ -1336,8 +1403,9 @@ def sass_counts(name: str) -> dict:
     return counts
 
 
-def print_attention_sass() -> dict:
-    counts = {name: sass_counts(name) for name in ("flash_attention", "flash_attention_bwd")}
+def print_sass(names=("flash_attention", "flash_attention_bwd", "diffnet_block",
+                      "diffnet_block_bwd")) -> dict:
+    counts = {name: sass_counts(name) for name in names}
     for name, c in counts.items():
         print(f"[build] {name} SASS: bf16 kernels {c['bf16']['HGMMA']} HGMMA (wgmma), "
               f"{c['bf16']['HMMA']} HMMA (mma.sync); float32 kernels {c['float32']['HMMA']} HMMA",
@@ -1390,7 +1458,40 @@ def time_attention(gen) -> None:
               f"{times_text(bwd, 'sdpa backward bf16')}; device "
               f"{bf16_rate(bwd_flops, bwd['device_ms'], bwd['bound_ms'])}", flush=True)
         rows.append({"bf16": label, "flash_mha": fwd, "flash_mha_bwd": bwd})
-    print(json.dumps({"attention_times": rows, "sass": print_attention_sass()}))
+    print(json.dumps({"attention_times": rows,
+                      "sass": print_sass(("flash_attention", "flash_attention_bwd"))}))
+
+
+def time_diffnet(gen) -> None:
+    """``--time-diffnet``: the bf16 K1 (with h) and K5 as the installed
+    package builds them, timed at the bf16 run step's median batch (B=16 x
+    T=446) and the bf16 flagship step's (B=78 x T=512), rows padded to
+    their own lengths, with no checks, each beside its cuBLAS composite
+    with its achieved TFLOP/s and share of the bound, so that two versions
+    of the package can be timed in one call; one JSON line."""
+    c, h_n = FLAGSHIP_HP["residual_channels"], FLAGSHIP_HP["hidden_size"]
+    rows = []
+    for b, t in ((BF16_B, BF16_T), (TRAIN_B, TRAIN_T)):
+        x, cond, step, mask, w = bf16_block_inputs(gen, b, t, ragged=True)
+        k1 = lambda: diffnet_block(x, cond, step, mask, *w, dilation=1, return_h=True)
+        got = k1()
+        fwd = call_times(k1, cublas_block(x, cond, step, mask, w, 1))
+        dxo, dsk = (torch.randn(b, t, c, device="cuda", generator=gen).to(torch.bfloat16)
+                    for _ in range(2))
+        args = (got[2], dxo, dsk, mask, w[0], w[4], 1)
+        k5 = lambda: diffnet_block_bwd(*args)
+        bwd = call_times(k5, cublas_block_bwd(*args))
+        fwd_flops, bwd_flops = 2 * b * t * 2 * c * (3 * c + h_n + c), 16 * b * t * c * c
+        fwd["bound_ms"], _ = bound(fwd_flops, nbytes(x, cond, step, mask, *w, *got),
+                                   PEAK_BF16_FLOPS)
+        bwd["bound_ms"], _ = bound(bwd_flops, nbytes(*args[:5], w[4], *k5()), PEAK_BF16_FLOPS)
+        print(f"[time] bf16 B={b} T={t}: diffnet_block {times_text(fwd, CUBLAS)}; device "
+              f"{bf16_rate(fwd_flops, fwd['device_ms'], fwd['bound_ms'])}; diffnet_block_bwd "
+              f"{times_text(bwd, CUBLAS)}; device "
+              f"{bf16_rate(bwd_flops, bwd['device_ms'], bwd['bound_ms'])}", flush=True)
+        rows.append({"b": b, "t": t, "diffnet_block_bf16": fwd, "diffnet_block_bwd_bf16": bwd})
+    print(json.dumps({"diffnet_times": rows,
+                      "sass": print_sass(("diffnet_block", "diffnet_block_bwd"))}))
 
 
 # -- edit path -------------------------------------------------------------------
@@ -2141,8 +2242,10 @@ def run_path(smi: str, tmp: str) -> tuple[dict, dict]:
 
 # -- bf16 run path ---------------------------------------------------------------
 
+# the loader in process (ds_workers=0), as the family paths load: the run
+# path drives the spawned workers
 RUN_BF16_HP = ("max_updates=30,val_check_interval=30,num_sanity_val_steps=0,"
-               "eval_max_batches=4,tb_log_interval=10")
+               "eval_max_batches=4,tb_log_interval=10,ds_workers=0")
 RUN_BF16_STEPS, RUN_BF16_RESUME_TO, RUN_BF16_VALID = 30, 35, 4
 EXPECTED_PER_BF16_STEP = dict(NO_LAUNCH, diffnet_block_bf16=RUN_LAYERS,
                               diffnet_block_bwd_bf16=RUN_LAYERS)
@@ -3017,7 +3120,8 @@ def serve_path(smi: str, tmp: str, work: str, data_dir: str) -> tuple[dict, dict
     mode (warmed first), checked and timed; one request alone, at another
     row and at its exact-fit bucket; a diff chunk re-run on the CPU; a
     profiled B=16 x T=512 diff chunk; the CLI online with --warmup and
-    again with --fast-io; the same requests on int8 weights. Returns the
+    again with --fast-io, unwarmed, on every other request; the same
+    requests on int8 weights. Returns the
     batch run's launches and the statistics."""
     voc_dir = os.path.join(tmp, "hifigan")
     argv_hp = ["--config", "egs/spec_denoiser.yaml", "--exp_name", work, "-hp",
@@ -3116,20 +3220,23 @@ def serve_path(smi: str, tmp: str, work: str, data_dir: str) -> tuple[dict, dict
     stats["cpu"] = serve_cpu_rerun(hp, server, cpu_chunk, by_name, seed)
     stats["profile"] = serve_profile(server, next(c for c in full if c["t_b"] == 512), seed, smi)
 
-    # online: the CLI, warmed, and again with --fast-io
+    # online: the CLI, warmed, and again with --fast-io, unwarmed, on every
+    # other request
     online = serve_cli(argv_hp, rows, os.path.join(d, "out"), ["--warmup"])
-    fast = serve_cli(argv_hp, rows, os.path.join(d, "fast"), ["--warmup", "--fast-io"])
-    check(online["served"] == fast["served"] == len(rows),
-          f"serve CLI served {online['served']} and {fast['served']} of {len(rows)}")
+    fast = serve_cli(argv_hp, rows[::2], os.path.join(d, "fast"), ["--fast-io"])
+    check(online["served"] == len(rows) and fast["served"] == len(rows[::2]),
+          f"serve CLI served {online['served']} of {len(rows)} and {fast['served']} of "
+          f"{len(rows[::2])}")
     check(online["shapes"] == online["warmup_shapes"],
           f"serve CLI: {online['shapes']} program shapes run, {online['warmup_shapes']} warmed")
     waves, fast_waves = read_wavs(os.path.join(d, "out"), names), read_wavs(
-        os.path.join(d, "fast"), names)
+        os.path.join(d, "fast"), names[::2])
     ref_fn = os.path.join(d, "ref.wav")
     for name in names:
         save_wav(by_name[name]["wav_out"], ref_fn, SR)
         ref = wavfile.read(ref_fn)[1]
-        for label, other in (("--fast-io", fast_waves[name]), ("batch mode", ref)):
+        for label, other in (("--fast-io", fast_waves.get(name, waves[name])),
+                             ("batch mode", ref)):
             same = other.shape == waves[name].shape
             check(same and np.array_equal(waves[name], other),
                   f"serve CLI {name}.wav: {label}'s samples differ ("
@@ -3139,9 +3246,9 @@ def serve_path(smi: str, tmp: str, work: str, data_dir: str) -> tuple[dict, dict
           f"requests in {online['wall_s']:.1f} s (process start and model load included), "
           f"latency p50 {online['p50_ms']:.0f} ms / p99 {online['p99_ms']:.0f} ms, "
           f"{online['chunks']} chunks, fill {online['fill']:.3f}; warmup {online['warmup_shapes']} "
-          f"shapes in {online['warmup_s']:.1f} s, none added by the traffic; --warmup "
-          f"--fast-io: p50 {fast['p50_ms']:.0f} / p99 {fast['p99_ms']:.0f} ms, fill "
-          f"{fast['fill']:.3f}, {fast['wall_s']:.1f} s; "
+          f"shapes in {online['warmup_s']:.1f} s, none added by the traffic; --fast-io on "
+          f"{fast['served']} of them, unwarmed: p50 {fast['p50_ms']:.0f} / p99 "
+          f"{fast['p99_ms']:.0f} ms, fill {fast['fill']:.3f}, {fast['wall_s']:.1f} s; "
           f"every wav 16-bit and bit-identical across the two runs and batch mode; {smi}",
           flush=True)
     stats.update(online=online, online_fast_io=fast)
@@ -3454,14 +3561,14 @@ def inplace_family(family: str, cls, config: str, smi: str, tmp: str, data_dir: 
     stats["cpu"] = inplace_cpu_rerun(family, cls, hp, server,
                                      next(c for c in chunks if c["t_b"] == INPLACE_CPU_T),
                                      by_name)
-    if family == "campnet":
-        online = serve_cli(argv_hp, rows, os.path.join(work, "online"), ["--warmup"])
-        check(online["served"] == len(rows) and online["shapes"] == online["warmup_shapes"],
+    if family == "campnet":    # every other request
+        online = serve_cli(argv_hp, rows[::2], os.path.join(work, "online"), ["--warmup"])
+        check(online["served"] == len(rows[::2]) and online["shapes"] == online["warmup_shapes"],
               f"{family} serve CLI: served {online['served']}, {online['shapes']} shapes run, "
               f"{online['warmup_shapes']} warmed")
-        waves = read_wavs(os.path.join(work, "online"), names)
+        waves = read_wavs(os.path.join(work, "online"), names[::2])
         ref_fn = os.path.join(work, "ref.wav")
-        for name in names:
+        for name in names[::2]:
             save_wav(by_name[name]["wav_out"], ref_fn, SR)
             check(np.array_equal(wavfile.read(ref_fn)[1], waves[name]),
                   f"{family} serve CLI {name}.wav: samples differ from batch mode's")
@@ -3788,7 +3895,8 @@ def phase_done(name: str) -> None:
 
 # the timing-only modes: the kernels they build and the function that times them
 TIMING_MODES = {"--time-attention": (("flash_attention", "flash_attention_bwd"), time_attention),
-                "--time-mel": (("mel_kernel",), time_mel)}
+                "--time-mel": (("mel_kernel",), time_mel),
+                "--time-diffnet": (("diffnet_block", "diffnet_block_bwd"), time_diffnet)}
 
 
 def main() -> None:
@@ -3822,7 +3930,7 @@ def main() -> None:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}", flush=True)
-    for name, c in print_attention_sass().items():
+    for name, c in print_sass().items():
         check(c["bf16"]["HGMMA"] > 0 and c["bf16"]["HMMA"] == 0,
               f"{name}: the bf16 kernels must run on wgmma (HGMMA), not mma.sync")
 
@@ -3901,7 +4009,9 @@ def main() -> None:
              "device_ms", "ops_per_call", "library_device_ms", "old_bound_ms", "cufft_ms",
              "cufft_device_ms", "cufft_ops_per_call", "shapes", "infer_max_abs_err",
              "serve_max_abs_err", "campnet_shapes", "f32_ms", "autograd_err", "gflop",
-             "mbytes", "widths_max_abs_err")
+             "mbytes", "widths_max_abs_err", "cublas_ms", "cublas_device_ms",
+             "cublas_ops_per_call", "train_gflop", "train_mbytes", "train_bound_by",
+             "train_cublas_ms", "train_cublas_device_ms", "train_cublas_ops_per_call")
     print(json.dumps({"kernels": [{key: k[key] for key in keys + extra if key in k}
                                   for k in kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

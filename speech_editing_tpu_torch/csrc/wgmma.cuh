@@ -1,6 +1,8 @@
 // Hopper's warpgroup products (wgmma) in bf16 with f32 accumulation, and
 // the shared-memory tile layout they read. Used by the bf16 forms of K3
-// (flash_attention.cu) and K4 (flash_attention_bwd.cu).
+// (flash_attention.cu) and K4 (flash_attention_bwd.cu), and of K1 and K5
+// (diffnet_bf16.cuh: weight tiles of 64 k rows, or K-major tiles of N
+// rows, filled by TMA in the same layout).
 //
 // A warpgroup is four consecutive warps (128 threads, warp % 4 == 0 first).
 // wgmma.mma_async.m64nNk16 multiplies a 64 x 16 A by a 16 x N B into a
@@ -109,6 +111,12 @@ __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t s
 // k16 step s of a tile at shared address tile, read K-major / MN-major
 __device__ __forceinline__ uint64_t desc_k(uint32_t tile, int s) {
   return desc(tile + (s >> 1) * BLOCK_BYTES + (s & 1) * 32, 16, 512);
+}
+
+// the same for a K-major tile of N rows (N a multiple of 8), whose 32-column
+// blocks are block = N * 64 bytes apart
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int s, uint32_t block) {
+  return desc(tile + (s >> 1) * block + (s & 1) * 32, 16, 512);
 }
 
 __device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int s) {

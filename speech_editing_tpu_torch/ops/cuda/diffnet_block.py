@@ -11,9 +11,11 @@ gradient is needed. :class:`DiffNetBlockFunction` ties the two together as
 plain products, as the JAX package leaves them to XLA. Both kernels take
 float32, their products on the tensor cores as 3xTF32 (float32 accuracy,
 ``csrc/tf32x3.cuh``), or bfloat16, with f32 accumulation and the Pallas
-kernels' roundings (``csrc/bf16mma.cuh``); the wrappers dispatch on the
-dtype, and the plain versions emulate both. :func:`_tile_plan` picks their
-rows per CTA and K1's cluster split from B·T. The source notes in the
+kernels' roundings (Hopper's wgmma, weights by TMA multicast over a
+cluster: ``csrc/diffnet_bf16.cuh``); the wrappers dispatch on the dtype,
+and the plain versions emulate both. :func:`_tile_plan` picks the float32
+forms' rows per CTA and K1's cluster split from B·T,
+:func:`_tile_plan_bf16` the bf16 forms' clusters. The source notes in the
 ``.cu`` files give each kernel's bound and design.
 
 :func:`diffnet_block_takes` states the kernels' envelope: the widths
@@ -92,6 +94,51 @@ def _tile_plan(b: int, t: int, fits64: bool = True, c: int = 256) -> tuple[int, 
     while cluster < min(4, c // 64) and tiles * cluster < _MIN_GRID:
         cluster *= 2
     return 16, cluster
+
+
+_SMS = 132                    # the H100's SMs: one bf16 CTA fits on each
+
+
+def _share(tiles: int) -> int:
+    """CTAs of a bf16 cluster that share the weights, over ``tiles``
+    64-row tiles (the last cluster's missing tiles are padding CTAs that
+    only load): 4 where the grid is one wave of 16 or more CTAs, else 2
+    (from 2 tiles). Past one wave, clusters of 4 whole SMs fit the SMs a
+    wave leaves free worse than clusters of 2 (``probe_diffnet.py
+    --share``: both kernels slower with 4 at the bf16 flagship step's
+    624 tiles)."""
+    return 4 if 16 <= tiles <= _SMS else 2 if tiles >= 2 else 1
+
+
+def _tile_plan_bf16(b: int, t: int, c: int = 256, split_ok: bool = True) -> tuple[int, int]:
+    """(split, share) of the bf16 forms of K1 and K5 (``split_ok`` False)
+    at [B, T] and C=``c``, on 64-row tiles. Where the tiles alone give
+    ``_MIN_GRID`` / 2 CTAs, or for K5, clusters of :func:`_share`
+    neighbouring tiles share the weights (split 1); else K1 splits the
+    gate columns over a cluster of 2, then 4 CTAs until the grid reaches
+    ``_MIN_GRID`` (the largest where even that falls short), each CTA
+    keeping at least 64 of them (share 1)."""
+    tiles = b * -(-t // 64)
+    if not split_ok or tiles >= _MIN_GRID // 2:
+        return 1, _share(tiles)
+    split = 1
+    while split < min(4, c // 64) and tiles * split < _MIN_GRID:
+        split *= 2
+    return split, 1
+
+
+def _plan(name: str, b: int, t: int, dilation: int, suffix: str, c: int,
+          h: int = 192) -> tuple[int, int]:
+    """The two plan arguments of K1's (``name`` "diffnet_block") or K5's
+    launch in the form ``suffix``: (rows, cluster) for float32, (split,
+    share) for bf16, whose 64-row tiles must fit in shared memory."""
+    fits = _fits64(name, dilation, suffix, c, h)
+    if suffix == "f32":
+        return _tile_plan(b, t, fits, c)
+    if not fits:
+        raise RuntimeError(f"{name}: the bf16 form's 64-row tiles do not fit in shared "
+                           f"memory at C={c}, dilation={dilation}")
+    return _tile_plan_bf16(b, t, c, name == "diffnet_block")
 
 
 def _check_aligned(**tensors) -> None:
@@ -176,7 +223,7 @@ def diffnet_block(x, cond, step, mask, wd, bd, wc, bc, wo, bo,
     h = cond.shape[-1]
     _check_envelope("diffnet_block", c, h, dilation, x.dtype)
     suffix = _SUFFIX[x.dtype]
-    m, cluster = _tile_plan(b, t, _fits64("diffnet_block", dilation, suffix, c, h), c)
+    plan = _plan("diffnet_block", b, t, dilation, suffix, c, h)
     dev = x.device
     for name, tensor, shape in (
             ("x", x, (b, t, c)), ("cond", cond, (b, t, h)), ("step", step, (b, c)),
@@ -194,7 +241,7 @@ def diffnet_block(x, cond, step, mask, wd, bd, wc, bc, wo, bo,
     fn = kernel_function("diffnet_block", f"diffnet_block_fwd_{suffix}", _FWD_ARGTYPES)
     check_status(fn(ptr(x), ptr(cond), ptr(step), ptr(mask), ptr(wd), ptr(bd),
                     ptr(wc), ptr(bc), ptr(wo), ptr(bo), ptr(xout), ptr(skip),
-                    ptr(h_out), b, t, c, h, dilation, m, cluster, current_stream()),
+                    ptr(h_out), b, t, c, h, dilation, *plan, current_stream()),
                  "diffnet_block")
     if suffix == "f32":
         diffnet_block.launches += 1
@@ -242,7 +289,7 @@ def diffnet_block_bwd(h, dxout, dskip, mask, wd, wo, dilation: int = 1):
     b, t, c = dxout.shape
     _check_envelope("diffnet_block_bwd", c, None, dilation, dxout.dtype)
     suffix = _SUFFIX[dxout.dtype]
-    m, _ = _tile_plan(b, t, _fits64("diffnet_block_bwd", dilation, suffix, c), c)
+    rows, share = _plan("diffnet_block_bwd", b, t, dilation, suffix, c)
     dev = h.device
     for name, tensor, shape in (
             ("h", h, (b, t, 2 * c)), ("dxout", dxout, (b, t, c)),
@@ -257,8 +304,8 @@ def diffnet_block_bwd(h, dxout, dskip, mask, wd, wo, dilation: int = 1):
     fn = kernel_function("diffnet_block_bwd", f"diffnet_block_bwd_{suffix}",
                          _BWD_ARGTYPES)
     check_status(fn(ptr(h), ptr(dxout), ptr(dskip), ptr(mask), ptr(wo),
-                    ptr(wd), ptr(dx), ptr(dh), ptr(g), b, t, c, dilation, m,
-                    current_stream()), "diffnet_block_bwd")
+                    ptr(wd), ptr(dx), ptr(dh), ptr(g), b, t, c, dilation,
+                    rows if suffix == "f32" else share, current_stream()), "diffnet_block_bwd")
     if suffix == "f32":
         diffnet_block_bwd.launches += 1
     else:
