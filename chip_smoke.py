@@ -100,7 +100,7 @@ Phases, each of which exits non-zero on a failed check:
    written here): an output and a ``_ref`` wav each, 160 K1 launches an
    edit, head and tail frames equal to the source's, the edited span as
    long as its predicted durations, the same request twice bit-identical;
-   each edit's host latency and its parts over 40 edits, one profiled
+   each edit's host latency and its parts over 20 edits, one profiled
    edit, and one request re-run on the CPU with the card's noise (a
    duration or pitch bin that rounds the other way is replayed and
    counted). K1 is then held against its plain version at every length
@@ -174,6 +174,30 @@ Phases, each of which exits non-zero on a failed check:
    step agrees with the CPU's (BF16_* bars). A DiffNet block, attentions
    (160-wide heads; float16) and a mel outside their kernels' envelopes
    raise on the card (no caller gives way to a plain version there).
+12. switches: ``egs/spec_denoiser.yaml`` as shipped through the training
+   entry on the run path's corpus under each of the editing configs'
+   remaining switches: ``ref_pad_compat``, ``no_diffusion`` and
+   ``use_masked_cond=false`` in float32, ``accumulate_grad_batches=2`` in
+   bf16 as the yaml ships it; 4 updates each, a validation batch and a
+   checkpoint. Every update moves the counters by K1 and K5 20 times (the
+   bf16 forms 40 under accumulation, two microbatches an update), the
+   DiffNet blocks run without a mask under ``ref_pad_compat`` alone; a
+   2-utterance update (two microbatches under accumulation) of each on the
+   card and on the CPU agrees (STEP_* or BF16_* bars); one ``--infer`` item
+   under ``no_diffusion`` launches K1 20 times (one DiffNet call). K1 (with
+   h) and K5 without a mask, float32 and bf16, against their plain versions
+   at the ``ref_pad_compat`` run's median batch, and timed there without the
+   mask beside with it.
+13. GAN train: HiFi-GAN V1 through the training entry on
+   ``egs/hifigan.yaml`` as shipped (the full MPD and MSD, 16 crops of 8192
+   samples a batch) over a synthetic mel + wav corpus of 64/4/2 utterances:
+   10 steps, a validation batch and a checkpoint, a resume to 12 (both nets
+   and both Adam states bit for bit), ``--infer`` (copy synthesis) of the 2
+   test items; the trained work dir loads through ``infer/vocoder.py``'s
+   HiFi-GAN and vocodes a mel bit for bit as the generator does; one B=2 GAN
+   step on the card and on the CPU agrees; step times, peak memory and a
+   profiled step. No kernel of the port runs on this path (cuDNN's
+   convolutions and cuBLAS's DFT products).
 
 ``python3 chip_smoke.py --time-attention`` builds K3 and K4 only and times
 them, float32 and bf16 (the flagship step's, CampNet's and the holes
@@ -214,6 +238,7 @@ from scipy.io import wavfile
 
 import speech_editing_tpu_torch.models.editspeech as editspeech_module
 import speech_editing_tpu_torch.models.fs as fs_module
+import speech_editing_tpu_torch.modules.wavenet as wavenet_module
 from speech_editing_tpu_torch.config.flagship import FLAGSHIP_HP, HIFIGAN_V1_HP
 from speech_editing_tpu_torch.config.hparams import (arg_parser, dump_yaml, load_config,
                                                      set_hparams)
@@ -245,6 +270,7 @@ from speech_editing_tpu_torch.ops.flash_attention import (attention_bwd_plain,
 from speech_editing_tpu_torch.ops.mel import MelConfig, mel_bases
 from speech_editing_tpu_torch.ops.mel import mel_spectrogram as mel_plain
 from speech_editing_tpu_torch.run import run as run_entry
+from speech_editing_tpu_torch.run import task_class
 from speech_editing_tpu_torch.training.checkpoint import save_checkpoint
 from speech_editing_tpu_torch.training.tasks.spec_denoiser import SpecDenoiserTask
 from speech_editing_tpu_torch.training.tasks.stutter_speech import StutterPredictorTask
@@ -892,9 +918,10 @@ PROFILE_EDGE_S = 0.05
 MARKER = "bitwise_not"     # the marker kernel's name holds this; no measured call's does
 
 
-def profiled(run) -> list:
+def profiled(run) -> tuple[list, float]:
     """``torch.profiler``'s events by name (``key_averages``) over one call
-    of ``run``, after one profiled warm-up call. The profiler keeps a device
+    of ``run``, after one profiled warm-up call, and the ms the device was
+    busy in that call (``device_busy_ms``). The profiler keeps a device
     event only if its timestamp falls inside its window, and the device's
     timestamps can read behind the host clock (a kernel seen to start before
     its own launch), which dropped the first events of a short window; so
@@ -909,7 +936,18 @@ def profiled(run) -> list:
             torch.cuda.synchronize()
             time.sleep(PROFILE_EDGE_S)
             prof.step()
-    return list(prof.key_averages())
+    return list(prof.key_averages()), device_busy_ms(prof.events())
+
+
+def device_busy_ms(events) -> float:
+    """The union of the device operations' intervals in ms: kernels on
+    different streams (cuDNN runs some convolutions on its own) overlap,
+    so their summed time can exceed the time the device was busy."""
+    total, end = 0.0, float("-inf")
+    for a, b in sorted((e.time_range.start, e.time_range.end) for e in device_ops(events)):
+        if b > end:
+            total, end = total + b - max(a, end), b
+    return total / 1e3
 
 
 def profile_calls(fn, iters: int = 50, tries: int = 3) -> tuple[float, int]:
@@ -927,7 +965,7 @@ def profile_calls(fn, iters: int = 50, tries: int = 3) -> tuple[float, int]:
             fn()
             marker.bitwise_not_()
     for _ in range(tries):
-        ops = device_ops(profiled(run))
+        ops = device_ops(profiled(run)[0])
         marks = sum(e.count for e in ops if MARKER in e.key)
         if marks >= iters / 2:
             break
@@ -1647,14 +1685,14 @@ def profile_edit(pipe, req, gen, edit_ms: float, top: int = 12) -> None:
     """Device time by kernel over one 512-frame edit (``torch.profiler``,
     after one profiled warm-up edit), and its share of ``edit_ms``, the
     edit's host-clock time without the profiler."""
-    kernels = device_ops(profiled(lambda: pipe(*req, generator=gen)))
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    if busy_ms == 0:
+    events, busy = profiled(lambda: pipe(*req, generator=gen))
+    kernels = device_ops(events)
+    if busy == 0:
         print("[profile] the profiler saw no device time: not measured", flush=True)
         return
     n_ops = sum(e.count for e in kernels)
-    print(f"[profile] edit T=512: {n_ops} device operations, busy {busy_ms:.3f} ms, "
-          f"{busy_ms / edit_ms:.3f} of the unprofiled edit's {edit_ms:.3f} ms "
+    print(f"[profile] edit T=512: {n_ops} device operations, busy {busy:.3f} ms, "
+          f"{busy / edit_ms:.3f} of the unprofiled edit's {edit_ms:.3f} ms "
           f"host clock", flush=True)
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         print(f"[profile] {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d}x "
@@ -1766,16 +1804,17 @@ def profile_step(trainer, batch, step_ms: float, top: int = 15,
     host-clock time without the profiler; then the host's own time by
     operation (under the profiler, which adds to it). Returns the device's
     busy ms, None if the profiler saw none; the events go into ``keep``."""
-    events = profiled(lambda: trainer.step(batch))
+    events, busy = profiled(lambda: trainer.step(batch))
     if keep is not None:
         keep.extend(events)
     kernels = device_ops(events)
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    if busy_ms == 0:
+    if busy == 0:
         print("[profile] the profiler saw no device time: not measured", flush=True)
         return None
+    summed = sum(e.self_device_time_total for e in kernels) / 1e3
     print(f"[profile] {label} step: {sum(e.count for e in kernels)} device operations, "
-          f"busy {busy_ms:.3f} ms, {busy_ms / step_ms:.3f} of the unprofiled step's "
+          f"{summed:.3f} ms of device time, busy {busy:.3f} ms, "
+          f"{busy / step_ms:.3f} of the unprofiled step's "
           f"{step_ms:.3f} ms host clock", flush=True)
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         print(f"[profile] {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d}x "
@@ -1791,7 +1830,7 @@ def profile_step(trainer, batch, step_ms: float, top: int = 15,
     for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:top]:
         print(f"[profile] {e.self_cpu_time_total / 1e3:9.3f} ms {e.count:5d}x "
               f"{e.key[:90]}", flush=True)
-    return busy_ms
+    return busy
 
 
 @contextlib.contextmanager
@@ -1824,32 +1863,38 @@ def relu_branches(masks: list, replay: bool):
           f"relu_branches: {tally[1]} ReLU calls replayed {len(masks)} recorded ones")
 
 
-def compare_step_with_cpu(label: str, make_twin, state: dict, sub: dict,
+def compare_step_with_cpu(label: str, make_twin, state: dict, sub,
                           diffusion: bool = True, bf16: bool = False) -> None:
     """One step on ``sub``, a 2-utterance batch (host arrays of the step's
-    keys), on the card and on the CPU (plain versions): twins from
+    keys; a list of them: one accumulated update of those microbatches), on
+    the card and on the CPU (plain versions): twins from
     ``make_twin(device)`` with dropout off load ``state`` and, with
-    ``diffusion``, take the same diffusion draw, and the CPU's ReLUs take
+    ``diffusion``, take the same diffusion draws, and the CPU's ReLUs take
     the card's branches (``relu_branches``), so both differentiate the same
     function; losses, gradients, updated parameters and Adam moments must
     agree: at the float32 tolerances (STEP_*), or with ``bf16`` (a bf16
     step, whose roundings an f32 sum in another order can flip) at the
     BF16_* bars, gradients and moments in relative L2."""
     gen = torch.Generator().manual_seed(7)
-    b, t = sub["mels"].shape[:2]
-    draws = {}
-    if diffusion:
-        draws = dict(t=torch.randint(0, FLAGSHIP_HP["timesteps"] + 1, (b,), generator=gen),
-                     noise=torch.randn(b, t, 80, generator=gen))
+    micro = sub if isinstance(sub, list) else [sub]
+    draws = []
+    for batch in micro:
+        b, t = batch["mels"].shape[:2]
+        draws.append(dict(t=torch.randint(0, FLAGSHIP_HP["timesteps"] + 1, (b,), generator=gen),
+                          noise=torch.randn(b, t, 80, generator=gen)) if diffusion else {})
     masks: list = []
 
     def run(dev: str, replay: bool) -> dict:
         twin = make_twin(dev)
         twin.train_step.load_state_dict(copy.deepcopy(state))
+        on = [{k: v.to(dev) for k, v in d.items()} for d in draws]
         t0 = time.perf_counter()
         with relu_branches(masks, replay) as tally:
-            metrics = twin.train_step(twin.to_device(sub),
-                                      **{k: v.to(dev) for k, v in draws.items()})
+            if isinstance(sub, list):
+                metrics = twin.train_step.accumulate([twin.to_device(m) for m in micro],
+                                                     draws=on)
+            else:
+                metrics = twin.train_step(twin.to_device(sub), **on[0])
         secs = time.perf_counter() - t0
         step = twin.train_step
         named = dict(step.model.named_parameters())
@@ -2057,23 +2102,24 @@ class RunRecorder:
         orig = {name: getattr(Trainer, name) for name in names}
         rec = self
 
-        def step(trainer, raw):
+        def step(trainer, raw, *more):
             before = counts()
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             t0 = time.perf_counter()
             start.record()
-            metrics = orig["step"](trainer, raw)
+            metrics = orig["step"](trainer, raw, *more)
             end.record()
             end.synchronize()
+            # copies, so the loader's pinned buffers go back to its cache
+            raws = [{k: v.clone() if isinstance(v, torch.Tensor) else v for k, v in r.items()}
+                    for r in (raw, *more)]
             rec.steps.append(dict(
                 host_ms=(time.perf_counter() - t0) * 1e3, event_ms=start.elapsed_time(end),
-                frames=int(raw["mel_lengths"].sum()), shape=tuple(raw["mels"].shape[:2]),
+                frames=sum(int(r["mel_lengths"].sum()) for r in raws),
+                shape=tuple(raw["mels"].shape[:2]),
                 launches={k: counts()[k] - before[k] for k in COUNTERS},
-                step=trainer.global_step, metrics=metrics,
-                # a copy, so the loader's pinned buffers go back to its cache
-                raw={k: v.clone() if isinstance(v, torch.Tensor) else v
-                     for k, v in raw.items()}))
+                step=trainer.global_step, metrics=metrics, raw=raws[0], raws=raws))
             return metrics
 
         def eval_batch(trainer, raw):
@@ -2856,8 +2902,8 @@ def infer_path(smi: str, tmp: str, work: str, data_dir: str) -> tuple[dict, dict
           flush=True)
     spec = wav2spec(rows[0]["wav_fn_orig"], **spec_kw)
     inp = dict(rows[0], mel=spec["mel"], wav=spec["wav"])
-    kernels = device_ops(profiled(lambda: inf.infer_once(inp)))
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    events, busy_ms = profiled(lambda: inf.infer_once(inp))
+    kernels = device_ops(events)
     n_ops = sum(e.count for e in kernels)
     print(f"[profile] CSV edit {rows[0]['item_name']} ({edits[0]['frames']} frames): "
           f"{n_ops} device operations, busy {busy_ms:.3f} ms", flush=True)
@@ -3015,12 +3061,11 @@ def serve_profile(server, chunk: dict, seed: int, smi: str) -> dict:
         t0 = time.perf_counter()
         run()
         host.append((time.perf_counter() - t0) * 1e3)
-    kernels = device_ops(profiled(run))
-    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    events, busy = profiled(run)
+    kernels = device_ops(events)
     k1 = sum(e.self_device_time_total for e in kernels if "diffnet_block" in e.key) / 1e3
     mel = torch.zeros(chunk["b"], chunk["t_b"], 80, device="cuda") - 4.0
-    voc = sum(e.self_device_time_total for e in device_ops(
-        profiled(lambda: server.infer.vocoder.spec2wav_batch_dev(mel)))) / 1e3
+    voc = profiled(lambda: server.infer.vocoder.spec2wav_batch_dev(mel))[1]
     out = dict(shape=[chunk["b"], chunk["t_b"]], s_b=chunk["s_b"],
                host_ms=float(np.median(host)), busy_ms=busy,
                device_ops=sum(e.count for e in kernels), k1_ms=k1, hifigan_ms=voc)
@@ -3364,12 +3409,11 @@ def inplace_profile(family: str, server, chunk: dict, smi: str) -> dict:
         t0 = time.perf_counter()
         run()
         host.append((time.perf_counter() - t0) * 1e3)
-    kernels = device_ops(profiled(run))
-    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    events, busy = profiled(run)
+    kernels = device_ops(events)
     k3 = sum(e.self_device_time_total for e in kernels if "attention_fwd" in e.key) / 1e3
     mel = torch.zeros(chunk["b"], chunk["t_b"], 80, device="cuda") - 4.0
-    voc = sum(e.self_device_time_total for e in device_ops(
-        profiled(lambda: server.infer.vocoder.spec2wav_batch_dev(mel)))) / 1e3
+    voc = profiled(lambda: server.infer.vocoder.spec2wav_batch_dev(mel))[1]
     out = dict(shape=[chunk["b"], chunk["t_b"]], s_b=chunk["s_b"], rows=chunk["n"],
                host_ms=float(np.median(host)), busy_ms=busy,
                device_ops=sum(e.count for e in kernels), k3_ms=k3, hifigan_ms=voc)
@@ -3862,6 +3906,410 @@ def check_cudnn_recurrence(events: list) -> dict:
     return dict(cudnn_rnn_calls=cudnn, lstm_cell_calls=cells)
 
 
+# -- switches path -----------------------------------------------------------------
+
+# the editing configs' remaining switches: each a few steps of
+# egs/spec_denoiser.yaml as shipped on the run path's corpus, the loader in
+# process, with a validation batch and a checkpoint; the three model
+# switches in float32, gradient accumulation in bf16 as the yaml ships it
+SWITCH_STEPS, SWITCH_ACCUM = 3, 2
+SWITCHES = (("ref_pad_compat", "ref_pad_compat=true,use_bf16=False"),
+            ("no_diffusion", "no_diffusion=true,use_bf16=False"),
+            ("use_masked_cond", "use_masked_cond=false,use_bf16=False"),
+            ("accumulate", f"accumulate_grad_batches={SWITCH_ACCUM}"))
+SWITCH_HP = (f"max_updates={SWITCH_STEPS},val_check_interval={SWITCH_STEPS},"
+             "num_sanity_val_steps=0,eval_max_batches=1,tb_log_interval=10,ds_workers=0,"
+             "test_num=1,test_save_workers=1")
+EXPECTED_SWITCH_STEP = dict(
+    (name, EXPECTED_PER_RUN_STEP) for name, _ in SWITCHES[:3])
+EXPECTED_SWITCH_STEP["accumulate"] = dict(
+    NO_LAUNCH, diffnet_block_bf16=SWITCH_ACCUM * RUN_LAYERS,
+    diffnet_block_bwd_bf16=SWITCH_ACCUM * RUN_LAYERS)
+# an item of --infer under no_diffusion: one DiffNet call, no reverse run
+EXPECTED_ONE_SHOT_ITEM = dict(NO_LAUNCH, diffnet_block=RUN_LAYERS)
+
+
+@contextlib.contextmanager
+def block_masks(tally: dict):
+    """Counts DiffNet's block calls by their mask while the block runs:
+    ``tally["null"]`` those without one (``ref_pad_compat``), ``"masked"``
+    those with. The count wraps the names ``modules/wavenet.py`` calls, so
+    the kernels' own launch counters are untouched."""
+    orig = {n: getattr(wavenet_module, n) for n in ("diffnet_block", "diffnet_block_train")}
+
+    def counted(fn):
+        def wrapper(x, cond, step, mask, *args, **kwargs):
+            tally["null" if mask is None else "masked"] += 1
+            return fn(x, cond, step, mask, *args, **kwargs)
+        return wrapper
+
+    for name, fn in orig.items():
+        setattr(wavenet_module, name, counted(fn))
+    try:
+        yield tally
+    finally:
+        for name, fn in orig.items():
+            setattr(wavenet_module, name, fn)
+
+
+def switch_run(name: str, hp: str, smi: str, tmp: str,
+               data_dir: str) -> tuple[dict, tuple, dict]:
+    """One switch through the training entry: SWITCH_STEPS updates, each
+    moving the launch counters as expected (accumulation: both microbatches'
+    bf16 K1 and K5), the blocks called without a mask under
+    ``ref_pad_compat`` and with one otherwise, a validation batch and a
+    checkpoint; a 2-utterance update of the shortest batch (two microbatches
+    under accumulation) on the card and on the CPU. Returns the statistics,
+    (B, T) of the median batch and the launches of the switch's own runs
+    (training, and ``--infer`` under ``no_diffusion``), read before the
+    card's twin of the CPU step runs."""
+    q = lambda xs, p: float(np.percentile(xs, p))
+    work = os.path.join(tmp, "switches", name)
+    argv = ["--config", "egs/spec_denoiser.yaml", "--exp_name", work, "-hp",
+            f"binary_data_dir={data_dir},vocoder_ckpt={os.path.join(tmp, 'hifigan')},"
+            f"{SWITCH_HP},{hp}"]
+    rec, tally = RunRecorder(), {"null": 0, "masked": 0}
+    t0 = time.perf_counter()
+    reset_counts()
+    with rec.instrumented(), block_masks(tally):
+        trainer = run_entry(argv)
+    seconds = time.perf_counter() - t0
+    launches = counts()
+    if name == "no_diffusion":
+        irec = InferRecorder()
+        with irec.instrumented():
+            tester = run_entry(argv + ["--infer"])
+        moved = {k: counts()[k] - launches[k] for k in COUNTERS}
+        launches = counts()
+    expected, bf16 = EXPECTED_SWITCH_STEP[name], name == "accumulate"
+    check(len(rec.steps) == SWITCH_STEPS and len(rec.valid) == 1,
+          f"switch {name}: {len(rec.steps)} updates, {len(rec.valid)} validation batches")
+    for st in rec.steps:
+        check(st["launches"] == expected,
+              f"switch {name} update {st['step']}: launches {st['launches']} != {expected}")
+        check(len(st["raws"]) == (SWITCH_ACCUM if bf16 else 1),
+              f"switch {name}: {len(st['raws'])} microbatches an update")
+        m = {k: float(v) for k, v in st["metrics"].items()}
+        check(all(np.isfinite(v) for v in m.values()) and m["nan_grads"] == 0,
+              f"switch {name} update {st['step']}: non-finite metrics {m}")
+    check(rec.valid[0] == EXPECTED_PER_VALID_BATCH,
+          f"switch {name} validation batch: launches {rec.valid[0]}")
+    blocks = (SWITCH_STEPS * (SWITCH_ACCUM if bf16 else 1) + 1) * RUN_LAYERS
+    want = ({"null": blocks, "masked": 0} if name == "ref_pad_compat"
+            else {"null": 0, "masked": blocks})
+    check(tally == want, f"switch {name}: block calls by mask {tally} != {want}")
+    runs = {k: sum(st["launches"][k] for st in rec.steps) + rec.valid[0][k]
+            + (moved[k] if name == "no_diffusion" else 0) for k in COUNTERS}
+    check(launches == runs, f"switch {name}: launches {launches} != its updates', validation "
+                            f"batch's and items' {runs}")
+    check(os.path.exists(os.path.join(work, f"model_ckpt_steps_{SWITCH_STEPS}.ckpt")),
+          f"switch {name}: checkpoints {sorted(os.listdir(work))}")
+    host = [st["host_ms"] for st in rec.steps]
+    m = {k: float(v) for k, v in rec.steps[-1]["metrics"].items()}
+    mid = sorted(rec.steps, key=lambda st: st["shape"][1])[len(rec.steps) // 2]
+    stats = {"hp": hp, "updates": len(rec.steps), "host_ms_p50": q(host, 50),
+             "host_ms_p75": q(host, 75), "launches_per_update": expected,
+             "block_calls": tally, "seconds": seconds, "last_metrics": m,
+             "median_batch": list(mid["shape"])}
+    print(f"[switches] {name} ({hp}): {len(rec.steps)} updates of "
+          f"{SWITCH_ACCUM if bf16 else 1} batch(es) at B x T "
+          f"{[st['shape'] for st in rec.steps]}; host clock p50 {stats['host_ms_p50']:.3f} "
+          f"ms, p75 {stats['host_ms_p75']:.3f} ms an update; launches an update {expected}; "
+          f"DiffNet blocks {tally}; a validation batch and a checkpoint; {seconds:.1f} s; "
+          f"{smi}", flush=True)
+    print(f"[switches] {name} last update: "
+          + " ".join(f"{k}={v:.5f}" for k, v in sorted(m.items())), flush=True)
+    short = min(rec.steps, key=lambda st: st["shape"][1])
+    keys = trainer.task.effective_batch_keys()
+    sub = [{k: r[k][:2] for k in keys} for r in short["raws"]]
+    compare_step_with_cpu(f"switches {name}", lambda dev: Trainer(trainer.task, trainer.hp, dev,
+                                                                  dropout=False),
+                          trainer.train_step.state_dict(), sub if bf16 else sub[0], bf16=bf16)
+    if name == "no_diffusion":
+        check(moved == EXPECTED_ONE_SHOT_ITEM,
+              f"switch {name} --infer: launches {moved} != {EXPECTED_ONE_SHOT_ITEM}")
+        check_test_set(os.path.join(work, f"generated_{SWITCH_STEPS}_test"), irec, 1,
+                       EXPECTED_ONE_SHOT_ITEM)
+        stats.update(infer_items=1, infer_launches_per_item=moved,
+                     infer_forward_s=irec.seconds["forward"])
+        print(f"[switches] {name} --infer: 1 test item from step {tester.global_step}'s "
+              f"checkpoint, one DiffNet call ({moved}), its frames outside the mask the "
+              f"ground truth's", flush=True)
+    return stats, tuple(mid["shape"]), launches
+
+
+def switches_path(smi: str, tmp: str, data_dir: str) -> tuple[dict, dict, tuple]:
+    """Every switch of SWITCHES in turn; returns the launches of their own
+    runs summed, each switch's statistics and the ``ref_pad_compat`` run's
+    median (B, T)."""
+    t0 = time.perf_counter()
+    stats, shape, totals = {}, None, dict.fromkeys(COUNTERS, 0)
+    for name, hp in SWITCHES:
+        stats[name], mid, launches = switch_run(name, hp, smi, tmp, data_dir)
+        shape = mid if name == "ref_pad_compat" else shape
+        totals = {k: totals[k] + launches[k] for k in COUNTERS}
+    stats["seconds"] = time.perf_counter() - t0
+    print(f"[switches] {len(SWITCHES)} switches in {stats['seconds']:.1f} s; launches "
+          f"{totals}", flush=True)
+    return totals, stats, shape
+
+
+def check_block_without_mask(gen, b: int, t: int) -> dict:
+    """K1 (with h) and K5 with a null mask, float32 and bf16, against their
+    plain versions at ``ref_pad_compat``'s median batch [b, t] (float32 K1
+    at 1e-4 absolute, K5 at BWD_TOL of the largest; the bf16 forms at
+    BF16_TOL); the float32 forms timed without the mask beside with it (the
+    batch's rows padded to their own lengths) at that shape. Returns each
+    kernel's error and the two times."""
+    out = {}
+    x, cond, step, mask, w = block_inputs(gen, b, t, ragged=True)
+    for dtype in (torch.float32, torch.bfloat16):
+        bf = dtype == torch.bfloat16
+        xs, cs, ss, ms_ = (v.to(dtype) for v in (x, cond, step, mask))
+        ws = tuple(v.to(dtype) for v in w)
+        fwd = lambda fn, m: fn(xs, cs, ss, m, *ws, dilation=1, return_h=True)
+        got, ref = fwd(diffnet_block, None), fwd(diffnet_block_plain, None)
+        dxo, dsk = (torch.randn(b, t, x.shape[-1], device="cuda", generator=gen).to(dtype)
+                    for _ in range(2))
+        bwd = lambda fn, m: fn(got[2], dxo, dsk, m, ws[0], ws[4], 1)
+        got_b, ref_b = bwd(diffnet_block_bwd, None), bwd(diffnet_block_bwd_plain, None)
+        torch.cuda.synchronize()
+        f = lambda ts: [v.float() for v in ts]
+        err = (rel_err(f(got), f(ref)) if bf
+               else max(float((g - e).abs().max()) for g, e in zip(got, ref)))
+        err_b = rel_err(f(got_b), f(ref_b))
+        tol, tol_b = (BF16_TOL, BF16_TOL) if bf else (1e-4, BWD_TOL)
+        suffix = "_bf16" if bf else ""
+        line = (f"[switches] no mask, {'bf16' if bf else 'float32'} B={b} T={t}: diffnet_block "
+                f"(with h) err {err:.3e} (tol {tol:.3e}), diffnet_block_bwd err {err_b:.3e} "
+                f"(tol {tol_b:.3e})")
+        check(err <= tol and err_b <= tol_b, f"no-mask {dtype} B={b} T={t}: {err}, {err_b}")
+        out["diffnet_block" + suffix] = {"switches_max_abs_err": err}
+        out["diffnet_block_bwd" + suffix] = {"switches_max_abs_err": err_b}
+        if not bf:
+            times = {"nomask_ms": time_ms(lambda: fwd(diffnet_block, None)),
+                     "masked_ms": time_ms(lambda: fwd(diffnet_block, mask))}
+            times_b = {"nomask_ms": time_ms(lambda: bwd(diffnet_block_bwd, None)),
+                       "masked_ms": time_ms(lambda: bwd(diffnet_block_bwd, mask))}
+            out["diffnet_block"].update(times)
+            out["diffnet_block_bwd"].update(times_b)
+            line += (f"; K1 {times['nomask_ms']:.4f} ms without the mask, "
+                     f"{times['masked_ms']:.4f} ms with it; K5 {times_b['nomask_ms']:.4f} ms, "
+                     f"{times_b['masked_ms']:.4f} ms")
+        print(line, flush=True)
+    return out
+
+
+# -- GAN train path ----------------------------------------------------------------
+
+# a HiFi-TTS-like corpus: utterances of 64-400 frames (0.7-4.6 s at 22,050 Hz,
+# hop 256), each a tone with a drifting pitch over a noise floor, its mel
+# from the binarizer's wav2spec; egs/hifigan.yaml crops 8192 samples (32
+# frames) of each, 16 a batch
+GAN_SPLITS = {"train": 64, "valid": 4, "test": 2}
+GAN_MIN_T, GAN_MAX_T = 64, 400
+GAN_STEPS, GAN_RESUME_TO, GAN_WARMUP = 8, 10, 3
+# the validation batch is the sanity run's, so that the 1 GB checkpoint is
+# written once, at the end (an interval validation at the last step writes it
+# twice)
+GAN_HP = (f"max_updates={GAN_STEPS},val_check_interval={GAN_RESUME_TO + 1},"
+          f"num_sanity_val_steps=1,tb_log_interval=5,ds_workers=0,"
+          f"test_num={GAN_SPLITS['test']},test_save_workers=1")
+GAN_B, GAN_SAMPLES = 16, 8192        # egs/hifigan.yaml's max_sentences and max_samples
+
+
+def write_gan_corpus(data_dir: str, hp: dict, seed: int = 0) -> None:
+    """A binarized vocoder corpus (mel, wav, f0 and pitch zero) of
+    GAN_SPLITS items, written by the port's ``IndexedDatasetBuilder``."""
+    rs = np.random.RandomState(seed)
+    os.makedirs(data_dir)
+    for split, n_items in GAN_SPLITS.items():
+        builder = IndexedDatasetBuilder(os.path.join(data_dir, split))
+        lengths = []
+        for i in range(n_items):
+            n = int(rs.randint(GAN_MIN_T, GAN_MAX_T + 1)) * HOP
+            f0 = rs.uniform(100, 250) * (1 + 0.1 * np.sin(np.arange(n) / SR * rs.uniform(1, 4)))
+            wav = (0.3 * np.sin(2 * np.pi * np.cumsum(f0) / SR)
+                   + 0.02 * rs.randn(n)).astype(np.float32)
+            spec = wav2spec(wav, hp["fft_size"], hp["hop_size"], hp["win_size"],
+                            num_mels=hp["audio_num_mel_bins"], fmin=hp["fmin"],
+                            fmax=hp["fmax"], sample_rate=hp["audio_sample_rate"])
+            t = len(spec["mel"])
+            builder.add_item({"item_name": f"{split}_{i}", "mel": spec["mel"].astype(np.float32),
+                              "wav": spec["wav"].astype(np.float32),
+                              "pitch": np.zeros(t, np.int64), "f0": np.zeros(t, np.float32)})
+            lengths.append(t)
+        builder.finalize()
+        np.save(os.path.join(data_dir, f"{split}_lengths.npy"), np.asarray(lengths))
+
+
+def gan_states_equal(a: dict, b: dict) -> bool:
+    """Bit for bit: both nets, both optimizers' states and the step."""
+    if a["step"] != b["step"]:
+        return False
+    for net in ("model", "disc"):
+        if any(not torch.equal(v, b[net][k].to(v.device)) for k, v in a[net].items()):
+            return False
+    for opt in ("gen_opt", "disc_opt"):
+        sa, sb = a[opt]["state"], b[opt]["state"]
+        if sorted(sa) != sorted(sb) or any(
+                not torch.equal(torch.as_tensor(v), torch.as_tensor(sb[i][k]).to(
+                    torch.as_tensor(v).device)) for i in sa for k, v in sa[i].items()):
+            return False
+    return True
+
+
+def compare_gan_step_with_cpu(task, hp: dict, state: dict, sub: dict) -> dict:
+    """One GAN step on ``sub`` (2 items) on the card and on the CPU from
+    ``state``: every loss within STEP_LOSS_RTOL, each net's Adam moments
+    within STEP_MOMENT_TOL in relative L2 a tensor, the parameters within
+    STEP_PARAM_TOL, but where the step's first moment is within rounding of
+    zero (under 1e-2 of its tensor's rms on the CPU), where Adam's
+    direction, a near sign, may differ by up to 2 lr."""
+    def run(dev: str) -> dict:
+        twin = Trainer(task, hp, dev)
+        twin.train_step.load_state_dict(copy.deepcopy(state))
+        t0 = time.perf_counter()
+        metrics = twin.train_step(twin.to_device(sub))
+        secs = time.perf_counter() - t0
+        step = twin.train_step
+        out = {"secs": secs, "metrics": {k: float(v) for k, v in metrics.items()},
+               "lr": step.gen_opt.param_groups[0]["lr"]}
+        for net, opt, prefix in ((twin.model, step.gen_opt, ""),
+                                 (twin.disc, step.disc_opt, "disc.")):
+            for name, p in net.named_parameters():
+                s = opt.state[p]
+                out[prefix + name] = (p.detach().cpu(), s["exp_avg"].cpu(),
+                                      s["exp_avg_sq"].cpu())
+        return out
+
+    gpu, cpu = run("cuda"), run("cpu")
+    loss_err = max(abs(gpu["metrics"][k] - v) / max(abs(v), 1e-12)
+                   for k, v in cpu["metrics"].items())
+    names = [k for k in cpu if k not in ("secs", "metrics", "lr")]
+    moment = max((float((gpu[n][i] - cpu[n][i]).norm() / cpu[n][i].norm().clamp(min=1e-30)), n)
+                 for n in names for i in (1, 2))
+    worst_param, flips, total = (0.0, ""), 0, 0
+    for n in names:
+        diff = (gpu[n][0] - cpu[n][0]).abs()
+        m = cpu[n][1]
+        near_zero = m.abs() <= 1e-2 * m.pow(2).mean().sqrt()
+        apart = diff > STEP_PARAM_TOL
+        check(bool(near_zero[apart].all()) and float(diff.max()) <= 2.02 * cpu["lr"]
+              + STEP_PARAM_TOL, f"[gan] B=2 step: parameter {n} apart by {float(diff.max())}")
+        flips += int(apart.sum())
+        total += diff.numel()
+        worst_param = max(worst_param, (float(diff[~apart].max()) if (~apart).any() else 0.0, n))
+    print(f"[gan] B=2 GAN step on the card vs the CPU ({cpu['secs']:.1f} s): loss terms max "
+          f"rel err {loss_err:.3e} (tol {STEP_LOSS_RTOL}); Adam moments {moment[0]:.3e} in "
+          f"relative L2 ({moment[1]}; tol {STEP_MOMENT_TOL}); parameters {worst_param[0]:.3e} "
+          f"(tol {STEP_PARAM_TOL}) but for {flips} of {total} elements whose first moment is "
+          f"within rounding of 0, within 2 lr; total_loss {gpu['metrics']['total_loss']:.6f} vs "
+          f"{cpu['metrics']['total_loss']:.6f}", flush=True)
+    check(loss_err <= STEP_LOSS_RTOL, f"[gan] B=2 step: loss error {loss_err}")
+    check(moment[0] <= STEP_MOMENT_TOL, f"[gan] B=2 step: moment error {moment}")
+    return {"loss_rel_err": loss_err, "moment_rel_l2": moment[0], "param_err": worst_param[0],
+            "sign_flips": flips, "cpu_s": cpu["secs"]}
+
+
+def gan_path(smi: str, tmp: str) -> tuple[dict, dict]:
+    """HiFi-GAN V1's GAN training through the entry on ``egs/hifigan.yaml``
+    as shipped (the full MPD and MSD, 16 crops of 8192 samples a batch)
+    over a synthetic corpus: GAN_STEPS steps, a validation batch and a
+    checkpoint, a resume to GAN_RESUME_TO (both nets and optimizers bit for
+    bit), ``--infer`` of the GAN_SPLITS test items (copy synthesis), the
+    trained work dir through ``infer/vocoder.py::HifiGAN`` (a mel vocoded as
+    the generator gives it), one step on the card and on the CPU, and a
+    profiled step. The path launches none of the port's kernels."""
+    q = lambda xs, p: float(np.percentile(xs, p))
+    t0 = time.perf_counter()
+    data_dir, work = os.path.join(tmp, "gan_data"), os.path.join(tmp, "gan", "run")
+    cfg = load_config("egs/hifigan.yaml")
+    write_gan_corpus(data_dir, cfg)
+    corpus_s = time.perf_counter() - t0
+    argv = ["--config", "egs/hifigan.yaml", "--exp_name", work, "-hp",
+            f"binary_data_dir={data_dir},vocoder_ckpt={os.path.join(tmp, 'hifigan')},{GAN_HP}"]
+    first, second = RunRecorder(), RunRecorder()
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with first.instrumented():
+        trainer = run_entry(argv)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(type(trainer.task).__name__ == "HifiGanTask", f"gan: task {type(trainer.task)}")
+    check(len(first.steps) == GAN_STEPS and len(first.valid) == 1,
+          f"gan: {len(first.steps)} steps, {len(first.valid)} validation batches")
+    for st in first.steps:
+        check(st["launches"] == NO_LAUNCH and st["shape"] == (GAN_B, GAN_SAMPLES // HOP),
+              f"gan step {st['step']}: launches {st['launches']}, batch {st['shape']}")
+        m = {k: float(v) for k, v in st["metrics"].items()}
+        check(all(np.isfinite(v) for v in m.values()), f"gan step {st['step']}: {m}")
+    ckpt = os.path.join(work, f"model_ckpt_steps_{GAN_STEPS}.ckpt")
+    check(os.path.exists(ckpt), f"gan: checkpoints {sorted(os.listdir(work))}")
+    saved = torch.load(ckpt, map_location="cpu", weights_only=True)["state"]
+    with second.instrumented():
+        resumed = run_entry(argv[:-1] + [argv[-1] + f",max_updates={GAN_RESUME_TO}"])
+    check(second.steps[0]["step"] == GAN_STEPS + 1
+          and len(second.steps) == GAN_RESUME_TO - GAN_STEPS
+          and gan_states_equal(second.loaded, saved),
+          f"gan resume: not from step {GAN_STEPS} with both nets and optimizers bit for bit")
+    print(f"[gan] resume: started at step {GAN_STEPS} with the checkpoint's generator, "
+          f"discriminators and both Adam states bit for bit; ran to {resumed.global_step}",
+          flush=True)
+    before = counts()
+    tester = run_entry(argv + ["--infer"])
+    launches = counts()
+    gen_dir = os.path.join(work, f"generated_{GAN_RESUME_TO}_test", "wavs")
+    wavs = sorted(f for f in os.listdir(gen_dir) if f.startswith("[P]") and f.endswith(".wav"))
+    check(len(wavs) == GAN_SPLITS["test"] and launches == before,
+          f"gan --infer: {wavs}, launches {launches} vs {before}")
+    for f in wavs:
+        _, pcm = wavfile.read(os.path.join(gen_dir, f))
+        check(pcm.size > GAN_MIN_T * HOP // 2 and np.abs(pcm).max() > 0, f"gan --infer {f}")
+    vocoder = HifiGAN(dict(resumed.hp, vocoder_ckpt=work), device="cuda")
+    check(vocoder.kind == "hifigan", f"gan: the trained work dir loads as {vocoder.kind}")
+    mel = np.random.RandomState(4).randn(100, 80).astype(np.float32) * 0.5 - 4.0
+    with torch.inference_mode():
+        direct = tester.model.eval()(torch.from_numpy(mel)[None].cuda())[0].cpu().numpy()
+    check(np.array_equal(vocoder.spec2wav(mel), direct),
+          "gan: the vocoder's wav is not the trained generator's")
+    print(f"[gan] --infer: {len(wavs)} copy-synthesis wavs from step {tester.global_step}; "
+          f"the work dir loads through infer/vocoder.py::HifiGAN and vocodes a 100-frame mel "
+          f"bit for bit as the generator does", flush=True)
+
+    timed = first.steps[GAN_WARMUP:]
+    ev, host = [st["event_ms"] for st in timed], [st["host_ms"] for st in timed]
+    m = {k: float(v) for k, v in first.steps[-1]["metrics"].items()}
+    stats = {"batch": [GAN_B, GAN_SAMPLES], "timed_steps": len(timed),
+             "event_ms_p50": q(ev, 50), "event_ms_p75": q(ev, 75),
+             "host_ms_p50": q(host, 50), "host_ms_p75": q(host, 75),
+             "steps_per_s_host": 1e3 / q(host, 50), "peak_gib": peak_gib,
+             "launches_per_step": NO_LAUNCH, "last_metrics": m, "corpus_write_s": corpus_s,
+             "gen_params": sum(p.numel() for p in trainer.model.parameters()),
+             "disc_params": sum(p.numel() for p in trainer.disc.parameters()),
+             "ckpt_mb": os.path.getsize(ckpt) / 1e6, "card": smi}
+    print(f"[gan] egs/hifigan.yaml (HiFi-GAN V1, {stats['gen_params']} generator and "
+          f"{stats['disc_params']} discriminator parameters), B={GAN_B} x {GAN_SAMPLES} "
+          f"samples, {len(timed)} timed steps of {GAN_STEPS}: CUDA events p50 "
+          f"{stats['event_ms_p50']:.3f} ms, p75 {stats['event_ms_p75']:.3f} ms; host clock "
+          f"p50 {stats['host_ms_p50']:.3f} ms, p75 {stats['host_ms_p75']:.3f} ms "
+          f"({stats['steps_per_s_host']:.2f} steps/s); no launch of the port's kernels; peak "
+          f"memory {peak_gib:.3f} GiB; checkpoint {stats['ckpt_mb']:.1f} MB; {smi}", flush=True)
+    print("[gan] last step: " + " ".join(f"{k}={v:.5f}" for k, v in sorted(m.items())),
+          flush=True)
+    mid = sorted(timed, key=lambda st: st["host_ms"])[len(timed) // 2]
+    raw = {k: v.pin_memory() if isinstance(v, torch.Tensor) else v
+           for k, v in mid["raw"].items()}
+    stats["cpu_step"] = compare_gan_step_with_cpu(
+        resumed.task, resumed.hp, resumed.train_step.state_dict(),
+        {k: raw[k][:2] for k in resumed.task.effective_batch_keys() if k in raw})
+    busy_ms = profile_step(trainer, raw, mid["host_ms"], top=12,
+                           label=f"gan B={GAN_B} x {GAN_SAMPLES}")
+    stats.update(profiled_host_ms=mid["host_ms"], profiled_busy_ms=busy_ms,
+                 profiled_busy_share=None if busy_ms is None else busy_ms / mid["host_ms"],
+                 seconds=time.perf_counter() - t0)
+    return launches, stats
+
+
 def check_block_serving(gen) -> tuple[float, list]:
     """K1 against its plain version at B=16 and the serving frame buckets,
     each row but the first padded from its own length (a chunk's ragged
@@ -3971,6 +4419,15 @@ def main() -> None:
         phase_done("family train bf16")
         width_stats = width_override_path(smi, data_dir)
         phase_done("width")
+        switch_launches, switch_stats, switch_shape = switches_path(smi, tmp, data_dir)
+        for name in ("diffnet_block", "diffnet_block_bwd", "diffnet_block_bf16",
+                     "diffnet_block_bwd_bf16"):
+            check(switch_launches[name] > 0, f"{name} was not launched on the switches path")
+        no_mask = check_block_without_mask(gen, *switch_shape)
+        phase_done("switches")
+        gan_launches, gan_stats = gan_path(smi, tmp)
+        check(gan_launches == NO_LAUNCH, f"the GAN path launched {gan_launches}")
+        phase_done("gan train")
     finally:
         shutil.rmtree(tmp)
     block = kernels[0]
@@ -3979,6 +4436,9 @@ def main() -> None:
     block["max_abs_err"] = max(block["max_abs_err"], block["infer_max_abs_err"],
                                block["serve_max_abs_err"])
     for k in kernels:
+        if k["name"] in no_mask:
+            k.update(no_mask[k["name"]])
+            k["max_abs_err"] = max(k["max_abs_err"], k["switches_max_abs_err"])
         k["launches_by_path"] = {"edit": edit_launches[k["name"]],
                                  "train": train_launches[k["name"]],
                                  "train_bf16": train_bf16_launches[k["name"]],
@@ -3989,7 +4449,8 @@ def main() -> None:
                                  "serve": serve_launches[k["name"]],
                                  "inplace": inplace_launches[k["name"]],
                                  "family_train": family_launches[k["name"]],
-                                 "family_train_bf16": family_bf16_launches[k["name"]]}
+                                 "family_train_bf16": family_bf16_launches[k["name"]],
+                                 "switches": switch_launches[k["name"]]}
         k["launches"] = sum(k["launches_by_path"].values())
         k["kernel_ms"] = k["ms"]
         check(k["launches"] > 0, f"{k['name']} was not launched on a main path")
@@ -4002,7 +4463,8 @@ def main() -> None:
                       "run_bf16": run_bf16_stats, "infer": infer_stats, "serve": serve_stats,
                       "inplace": inplace_stats, "family_train": family_stats,
                       "family_train_bf16": family_bf16_stats, "phase_s": PHASE_S,
-                      "width_override": width_stats, "card": smi}))
+                      "width_override": width_stats, "switches": switch_stats,
+                      "gan_train": gan_stats, "card": smi}))
     print(smi)
     extra = ("warm_ms", "warm_plain_ms", "host_us", "train_ms", "train_plain_ms",
              "train_bound_ms", "train_device_ms", "train_ops_per_call", "train_host_us",
@@ -4011,7 +4473,8 @@ def main() -> None:
              "serve_max_abs_err", "campnet_shapes", "f32_ms", "autograd_err", "gflop",
              "mbytes", "widths_max_abs_err", "cublas_ms", "cublas_device_ms",
              "cublas_ops_per_call", "train_gflop", "train_mbytes", "train_bound_by",
-             "train_cublas_ms", "train_cublas_device_ms", "train_cublas_ops_per_call")
+             "train_cublas_ms", "train_cublas_device_ms", "train_cublas_ops_per_call",
+             "switches_max_abs_err", "nomask_ms", "masked_ms")
     print(json.dumps({"kernels": [{key: k[key] for key in keys + extra if key in k}
                                   for k in kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -30,30 +30,53 @@ from speech_editing_tpu_torch.data.masks import (generate_alignment_aware_time_m
                                                  generate_time_mask)
 from speech_editing_tpu_torch.utils.audio.pitch import norm_interp_f0
 
-# hp keys of dataset features the port has not taken over yet
-_NOT_PORTED = {"use_weighted_sampler": "weighted sampling",
-               "train_sets": "ConcatDataset (several training corpora)"}
 
 
 class BaseDataset:
+    """Sizes, the epoch's order and per-item randomness. With
+    ``use_weighted_sampler`` a shuffled dataset whose ``sample_weights``
+    are not None draws each epoch's items with replacement in proportion
+    to them (``set_epoch``): index ``i`` of the epoch is then a virtual
+    index, mapped to a real item, and its mask randomness is keyed on the
+    virtual index, so two draws of one item get their own masks."""
+
+    _rng_salt = 0   # ConcatDataset threads the virtual index through here
+
     def __init__(self, hp: Any, shuffle: bool = False):
-        for key, what in _NOT_PORTED.items():
-            if hp.get(key):
-                raise NotImplementedError(f"hp[{key!r}]: {what} is not ported "
-                                          "(ROADMAP Queue 1)")
+        if hp.get("train_sets"):
+            raise NotImplementedError(
+                "hp['train_sets']: the JAX package reads this key nowhere (its trainer "
+                "builds one dataset from binary_data_dir), so the port does not either")
         self.hp = hp
         self.shuffle = shuffle
         self.sort_by_len = hp.get("sort_by_len", True)
         self.sizes: Any = None
         self.epoch = 0
+        self._index_map: Optional[np.ndarray] = None   # virtual -> real index
 
     def set_epoch(self, epoch: int) -> None:
+        """The epoch, and with the weighted sampler its draw:
+        ``RandomState(seed + epoch).choice(n, n, p=w / w.sum())``."""
         self.epoch = epoch
+        self._index_map = None
+        if self.shuffle and self.hp.get("use_weighted_sampler", False):
+            w = self.sample_weights()
+            if w is not None:
+                p = np.asarray(w, np.float64)
+                rng = np.random.RandomState(int(self.hp.get("seed", 1234)) + epoch)
+                self._index_map = rng.choice(len(p), len(p), replace=True, p=p / p.sum())
+
+    def sample_weights(self) -> Optional[np.ndarray]:
+        """Per-item sampling weights; None samples uniformly."""
+        return None
+
+    def _real_index(self, index: int) -> int:
+        return int(self._index_map[index]) if self._index_map is not None else index
 
     def _item_rng(self, index: int) -> np.random.RandomState:
         seed = int(self.hp.get("seed", 1234))
-        return np.random.RandomState((seed * 1000003 + self.epoch * 10007 + index)
-                                     % (2 ** 31))
+        return np.random.RandomState((seed * 1000003 + self.epoch * 10007 + index
+                                      + self._rng_salt * 97003) % (2 ** 31))
 
     def __len__(self) -> int:
         return len(self.sizes)
@@ -62,17 +85,21 @@ class BaseDataset:
         return self.size(index)
 
     def size(self, index: int) -> int:
-        return min(self.sizes[index], self.hp.get("max_frames", 1548))
+        return min(self.sizes[self._real_index(index)], self.hp.get("max_frames", 1548))
 
     def ordered_indices(self) -> np.ndarray:
         """The epoch's item order: a permutation seeded by seed + epoch,
-        stably sorted by length when ``sort_by_len``; in order unshuffled."""
+        stably sorted by (real) length when ``sort_by_len``; in order
+        unshuffled."""
         if not self.shuffle:
             return np.arange(len(self))
         rng = np.random.RandomState(int(self.hp.get("seed", 1234)) + self.epoch)
         indices = rng.permutation(len(self))
         if self.sort_by_len:
-            indices = indices[np.argsort(np.array(self.sizes)[indices], kind="mergesort")]
+            sizes = np.array(self.sizes)
+            if self._index_map is not None:
+                sizes = sizes[self._index_map]
+            indices = indices[np.argsort(sizes[indices], kind="mergesort")]
         return indices
 
 
@@ -95,9 +122,10 @@ class BaseSpeechDataset(BaseDataset):
         self.sizes = [sizes[i] for i in self.avail_idxs]
 
     def _get_item(self, index: int) -> dict:
+        """The stored item at (virtual) ``index``."""
         if self.indexed_ds is None:
             self.indexed_ds = IndexedDataset(f"{self.data_dir}/{self.prefix}")
-        return self.indexed_ds[self.avail_idxs[index]]
+        return self.indexed_ds[self.avail_idxs[self._real_index(index)]]
 
     def __getitem__(self, index: int) -> dict:
         return self._sample(index, self._get_item(index))
@@ -146,12 +174,25 @@ class BaseSpeechDataset(BaseDataset):
 
 
 class EditingDataset(BaseSpeechDataset):
-    """Adds mel2ph, f0/uv/pitch and the time mask ``time_mel_mask``."""
+    """Adds mel2ph, f0/uv/pitch and the time mask ``time_mel_mask``; its
+    sampling weights favour items with stutter frames."""
 
     def __init__(self, prefix: str, hp: Any, shuffle: bool = False):
         if hp.get("pitch_type") == "cwt":
             raise NotImplementedError("pitch_type 'cwt' is not ported (ROADMAP Queue 1)")
         super().__init__(prefix, hp, shuffle)
+        self._sample_weights: Optional[np.ndarray] = None
+
+    def sample_weights(self) -> np.ndarray:
+        """(10 + stutter frames) / frames of each item's
+        ``stutter_mel_mask``, 1 for an item without one."""
+        if self._sample_weights is None:
+            ws = []
+            for i in range(len(self)):   # set_epoch clears the map before it asks
+                m = np.asarray(self._get_item(i).get("stutter_mel_mask", []))
+                ws.append(1.0 if m.size == 0 else (10.0 + float((m > 0).sum())) / m.size)
+            self._sample_weights = np.asarray(ws, np.float64)
+        return self._sample_weights
 
     def _sample(self, index: int, item: dict) -> dict:
         sample = super()._sample(index, item)
@@ -197,6 +238,48 @@ class EditingDataset(BaseSpeechDataset):
         return batch
 
 
+class ConcatDataset(BaseDataset):
+    """Datasets one after the other, sharing the first one's collater. The
+    weighted sampler runs at this level: the children keep no map of their
+    own (token-budget batching reads this level's sizes), and each child's
+    item randomness is salted with the virtual index, so repeated draws of
+    one item get their own masks."""
+
+    def __init__(self, datasets: list):
+        if not datasets:
+            raise ValueError("ConcatDataset of no datasets")
+        super().__init__(datasets[0].hp, datasets[0].shuffle)
+        self.datasets = datasets
+        self.sizes = [s for d in datasets for s in d.sizes]
+        self._offsets = np.cumsum([0] + [len(d) for d in datasets])
+
+    def set_epoch(self, epoch: int) -> None:
+        super().set_epoch(epoch)
+        for d in self.datasets:
+            d.set_epoch(epoch)
+            d._index_map = None
+
+    def sample_weights(self) -> Optional[np.ndarray]:
+        ws = [d.sample_weights() for d in self.datasets]
+        if all(w is None for w in ws):
+            return None
+        return np.concatenate([np.ones(len(d), np.float64) if w is None else np.asarray(w)
+                               for d, w in zip(self.datasets, ws)])
+
+    def __getitem__(self, index: int) -> dict:
+        real = self._real_index(index)
+        k = int(np.searchsorted(self._offsets, real, side="right") - 1)
+        d = self.datasets[k]
+        d._rng_salt = index - real
+        try:
+            return d[real - self._offsets[k]]
+        finally:
+            d._rng_salt = 0
+
+    def collater(self, samples: list) -> dict:
+        return self.datasets[0].collater(samples)
+
+
 class EpochBatchSampler:
     """The batches of epoch after epoch from epoch 0 (one epoch unless
     ``endless``), each a list of ``(epoch, index)`` keys: per epoch
@@ -234,15 +317,19 @@ class EpochBatchSampler:
 
 class _EpochItems(torch.utils.data.Dataset):
     """``dataset[(epoch, index)]``: the item as the dataset gives it in that
-    epoch (a worker's copy of the dataset follows the keys' epoch)."""
+    epoch. Each copy (a worker's is taken when the loader starts, maybe
+    before the sampler has drawn epoch 0's map) sets the dataset's epoch
+    itself on its first key and on every change of epoch."""
 
     def __init__(self, dataset: BaseDataset):
         self.dataset = dataset
+        self._epoch: Optional[int] = None
 
     def __getitem__(self, key):
         epoch, index = key
-        if self.dataset.epoch != epoch:
+        if self._epoch != epoch:
             self.dataset.set_epoch(epoch)
+            self._epoch = epoch
         return self.dataset[index]
 
 

@@ -105,7 +105,9 @@ class FastSpeech(StyleEmbedMixin, nn.Module):
                                      pitch_padding=pitch_padding)
             pitch_inp = pitch_inp + self.pitch_embed(f0_to_coarse(masked_gt_f0))
         pitch_inp = predictor_grad_scale(pitch_inp, hp.get("predictor_grad", 1.0))
-        pitch_pred = self.pitch_predictor(pitch_inp, pitch_padding, train, generator)
+        # ref_pad_compat: the reference's predictor, not re-masked after each layer
+        pp_mask = None if hp.get("ref_pad_compat") else pitch_padding
+        pitch_pred = self.pitch_predictor(pitch_inp, pp_mask, train, generator)
         ret["pitch_pred"] = pitch_pred
         if use_pred_pitch:
             tm = time_mel_masks[..., 0] if time_mel_masks is not None else 1.0

@@ -7,6 +7,14 @@ The reverse process runs ``timesteps`` steps of the x0-predicting DiffNet;
 its noise is drawn from a ``torch.Generator`` on the device, or passed in.
 Training (:meth:`GaussianDiffusion.forward_train`) diffuses the target mel
 to a random step and predicts x0 from it in one DiffNet pass.
+
+The model's own forwards (training and ``forward``) honour three switches
+of the JAX package's model, which the edit drivers' :meth:`compute_cond`
+reads none of: ``use_masked_cond: false`` gives the conditioner no masks
+(the duration and pitch predictors then see no masked ground truth);
+``ref_pad_compat`` gives DiffNet no nonpadding mask (its convs then see
+the padded frames, as the reference's do); ``no_diffusion`` maps the
+conditioning to mel in one DiffNet call on zeros at step 0.
 """
 
 from __future__ import annotations
@@ -20,17 +28,16 @@ from speech_editing_tpu_torch.models.fs import FastSpeech
 from speech_editing_tpu_torch.modules.predictors import MelEncoder
 from speech_editing_tpu_torch.modules.wavenet import DiffNet
 from speech_editing_tpu_torch.ops import diffusion as diff_ops
+from speech_editing_tpu_torch.utils.dtypes import promoted
 
 
 class GaussianDiffusion(nn.Module):
     def __init__(self, vocab_size: int, hp: Any, out_dims: int = 80):
         super().__init__()
-        for key in ("no_diffusion", "ref_pad_compat"):
-            if hp.get(key):
-                raise NotImplementedError(f"hp[{key!r}] is not ported")
-        if not hp.get("use_masked_cond", True):
-            raise NotImplementedError("hp['use_masked_cond']=False is not ported")
         self.hp = hp
+        self.masked_cond = bool(hp.get("use_masked_cond", True))
+        self.no_diffusion = bool(hp.get("no_diffusion"))
+        self.ref_pad_compat = bool(hp.get("ref_pad_compat"))
         self.out_dims = out_dims
         self.fs = FastSpeech(vocab_size, hp)
         self.mel_encoder = MelEncoder(out_dims, hp["hidden_size"])
@@ -62,10 +69,12 @@ class GaussianDiffusion(nn.Module):
 
     def compute_cond(self, txt_tokens, time_mel_masks, mel2ph, spk_embed,
                      ref_mels, f0, uv, use_pred_mel2ph=False, use_pred_pitch=False,
-                     train=False, generator=None):
+                     train=False, generator=None, masked_cond=True):
         """Conditioner only: FastSpeech states + the masked-mel encoding.
-        ``train`` turns predictor dropout on, masks from ``generator``."""
-        ret = self.fs(txt_tokens, time_mel_masks, mel2ph, spk_embed, f0, uv,
+        ``train`` turns predictor dropout on, masks from ``generator``;
+        ``masked_cond`` False gives FastSpeech no masks."""
+        fs_masks = time_mel_masks if masked_cond else None
+        ret = self.fs(txt_tokens, fs_masks, mel2ph, spk_embed, f0, uv,
                       use_pred_mel2ph=use_pred_mel2ph, use_pred_pitch=use_pred_pitch,
                       train=train, generator=generator)
         tgt_nonpadding = (ret["mel2ph"] > 0)[:, :, None].to(ret["decoder_inp"].dtype)
@@ -84,12 +93,16 @@ class GaussianDiffusion(nn.Module):
         q-sample of ``ref_mels``, masked to the frames of ``mel2ph``, and
         DiffNet predicts x0. ``train`` turns predictor dropout on;
         ``cond_kw`` goes to :meth:`compute_cond`. Returns the conditioner's
-        dict with ``mel_out`` [B,T,M] (the x0 prediction)."""
+        dict with ``mel_out`` [B,T,M] (the x0 prediction); under
+        ``no_diffusion`` the one-shot prediction, no draw made."""
         ret = self.compute_cond(txt_tokens, time_mel_masks, mel2ph, spk_embed,
                                 ref_mels, f0, uv, train=train, generator=generator,
-                                **cond_kw)
+                                masked_cond=self.masked_cond, **cond_kw)
         cond = ret["cond"]
         tgt_nonpadding = (ret["mel2ph"] > 0)[:, :, None].to(cond.dtype)
+        if self.no_diffusion:
+            ret["mel_out"] = self.one_shot(cond, tgt_nonpadding)
+            return ret
         b = txt_tokens.shape[0]
         if t is None:
             t = torch.randint(0, self.num_timesteps + 1, (b,), device=cond.device,
@@ -100,8 +113,23 @@ class GaussianDiffusion(nn.Module):
         x_t = diff_ops.diffuse(self.schedule(cond.device), ref_mels, t,
                                noise) * tgt_nonpadding
         ret["mel_out"] = self.denoise_fn(x_t, t, cond,
-                                         tgt_nonpadding[..., 0]) * tgt_nonpadding
+                                         self.diffnet_mask(tgt_nonpadding[..., 0])
+                                         ) * tgt_nonpadding
         return ret
+
+    def diffnet_mask(self, nonpad: torch.Tensor) -> torch.Tensor | None:
+        """DiffNet's nonpadding mask [B,T]: None under ``ref_pad_compat``."""
+        return None if self.ref_pad_compat else nonpad
+
+    def one_shot(self, cond: torch.Tensor, tgt_nonpadding: torch.Tensor) -> torch.Tensor:
+        """``no_diffusion``: DiffNet on float32 zeros at step 0, times
+        ``tgt_nonpadding`` [B,T,1]. As flax promotes, a bf16 model then runs
+        DiffNet in float32 on its bf16 weights."""
+        b, t_mel = cond.shape[:2]
+        x0 = torch.zeros(b, t_mel, self.out_dims, device=cond.device)
+        t0 = torch.zeros(b, dtype=torch.long, device=cond.device)
+        return promoted(self.denoise_fn, x0, t0, cond,
+                        self.diffnet_mask(tgt_nonpadding[..., 0])) * tgt_nonpadding
 
     def forward(self, txt_tokens, time_mel_masks, mel2ph, spk_embed, ref_mels,
                 f0, uv, use_pred_mel2ph: bool = False, use_pred_pitch: bool = False,
@@ -111,11 +139,16 @@ class GaussianDiffusion(nn.Module):
         ref_mels [B,T,M]; f0/uv [B,T]. ``noise``: timesteps+1 tensors
         [B,T,M], the initial noise (step T) and then the noise of steps
         T-1 .. 0; drawn from ``generator`` when None. Returns the
-        conditioner's dict with ``mel_out`` [B,T,M]."""
+        conditioner's dict with ``mel_out`` [B,T,M]; under ``no_diffusion``
+        the one-shot prediction, no noise used."""
         ret = self.compute_cond(txt_tokens, time_mel_masks, mel2ph, spk_embed,
-                                ref_mels, f0, uv, use_pred_mel2ph, use_pred_pitch)
+                                ref_mels, f0, uv, use_pred_mel2ph, use_pred_pitch,
+                                masked_cond=self.masked_cond)
         cond = ret["cond"]
         nonpad = (ret["mel2ph"] > 0).to(cond.dtype)             # [B, T]
+        if self.no_diffusion:
+            ret["mel_out"] = self.one_shot(cond, nonpad[..., None])
+            return ret
         b, t_mel = cond.shape[:2]
         big_t = self.num_timesteps
         if noise is None:
@@ -125,10 +158,11 @@ class GaussianDiffusion(nn.Module):
             raise ValueError(f"noise: {len(noise)} tensors, expected {big_t + 1}")
         sched = self.schedule(cond.device)
         weights = self.denoise_fn.kernel_weights()
+        mask = self.diffnet_mask(nonpad)
         x = noise[0] * nonpad[..., None]
         for i in range(big_t - 1, -1, -1):
             t = torch.full((b,), i, dtype=torch.long, device=cond.device)
-            x0_pred = self.denoise_fn(x, t, cond, nonpad, weights)
+            x0_pred = self.denoise_fn(x, t, cond, mask, weights)
             x = diff_ops.q_posterior_sample(sched, x0_pred, x, t,
                                             noise[big_t - i]) * nonpad[..., None]
         ret["mel_out"] = x

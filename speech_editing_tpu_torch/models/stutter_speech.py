@@ -10,7 +10,8 @@ the JAX package's ``models/stutter_speech.py``.
   training, adds a learned embedding of each frame's stutter label
   (``stutter_embed``: 3 rows, none of them a zeroed padding row) to the
   decoder input. DiffNet is the same, so each pass launches K1 (and K5
-  under autograd) once a block.
+  under autograd) once a block; of the model's switches it honours
+  ``ref_pad_compat`` alone, as the JAX model does.
 * :class:`StutterPredictor`: 16x downsampled block classifier: four
   stride-2 convs over the mel and over the frame-expanded text states,
   ``ConvBlocks`` over the mel, a ``WN`` decoder conditioned on the text,
@@ -61,17 +62,21 @@ class StutterGaussianDiffusion(GaussianDiffusion):
 
     def __init__(self, vocab_size: int, hp: Any, out_dims: int = 80):
         super().__init__(vocab_size, hp, out_dims)
+        # of the three switches the JAX model reads only ref_pad_compat
+        self.masked_cond, self.no_diffusion = True, False
         h = hp["hidden_size"]
         self.stutter_embed = nn.Embedding(3, h)
         self.stutter_predictor = FrameStutterHead(h)
 
     def compute_cond(self, txt_tokens, time_mel_masks, mel2ph, spk_embed,
                      ref_mels, f0, uv, use_pred_mel2ph=False, use_pred_pitch=False,
-                     train=False, generator=None, stutter_labels=None):
+                     train=False, generator=None, masked_cond=True, stutter_labels=None):
         """The FluentSpeech conditioner, ``stutter_predictor_out`` [B, T, 3]
         of the head, and with ``stutter_labels`` their embedding added to
-        the decoder input at the frames of ``mel2ph``."""
-        ret = self.fs(txt_tokens, time_mel_masks, mel2ph, spk_embed, f0, uv,
+        the decoder input at the frames of ``mel2ph``; ``masked_cond`` as
+        :meth:`GaussianDiffusion.compute_cond` takes it."""
+        ret = self.fs(txt_tokens, time_mel_masks if masked_cond else None, mel2ph,
+                      spk_embed, f0, uv,
                       use_pred_mel2ph=use_pred_mel2ph, use_pred_pitch=use_pred_pitch,
                       train=train, generator=generator)
         decoder_inp = ret["decoder_inp"]

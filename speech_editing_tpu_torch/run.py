@@ -9,7 +9,10 @@ The config's ``task_cls`` names the task; the port resolves it by class
 name among its own tasks (``TASKS``) and never imports the named module.
 It runs on the GPU unless ``--device cpu`` is given. The ported tasks are
 the six editing families of ``egs/``: FluentSpeech (``spec_denoiser``),
-StutterSpeech and its stutter predictor, CampNet, A3T and EditSpeech. The
+StutterSpeech and its stutter predictor, CampNet, A3T and EditSpeech; and
+HiFi-GAN's GAN training (``HifiGanTask``, ``egs/hifigan.yaml``: the
+generator against the multi-period and multi-scale discriminators on a
+mel + wav corpus; ``--infer`` is copy synthesis of the test split). The
 shipped ``egs/spec_denoiser.yaml`` sets ``use_bf16: true``: its steps run
 in bf16 against float32 master weights (``training/train_state.py``), its
 validation and ``--infer`` in float32, as in the JAX package; ``-hp
@@ -26,6 +29,7 @@ from speech_editing_tpu_torch.config.hparams import arg_parser, set_hparams
 from speech_editing_tpu_torch.training.tasks.a3t import A3TTask
 from speech_editing_tpu_torch.training.tasks.campnet import CampNetTask
 from speech_editing_tpu_torch.training.tasks.editspeech import EditSpeechTask
+from speech_editing_tpu_torch.training.tasks.hifigan import HifiGanTask
 from speech_editing_tpu_torch.training.tasks.spec_denoiser import SpecDenoiserTask
 from speech_editing_tpu_torch.training.tasks.stutter_speech import (StutterPredictorTask,
                                                                     StutterSpeechTask)
@@ -33,7 +37,7 @@ from speech_editing_tpu_torch.training.trainer import Trainer, cuda_or_cpu, floa
 
 TASKS = {cls.__name__: cls for cls in (SpecDenoiserTask, StutterSpeechTask,
                                        StutterPredictorTask, CampNetTask, A3TTask,
-                                       EditSpeechTask)}
+                                       EditSpeechTask, HifiGanTask)}
 
 
 def task_class(task_cls: str):

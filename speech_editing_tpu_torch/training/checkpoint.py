@@ -1,7 +1,8 @@
 """Training checkpoints: ``<work_dir>/model_ckpt_steps_{N}.ckpt``.
 
 The port's checkpoint is a ``torch.save`` of ``{"state":
-TrainStep.state_dict(), "steps", "epoch", "val_loss"}``, written to a
+TrainStep.state_dict() (or a GAN step's: both nets and both optimizers,
+the generator under ``model``), "steps", "epoch", "val_loss"}``, written to a
 temporary file and renamed into place; the ``num_ckpt_keep`` newest are
 kept, and with ``save_best`` a checkpoint whose ``val_loss`` beats the one
 in ``model_ckpt_best.pt`` replaces it, as in the JAX package's
@@ -156,7 +157,9 @@ def load_jax_checkpoint(path: str) -> dict:
     gives its generator's parameters: a ``GanTrainState`` keeps them in its
     ``gen_params`` field (its ``params`` is a property, which pickle does
     not keep), and a plain ``{"gen", "disc"}`` tree under ``gen``, as the
-    JAX package's vocoder reads them."""
+    JAX package's vocoder reads them. A ``GanTrainState`` also gives
+    ``jax_disc_params`` and both optimizers' Adam states, ``jax_gen_adam``
+    and ``jax_disc_adam``."""
     with open(path, "rb") as f:
         payload = _JaxCheckpointUnpickler(f).load()
     state = payload["state"]
@@ -164,9 +167,14 @@ def load_jax_checkpoint(path: str) -> dict:
     params = _plain_tree(fields["gen_params"] if "gen_params" in fields else fields["params"])
     if "gen" in params and "disc" in params:
         params = params["gen"]
-    return {"jax_params": params, "jax_adam": _adam_state(fields.get("opt_state")),
-            "steps": int(payload["steps"]), "epoch": int(payload.get("epoch", 0)),
-            "val_loss": payload.get("val_loss")}
+    out = {"jax_params": params, "jax_adam": _adam_state(fields.get("opt_state")),
+           "steps": int(payload["steps"]), "epoch": int(payload.get("epoch", 0)),
+           "val_loss": payload.get("val_loss")}
+    if "gen_params" in fields:
+        out.update(jax_disc_params=_plain_tree(fields["disc_params"]),
+                   jax_gen_adam=_adam_state(fields["gen_opt"]),
+                   jax_disc_adam=_adam_state(fields["disc_opt"]))
+    return out
 
 
 def load_checkpoint(path: str, map_location: Any = "cpu") -> dict:

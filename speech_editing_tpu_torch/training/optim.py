@@ -6,7 +6,8 @@ semantics (the JAX package's ``training/optim.py``):
   already applied, so under ``warmup`` the first update has lr 0;
 * clipping by value, then by global norm with optax's ``max_norm / norm``
   scale (no epsilon, unlike ``torch.nn.utils.clip_grad_norm_``);
-* AdamW(beta1, beta2, eps 1e-8, weight_decay), whose update equals optax's.
+* AdamW(beta1, beta2, eps 1e-8, weight_decay), whose update equals optax's;
+* HiFi-GAN's pair of AdamW with a step-decay schedule (``build_gan_optimizer``).
 """
 
 from __future__ import annotations
@@ -42,6 +43,36 @@ def build_optimizer(hp, params) -> torch.optim.AdamW:
         betas=(float(hp.get("optimizer_adam_beta1", 0.9)),
                float(hp.get("optimizer_adam_beta2", 0.98))),
         eps=1e-8, weight_decay=float(hp.get("weight_decay", 0) or 0.0))
+
+
+def build_gan_lr_schedule(hp) -> Callable[[int], float]:
+    """HiFi-GAN's step decay: ``lr * lr_decay ** floor(count /
+    scheduler_step_size)`` at the updates already applied."""
+    lr = float(hp["lr"])
+    gamma = float(hp.get("lr_decay", 0.999))
+    decay_steps = int(hp.get("scheduler_step_size", 600))
+    return lambda step: lr * gamma ** (step // decay_steps)
+
+
+def build_gan_optimizer(hp, params) -> torch.optim.AdamW:
+    """One of HiFi-GAN's two AdamW (``adam_b1``, ``adam_b2``, eps 1e-8 and
+    optax's default weight decay 1e-4, not torch's 1e-2), no clipping; the
+    caller sets each step's lr from :func:`build_gan_lr_schedule`."""
+    return torch.optim.AdamW(
+        params, lr=0.0, betas=(float(hp.get("adam_b1", 0.8)), float(hp.get("adam_b2", 0.99))),
+        eps=1e-8, weight_decay=1e-4)
+
+
+def load_adam_state(optimizer: torch.optim.Optimizer, model: torch.nn.Module,
+                    params: Sequence[torch.Tensor], mu: dict, nu: dict, count: int) -> None:
+    """Adam's moments of ``params`` (``state_dict``s in ``model``'s names,
+    as a converter maps optax's ``mu`` and ``nu``) and its count, into
+    ``optimizer``'s state."""
+    names = {p: name for name, p in model.named_parameters()}
+    for p in params:
+        optimizer.state[p] = {"step": torch.tensor(float(count)),
+                              "exp_avg": mu[names[p]].to(p.device, p.dtype).clone(),
+                              "exp_avg_sq": nu[names[p]].to(p.device, p.dtype).clone()}
 
 
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:

@@ -1,8 +1,9 @@
 """One training step: forward, loss, backward, clip, AdamW, NaN tripwire;
 and the validation step.
 
-The counterpart of the JAX package's ``make_train_step`` and
-``make_eval_step`` without a mesh. When any gradient is non-finite
+The counterpart of the JAX package's ``make_train_step``,
+``make_accum_train_step`` (``TrainStep.accumulate``) and ``make_eval_step``
+without a mesh. When any gradient is non-finite
 the update is skipped whole: the parameters, Adam's moments, Adam's count
 and the schedule's count stay as they were, ``nan_grads`` is 1, and the
 step counter still advances. The finiteness check reads one scalar back to
@@ -20,15 +21,15 @@ exponent range. The eval step is never wrapped, as in JAX.
 
 from __future__ import annotations
 
-from typing import Any, Callable
+from typing import Any, Callable, Iterable, Sequence
 
 import torch
 from torch import nn
 from torch.func import functional_call
 
 from speech_editing_tpu_torch.training.optim import (all_finite, build_lr_schedule,
-                                                     build_optimizer,
-                                                     clip_gradients, global_norm)
+                                                     build_optimizer, clip_gradients,
+                                                     global_norm, load_adam_state)
 
 
 def cast_floats(batch: dict, dtype) -> dict:
@@ -88,15 +89,47 @@ class TrainStep:
                  t: torch.Tensor | None = None, noise: torch.Tensor | None = None,
                  **draws) -> dict:
         self.optimizer.zero_grad(set_to_none=True)
-        draws = {k: v for k, v in dict(draws, t=t, noise=noise).items() if v is not None}
+        metrics = self._backward(batch, generator, dict(draws, t=t, noise=noise))
+        return dict(metrics, **self._apply(1))
+
+    def accumulate(self, batches: Iterable[dict], generator: torch.Generator | None = None,
+                   draws: Sequence[dict] | None = None) -> dict:
+        """One update from the gradients of several microbatches (JAX's
+        ``make_accum_train_step`` and its host loop): each microbatch's
+        loss, at the same ``global_step``, adds its gradient to the sum,
+        drawing from ``generator`` in turn (or taking ``draws[i]``); the
+        update applies the sum over the count, and the NaN tripwire and
+        ``grad_norm`` read that mean. The metrics are the last
+        microbatch's loss terms and ``total_loss`` with the update's
+        ``grad_norm`` and ``nan_grads``."""
+        self.optimizer.zero_grad(set_to_none=True)
+        n = 0
+        for i, batch in enumerate(batches):
+            metrics = self._backward(batch, generator, draws[i] if draws else {})
+            n += 1
+        return dict(metrics, **self._apply(n))
+
+    def _backward(self, batch: dict, generator, draws: dict) -> dict:
+        """The loss of ``batch`` at this update's ``global_step``, its
+        gradient added into the parameters' ``.grad``; its metrics."""
+        draws = {k: v for k, v in draws.items() if v is not None}
         device = next(iter(batch.values())).device
         batch = dict(batch, global_step=torch.tensor(float(self.step), device=device))
         total, losses = self.loss_fn(batch, generator=generator, **draws)
         total.backward()
+        metrics = {k: v.detach() for k, v in losses.items()}
+        metrics["total_loss"] = total.detach()
+        return metrics
+
+    def _apply(self, n_micro: int) -> dict:
+        """The update from the gradients summed over ``n_micro`` losses:
+        their mean, its norm, the tripwire, clipping and AdamW."""
         for p in self.params:   # an unused parameter's gradient is zero
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in self.params]
+        if n_micro > 1:
+            torch._foreach_div_(grads, float(n_micro))
         grad_norm = global_norm(grads)
         finite = all_finite(grads)
         if bool(finite):
@@ -106,10 +139,7 @@ class TrainStep:
             self.optimizer.step()
             self.updates += 1
         self.step += 1
-        metrics = {k: v.detach() for k, v in losses.items()}
-        metrics.update(total_loss=total.detach(), grad_norm=grad_norm.detach(),
-                       nan_grads=(~finite).float())
-        return metrics
+        return {"grad_norm": grad_norm.detach(), "nan_grads": (~finite).float()}
 
     def state_dict(self) -> dict:
         return {"model": self.model.state_dict(),
@@ -124,12 +154,7 @@ class TrainStep:
         schedule count that differs from Adam's raises."""
         if schedule_count is not None and schedule_count != count:
             raise ValueError(f"Adam's count {count} != the schedule's count {schedule_count}")
-        names = {p: name for name, p in self.model.named_parameters()}
-        for p in self.params:
-            self.optimizer.state[p] = {
-                "step": torch.tensor(float(count)),
-                "exp_avg": mu[names[p]].to(p.device, p.dtype).clone(),
-                "exp_avg_sq": nu[names[p]].to(p.device, p.dtype).clone()}
+        load_adam_state(self.optimizer, self.model, self.params, mu, nu, count)
         self.updates = count
 
     def load_state_dict(self, state: dict) -> None:

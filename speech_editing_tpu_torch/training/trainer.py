@@ -1,10 +1,13 @@
-"""The training loop around :class:`TrainStep`: loader, validation,
-checkpoints, resume, logging, and the test loop.
+"""The training loop around :class:`TrainStep` (or a GAN task's
+:class:`~speech_editing_tpu_torch.training.tasks.hifigan.GanTrainStep`):
+loader, validation, checkpoints, resume, logging, and the test loop.
 
-The port of the JAX package's ``training/trainer.py`` without a mesh or
-GAN tasks. ``fit`` builds the state (resuming from the work
+The port of the JAX package's ``training/trainer.py`` without a mesh.
+``fit`` builds the state (resuming from the work
 dir's last checkpoint), runs ``num_sanity_val_steps`` validation batches,
-then steps through the endless training loader until ``max_updates``:
+then steps through the endless training loader until ``max_updates``
+(an update of ``accumulate_grad_batches`` microbatches each, but for a
+GAN task, which ignores it as the JAX trainer does):
 every ``tb_log_interval`` steps it prints the metrics (``max_nan_intervals``
 such intervals in a row with skipped, non-finite updates abort the run),
 every ``val_check_interval`` steps it validates and writes a checkpoint,
@@ -34,8 +37,6 @@ _INT_KEYS = ("txt_tokens", "mel2ph", "spk_ids", "stutter_mel_masks")
 
 def check_supported(hp: Any) -> None:
     """Raise on the settings the port does not run yet."""
-    if int(hp.get("accumulate_grad_batches", 1) or 1) > 1:
-        raise NotImplementedError("accumulate_grad_batches > 1 is not ported (ROADMAP Queue 1)")
     if int(hp.get("tp_size", 1) or 1) > 1:
         raise NotImplementedError("tp_size > 1 is not ported (ROADMAP Queue 1 item 7)")
 
@@ -65,7 +66,10 @@ class Trainer:
     raises when no GPU is present; ``"cpu"`` runs every kernel's plain
     version). Weights are drawn from ``hp["seed"]`` until a checkpoint
     loads. ``dropout=False`` turns the model's dropout off. Checkpoints go to
-    ``hp["work_dir"]``, by default ``checkpoints/<exp_name>``."""
+    ``hp["work_dir"]``, by default ``checkpoints/<exp_name>``. A GAN task
+    (``task.is_gan``) also builds its discriminators (``self.disc``) from
+    the seed; its parameter shapes come from the hp, so the state needs no
+    batch to be built, where the JAX trainer's ``init`` takes the first."""
 
     def __init__(self, task: Any, hp: Any, device: Any = "cuda", dropout: bool = True):
         check_supported(hp)
@@ -74,14 +78,23 @@ class Trainer:
         self.work_dir = hp.get("work_dir") or os.path.join(
             "checkpoints", hp.get("exp_name") or "default")
         seed = int(hp.get("seed", 1234))
+        self.is_gan = bool(getattr(task, "is_gan", False))
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
             self.model = task.build_model()
+            self.disc = task.build_discriminators() if self.is_gan else None
         self.model.to(self.device).train()
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
-        self.train_step = TrainStep(self.model, hp,
-                                    task.make_loss_fn(self.model, train=dropout))
-        self.eval_step = make_eval_step(task.make_loss_fn(self.model, train=False))
+        if self.is_gan:
+            self.disc.to(self.device).train()
+            self.train_step = task.make_gan_train_step(self.model, self.disc)
+            self.eval_step = task.make_gan_eval_step(self.model)
+            self.accum = 1
+        else:
+            self.train_step = TrainStep(self.model, hp,
+                                        task.make_loss_fn(self.model, train=dropout))
+            self.eval_step = make_eval_step(task.make_loss_fn(self.model, train=False))
+            self.accum = int(hp.get("accumulate_grad_batches", 1) or 1)
         self._nan_intervals = 0
 
     @classmethod
@@ -138,8 +151,13 @@ class Trainer:
         moments and count, the schedule's count and the step count."""
         ckpt_path, _ = get_last_checkpoint(self.work_dir)
         if ckpt_path is not None:
-            payload = load_checkpoint(ckpt_path, map_location=self.device)
-            if "jax_params" in payload:
+            # onto the CPU: the modules and optimizers copy their state to the
+            # device, Adam's step counts stay host scalars (on the card each
+            # would cost a synchronisation a parameter every step)
+            payload = load_checkpoint(ckpt_path, map_location="cpu")
+            if "jax_params" in payload and self.is_gan:
+                self._load_jax_gan(ckpt_path, payload)
+            elif "jax_params" in payload:
                 to_sd = lambda tree: self.task.params_from_jax(tree, self.hp)
                 self.model.load_state_dict(to_sd(payload["jax_params"]))
                 self.train_step.step = payload["steps"]
@@ -157,6 +175,22 @@ class Trainer:
         n_params = sum(p.numel() for p in self.model.parameters())
         print(f"| model params: {n_params / 1e6:.3f}M | device: {self.device}", flush=True)
 
+    def _load_jax_gan(self, ckpt_path: str, payload: dict) -> None:
+        """A JAX ``GanTrainState``: both nets and both Adam states."""
+        adams = (payload.get("jax_gen_adam"), payload.get("jax_disc_adam"))
+        if None in adams:
+            raise ValueError(f"{ckpt_path}: not a JAX GanTrainState with both Adam states")
+        task, hp = self.task, self.hp
+        maps = (lambda tree: task.params_from_jax(tree, hp),
+                lambda tree: task.disc_params_from_jax(tree, hp))
+        gen_adam, disc_adam = ({"mu": to_sd(a["mu"]), "nu": to_sd(a["nu"]), "count": a["count"]}
+                               for to_sd, a in zip(maps, adams))
+        self.train_step.load_jax(maps[0](payload["jax_params"]),
+                                 maps[1](payload["jax_disc_params"]), gen_adam, disc_adam,
+                                 payload["steps"])
+        print(f"| loaded JAX checkpoint {ckpt_path} (step {self.global_step}): both nets "
+              f"and both Adam states ({adams[0]['count']} updates)", flush=True)
+
     def save(self, val_loss: Optional[float] = None) -> str:
         hp = self.hp
         return save_checkpoint(self.work_dir, self.train_step.state_dict(),
@@ -166,10 +200,14 @@ class Trainer:
 
     # -- train --------------------------------------------------------------------
 
-    def step(self, raw: dict) -> dict:
-        """One training step on a collated host batch; its metrics as 0-d
-        device tensors."""
-        return self.train_step(self._device_batch(raw), self.generator)
+    def step(self, raw: dict, *more: dict) -> dict:
+        """One training step on a collated host batch, or with ``more``
+        one update from the gradients of all of them
+        (``TrainStep.accumulate``); its metrics as 0-d device tensors."""
+        if not more:
+            return self.train_step(self._device_batch(raw), self.generator)
+        return self.train_step.accumulate(
+            (self._device_batch(r) for r in (raw, *more)), self.generator)
 
     def fit(self) -> None:
         hp = self.hp
@@ -186,7 +224,7 @@ class Trainer:
                 self.validate(max_batches=num_sanity, log=False)
             t0 = time.time()
             while self.global_step < max_updates:
-                metrics = self.step(next(batches))
+                metrics = self.step(*(next(batches) for _ in range(self.accum)))
                 if self.global_step % log_interval == 0:
                     self._log(metrics, log_interval / max(time.time() - t0, 1e-9))
                     t0 = time.time()
@@ -205,7 +243,7 @@ class Trainer:
         m = {k: float(v) for k, v in metrics.items()}
         print(f"| step {self.global_step} | {steps_per_s:.2f} it/s | "
               + " ".join(f"{k}={v:.4f}" for k, v in sorted(m.items())), flush=True)
-        if m["nan_grads"] > 0:
+        if m.get("nan_grads", 0) > 0:
             self._nan_intervals += 1
             print(f"| WARNING: non-finite gradients at step {self.global_step}; update "
                   f"was skipped ({self._nan_intervals} consecutive intervals)", flush=True)
@@ -273,7 +311,9 @@ class Trainer:
         wavs, and for each item with a mask ``[P_SEG]``/``[G_SEG]`` wavs of
         the masked frames only, into
         ``<work_dir>/generated_<step>_<gen_dir_name or test>/wavs/``, with
-        ``[P]<item>_mel.npy`` and a ``meta.csv`` index. Writes go through
+        ``[P]<item>_mel.npy`` and a ``meta.csv`` index. A GAN task's
+        ``[P]`` wav is its generator's (copy synthesis), and its items have
+        no mask. Writes go through
         ``test_save_workers`` spawned processes (at most 1: in this one).
         The diffusion noise comes from a device generator seeded by
         ``hp["seed"]``. Returns the generation directory."""
@@ -305,8 +345,10 @@ class Trainer:
                     break
                 out = self._infer_batch(raw, infer_fn, generator, noise_fn)
                 mel_pred = out["mel_out"].cpu().numpy()
+                wav_pred = out["wav_out"].cpu().numpy() if "wav_out" in out else None
                 mels = torch.as_tensor(raw["mels"]).numpy()
-                masks = torch.as_tensor(raw["time_mel_masks"]).numpy()
+                masks = (torch.as_tensor(raw["time_mel_masks"]).numpy()
+                         if "time_mel_masks" in raw else None)
                 for b in range(mel_pred.shape[0]):
                     if n_done >= test_num:
                         break
@@ -315,14 +357,16 @@ class Trainer:
                     columns[item_name] = self.task.meta_columns(out, b, t_len)
                     mel_p, mel_g = mel_pred[b, :t_len], mels[b, :t_len]
                     # vocode here (device work); the file writes go to the pool
-                    saver.add_job(save_test_result, (vocoder.spec2wav(mel_p), mel_p,
-                                                     f"[P]{item_name}", gen_dir, sr, True))
+                    wav_p = (vocoder.spec2wav(mel_p) if wav_pred is None
+                             else wav_pred[b, :t_len * int(hp.get("hop_size", 256))])
+                    saver.add_job(save_test_result, (wav_p, mel_p, f"[P]{item_name}", gen_dir,
+                                                     sr, True))
                     if hp.get("save_gt", True):
                         saver.add_job(save_test_result, (vocoder.spec2wav(mel_g), mel_g,
                                                          f"[G]{item_name}", gen_dir, sr))
                     # the masked frames alone, for segment-level evaluation
-                    seg = masks[b, :t_len] == 1
-                    if seg.any():
+                    seg = masks[b, :t_len] == 1 if masks is not None else None
+                    if seg is not None and seg.any():
                         saver.add_job(save_test_result, (vocoder.spec2wav(mel_p[seg]), None,
                                                          f"[P_SEG]{item_name}", gen_dir, sr))
                         saver.add_job(save_test_result, (vocoder.spec2wav(mel_g[seg]), None,

@@ -3,7 +3,9 @@
 The port's parameter names are the reference torch layout; the layout
 differences handled here:
 
-* flax ``Conv`` kernel ``[k, in, out]`` -> torch ``Conv1d`` ``[out, in, k]``;
+* flax ``Conv`` kernel ``[k, in, out]`` -> torch ``Conv1d`` ``[out, in, k]``
+  (a grouped one's ``[k, in/g, out]`` -> ``[out, in/g, k]``); a 2-D
+  kernel ``[k, 1, in, out]`` -> ``Conv2d`` ``[out, in, k, 1]``;
 * flax ``Dense`` kernel ``[in, out]`` -> torch ``Linear`` ``[out, in]``;
 * flax ``LayerNorm`` and ``GroupNorm`` ``scale`` -> ``weight``;
 * attention ``DenseGeneral`` q/k/v ``[E, h, d]`` -> packed
@@ -348,4 +350,28 @@ def vocoder_params_from_jax(params: Mapping, hp: Any) -> dict[str, torch.Tensor]
                 else:
                     _conv(sd, f"{prefix}.convs.{d}", block[f"Conv_{d}"])
     _conv(sd, "conv_post", params["conv_post"])
+    return sd
+
+
+def _conv2d(sd: dict, name: str, p: Mapping) -> None:
+    sd[f"{name}.weight"] = _t(np.transpose(p["kernel"], (3, 2, 0, 1)))
+    sd[f"{name}.bias"] = _t(p["bias"])
+
+
+def discriminator_params_from_jax(params: Mapping, hp: Any) -> dict[str, torch.Tensor]:
+    """JAX HiFi-GAN discriminator params (``{"mpd": {"disc_p<p>"},
+    "msd": {"disc_s<i>"}}``, each of auto-named ``Conv_<j>``, the last the
+    post conv) -> ``state_dict`` of the port's ``HifiGanDiscriminators``."""
+    sd: dict[str, torch.Tensor] = {}
+    periods = tuple(hp.get("disc_periods", (2, 3, 5, 7, 11)))
+    for k, period in enumerate(periods):
+        d, name = params["mpd"][f"disc_p{period}"], f"mpd.discriminators.{k}"
+        for j in range(5):
+            _conv2d(sd, f"{name}.convs.{j}", d[f"Conv_{j}"])
+        _conv2d(sd, f"{name}.conv_post", d["Conv_5"])
+    for i in range(int(hp.get("msd_scales", 3))):
+        d, name = params["msd"][f"disc_s{i}"], f"msd.discriminators.{i}"
+        for j in range(7):
+            _conv(sd, f"{name}.convs.{j}", d[f"Conv_{j}"])
+        _conv(sd, f"{name}.conv_post", d["Conv_7"])
     return sd

@@ -96,7 +96,7 @@ def init_like_flax(model: nn.Module) -> nn.Module:
     for m in model.modules():
         if isinstance(m, nn.Embedding):
             nn.init.normal_(m.weight, std=m.embedding_dim ** -0.5)
-        elif isinstance(m, (nn.Linear, nn.Conv1d, nn.ConvTranspose1d)):
+        elif isinstance(m, (nn.Linear, nn.Conv1d, nn.Conv2d, nn.ConvTranspose1d)):
             _reset(m, lecun_normal_)
         elif isinstance(m, (nn.LayerNorm, nn.GroupNorm, nn.BatchNorm1d)):
             nn.init.ones_(m.weight)

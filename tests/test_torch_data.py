@@ -22,7 +22,7 @@ from speech_editing_tpu.utils.audio.pitch import norm_interp_f0 as j_norm_interp
 from speech_editing_tpu.utils.text import text_encoder as jt
 from speech_editing_tpu_torch.data import collate as tc
 from speech_editing_tpu_torch.data import masks as tm
-from speech_editing_tpu_torch.data.datasets import DataLoader, EditingDataset
+from speech_editing_tpu_torch.data.datasets import DataLoader, EditingDataset, EpochBatchSampler
 from speech_editing_tpu_torch.data.indexed_dataset import (IndexedDataset,
                                                            IndexedDatasetBuilder)
 from speech_editing_tpu_torch.utils.audio.pitch import norm_interp_f0
@@ -192,7 +192,100 @@ def test_pin_memory_loader_yields_the_same_batches_as_tensors(corpus, ds_workers
 
 
 def test_unported_dataset_options_raise(corpus):
-    for key, value in (("use_weighted_sampler", True), ("train_sets", "a|b"),
-                       ("pitch_type", "cwt")):
-        with pytest.raises(NotImplementedError):
+    """``train_sets``, which the JAX package reads nowhere, and CWT pitch
+    raise; ``use_weighted_sampler`` is ported (the tests below)."""
+    for key, value in (("train_sets", "a|b"), ("pitch_type", "cwt")):
+        with pytest.raises(NotImplementedError) as err:
             EditingDataset("train", _hp(corpus, **{key: value}))
+        assert key != "train_sets" or "reads this key nowhere" in str(err.value)
+
+
+@pytest.fixture(scope="module")
+def stutter_corpus(tmp_path_factory):
+    """A corpus whose items carry per-frame stutter labels (spans on about
+    a fifth of each item's frames, none on every third item), so the
+    weights of the weighted sampler differ from item to item."""
+    from speech_editing_tpu.data.indexed_dataset import IndexedDatasetBuilder as JBuilder
+
+    d = str(tmp_path_factory.mktemp("stutter_corpus"))
+    rs = np.random.RandomState(5)
+    for prefix in ("train", "valid", "test"):
+        items = synth_corpus_items(rs, 16)
+        builder = JBuilder(f"{d}/{prefix}")
+        for i, it in enumerate(items):
+            lab = np.zeros(len(it["mel"]), np.int64)
+            if i % 3:
+                start = rs.randint(0, len(lab) // 2)
+                lab[start:start + len(lab) // 5] = 1
+            builder.add_item(dict(it, stutter_mel_mask=lab))
+        builder.finalize()
+        np.save(f"{d}/{prefix}_lengths.npy", np.asarray([len(it["mel"]) for it in items]))
+    return d
+
+
+@pytest.mark.parametrize("ds_workers", [0, 2])
+def test_weighted_sampler_batches_match_jax_over_two_epochs(stutter_corpus, ds_workers):
+    """``use_weighted_sampler``: each epoch's draw of (10 + stutter frames)
+    / frames weighted items with replacement, the items' masks keyed on
+    the virtual index, the loader's batches over two epochs, in this
+    process and in worker processes: all equal to JAX's. The loader's
+    dataset is fresh (no epoch drawn yet) when its workers take their
+    copies of it, as the trainer's is."""
+    hp = _hp(stutter_corpus, mask_type="random", use_weighted_sampler=True)
+    port, ref = EditingDataset("train", hp, shuffle=True), JEditingDataset("train", hp,
+                                                                          shuffle=True)
+    np.testing.assert_array_equal(port.sample_weights(), ref.sample_weights())
+    assert len(set(port.sample_weights())) > 3
+    for epoch in (0, 1):
+        port.set_epoch(epoch)
+        ref.set_epoch(epoch)
+        np.testing.assert_array_equal(port._index_map, ref._index_map)
+        assert len(set(port._index_map)) < len(port)          # drawn with replacement
+        assert_same(port.ordered_indices(), ref.ordered_indices())
+        for i in range(len(ref)):
+            assert_same(port[i], ref[i], f"epoch {epoch} item {i}")
+    count = EpochBatchSampler(EditingDataset("train", hp, shuffle=True), max_tokens=200,
+                              max_sentences=3)
+    n = len(count.batches(0)) + len(count.batches(1))
+    loader = DataLoader(EditingDataset("train", hp, shuffle=True), max_tokens=200,
+                        max_sentences=3, endless=True, num_workers=ds_workers)
+    assert loader.dataset._index_map is None
+    with loader:
+        got = list(itertools.islice(loader, n))
+    want = list(itertools.islice(JDataLoader(JEditingDataset("train", hp, shuffle=True),
+                                             max_tokens=200, max_sentences=3,
+                                             endless=True), n))
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert_same(g, w, f"batch {i}")
+    unweighted = EditingDataset("train", dict(hp, use_weighted_sampler=False), shuffle=True)
+    unweighted.set_epoch(0)
+    assert unweighted._index_map is None
+
+
+def test_weighted_concat_dataset_matches_jax(stutter_corpus, corpus):
+    """Two children, one with stutter labels and one without (weights 1):
+    the draw at the concat level, no child map, each child's masks salted
+    with the virtual index; sizes, order and items equal JAX's."""
+    from speech_editing_tpu.data.datasets import ConcatDataset as JConcat
+
+    from speech_editing_tpu_torch.data.datasets import ConcatDataset
+
+    hp = _hp(stutter_corpus, mask_type="random", use_weighted_sampler=True)
+    plain_hp = dict(hp, binary_data_dir=corpus)
+    port = ConcatDataset([EditingDataset("train", hp, shuffle=True),
+                          EditingDataset("train", plain_hp, shuffle=True)])
+    ref = JConcat([JEditingDataset("train", hp, shuffle=True),
+                   JEditingDataset("train", plain_hp, shuffle=True)])
+    assert port.sizes == ref.sizes
+    np.testing.assert_array_equal(port.sample_weights(), ref.sample_weights())
+    for epoch in (0, 1):
+        port.set_epoch(epoch)
+        ref.set_epoch(epoch)
+        np.testing.assert_array_equal(port._index_map, ref._index_map)
+        assert all(d._index_map is None for d in port.datasets)
+        assert_same(port.ordered_indices(), ref.ordered_indices())
+        for i in range(len(ref)):
+            assert_same(port[i], ref[i], f"epoch {epoch} item {i}")
+        first = [i for i in range(len(ref)) if ref._index_map[i] < len(ref.datasets[0])][:3]
+        assert_same(port.collater([port[i] for i in first]),
+                    ref.collater([ref[i] for i in first]))

@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: importing every module of
 ``speech_editing_tpu_torch`` (the in-place editing families' models, their
 modules and ``infer/editors.py``, StutterSpeech's models and the training
-tasks of all six editing families among them) loads neither JAX, flax,
+tasks of all six editing families and HiFi-GAN's GAN task among them)
+loads neither JAX, flax,
 optax, PyYAML nor the JAX package, and its entry points (the edit
 pipeline, the trainer, the entry ``run`` with and without ``--infer`` on
 each family's config, the
@@ -27,7 +28,8 @@ for served in ("infer.online", "infer.quant", "infer.serve", "infer.serving",
                "infer.editors", "models.campnet", "models.editspeech", "models.a3t",
                "modules.lstm", "modules.conformer", "models.stutter_speech",
                "training.tasks.stutter_speech", "training.tasks.campnet",
-               "training.tasks.a3t", "training.tasks.editspeech"):
+               "training.tasks.a3t", "training.tasks.editspeech", "training.tasks.hifigan",
+               "models.vocoder.losses", "data.vocoder_dataset"):
     assert f"speech_editing_tpu_torch.{served}" in names, served
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in
                 ("jax", "jaxlib", "flax", "optax", "yaml", "speech_editing_tpu"))
@@ -56,7 +58,8 @@ if not torch.cuda.is_available():
                         *((run, (["--config", f"egs/{family}.yaml", "--exp_name", "never_made"]
                                  + infer,))
                           for family in ("stutter_speech", "stutter_predictor", "campnet",
-                                         "a3t", "editspeech") for infer in ([], ["--infer"]))):
+                                         "a3t", "editspeech", "hifigan")
+                          for infer in ([], ["--infer"]))):
         try:
             entry(*args)
         except RuntimeError as e:

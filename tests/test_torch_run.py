@@ -4,9 +4,9 @@ synthetic corpus train N steps with sanity and interval validation and
 rolling checkpoints, a second run resumes at N, ``--validate`` validates
 the last checkpoint, the eval loss of one validation batch equals the JAX
 package's eval step with the same injected draws, the shipped config
-(``use_bf16: true``) trains in bf16, and the settings the port does not
-run yet raise (``--infer`` itself is tested in
-``test_torch_infer_run.py``)."""
+(``use_bf16: true``) trains in bf16, the editing configs' switches train
+through the entry, and the settings the port does not run raise
+(``--infer`` itself is tested in ``test_torch_infer_run.py``)."""
 
 import functools
 import json
@@ -137,11 +137,25 @@ def test_the_shipped_config_trains_in_bf16(setup, tmp_path):
 
 
 @pytest.mark.parametrize("extra", [
-    ["-hp", "no_diffusion=True"], ["--infer", "-hp", "use_bf16=False,use_masked_cond=False"],
-    ["-hp", "use_bf16=False,accumulate_grad_batches=2"],
+    ["-hp", "use_bf16=False,train_sets=a|b"], ["-hp", "use_bf16=False,pitch_type=cwt"],
+    ["--infer", "-hp", "use_bf16=False,pitch_type=cwt"],
     ["-hp", "use_bf16=False,tp_size=2"],
 ])
 def test_settings_not_ported_raise(setup, tmp_path, extra):
     with pytest.raises(NotImplementedError):
         run(["--config", setup[0], "--exp_name", str(tmp_path / "x"), "--device", "cpu",
              *extra])
+
+
+@pytest.mark.parametrize("extra", [
+    "no_diffusion=True", "use_masked_cond=False", "ref_pad_compat=True",
+    "accumulate_grad_batches=2", "use_bf16=True,accumulate_grad_batches=2"])
+def test_switches_train_through_the_entry(setup, tmp_path, extra):
+    """The editing configs' switches train through the entry: two updates
+    (of two microbatches each under accumulation), finite losses."""
+    trainer = run(["--config", setup[0], "--exp_name", str(tmp_path / "x"), "--device", "cpu",
+                   "-hp", f"use_bf16=False,max_updates=2,val_check_interval=2,"
+                   f"num_sanity_val_steps=0,{extra}"])
+    assert trainer.global_step == trainer.train_step.updates == 2
+    assert trainer.accum == (2 if "accumulate" in extra else 1)
+    assert get_all_ckpts(str(tmp_path / "x"))
