@@ -198,6 +198,22 @@ Phases, each of which exits non-zero on a failed check:
    step on the card and on the CPU agrees; step times, peak memory and a
    profiled step. No kernel of the port runs on this path (cuDNN's
    convolutions and cuBLAS's DFT products).
+14. data: the offline pipeline on a raw vctk-layout corpus of 24 synthetic
+   utterances of 1.5-6 s at 22,050 Hz over 3 speakers, with TextGrids
+   written here in place of the aligner's and a resemblyzer-format
+   checkpoint of seeded weights in ``VOICE_ENCODER_CKPT``: ``python -m
+   speech_editing_tpu_torch.data.align_and_binarize --skip-align`` on
+   ``egs/spec_denoiser.yaml`` (in process, ``N_PROC=1``): the speaker
+   encoder runs on the card once for every item and no kernel of the port
+   runs; every stored embedding is the encoder's, and each utterance
+   re-embedded on the CPU agrees within DATA_TOL; then one step of the
+   shipped config (``use_spk_embed: true``, bf16, the loader in process)
+   on the new corpus launches the bf16 K1 and K5 20 times each; each
+   stage's seconds and the encoder's device time an utterance (CUDA
+   events around its forward).
+15. evals: ``evals.get_metrics`` and the ``evals.batch_tools`` command
+   lines (mcd, pitch, pitch --dtw, stats, separate) over the infer path's
+   ``generated_*_test``: every number finite.
 
 ``python3 chip_smoke.py --time-attention`` builds K3 and K4 only and times
 them, float32 and bf16 (the flagship step's, CampNet's and the holes
@@ -220,6 +236,8 @@ from __future__ import annotations
 import contextlib
 import copy
 import csv
+import glob
+import io
 import itertools
 import json
 import os
@@ -242,7 +260,12 @@ import speech_editing_tpu_torch.modules.wavenet as wavenet_module
 from speech_editing_tpu_torch.config.flagship import FLAGSHIP_HP, HIFIGAN_V1_HP
 from speech_editing_tpu_torch.config.hparams import (arg_parser, dump_yaml, load_config,
                                                      set_hparams)
-from speech_editing_tpu_torch.data.indexed_dataset import IndexedDatasetBuilder
+from speech_editing_tpu_torch.data.align_and_binarize import main as align_and_binarize_main
+from speech_editing_tpu_torch.data.binarizer import BaseBinarizer
+from speech_editing_tpu_torch.data.indexed_dataset import IndexedDataset, IndexedDatasetBuilder
+from speech_editing_tpu_torch.data.preprocess import BasePreprocessor
+from speech_editing_tpu_torch.evals import batch_tools
+from speech_editing_tpu_torch.evals import get_metrics
 from speech_editing_tpu_torch.infer.edit import EditPipeline
 from speech_editing_tpu_torch.infer.editors import A3TInfer, CampNetInfer, EditSpeechInfer
 from speech_editing_tpu_torch.infer.serve import _load_request as load_request
@@ -251,6 +274,8 @@ from speech_editing_tpu_torch.infer.spec_denoiser import (SpecDenoiserInfer, req
                                                           request_noise)
 from speech_editing_tpu_torch.infer.vocoder import HifiGAN, get_vocoder_cls
 from speech_editing_tpu_torch.models.vocoder.hifigan import HifiGanGenerator
+from speech_editing_tpu_torch.models.voice_encoder import (VoiceEncoder, VoiceEncoderCtx,
+                                                           load_voice_encoder, seeded_state_dict)
 from speech_editing_tpu_torch.ops.cuda import build
 from speech_editing_tpu_torch.ops.cuda.diffnet_block import (RSQRT2, WIDTHS, _conv_input,
                                                              _fits64, _shift, _tile_plan,
@@ -4310,6 +4335,219 @@ def gan_path(smi: str, tmp: str) -> tuple[dict, dict]:
     return launches, stats
 
 
+# -- data path -------------------------------------------------------------------
+
+DATA_SPEAKERS, DATA_PER_SPEAKER = 3, 8
+DATA_SECONDS = (1.5, 6.0)
+DATA_SPLITS = dict(valid_range=[0, 2], test_range=[2, 4], train_range=[4, -1])
+DATA_TOL = 1e-4           # card vs CPU speaker embedding, largest element
+EXPECTED_DATA_STEP = dict(EXPECTED_WIDTH_STEP)   # the shipped config: bf16, conv encoder
+
+
+def write_data_corpus(root: str) -> tuple[str, str, str]:
+    """A raw vctk-layout corpus (``wav48/<spk>/<item>.wav``, ``txt/...``)
+    of DATA_SPEAKERS x DATA_PER_SPEAKER harmonic utterances, a speaker's f0
+    its own; each utterance's TextGrid in ``processed/mfa_outputs`` (its
+    text's g2p phones spread evenly); a resemblyzer-format checkpoint of
+    seeded weights. Returns (raw dir, processed dir, checkpoint)."""
+    rs = np.random.RandomState(11)
+    raw, processed = os.path.join(root, "raw"), os.path.join(root, "processed")
+    os.makedirs(os.path.join(processed, "mfa_outputs"))
+    for s in range(DATA_SPEAKERS):
+        spk = f"p{231 + s}"
+        for d in ("wav48", "txt"):
+            os.makedirs(os.path.join(raw, d, spk))
+        for u in range(DATA_PER_SPEAKER):
+            name, seconds = f"{spk}_{u:03d}", float(rs.uniform(*DATA_SECONDS))
+            wav = csv_wav(seconds, 110 + 45 * s + 5 * rs.rand(), 1000 * s + u)
+            save_wav(wav, os.path.join(raw, "wav48", spk, f"{name}.wav"), SR)
+            words = [SERVE_WORDS[i] for i in rs.randint(0, len(SERVE_WORDS),
+                                                        max(2, int(2.2 * seconds)))]
+            with open(os.path.join(raw, "txt", spk, f"{name}.txt"), "w") as f:
+                f.write(" ".join(words) + ".")
+            write_textgrid(os.path.join(processed, "mfa_outputs", f"{name}.TextGrid"),
+                           " ".join(words) + ".", len(wav) // HOP + 1)
+    ckpt = os.path.join(root, "voice_encoder.pt")
+    torch.save({"model_state": seeded_state_dict(torch.Generator().manual_seed(0))}, ckpt)
+    return raw, processed, ckpt
+
+
+class EncoderRecorder:
+    """Wraps the pipeline's stages and the speaker encoder while the data
+    pipeline runs: each stage's seconds, each utterance's wav, embedding
+    and the device of its encoder, and the CUDA-event time of each encoder
+    forward."""
+
+    def __init__(self):
+        self.seconds = {"preprocess": 0.0, "binarize": 0.0}
+        self.calls, self.events = [], []
+
+    @contextlib.contextmanager
+    def instrumented(self):
+        rec = self
+        orig = {"pre": BasePreprocessor.process, "bin": BaseBinarizer.process,
+                "embed": VoiceEncoderCtx.embed_utterance, "fwd": VoiceEncoder.forward}
+
+        def timed(name, key):
+            def wrapper(*args, **kwargs):
+                t0 = time.perf_counter()
+                out = orig[name](*args, **kwargs)
+                rec.seconds[key] += time.perf_counter() - t0
+                return out
+            return wrapper
+
+        def embed(ctx, wav, source_sr=22050):
+            out = orig["embed"](ctx, wav, source_sr)
+            rec.calls.append(dict(wav=np.array(wav), sr=source_sr, emb=out,
+                                  device=str(next(ctx.model.parameters()).device)))
+            return out
+
+        def forward(model, mels):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = orig["fwd"](model, mels)
+            end.record()
+            rec.events.append((start, end, mels.shape[0]))
+            return out
+
+        BasePreprocessor.process = timed("pre", "preprocess")
+        BaseBinarizer.process = timed("bin", "binarize")
+        VoiceEncoderCtx.embed_utterance = embed
+        VoiceEncoder.forward = forward
+        try:
+            yield self
+        finally:
+            BasePreprocessor.process, BaseBinarizer.process = orig["pre"], orig["bin"]
+            VoiceEncoderCtx.embed_utterance, VoiceEncoder.forward = orig["embed"], orig["fwd"]
+
+
+def data_path(smi: str, tmp: str) -> tuple[dict, dict]:
+    """The data phase (module doc, 14); returns the train step's launches
+    and the phase's figures."""
+    t0 = time.perf_counter()
+    root = os.path.join(tmp, "data_pipeline")
+    raw, processed, ckpt = write_data_corpus(root)
+    binary = os.path.join(root, "binary")
+    config = os.path.join(root, "data.yaml")
+    with open(config, "w") as f:
+        f.write(dump_yaml(dict(base_config=os.path.abspath("egs/spec_denoiser.yaml"),
+                               raw_data_dir=raw, processed_data_dir=processed,
+                               binary_data_dir=binary, **DATA_SPLITS)))
+    stages = {"corpus": time.perf_counter() - t0}
+    rec, env = EncoderRecorder(), {k: os.environ.get(k) for k in ("VOICE_ENCODER_CKPT", "N_PROC")}
+    os.environ.update(VOICE_ENCODER_CKPT=ckpt, N_PROC="1")
+    reset_counts()
+    t1 = time.perf_counter()
+    try:
+        with rec.instrumented():
+            align_and_binarize_main(["--config", config, "--skip-align"])
+        torch.cuda.synchronize()
+    finally:
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    stages.update(rec.seconds, pipeline=time.perf_counter() - t1)
+    check(counts() == NO_LAUNCH, f"data: the pipeline launched {counts()}")
+    n_items = DATA_SPEAKERS * DATA_PER_SPEAKER
+    stored = [it for split in ("valid", "test", "train")
+              for it in (lambda ds: [ds[i] for i in range(len(ds))])(
+                  IndexedDataset(os.path.join(binary, split)))]
+    check(len(stored) == n_items, f"data: {len(stored)} items binarized of {n_items}")
+    check(len(rec.calls) == n_items and all(c["device"] == "cuda:0" for c in rec.calls),
+          f"data: the encoder ran {len(rec.calls)} times, on "
+          f"{sorted({c['device'] for c in rec.calls})}, for {n_items} items")
+    check(all(np.array_equal(it["spk_embed"], c["emb"]) and it["spk_embed"].shape == (256,)
+              for it, c in zip(stored, rec.calls)),
+          "data: the stored embeddings are not the encoder's")
+    ms = [s.elapsed_time(e) for s, e, _ in rec.events]
+    partials = [n for _, _, n in rec.events]
+    t2 = time.perf_counter()
+    cpu = load_voice_encoder(ckpt, "cpu")
+    err = max(float(np.abs(c["emb"] - cpu.embed_utterance(c["wav"], c["sr"])).max())
+              for c in rec.calls)
+    stages["cpu_reembed"] = time.perf_counter() - t2
+    check(err <= DATA_TOL, f"data: card vs CPU speaker embedding error {err} > {DATA_TOL}")
+
+    t3 = time.perf_counter()
+    hp = load_config(config)
+    hp.update(ds_workers=0)
+    task = SpecDenoiserTask(hp)
+    trainer = Trainer(task, task.hp, "cuda")
+    with trainer._loader("train", shuffle=False) as loader:
+        batch = next(iter(loader))
+    reset_counts()
+    metrics = {k: float(v) for k, v in trainer.step(batch).items()}
+    torch.cuda.synchronize()
+    launches = counts()
+    stages["train_step"] = time.perf_counter() - t3
+    check(task.hp["use_spk_embed"] and task.hp["use_bf16"] and "spk_embed" in batch,
+          "data: the shipped config's step must take the speaker embeddings, in bf16")
+    check(launches == EXPECTED_DATA_STEP,
+          f"data: train step launches {launches} != {EXPECTED_DATA_STEP}")
+    check(all(np.isfinite(v) for v in metrics.values()) and metrics["nan_grads"] == 0,
+          f"data: train step metrics {metrics}")
+    stats = dict(items=n_items, seconds_of_audio=float(sum(it["sec"] for it in stored)),
+                 stage_s=stages, encoder_ms_p50=float(np.median(ms)),
+                 encoder_ms_mean=float(np.mean(ms)), encoder_ms_first=ms[0],
+                 partials_mean=float(np.mean(partials)), cpu_max_abs_err=err,
+                 vocab=task.vocab_size,
+                 batch=list(batch["mels"].shape[:2]), launches=launches,
+                 seconds=time.perf_counter() - t0, card=smi)
+    print(f"[data] {n_items} utterances ({stats['seconds_of_audio']:.1f} s of audio), 3 "
+          f"speakers: stages (s) " + ", ".join(f"{k} {v:.2f}" for k, v in stages.items())
+          + f"; speaker encoder on cuda, {len(ms)} forwards of {stats['partials_mean']:.1f} "
+          f"partials on average, CUDA events p50 {stats['encoder_ms_p50']:.3f} ms, mean "
+          f"{stats['encoder_ms_mean']:.3f} ms, first {ms[0]:.3f} ms an utterance; card vs CPU "
+          f"embedding max_abs_err {err:.3e} (tol {DATA_TOL}); one shipped-config bf16 step "
+          f"on B={stats['batch'][0]} x T={stats['batch'][1]}: launches {launches}; {smi}",
+          flush=True)
+    return launches, stats
+
+
+def evals_path(work: str) -> dict:
+    """The evals phase (module doc, 15) over ``work``'s ``--infer``
+    output; returns the numbers."""
+    t0 = time.perf_counter()
+    gen_dirs = sorted(glob.glob(os.path.join(work, "generated_*_test")))
+    check(len(gen_dirs) >= 1, f"evals: no generated_*_test under {work}")
+    gen = gen_dirs[-1]
+    pat = os.path.join(gen, "wavs", "*")
+    n_pairs = len(glob.glob(os.path.join(gen, "wavs", "[[]G_SEG[]]*.wav")))
+    check(n_pairs >= 1, f"evals: no [G_SEG] wavs in {gen}")
+    command_s = {}
+    t1 = time.perf_counter()
+    out = {"get_metrics": get_metrics.main([pat])}
+    command_s["get_metrics"] = time.perf_counter() - t1
+    for name, argv in (("mcd", ["mcd", pat]), ("pitch", ["pitch", pat]),
+                       ("pitch_dtw", ["pitch", pat, "--dtw"]),
+                       ("stats", ["stats", os.path.join(gen, "meta.csv")])):
+        t1, text = time.perf_counter(), io.StringIO()
+        with contextlib.redirect_stdout(text):
+            batch_tools.main(argv)
+        command_s[name] = time.perf_counter() - t1
+        out[name] = {k.strip(): float(v) for k, v in (line.split("=") for line in
+                                                      text.getvalue().splitlines())}
+    gt, gen_wavs = batch_tools.separate_wavs(gen)
+    out["separate"] = {"gt": len(os.listdir(gt)), "gen": len(os.listdir(gen_wavs))}
+    # the segments' loudness: seeded weights vocode to a near-silent signal
+    out["peak"] = {tag: max(float(np.abs(wavfile.read(fn)[1]).max()) for fn in
+                            glob.glob(os.path.join(gen, "wavs", f"[[]{tag}[]]*.wav")))
+                   for tag in ("G_SEG", "P_SEG")}
+    numbers = [v for d in out.values() for v in d.values()]
+    check(all(np.isfinite(v) for v in numbers), f"evals: numbers not finite: {out}")
+    check(out["separate"]["gt"] == out["separate"]["gen"] >= 1, f"evals: separate {out}")
+    out.update(pairs=n_pairs, command_s=command_s, seconds=time.perf_counter() - t0)
+    print(f"[evals] {n_pairs} [G_SEG]/[P_SEG] pairs of {os.path.basename(gen)}: "
+          + json.dumps({k: out[k] for k in ("get_metrics", "mcd", "pitch", "pitch_dtw")})
+          + f"; meta.csv means {out['stats']}; separate {out['separate']}; largest "
+          f"|sample| of the 16-bit segments {out['peak']}; seconds "
+          + ", ".join(f"{k} {v:.2f}" for k, v in command_s.items())
+          + f", {out['seconds']:.2f} in all", flush=True)
+    return out
+
+
 def check_block_serving(gen) -> tuple[float, list]:
     """K1 against its plain version at B=16 and the serving frame buckets,
     each row but the first padded from its own length (a chunk's ragged
@@ -4428,6 +4666,10 @@ def main() -> None:
         gan_launches, gan_stats = gan_path(smi, tmp)
         check(gan_launches == NO_LAUNCH, f"the GAN path launched {gan_launches}")
         phase_done("gan train")
+        data_launches, data_stats = data_path(smi, tmp)
+        phase_done("data")
+        evals_stats = evals_path(work)
+        phase_done("evals")
     finally:
         shutil.rmtree(tmp)
     block = kernels[0]
@@ -4450,7 +4692,8 @@ def main() -> None:
                                  "inplace": inplace_launches[k["name"]],
                                  "family_train": family_launches[k["name"]],
                                  "family_train_bf16": family_bf16_launches[k["name"]],
-                                 "switches": switch_launches[k["name"]]}
+                                 "switches": switch_launches[k["name"]],
+                                 "data": data_launches[k["name"]]}
         k["launches"] = sum(k["launches_by_path"].values())
         k["kernel_ms"] = k["ms"]
         check(k["launches"] > 0, f"{k['name']} was not launched on a main path")
@@ -4464,7 +4707,8 @@ def main() -> None:
                       "inplace": inplace_stats, "family_train": family_stats,
                       "family_train_bf16": family_bf16_stats, "phase_s": PHASE_S,
                       "width_override": width_stats, "switches": switch_stats,
-                      "gan_train": gan_stats, "card": smi}))
+                      "gan_train": gan_stats, "data": data_stats, "evals": evals_stats,
+                      "card": smi}))
     print(smi)
     extra = ("warm_ms", "warm_plain_ms", "host_us", "train_ms", "train_plain_ms",
              "train_bound_ms", "train_device_ms", "train_ops_per_call", "train_host_us",

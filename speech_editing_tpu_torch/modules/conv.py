@@ -7,8 +7,9 @@ The port of the JAX package's ``modules/conv.py`` (``ResidualBlock``,
 torch modules that ``convert_text_conv_encoder`` reads: block ``i`` of
 residual block ``j`` is ``res_blocks.{j}.blocks.{i}`` = (norm, conv,
 scale, GELU, 1x1 conv), then ``last_norm`` and ``post_net1``. Norm types
-``ln`` (LayerNorm, eps 1e-5) and ``gn`` (GroupNorm with 8 groups over
-frames and channels, flax's eps 1e-6).
+``ln`` (LayerNorm, eps 1e-5); ``gn``, ``bn`` and ``in`` (GroupNorm with 8
+groups over frames and channels, flax's eps 1e-6, as the JAX package maps
+all three); any other name is no norm, a norm without parameters.
 """
 
 from __future__ import annotations
@@ -35,9 +36,9 @@ class _GroupNorm(nn.GroupNorm):
 def make_norm(norm_type: str, channels: int) -> nn.Module:
     if norm_type == "ln":
         return nn.LayerNorm(channels, eps=1e-5)
-    if norm_type == "gn":
+    if norm_type in ("gn", "bn", "in"):
         return _GroupNorm(8, channels, eps=1e-6)
-    raise NotImplementedError(f"norm_type={norm_type!r} (ported: 'ln', 'gn')")
+    return nn.Identity()
 
 
 def conv_same(conv: nn.Conv1d, x: torch.Tensor) -> torch.Tensor:

@@ -38,7 +38,7 @@ _INT_KEYS = ("txt_tokens", "mel2ph", "spk_ids", "stutter_mel_masks")
 def check_supported(hp: Any) -> None:
     """Raise on the settings the port does not run yet."""
     if int(hp.get("tp_size", 1) or 1) > 1:
-        raise NotImplementedError("tp_size > 1 is not ported (ROADMAP Queue 1 item 7)")
+        raise NotImplementedError("tp_size > 1 is not ported (ROADMAP Queue 1 item 4)")
 
 
 def cuda_or_cpu(device: Any, who: str) -> torch.device:

@@ -6,8 +6,8 @@ end, with the conventions of librosa's defaults (periodic Hann window
 zero-centred to ``n_fft``, ``center=True`` constant padding, slaney mel
 scale with slaney area normalisation, log10 mel with eps 1e-6). The port's
 copy of the JAX package's ``utils/audio/dsp.py`` without its native
-backend: the region-edit API's log-mel is this host function, as in
-the JAX package, not kernel K2.
+backend: the region-edit API's and the binarizer's log-mel is this host
+function, as in the JAX package, not kernel K2.
 """
 
 from __future__ import annotations
@@ -76,9 +76,11 @@ def istft(spec: np.ndarray, hop_size: int = 256, win_length: int | None = None,
     return y
 
 
-def hz_to_mel(freqs):
-    """Slaney mel scale: linear below 1 kHz, logarithmic above."""
+def hz_to_mel(freqs, htk: bool = False):
+    """Slaney mel scale: linear below 1 kHz, logarithmic above; or HTK's."""
     freqs = np.asanyarray(freqs, dtype=np.float64)
+    if htk:
+        return 2595.0 * np.log10(1.0 + freqs / 700.0)
     f_sp = 200.0 / 3
     min_log_hz = 1000.0
     min_log_mel = min_log_hz / f_sp
@@ -89,9 +91,11 @@ def hz_to_mel(freqs):
         freqs / f_sp)
 
 
-def mel_to_hz(mels):
+def mel_to_hz(mels, htk: bool = False):
     """Inverse of :func:`hz_to_mel`."""
     mels = np.asanyarray(mels, dtype=np.float64)
+    if htk:
+        return 700.0 * (10.0 ** (mels / 2595.0) - 1.0)
     f_sp = 200.0 / 3
     min_log_hz = 1000.0
     min_log_mel = min_log_hz / f_sp
@@ -102,14 +106,15 @@ def mel_to_hz(mels):
 
 
 def mel_filterbank(sample_rate: int, n_fft: int, n_mels: int = 80,
-                   fmin: float = 0.0, fmax: float | None = None) -> np.ndarray:
-    """Triangular slaney mel filterbank [n_mels, 1 + n_fft//2] with slaney
-    area normalisation, float32."""
+                   fmin: float = 0.0, fmax: float | None = None,
+                   htk: bool = False) -> np.ndarray:
+    """Triangular mel filterbank [n_mels, 1 + n_fft//2] on the slaney (or,
+    with ``htk``, HTK's) mel scale with slaney area normalisation, float32."""
     fmax = fmax if fmax is not None else sample_rate / 2.0
     n_bins = 1 + n_fft // 2
     fftfreqs = np.linspace(0.0, sample_rate / 2.0, n_bins)
-    mel_pts = np.linspace(hz_to_mel(fmin), hz_to_mel(fmax), n_mels + 2)
-    hz_pts = mel_to_hz(mel_pts)
+    mel_pts = np.linspace(hz_to_mel(fmin, htk), hz_to_mel(fmax, htk), n_mels + 2)
+    hz_pts = mel_to_hz(mel_pts, htk)
     fdiff = np.diff(hz_pts)
     ramps = hz_pts[:, None] - fftfreqs[None, :]
     lower = -ramps[:-2] / fdiff[:-1][:, None]
@@ -139,15 +144,27 @@ def pad_lr(x: np.ndarray, fsize: int, fshift: int, pad_sides: int = 1):
 def wav2spec(wav_or_path, fft_size: int = 1024, hop_size: int = 256,
              win_length: int = 1024, window: str = "hann", num_mels: int = 80,
              fmin: float = 80, fmax: float = -1, eps: float = 1e-6,
-             sample_rate: int = 22050, loud_norm: bool = False) -> dict:
+             sample_rate: int = 22050, loud_norm: bool = False,
+             trim_long_sil: bool = False, backend: str = "numpy") -> dict:
     """wav (or a wav file's path) -> ``{'wav': [N], 'mel': [T, n_mels],
     'linear': [T, n_bins], 'mel_basis': [n_mels, n_bins]}``: log10 mel and
     linear spectrogram, the wav zero-padded or cut to exactly ``T *
-    hop_size`` samples. ``fmin``/``fmax`` of -1 mean 0 and Nyquist."""
+    hop_size`` samples. ``fmin``/``fmax`` of -1 mean 0 and Nyquist.
+    ``trim_long_sil`` shortens the long silences of a wav read from a path
+    first (``vad.trim_long_silences``). ``backend``: ``native`` (the JAX
+    package's C++ library, not ported) raises; any other (``numpy``,
+    ``auto``) computes here."""
+    if backend == "native":
+        raise RuntimeError("backend='native' unavailable: the port has no native DSP "
+                           "library; use backend='numpy' or 'auto'")
     if isinstance(wav_or_path, str):
         from speech_editing_tpu_torch.utils.audio.io import load_wav
 
         wav, _ = load_wav(wav_or_path, sample_rate)
+        if trim_long_sil:
+            from speech_editing_tpu_torch.utils.audio.vad import trim_long_silences
+
+            wav = trim_long_silences(wav, sample_rate)
     else:
         wav = np.asarray(wav_or_path, np.float32)
     if loud_norm:

@@ -31,6 +31,18 @@ def f0_to_coarse(f0: torch.Tensor, f0_bin: int = 256, f0_max: float = 900.0,
     return torch.round(f0_mel.clamp(1, f0_bin - 1)).long()
 
 
+def f0_to_coarse_host(f0: np.ndarray, f0_bin: int = 256, f0_max: float = 900.0,
+                     f0_min: float = 50.0) -> np.ndarray:
+    """Host numpy, for the binarizer: :func:`f0_to_coarse` as int32 (the
+    JAX package's numpy branch)."""
+    f0_mel_min = 1127 * np.log(1 + f0_min / 700)
+    f0_mel_max = 1127 * np.log(1 + f0_max / 700)
+    f0_mel = 1127 * np.log(1 + f0 / 700)
+    scaled = (f0_mel - f0_mel_min) * (f0_bin - 2) / (f0_mel_max - f0_mel_min) + 1
+    f0_mel = np.where(f0_mel > 0, scaled, f0_mel)
+    return np.rint(np.clip(f0_mel, 1, f0_bin - 1)).astype(np.int32)
+
+
 def denorm_f0(f0: torch.Tensor, uv: torch.Tensor | None,
               pitch_padding: torch.Tensor | None = None,
               f_min: float = 50.0, f_max: float = 900.0) -> torch.Tensor:
@@ -77,6 +89,16 @@ def extract_pitch(extractor_name, wav, hop_size, audio_sample_rate,
         extractor_name = "autocorr"
     return PITCH_EXTRACTORS[extractor_name](wav, hop_size, audio_sample_rate,
                                             f0_min, f0_max, **kw)
+
+
+@register_pitch_extractor("autocorr_native")
+def autocorr_pitch_native(wav, hop_size, audio_sample_rate, f0_min=75, f0_max=800,
+                          voicing_threshold=0.45, **kw) -> np.ndarray:
+    """The JAX package's threaded C++ tracker's key: the port has no native
+    library, so this is :func:`autocorr_pitch`, as the JAX package falls
+    back to it when its library is not built."""
+    return autocorr_pitch(wav, hop_size, audio_sample_rate, f0_min, f0_max,
+                          voicing_threshold, **kw)
 
 
 @register_pitch_extractor("autocorr")

@@ -96,10 +96,12 @@ def _conv_blocks(sd: dict, prefix: str, p: Mapping, n_blocks: int,
     for j in range(n_blocks):
         for i in range(layers_in_block):
             rp, name = p[f"res_{j}"], f"{prefix}res_blocks.{j}.blocks.{i}"
-            _layer_norm(sd, f"{name}.0", rp[f"norm_{i}"])
+            if f"norm_{i}" in rp:       # an identity norm has no parameters
+                _layer_norm(sd, f"{name}.0", rp[f"norm_{i}"])
             _conv(sd, f"{name}.1", rp[f"conv_{i}"])
             _conv(sd, f"{name}.4", rp[f"proj_{i}"])
-    _layer_norm(sd, f"{prefix}last_norm", p["last_norm"])
+    if "last_norm" in p:
+        _layer_norm(sd, f"{prefix}last_norm", p["last_norm"])
     _conv(sd, f"{prefix}post_net1", p["post_net1"])
 
 
@@ -374,4 +376,15 @@ def discriminator_params_from_jax(params: Mapping, hp: Any) -> dict[str, torch.T
         for j in range(7):
             _conv(sd, f"{name}.convs.{j}", d[f"Conv_{j}"])
         _conv(sd, f"{name}.conv_post", d["Conv_7"])
+    return sd
+
+
+def voice_encoder_params_from_jax(p: Mapping, n_layers: int = 3) -> dict[str, torch.Tensor]:
+    """JAX ``VoiceEncoder`` params (``lstm_l{i}`` in torch's gate layout,
+    ``linear``) -> ``state_dict`` of the port's (resemblyzer's names)."""
+    sd: dict[str, torch.Tensor] = {}
+    for i in range(n_layers):
+        for name in ("weight_ih", "weight_hh", "bias_ih", "bias_hh"):
+            sd[f"lstm.{name}_l{i}"] = _t(p[f"lstm_l{i}"][name])
+    _linear(sd, "linear", p["linear"])
     return sd
