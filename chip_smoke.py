@@ -69,8 +69,8 @@ Phases, each of which exits non-zero on a failed check:
    embeddings, ``max_sentences`` 16, ``max_tokens`` 40,000, two loader
    workers, alignment-aware masks; float32 through ``use_bf16=False``) over
    a synthetic binarized corpus of 512/32/8 utterances of 150-700 frames,
-   in a temporary directory: 30 steps with sanity validation, validation
-   and a checkpoint every 15 steps, then a second run resumes to 35. Every
+   in a temporary directory: 20 steps with sanity validation, validation
+   and a checkpoint every 10 steps, then a second run resumes to 25. Every
    step launches K1 and K5 20 times each and nothing else, every
    validation batch K1 20 times; metrics are finite; the checkpoints at 15
    and 30 exist; the resume starts at step 30 with the saved parameters and
@@ -80,8 +80,8 @@ Phases, each of which exits non-zero on a failed check:
    checkpoint's size, save and load times are printed.
 6b. bf16 run path: the same entry on ``egs/spec_denoiser.yaml`` as shipped
    (``use_bf16: true``, no override) over the same corpus, the loader in
-   process: 30 steps, a
-   validation of 4 batches and a checkpoint, then a resume to 35. Every
+   process: 20 steps, a
+   validation of 4 batches and a checkpoint, then a resume to 25. Every
    step launches the bf16 K1 and K5 20 times each and nothing else, every
    validation batch the float32 K1 20 times; metrics are finite; the
    checkpoint holds float32 parameters and moments, which the resume
@@ -117,12 +117,11 @@ Phases, each of which exits non-zero on a failed check:
    the CPU with the card's noise (pitch bins replayed, CSV_TOL); a B=16 x
    T=512 diff chunk is profiled (host, busy, K1's and HiFi-GAN's shares).
    Then the serve CLI in a subprocess over the same requests as JSONL, with
-   ``--warmup --workers 2 --max-wait-ms 100`` and again with ``--fast-io``
-   (unwarmed, every other request): all served, 16-bit wavs bit-identical
-   across the two runs and batch
-   mode, no shape added after warmup; latency p50/p99 and chunk fill. Then
-   the same requests on int8 weights (``serve_quant_int8``): bytes against
-   float32 and the largest mel_out difference. K1 is held against its plain
+   ``--warmup --fast-io --workers 2 --max-wait-ms 100``: all served, 16-bit
+   wavs bit-identical to batch mode's, no shape added after warmup;
+   latency p50/p99 and chunk fill. Then the same requests on int8 weights
+   (``serve_quant_int8``): bytes against float32 and the largest mel_out
+   difference. K1 is held against its plain
    version at B=16 and T 256-1536 with ragged masks.
 9. in-place path: CampNet, A3T and EditSpeech (``infer/editors.py``) in
    turn at their shipped widths (``egs/{campnet,a3t,editspeech}.yaml``),
@@ -140,7 +139,7 @@ Phases, each of which exits non-zero on a failed check:
    chunk (host, busy, K3's and HiFi-GAN's shares); a 128-frame chunk run
    again bit-identical and on the CPU (EditSpeech's splice frames
    replayed and counted, INPLACE_CPU_TOL). CampNet also online through the
-   serve CLI (``--warmup``, every other request; wavs bit-identical to
+   serve CLI (``--warmup``, every fourth request; wavs bit-identical to
    batch mode's) and
    EditSpeech on int8 weights. K3 is held against its plain version and
    timed beside SDPA at CampNet's decoder shapes (B=16, T 256-1536, h=2,
@@ -149,8 +148,8 @@ Phases, each of which exits non-zero on a failed check:
    A3T and EditSpeech in turn through the training entry at their shipped
    widths (``egs/<family>.yaml``) over one synthetic corpus of 128/16/2
    utterances of 150-700 frames with per-frame stutter labels (spans on
-   about 10 % of the frames), with the infer path's HiFi-GAN: 12 steps, a
-   validation of 2 batches and a checkpoint, then ``--infer`` of the 2
+   about 10 % of the frames), with the infer path's HiFi-GAN: 9 steps, a
+   validation of 1 batch and a checkpoint, then ``--infer`` of the 2
    test items from that checkpoint (loaded bit for bit). Every step,
    validation batch and item moves each launch counter by its expected
    amount (StutterSpeech K1 and K5 20 a step, CampNet K3 and K4 9, the
@@ -161,7 +160,7 @@ Phases, each of which exits non-zero on a failed check:
    and a profiled median step are printed. K4 is held against its plain
    version and timed beside SDPA's backward at CampNet's decoder shapes in
    the kernels phase. Then the same five under ``-hp use_bf16=true``:
-   10 steps, a validation batch (float32, as JAX validates) and a
+   8 steps, a validation batch (float32, as JAX validates) and a
    checkpoint of float32 masters each; every step launches the bf16 forms
    (StutterSpeech K1 and K5 20 times, CampNet K3 and K4 9), every
    validation batch the float32 ones; a CampNet step re-run on the CPU
@@ -214,6 +213,26 @@ Phases, each of which exits non-zero on a failed check:
 15. evals: ``evals.get_metrics`` and the ``evals.batch_tools`` command
    lines (mcd, pitch, pitch --dtw, stats, separate) over the infer path's
    ``generated_*_test``: every number finite.
+16. tts: FastSpeech, FastSpeech2-orig and DiffSpeech through the training
+   entry on ``egs/{fs,fs2_orig,diffspeech}.yaml`` as shipped (hidden 192,
+   4 + 4 FFT layers, 2 heads; DiffSpeech's 20 x 256 DiffNet, 100 cosine
+   steps, dilation 1; float32) over a synthetic corpus of 32/2/2 utterances
+   of 150-700 frames with the binarizer's CWT targets, with the infer
+   path's HiFi-GAN: 7 steps, a validation batch and a checkpoint, ``--infer``
+   of the 2 test items from that checkpoint (loaded bit for bit), and one
+   sentence from text through ``infer/tts_infer.py``. Every step,
+   validation batch, item and sentence moves the counters as TTS_LAUNCHES
+   predicts (FastSpeech K3 and K4 8 a step; DiffSpeech K1 and K5 20, K3 and
+   K4 4 a step, K1 2,000 and K3 4 a sentence); metrics and outputs are
+   finite; a B=2 step of each (192 frames of two utterances) on the card
+   and on the CPU agrees. Step host and event p50/p75, peak memory, a
+   profiled median step (busy, the largest device items) and each
+   sentence's model and vocoder seconds and real-time factor are printed. K3 and K4 are held against their plain
+   versions at FastSpeech's median batch and timed beside SDPA there; K1
+   and K5 without a mask at dilation 1 at DiffSpeech's median batch, K1
+   timed beside its plain version. The trainer's TensorBoard logging (each
+   validation's media: its first item's inference and vocoded audio) and
+   figures are a no-op where tensorboard or matplotlib is not installed.
 
 ``python3 chip_smoke.py --time-attention`` builds K3 and K4 only and times
 them, float32 and bf16 (the flagship step's, CampNet's and the holes
@@ -272,6 +291,8 @@ from speech_editing_tpu_torch.infer.serve import _load_request as load_request
 from speech_editing_tpu_torch.infer.serving import BatchedEditServer, BatchedInPlaceEditServer
 from speech_editing_tpu_torch.infer.spec_denoiser import (SpecDenoiserInfer, request_generator,
                                                           request_noise)
+from speech_editing_tpu_torch.infer.tts_infer import FastSpeechInfer
+from speech_editing_tpu_torch.infer.tts_infer import main as tts_infer_main
 from speech_editing_tpu_torch.infer.vocoder import HifiGAN, get_vocoder_cls
 from speech_editing_tpu_torch.models.vocoder.hifigan import HifiGanGenerator
 from speech_editing_tpu_torch.models.voice_encoder import (VoiceEncoder, VoiceEncoderCtx,
@@ -300,6 +321,7 @@ from speech_editing_tpu_torch.training.checkpoint import save_checkpoint
 from speech_editing_tpu_torch.training.tasks.spec_denoiser import SpecDenoiserTask
 from speech_editing_tpu_torch.training.tasks.stutter_speech import StutterPredictorTask
 from speech_editing_tpu_torch.training.trainer import Trainer, float32_on_card
+from speech_editing_tpu_torch.utils.audio.cwt import f0_to_cwt
 from speech_editing_tpu_torch.utils.audio.dsp import stft_window, wav2spec
 from speech_editing_tpu_torch.utils.audio.io import save_wav
 from speech_editing_tpu_torch.utils.init import init_like_flax
@@ -1125,11 +1147,13 @@ def campnet_lengths(b: int, t: int) -> list[int]:
     return [t] + [int(t * (1 - 0.6 * i / (b - 1))) for i in range(1, b)]
 
 
-def check_attention_at(gen, b: int, t: int, tol: float) -> dict:
-    """K3 at a CampNet decoder shape (ragged key padding) against its plain
-    version, timed beside SDPA with the same padding, with its bound."""
+def check_attention_at(gen, b: int, t: int, tol: float, lengths=None,
+                       what: str = "CampNet's decoder self-attention") -> dict:
+    """K3 at a CampNet decoder shape (ragged key padding), or at ``lengths``
+    (each row's keys), against its plain version, timed beside SDPA with the
+    same padding, with its bound."""
     h, d = CAMPNET_H, 192 // CAMPNET_H
-    lengths = campnet_lengths(b, t)
+    lengths = lengths or campnet_lengths(b, t)
     q, k, v, pad = attention_inputs(gen, b, t, lengths, d=d, h=h)
     got = flash_mha(q, k, v, pad)
     err = float((got - attention_plain(q, k, v, pad)).abs().max())
@@ -1138,7 +1162,7 @@ def check_attention_at(gen, b: int, t: int, tol: float) -> dict:
     plain_ms = time_ms(lambda: attention_plain(q, k, v, pad), iters=5)
     flops = 4 * h * t * d * sum(lengths)       # q k^T and p v over valid keys
     bound_ms, bound_by = bound(flops, nbytes(q, k, v, pad, got))
-    print(f"[kernel] flash_mha B={b} T={t} h={h} d={d} (CampNet's decoder self-attention), "
+    print(f"[kernel] flash_mha B={b} T={t} h={h} d={d} ({what}), "
           f"valid keys {min(lengths)}..{max(lengths)}: max err {err:.3e} (absolute, tol {tol}); "
           f"{times_text(times, 'sdpa')}; plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms "
           f"({bound_by}, {flops / 1e9:.2f} GFLOP); device "
@@ -1181,14 +1205,16 @@ def bwd_errors(q, k, v, pad, do, rows=None) -> tuple:
     return rel_err(got, ref), err_ag, got, args
 
 
-def check_attention_bwd_at(gen, b: int, t: int) -> dict:
+def check_attention_bwd_at(gen, b: int, t: int, lengths=None,
+                           what: str = "CampNet's decoder self-attention in training") -> dict:
     """K4 at a CampNet decoder shape (ragged key padding; 64-key tiles and
-    dQ CTAs) against its plain version, K3 + K4 against autograd of the
-    plain forward, pad keys' dk and dv zero; timed beside SDPA's backward,
-    with its bound: 10 h T d sum(len) FLOP (five products over the valid
-    keys) at the 3xTF32 rate against its bytes at the HBM rate."""
+    dQ CTAs), or at ``lengths``, against its plain version, K3 + K4 against
+    autograd of the plain forward, pad keys' dk and dv zero; timed beside
+    SDPA's backward, with its bound: 10 h T d sum(len) FLOP (five products
+    over the valid keys) at the 3xTF32 rate against its bytes at the HBM
+    rate."""
     h, d = CAMPNET_H, 192 // CAMPNET_H
-    lengths = campnet_lengths(b, t)
+    lengths = lengths or campnet_lengths(b, t)
     q, k, v, pad = attention_inputs(gen, b, t, lengths, d=d, h=h)
     do = torch.randn_like(q)
     err, err_ag, got, args = bwd_errors(q, k, v, pad, do)
@@ -1198,8 +1224,8 @@ def check_attention_bwd_at(gen, b: int, t: int) -> dict:
     flops = 10 * h * t * d * sum(lengths)
     bound_ms, bound_by = bound(flops, nbytes(*args, *got))
     worst = max(err, err_ag)
-    print(f"[kernel] flash_mha_bwd B={b} T={t} h={h} d={d} (CampNet's decoder self-attention "
-          f"in training), valid keys {min(lengths)}..{max(lengths)}: max err vs plain "
+    print(f"[kernel] flash_mha_bwd B={b} T={t} h={h} d={d} ({what}), "
+          f"valid keys {min(lengths)}..{max(lengths)}: max err vs plain "
           f"{err:.3e}, vs autograd of the plain forward {err_ag:.3e} (tol {BWD_TOL}, relative "
           f"to the reference's max); pad keys' dk, dv exactly 0: {pad_zero}; "
           f"{times_text(times, 'sdpa backward')}; plain {plain_ms:.4f} ms, bound "
@@ -2022,9 +2048,12 @@ G2P_PHONES = sorted({p for _, phs in _FallbackG2p.DIGRAPHS for p in phs}
 RUN_PHONES = RUN_SIL_PHONES + G2P_PHONES + [
     f"P{i}" for i in range(80 - len(RUN_SIL_PHONES) - len(G2P_PHONES))]
 RUN_SPEAKERS = 24
-RUN_STEPS, RUN_RESUME_TO = 30, 35   # a validation and a checkpoint every RUN_STEPS / 2
+RUN_STEPS, RUN_RESUME_TO = 20, 25   # a validation and a checkpoint every RUN_STEPS / 2
+# num_valid_plots=0: the validation media (where tensorboard is installed;
+# Griffin-Lim here, before the infer path writes a HiFi-GAN) run in the tts
+# phase
 RUN_HP = (f"use_bf16=False,max_updates={RUN_STEPS},val_check_interval={RUN_STEPS // 2},"
-          "num_sanity_val_steps=2,eval_max_batches=8,tb_log_interval=10")
+          "num_sanity_val_steps=2,eval_max_batches=8,tb_log_interval=10,num_valid_plots=0")
 RUN_B = 16              # egs/base.yaml's max_sentences: 16 x 700 frames is under max_tokens
 RUN_WARMUP = 5          # steps of the first run left out of its timings
 RUN_LAYERS = FLAGSHIP_HP["residual_layers"]   # egs/spec_denoiser.yaml's, as the flagship's
@@ -2044,14 +2073,16 @@ def stutter_labels(rs, t: int) -> np.ndarray:
 
 
 def write_run_corpus(data_dir: str, seed: int = 0, splits: dict | None = None,
-                     stutter: bool = False) -> int:
+                     stutter: bool = False, cwt: bool = False) -> int:
     """A binarized corpus with every key ``EditingDataset`` reads, written
     by the port's ``IndexedDatasetBuilder``: log-mel-like mels, phone
     tokens with a silence phone about one in four, monotonic mel2ph, raw
     f0 in Hz with 20 % unvoiced frames, coarse pitch, a 256-d speaker
-    embedding per speaker, and with ``stutter`` per-frame stutter labels
-    (``stutter_labels``); ``splits`` items a split (default RUN_SPLITS).
-    Returns the bytes of mel written."""
+    embedding per speaker, with ``stutter`` per-frame stutter labels
+    (``stutter_labels``), and with ``cwt`` the CWT targets the binarizer
+    writes under ``with_f0cwt`` (its ``f0_to_cwt`` of the raw f0);
+    ``splits`` items a split (default RUN_SPLITS). Returns the bytes of mel
+    written."""
     rs = np.random.RandomState(seed)
     os.makedirs(data_dir)
     with open(os.path.join(data_dir, "phone_set.json"), "w") as f:
@@ -2080,6 +2111,9 @@ def write_run_corpus(data_dir: str, seed: int = 0, splits: dict | None = None,
                 "spk_embed": speakers[rs.randint(RUN_SPEAKERS)]}
             if stutter:
                 item["stutter_mel_mask"] = stutter_labels(rs, int(t))
+            if cwt:
+                d = f0_to_cwt(item["f0"])
+                item.update(cwt_spec=d["cwt_spec"], cwt_mean=d["cwt_mean"], cwt_std=d["cwt_std"])
             builder.add_item(item)
         builder.finalize()
         np.save(os.path.join(data_dir, f"{split}_lengths.npy"), lengths)
@@ -2112,18 +2146,20 @@ class _TimedLoader:
 class RunRecorder:
     """Wraps ``Trainer``'s methods while the run entry trains, to record each
     step's CUDA-event and host-clock time, real frames, launches and
-    metrics, each validation batch's launches, the loader waits, the
-    validations', saves' and the resume's host time, and the state the
-    resume loaded."""
+    metrics, each validation batch's launches, each validation's media
+    (launches, seconds, whether a TensorBoard writer took them), the loader
+    waits, the validations', saves' and the resume's host time, and the
+    state the resume loaded."""
 
     def __init__(self):
-        self.steps, self.valid, self.waits = [], [], []
+        self.steps, self.valid, self.waits, self.media = [], [], [], []
         self.validate_s, self.save_s, self.load_s = [], [], []
         self.loaded = None
 
     @contextlib.contextmanager
     def instrumented(self):
-        names = ("step", "_eval_batch", "_loader", "validate", "save", "_build_state")
+        names = ("step", "_eval_batch", "_loader", "validate", "save", "_build_state",
+                 "_log_valid_media")
         orig = {name: getattr(Trainer, name) for name in names}
         rec = self
 
@@ -2171,9 +2207,18 @@ class RunRecorder:
             timed("_build_state", rec.load_s)(trainer)
             rec.loaded = copy.deepcopy(trainer.train_step.state_dict())
 
+        def media(trainer, raw):
+            before, t0 = counts(), time.perf_counter()
+            orig["_log_valid_media"](trainer, raw)
+            torch.cuda.synchronize()
+            rec.media.append(dict(launches={k: counts()[k] - before[k] for k in COUNTERS},
+                                  seconds=time.perf_counter() - t0,
+                                  logged=trainer.logger.writer is not None))
+
         patches = dict(step=step, _eval_batch=eval_batch, _loader=loader,
                        validate=timed("validate", self.validate_s),
-                       save=timed("save", self.save_s), _build_state=build_state)
+                       save=timed("save", self.save_s), _build_state=build_state,
+                       _log_valid_media=media)
         for name, fn in patches.items():
             setattr(Trainer, name, fn)
         try:
@@ -2332,9 +2377,9 @@ def float_dtypes(state: dict) -> set:
 
 def run_bf16_path(smi: str, tmp: str, data_dir: str) -> tuple[dict, dict]:
     """``egs/spec_denoiser.yaml`` as shipped (``use_bf16: true``, no override)
-    through the training entry over the run path's corpus: 30 steps, a
+    through the training entry over the run path's corpus: RUN_STEPS steps, a
     validation of 4 batches and a checkpoint into ``tmp/checkpoints/run_bf16``,
-    then a resume to 35. Every step launches the bf16 K1 and K5 20 times each
+    then a resume to RUN_RESUME_TO. Every step launches the bf16 K1 and K5 20 times each
     and nothing else; every validation batch the float32 K1 20 times (JAX
     validates in float32); the checkpoint holds float32
     parameters and moments, which the resume restores bit for bit; a
@@ -2516,7 +2561,11 @@ CSV_ROWS = [
      "the old man read the evening paper in his garden", "[6,6]", "[6,6]"),
     (2.5, 210.0, "the cat sat on the mat", "the dog sat on the mats", "[2,2]", "[2,2]"),
 ]
-CSV_ROUNDS = 10           # timed passes over the four requests
+CSV_ROUNDS = 5            # timed passes over the four requests
+# run --infer's spawned result writers: each boots this script's imports,
+# and with the default count, a writer a core but one, waiting for them
+# took most of the phase's --infer (the [infer] line prints the wait)
+INFER_WRITERS = 2
 CSV_TOL = 1e-3            # card vs CPU mel_out of one CSV request
 DUR_TOL = 1e-4            # card vs CPU predicted durations
 EXPECTED_PER_EDIT = dict(NO_LAUNCH, diffnet_block=RUN_LAYERS * FLAGSHIP_HP["timesteps"])
@@ -2834,7 +2883,8 @@ def infer_path(smi: str, tmp: str, work: str, data_dir: str) -> tuple[dict, dict
     voc_dir = os.path.join(tmp, "hifigan")
     write_vocoder(voc_dir)
     argv = ["--config", "egs/spec_denoiser.yaml", "--exp_name", work, "-hp",
-            f"binary_data_dir={data_dir},{RUN_HP},vocoder_ckpt={voc_dir}", "--infer"]
+            f"binary_data_dir={data_dir},{RUN_HP},vocoder_ckpt={voc_dir},"
+            f"test_save_workers={INFER_WRITERS}", "--infer"]
     hp = set_hparams(arg_parser().parse_args(argv), print_hparams=False)
     voc = get_vocoder_cls(hp["vocoder"])(hp, "cuda")
     check(voc.kind == "hifigan" and next(voc.generator.parameters()).is_cuda,
@@ -2862,7 +2912,7 @@ def infer_path(smi: str, tmp: str, work: str, data_dir: str) -> tuple[dict, dict
           f"{infer_s:.2f} s, {stats['infer_items_per_s']:.2f} items/s (host clock, model "
           f"and vocoder load and the writes included): inference forwards "
           f"{sec['forward']:.2f} s, vocoder calls {sec['vocoder']:.2f} s, waiting for the "
-          f"{os.getenv('N_PROC', (os.cpu_count() or 2) - 1)} spawned writers "
+          f"{INFER_WRITERS} spawned writers "
           f"{sec['writers']:.2f} s, the rest (config, model and checkpoint load, loader) "
           f"{stats['infer_other_s']:.2f} s; launches per item "
           f"{rec.batches[0]['launches']}, totals {infer_launches}; every mel_out frame "
@@ -3190,8 +3240,7 @@ def serve_path(smi: str, tmp: str, work: str, data_dir: str) -> tuple[dict, dict
     mode (warmed first), checked and timed; one request alone, at another
     row and at its exact-fit bucket; a diff chunk re-run on the CPU; a
     profiled B=16 x T=512 diff chunk; the CLI online with --warmup and
-    again with --fast-io, unwarmed, on every other request; the same
-    requests on int8 weights. Returns the
+    --fast-io; the same requests on int8 weights. Returns the
     batch run's launches and the statistics."""
     voc_dir = os.path.join(tmp, "hifigan")
     argv_hp = ["--config", "egs/spec_denoiser.yaml", "--exp_name", work, "-hp",
@@ -3290,38 +3339,31 @@ def serve_path(smi: str, tmp: str, work: str, data_dir: str) -> tuple[dict, dict
     stats["cpu"] = serve_cpu_rerun(hp, server, cpu_chunk, by_name, seed)
     stats["profile"] = serve_profile(server, next(c for c in full if c["t_b"] == 512), seed, smi)
 
-    # online: the CLI, warmed, and again with --fast-io, unwarmed, on every
-    # other request
-    online = serve_cli(argv_hp, rows, os.path.join(d, "out"), ["--warmup"])
-    fast = serve_cli(argv_hp, rows[::2], os.path.join(d, "fast"), ["--fast-io"])
-    check(online["served"] == len(rows) and fast["served"] == len(rows[::2]),
-          f"serve CLI served {online['served']} of {len(rows)} and {fast['served']} of "
-          f"{len(rows[::2])}")
+    # online: the CLI, warmed, writing through --fast-io (one subprocess: a
+    # second, unwarmed run without the flag cost 17-19 s, mostly start-up)
+    online = serve_cli(argv_hp, rows, os.path.join(d, "out"), ["--warmup", "--fast-io"])
+    check(online["served"] == len(rows),
+          f"serve CLI served {online['served']} of {len(rows)}")
     check(online["shapes"] == online["warmup_shapes"],
           f"serve CLI: {online['shapes']} program shapes run, {online['warmup_shapes']} warmed")
-    waves, fast_waves = read_wavs(os.path.join(d, "out"), names), read_wavs(
-        os.path.join(d, "fast"), names[::2])
+    waves = read_wavs(os.path.join(d, "out"), names)
     ref_fn = os.path.join(d, "ref.wav")
     for name in names:
         save_wav(by_name[name]["wav_out"], ref_fn, SR)
         ref = wavfile.read(ref_fn)[1]
-        for label, other in (("--fast-io", fast_waves.get(name, waves[name])),
-                             ("batch mode", ref)):
-            same = other.shape == waves[name].shape
-            check(same and np.array_equal(waves[name], other),
-                  f"serve CLI {name}.wav: {label}'s samples differ ("
-                  + (f"{int(np.sum(waves[name] != other))} of {other.size}" if same else
-                     f"{other.shape} against {waves[name].shape}") + ")")
-    print(f"[serve] online CLI (--warmup, --workers 2, --max-wait-ms 100): {online['served']} "
-          f"requests in {online['wall_s']:.1f} s (process start and model load included), "
-          f"latency p50 {online['p50_ms']:.0f} ms / p99 {online['p99_ms']:.0f} ms, "
-          f"{online['chunks']} chunks, fill {online['fill']:.3f}; warmup {online['warmup_shapes']} "
-          f"shapes in {online['warmup_s']:.1f} s, none added by the traffic; --fast-io on "
-          f"{fast['served']} of them, unwarmed: p50 {fast['p50_ms']:.0f} / p99 "
-          f"{fast['p99_ms']:.0f} ms, fill {fast['fill']:.3f}, {fast['wall_s']:.1f} s; "
-          f"every wav 16-bit and bit-identical across the two runs and batch mode; {smi}",
+        same = ref.shape == waves[name].shape
+        check(same and np.array_equal(waves[name], ref),
+              f"serve CLI {name}.wav: the samples differ from batch mode's ("
+              + (f"{int(np.sum(waves[name] != ref))} of {ref.size}" if same else
+                 f"{ref.shape} against {waves[name].shape}") + ")")
+    print(f"[serve] online CLI (--warmup, --fast-io, --workers 2, --max-wait-ms 100): "
+          f"{online['served']} requests in {online['wall_s']:.1f} s (process start and model "
+          f"load included), latency p50 {online['p50_ms']:.0f} ms / p99 "
+          f"{online['p99_ms']:.0f} ms, {online['chunks']} chunks, fill {online['fill']:.3f}; "
+          f"warmup {online['warmup_shapes']} shapes in {online['warmup_s']:.1f} s, none added "
+          f"by the traffic; every wav 16-bit and bit-identical to batch mode's; {smi}",
           flush=True)
-    stats.update(online=online, online_fast_io=fast)
+    stats.update(online=online)
 
     # int8 weights
     inf8 = SpecDenoiserInfer(dict(hp, serve_quant_int8=True), "cuda")
@@ -3630,14 +3672,14 @@ def inplace_family(family: str, cls, config: str, smi: str, tmp: str, data_dir: 
     stats["cpu"] = inplace_cpu_rerun(family, cls, hp, server,
                                      next(c for c in chunks if c["t_b"] == INPLACE_CPU_T),
                                      by_name)
-    if family == "campnet":    # every other request
-        online = serve_cli(argv_hp, rows[::2], os.path.join(work, "online"), ["--warmup"])
-        check(online["served"] == len(rows[::2]) and online["shapes"] == online["warmup_shapes"],
+    if family == "campnet":    # every fourth request
+        online = serve_cli(argv_hp, rows[::4], os.path.join(work, "online"), ["--warmup"])
+        check(online["served"] == len(rows[::4]) and online["shapes"] == online["warmup_shapes"],
               f"{family} serve CLI: served {online['served']}, {online['shapes']} shapes run, "
               f"{online['warmup_shapes']} warmed")
-        waves = read_wavs(os.path.join(work, "online"), names[::2])
+        waves = read_wavs(os.path.join(work, "online"), names[::4])
         ref_fn = os.path.join(work, "ref.wav")
-        for name in names[::2]:
+        for name in names[::4]:
             save_wav(by_name[name]["wav_out"], ref_fn, SR)
             check(np.array_equal(wavfile.read(ref_fn)[1], waves[name]),
                   f"{family} serve CLI {name}.wav: samples differ from batch mode's")
@@ -3709,7 +3751,7 @@ FAMILY_TASKS = {"stutter_speech": "StutterSpeechTask", "stutter_predictor":
                 "StutterPredictorTask", "campnet": "CampNetTask", "a3t": "A3TTask",
                 "editspeech": "EditSpeechTask"}
 FAMILY_SPLITS = {"train": 128, "valid": 16, "test": 2}
-FAMILY_STEPS, FAMILY_VALID = 12, 2
+FAMILY_STEPS, FAMILY_VALID = 9, 1
 # the loader in process (ds_workers=0): the run path drives the spawned
 # workers, and their start-up was much of each family's minute on a slow host
 FAMILY_HP = (f"max_updates={FAMILY_STEPS},val_check_interval={FAMILY_STEPS},"
@@ -3724,7 +3766,7 @@ FAMILY_LAUNCHES = {
 FAMILY_CPU_STEP = ("stutter_speech", "campnet")   # stepped on the card and on the CPU
 # the same families under -hp use_bf16=true: a few steps, one validation
 # batch (float32, as JAX validates) and a checkpoint of float32 masters
-FAMILY_BF16_STEPS = RUN_WARMUP + 5
+FAMILY_BF16_STEPS = RUN_WARMUP + 3
 FAMILY_BF16_HP = (f"use_bf16=true,max_updates={FAMILY_BF16_STEPS},"
                   f"val_check_interval={FAMILY_BF16_STEPS},num_sanity_val_steps=0,"
                   f"eval_max_batches=1,tb_log_interval=10,ds_workers=0")
@@ -3942,9 +3984,11 @@ SWITCHES = (("ref_pad_compat", "ref_pad_compat=true,use_bf16=False"),
             ("no_diffusion", "no_diffusion=true,use_bf16=False"),
             ("use_masked_cond", "use_masked_cond=false,use_bf16=False"),
             ("accumulate", f"accumulate_grad_batches={SWITCH_ACCUM}"))
+# num_valid_plots=0: the validation media (where tensorboard is installed)
+# run the tts phase; here their inference would join the counted launches
 SWITCH_HP = (f"max_updates={SWITCH_STEPS},val_check_interval={SWITCH_STEPS},"
              "num_sanity_val_steps=0,eval_max_batches=1,tb_log_interval=10,ds_workers=0,"
-             "test_num=1,test_save_workers=1")
+             "test_num=1,test_save_workers=1,num_valid_plots=0")
 EXPECTED_SWITCH_STEP = dict(
     (name, EXPECTED_PER_RUN_STEP) for name, _ in SWITCHES[:3])
 EXPECTED_SWITCH_STEP["accumulate"] = dict(
@@ -4548,6 +4592,279 @@ def evals_path(work: str) -> dict:
     return out
 
 
+# -- TTS path ------------------------------------------------------------------------
+
+# the TTS baselines through their entry points at the shipped widths (hidden
+# 192, 4 + 4 FFT layers, 2 heads; DiffSpeech's 20 x 256 DiffNet, 100 cosine
+# steps, dilation 1): TTS_STEPS steps each on a corpus with the binarizer's
+# CWT targets, a validation batch, a checkpoint, --infer of the test split,
+# one sentence through tts_infer
+TTS_CONFIGS = {"fs": "FastSpeechTask", "fs2_orig": "FastSpeech2OrigTask",
+               "diffspeech": "DiffSpeechTask"}
+TTS_SPLITS = {"train": 32, "valid": 2, "test": 2}
+TTS_STEPS, TTS_WARMUP = 7, 3      # steps a config; the first TTS_WARMUP left out of the timings
+TTS_HP = (f"max_updates={TTS_STEPS},val_check_interval={TTS_STEPS},num_sanity_val_steps=0,"
+          f"eval_max_batches=1,tb_log_interval=4,test_num={TTS_SPLITS['test']},"
+          f"test_save_workers=1,ds_workers=0")
+TTS_TEXT = " ".join(SERVE_WORDS[:9])
+TTS_CPU_T = 192           # frames of the B=2 step run on the card and the CPU
+TTS_FRAME_KEYS = ("mels", "mel2ph", "f0", "uv", "cwt_spec")
+# the prediction: launches a step, a validation batch, a --infer item (one
+# a batch) and a synthesised sentence; FastSpeech's 4 + 4 FFT layers, K3 in
+# the forward and K4 in the backward; DiffSpeech's 4 encoder layers and 20
+# DiffNet blocks, 100 of them a sentence
+_FS = dict(NO_LAUNCH, flash_mha=8)
+_DS = dict(NO_LAUNCH, diffnet_block=20, flash_mha=4)
+TTS_LAUNCHES = {
+    "fs": (dict(_FS, flash_mha_bwd=8), _FS, _FS, _FS),
+    "fs2_orig": (dict(_FS, flash_mha_bwd=8), _FS, _FS, _FS),
+    "diffspeech": (dict(_DS, diffnet_block_bwd=20, flash_mha_bwd=4), _DS,
+                   dict(_DS, diffnet_block=2000), dict(_DS, diffnet_block=2000))}
+
+
+def importable(name: str) -> bool:
+    import importlib.util
+
+    return importlib.util.find_spec(name) is not None
+
+
+@contextlib.contextmanager
+def sentence_timer(found: list):
+    """Records each ``tts_infer`` synthesis: the model's and the vocoder's
+    seconds (the card synchronised), its launches and its frames."""
+    orig_fwd, orig_voc = FastSpeechInfer.forward_model, FastSpeechInfer.run_vocoder
+
+    def run_vocoder(inf, mel):
+        t0 = time.perf_counter()
+        wav = orig_voc(inf, mel)
+        torch.cuda.synchronize()
+        found[-1]["vocoder_s"] = time.perf_counter() - t0
+        return wav
+
+    def forward_model(inf, item):
+        found.append({})
+        before = counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wav, mel = orig_fwd(inf, item)
+        torch.cuda.synchronize()
+        rec = found[-1]
+        rec.update(total_s=time.perf_counter() - t0, frames=int(mel.shape[0]),
+                   launches={k: counts()[k] - before[k] for k in COUNTERS},
+                   finite=bool(np.isfinite(mel).all() and np.isfinite(wav).all()),
+                   samples=len(wav), tokens=len(item["ph_token"]))
+        rec["model_s"] = rec["total_s"] - rec["vocoder_s"]
+        return wav, mel
+
+    FastSpeechInfer.forward_model, FastSpeechInfer.run_vocoder = forward_model, run_vocoder
+    try:
+        yield found
+    finally:
+        FastSpeechInfer.forward_model, FastSpeechInfer.run_vocoder = orig_fwd, orig_voc
+
+
+def tts_config(name: str, smi: str, tmp: str, data_dir: str) -> tuple[dict, dict]:
+    """One TTS config through ``run`` on the card (TTS_STEPS steps, one
+    validation batch, a checkpoint; ``--infer`` of the test split) and one
+    sentence through ``tts_infer``; every step's, validation batch's, item's
+    and the sentence's launches checked against TTS_LAUNCHES, every metric
+    and output finite; host and event p50/p75, peak memory, a profiled
+    median step, a B=2 step on the card and on the CPU. Returns the launches
+    and the statistics."""
+    q = lambda xs, p: float(np.percentile(xs, p))
+    work = os.path.join(tmp, "tts", name)
+    argv = ["--config", f"egs/{name}.yaml", "--exp_name", work, "-hp",
+            f"binary_data_dir={data_dir},vocoder_ckpt={os.path.join(tmp, 'hifigan')},{TTS_HP}"]
+    per_step, per_valid, per_item, per_sentence = TTS_LAUNCHES[name]
+    rec = RunRecorder()
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with rec.instrumented():
+        trainer = run_entry(argv)
+    train_s = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = counts()
+    hp = trainer.hp
+    check(type(trainer.task).__name__ == TTS_CONFIGS[name], f"tts {name}: task "
+          f"{type(trainer.task).__name__}")
+    check(not hp.get("use_bf16") and hp["hidden_size"] == 192 and hp["encoder_type"] == "fft"
+          and hp["decoder_type"] == "fft", f"tts {name}: not the shipped float32 widths")
+    check(len(rec.steps) == TTS_STEPS and len(rec.valid) == 1,
+          f"tts {name}: {len(rec.steps)} steps, {len(rec.valid)} validation batches")
+    for st in rec.steps:
+        check(st["launches"] == per_step,
+              f"tts {name} step {st['step']}: launches {st['launches']} != {per_step}")
+        m = {k: float(v) for k, v in st["metrics"].items()}
+        check(all(np.isfinite(v) for v in m.values()) and m["nan_grads"] == 0,
+              f"tts {name} step {st['step']}: non-finite metrics {m}")
+    check(rec.valid[0] == per_valid, f"tts {name} validation batch: {rec.valid[0]}")
+    # the validation's media: its first item's inference (and vocoded audio)
+    # where a TensorBoard writer takes them, else nothing
+    media = rec.media[0] if len(rec.media) == 1 else None
+    check(media is not None and media["launches"] == (per_item if media["logged"] else NO_LAUNCH),
+          f"tts {name} validation media: {rec.media}")
+    ckpt = os.path.join(work, f"model_ckpt_steps_{TTS_STEPS}.ckpt")
+    check(os.path.exists(ckpt), f"tts {name}: checkpoints {sorted(os.listdir(work))}")
+    saved = torch.load(ckpt, map_location="cpu", weights_only=True)["state"]
+    check(float_dtypes(saved) == {torch.float32}, f"tts {name}: {float_dtypes(saved)}")
+    timed = rec.steps[TTS_WARMUP:]
+    ev, host = [st["event_ms"] for st in timed], [st["host_ms"] for st in timed]
+    m = {k: float(v) for k, v in rec.steps[-1]["metrics"].items()}
+    stats = dict(task=TTS_CONFIGS[name], params=sum(p.numel() for p in trainer.model.parameters()),
+                 train_s=train_s, peak_gib=peak_gib, timed_steps=len(timed), media=media,
+                 launches_per_step=per_step, host_ms_p50=q(host, 50), host_ms_p75=q(host, 75),
+                 event_ms_p50=q(ev, 50), event_ms_p75=q(ev, 75),
+                 padded_frames_p50=q([st["shape"][1] for st in timed], 50),
+                 real_frames_per_step_mean=sum(st["frames"] for st in timed) / len(timed),
+                 last_metrics=m)
+    print(f"[tts] {name} (egs/{name}.yaml, {stats['params']} parameters), {len(timed)} timed "
+          f"steps of {TTS_STEPS}: host clock p50 {stats['host_ms_p50']:.3f} ms, p75 "
+          f"{stats['host_ms_p75']:.3f} ms; CUDA events p50 {stats['event_ms_p50']:.3f} ms, p75 "
+          f"{stats['event_ms_p75']:.3f} ms; padded frames p50 {stats['padded_frames_p50']:.0f}, "
+          f"{stats['real_frames_per_step_mean']:.0f} real frames a step; launches a step "
+          f"{per_step}; peak memory {peak_gib:.3f} GiB; {train_s:.1f} s with the validation "
+          f"and the checkpoint; validation media "
+          + (f"logged to TensorBoard in {media['seconds']:.2f} s, launches {media['launches']}"
+             if media["logged"] else "a no-op (no tensorboard)") + f"; {smi}", flush=True)
+    print(f"[tts] {name} last step: " + " ".join(f"{k}={v:.5f}" for k, v in sorted(m.items())),
+          flush=True)
+    mid = sorted(timed, key=lambda st: st["shape"][1])[len(timed) // 2]
+    raw = {k: v.pin_memory() if isinstance(v, torch.Tensor) else v
+           for k, v in mid["raw"].items()}
+    b, t = mid["shape"]
+    stage_s, t1 = {"run": train_s}, time.perf_counter()
+    busy_ms = profile_step(trainer, raw, mid["host_ms"], top=6, label=f"tts {name} B={b} x T={t}")
+    stage_s["profile"], t1 = time.perf_counter() - t1, time.perf_counter()
+    stats.update(profiled_batch=[b, t], profiled_host_ms=mid["host_ms"], profiled_busy_ms=busy_ms,
+                 profiled_busy_share=None if busy_ms is None else busy_ms / mid["host_ms"],
+                 median_lengths=[int(n) for n in mid["raw"]["mel_lengths"]],
+                 median_tokens=[int(n) for n in (mid["raw"]["txt_tokens"] > 0).sum(1)])
+    # the CPU's step: two utterances of the shortest batch, their first
+    # TTS_CPU_T frames (the step's cost on the CPU grows with the frames)
+    short = min(rec.steps, key=lambda st: st["shape"][1])["raw"]
+    sub = {k: short[k][:2, :TTS_CPU_T] if k in TTS_FRAME_KEYS else short[k][:2]
+           for k in trainer.task.effective_batch_keys()}
+    compare_step_with_cpu(f"tts {name}", lambda dev: Trainer(trainer.task, hp, dev, dropout=False),
+                          trainer.train_step.state_dict(), sub, diffusion=name == "diffspeech")
+    stage_s["cpu_step"] = time.perf_counter() - t1
+
+    # --infer from the checkpoint, then one sentence from text
+    rec_t, irec = RunRecorder(), InferRecorder()
+    before = counts()
+    t0 = time.perf_counter()
+    with rec_t.instrumented(), irec.instrumented():
+        run_entry(argv + ["--infer"])
+    infer_s = time.perf_counter() - t0
+    check(states_equal(rec_t.loaded, saved), f"tts {name} --infer: the state loaded is not "
+                                             "the checkpoint's bit for bit")
+    gen_dir = os.path.join(work, f"generated_{TTS_STEPS}_test")
+    wavs = set(os.listdir(os.path.join(gen_dir, "wavs")))
+    for bt in irec.batches:
+        check(bt["launches"] == per_item, f"tts {name} --infer {bt['names']}: launches "
+                                          f"{bt['launches']} != {per_item}")
+        check(bool(torch.isfinite(bt["mel_out"]).all()), f"tts {name} --infer: not finite")
+        for n in bt["names"]:
+            check({f"[P]{n}.wav", f"[G]{n}.wav", f"[P]{n}_mel.npy"} <= wavs,
+                  f"tts {name} --infer {n}: wavs {sorted(wavs)}")
+    n_items = sum(len(bt["names"]) for bt in irec.batches)
+    check(n_items == TTS_SPLITS["test"], f"tts {name} --infer: {n_items} items")
+    found: list = []
+    out_wav = os.path.join(work, "sentence.wav")
+    t0 = time.perf_counter()
+    with sentence_timer(found):
+        tts_infer_main(argv + ["--text", TTS_TEXT, "--out", out_wav])
+    sentence_wall_s = time.perf_counter() - t0
+    check(len(found) == 1 and found[0]["finite"] and os.path.exists(out_wav),
+          f"tts {name} tts_infer: {found}")
+    sent = found[0]
+    check(sent["launches"] == per_sentence,
+          f"tts {name} tts_infer: launches {sent['launches']} != {per_sentence}")
+    audio_s = sent["samples"] / SR
+    sent.update(wall_s=sentence_wall_s, audio_s=audio_s, rtf_model=sent["model_s"] / audio_s,
+                rtf=sent["total_s"] / audio_s)
+    launches = {k: launches[k] + counts()[k] - before[k] for k in COUNTERS}
+    stage_s.update(infer=infer_s, sentence=sentence_wall_s)
+    stats.update(infer_s=infer_s, infer_items=n_items, infer_forward_s=irec.seconds["forward"],
+                 infer_launches_per_item=per_item, sentence=sent, stage_s=stage_s)
+    print(f"[tts] {name} --infer: {n_items} test items from step {TTS_STEPS}'s checkpoint "
+          f"(loaded bit for bit) in {infer_s:.1f} s (forwards {irec.seconds['forward']:.2f} s), "
+          f"launches an item {per_item}; tts_infer: {sent['tokens']} phones -> "
+          f"{sent['frames']} frames ({audio_s:.2f} s of audio): model {sent['model_s']:.3f} s, "
+          f"HiFi-GAN {sent['vocoder_s']:.3f} s, RTF {sent['rtf_model']:.4f} (model) / "
+          f"{sent['rtf']:.4f} (with the vocoder), {sentence_wall_s:.1f} s with the driver's "
+          f"load; launches {sent['launches']}; stages (s) "
+          + ", ".join(f"{k} {v:.2f}" for k, v in stage_s.items()) + f"; {smi}", flush=True)
+    return launches, dict(stats, card=smi)
+
+
+def check_tts_kernels(gen, fs: dict, ds: dict) -> dict:
+    """K3 and K4 at FastSpeech's median batch (its rows' frame counts as key
+    lengths, h=2, d=96) against their plain versions, timed beside SDPA; K1
+    and K5 without a mask at dilation 1 at DiffSpeech's median batch (its
+    rows padded from their own lengths) against their plain versions, K1
+    timed beside its plain version. Returns the readings by kernel."""
+    b, t = fs["profiled_batch"]
+    lengths = fs["median_lengths"]
+    fwd = check_attention_at(gen, b, t, 1e-4, lengths, "FastSpeech's decoder self-attention")
+    bwd = check_attention_bwd_at(gen, b, t, lengths,
+                                 "FastSpeech's decoder self-attention in training")
+    b, t = ds["profiled_batch"]
+    x, cond, step, _, w = block_inputs(gen, b, t)
+    call = lambda fn, **kw: fn(x, cond, step, None, *w, dilation=1, **kw)
+    got, ref = call(diffnet_block, return_h=True), call(diffnet_block_plain, return_h=True)
+    dxo, dsk = (torch.randn(b, t, x.shape[-1], device="cuda", generator=gen) for _ in range(2))
+    block_bwd = lambda fn: fn(got[2], dxo, dsk, None, w[0], w[4], 1)
+    err = max(float((g - e).abs().max()) for g, e in zip(got, ref))
+    err_b = rel_err(block_bwd(diffnet_block_bwd), block_bwd(diffnet_block_bwd_plain))
+    check(err <= 1e-4 and err_b <= BWD_TOL, f"tts: K1/K5 without a mask B={b} T={t}: {err}, "
+                                            f"{err_b}")
+    k1_ms, plain_ms = time_ms(lambda: call(diffnet_block)), time_ms(
+        lambda: call(diffnet_block_plain), iters=5)
+    print(f"[tts] diffnet_block without a mask, dilation 1, at DiffSpeech's median batch B={b} "
+          f"x T={t}: with h err {err:.3e} (tol 1e-4), diffnet_block_bwd err {err_b:.3e} (tol "
+          f"{BWD_TOL}); without h (the reverse process's form) {k1_ms:.4f} ms events, plain "
+          f"{plain_ms:.4f} ms", flush=True)
+    fs_shape = dict(b=fs["profiled_batch"][0], t=fs["profiled_batch"][1])
+    return {"flash_mha": dict(tts_max_abs_err=fwd["max_err"], tts_ms=fwd["ms"],
+                              tts_device_ms=fwd["device_ms"], tts_sdpa_ms=fwd["library_ms"],
+                              tts_sdpa_device_ms=fwd["library_device_ms"],
+                              tts_plain_ms=fwd["plain_ms"], tts_bound_ms=fwd["bound_ms"],
+                              tts_shape=fs_shape),
+            "flash_mha_bwd": dict(tts_max_abs_err=bwd["max_err"], tts_ms=bwd["ms"],
+                                  tts_device_ms=bwd["device_ms"], tts_sdpa_ms=bwd["library_ms"],
+                                  tts_sdpa_device_ms=bwd["library_device_ms"],
+                                  tts_plain_ms=bwd["plain_ms"], tts_bound_ms=bwd["bound_ms"],
+                                  tts_shape=fs_shape),
+            "diffnet_block": dict(tts_max_abs_err=err, tts_ms=k1_ms, tts_plain_ms=plain_ms,
+                                  tts_shape=dict(b=b, t=t)),
+            "diffnet_block_bwd": dict(tts_max_abs_err=err_b, tts_shape=dict(b=b, t=t))}
+
+
+def tts_path(smi: str, tmp: str, gen) -> tuple[dict, dict, dict]:
+    """The TTS phase (module doc, 16): a corpus with the CWT targets, the
+    three configs (``tts_config``), the kernels at their shapes
+    (``check_tts_kernels``). Returns the launches summed, the statistics
+    and the kernel readings."""
+    t0 = time.perf_counter()
+    data_dir = os.path.join(tmp, "tts_data")
+    write_run_corpus(data_dir, seed=5, splits=TTS_SPLITS, cwt=True)
+    libs = {m: importable(m) for m in ("tensorboard", "matplotlib")}
+    print(f"[tts] corpus of {TTS_SPLITS} utterances with the binarizer's CWT targets; the "
+          f"trainer's TensorBoard and figures: importable {libs} (a no-op without them)",
+          flush=True)
+    total, stats = dict(NO_LAUNCH), {"libraries": libs}
+    for name in TTS_CONFIGS:
+        launches, stats[name] = tts_config(name, smi, tmp, data_dir)
+        total = {k: total[k] + launches[k] for k in COUNTERS}
+    kernels = check_tts_kernels(gen, stats["fs"], stats["diffspeech"])
+    stats["seconds"] = time.perf_counter() - t0
+    print(f"[tts] three configs in {stats['seconds']:.1f} s; launches {total}", flush=True)
+    for k in ("diffnet_block", "diffnet_block_bwd", "flash_mha", "flash_mha_bwd"):
+        check(total[k] > 0, f"{k} was not launched on the TTS path")
+    return total, stats, kernels
+
+
 def check_block_serving(gen) -> tuple[float, list]:
     """K1 against its plain version at B=16 and the serving frame buckets,
     each row but the first padded from its own length (a chunk's ragged
@@ -4670,6 +4987,8 @@ def main() -> None:
         phase_done("data")
         evals_stats = evals_path(work)
         phase_done("evals")
+        tts_launches, tts_stats, tts_kernels = tts_path(smi, tmp, gen)
+        phase_done("tts")
     finally:
         shutil.rmtree(tmp)
     block = kernels[0]
@@ -4681,6 +5000,9 @@ def main() -> None:
         if k["name"] in no_mask:
             k.update(no_mask[k["name"]])
             k["max_abs_err"] = max(k["max_abs_err"], k["switches_max_abs_err"])
+        if k["name"] in tts_kernels:
+            k.update(tts_kernels[k["name"]])
+            k["max_abs_err"] = max(k["max_abs_err"], k["tts_max_abs_err"])
         k["launches_by_path"] = {"edit": edit_launches[k["name"]],
                                  "train": train_launches[k["name"]],
                                  "train_bf16": train_bf16_launches[k["name"]],
@@ -4693,7 +5015,8 @@ def main() -> None:
                                  "family_train": family_launches[k["name"]],
                                  "family_train_bf16": family_bf16_launches[k["name"]],
                                  "switches": switch_launches[k["name"]],
-                                 "data": data_launches[k["name"]]}
+                                 "data": data_launches[k["name"]],
+                                 "tts": tts_launches[k["name"]]}
         k["launches"] = sum(k["launches_by_path"].values())
         k["kernel_ms"] = k["ms"]
         check(k["launches"] > 0, f"{k['name']} was not launched on a main path")
@@ -4708,7 +5031,7 @@ def main() -> None:
                       "family_train_bf16": family_bf16_stats, "phase_s": PHASE_S,
                       "width_override": width_stats, "switches": switch_stats,
                       "gan_train": gan_stats, "data": data_stats, "evals": evals_stats,
-                      "card": smi}))
+                      "tts": tts_stats, "card": smi}))
     print(smi)
     extra = ("warm_ms", "warm_plain_ms", "host_us", "train_ms", "train_plain_ms",
              "train_bound_ms", "train_device_ms", "train_ops_per_call", "train_host_us",
@@ -4718,7 +5041,9 @@ def main() -> None:
              "mbytes", "widths_max_abs_err", "cublas_ms", "cublas_device_ms",
              "cublas_ops_per_call", "train_gflop", "train_mbytes", "train_bound_by",
              "train_cublas_ms", "train_cublas_device_ms", "train_cublas_ops_per_call",
-             "switches_max_abs_err", "nomask_ms", "masked_ms")
+             "switches_max_abs_err", "nomask_ms", "masked_ms", "tts_max_abs_err", "tts_ms",
+             "tts_device_ms", "tts_sdpa_ms", "tts_sdpa_device_ms", "tts_plain_ms",
+             "tts_bound_ms", "tts_shape")
     print(json.dumps({"kernels": [{key: k[key] for key in keys + extra if key in k}
                                   for k in kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

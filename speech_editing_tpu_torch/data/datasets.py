@@ -2,9 +2,10 @@
 
 ``EditingDataset`` reads one split of a binarized corpus (``<split>.data``
 / ``.idx`` and ``<split>_lengths.npy``): per item the mel, phone tokens,
-mel2ph, normalised f0 and uv, the speaker embedding and a time mask (train:
-``random`` or ``alignment_aware`` at ``training_mask_ratio``; infer: one
-contiguous half of the phones). The port's copy of the JAX package's
+mel2ph, normalised f0 and uv (under ``pitch_type: cwt`` also the CWT
+targets ``cwt_spec``, ``f0_mean`` and ``f0_std``), the speaker embedding
+and a time mask (train: ``random`` or ``alignment_aware`` at
+``training_mask_ratio``; infer: one contiguous half of the phones). The port's copy of the JAX package's
 ``data/datasets.py``: per-item masks draw from a ``RandomState`` seeded by
 (seed, epoch, index), epochs order the items by length after a seeded
 shuffle and shuffle the batches, so the port's batches and their order
@@ -28,6 +29,7 @@ from speech_editing_tpu_torch.data.indexed_dataset import IndexedDataset
 from speech_editing_tpu_torch.data.masks import (generate_alignment_aware_time_mask,
                                                  generate_inference_mask,
                                                  generate_time_mask)
+from speech_editing_tpu_torch.utils.audio.cwt import f0_to_cwt
 from speech_editing_tpu_torch.utils.audio.pitch import norm_interp_f0
 
 
@@ -178,8 +180,6 @@ class EditingDataset(BaseSpeechDataset):
     sampling weights favour items with stutter frames."""
 
     def __init__(self, prefix: str, hp: Any, shuffle: bool = False):
-        if hp.get("pitch_type") == "cwt":
-            raise NotImplementedError("pitch_type 'cwt' is not ported (ROADMAP Queue 1)")
         super().__init__(prefix, hp, shuffle)
         self._sample_weights: Optional[np.ndarray] = None
 
@@ -205,6 +205,8 @@ class EditingDataset(BaseSpeechDataset):
             f0, uv = norm_interp_f0(np.asarray(item["f0"], np.float32)[:t])
             sample["f0"], sample["uv"] = f0, uv
             sample["pitch"] = np.asarray(item.get("pitch", np.zeros(t)), np.int64)[:t]
+            if hp.get("pitch_type") == "cwt":
+                sample.update(self._cwt(item, t))
         if "stutter_mel_mask" in item:
             sample["stutter_mel_mask"] = np.asarray(item["stutter_mel_mask"], np.int64)[:t]
         rng = self._item_rng(index)
@@ -218,6 +220,19 @@ class EditingDataset(BaseSpeechDataset):
         sample["time_mel_mask"] = mask.astype(np.float32)
         return sample
 
+    @staticmethod
+    def _cwt(item: dict, t: int) -> dict:
+        """FastSpeech2-orig's CWT targets: the binarizer's (``with_f0cwt``),
+        else decomposed here from the raw f0."""
+        if "cwt_spec" in item:
+            spec = np.asarray(item["cwt_spec"], np.float32)
+            mean = float(item.get("f0_mean", item.get("cwt_mean")))
+            std = float(item.get("f0_std", item.get("cwt_std")))
+        else:
+            d = f0_to_cwt(np.asarray(item["f0"], np.float32)[:t])
+            spec, mean, std = d["cwt_spec"], d["cwt_mean"], d["cwt_std"]
+        return {"cwt_spec": spec[:t], "f0_mean": mean, "f0_std": std}
+
     def collater(self, samples: list) -> dict:
         if len(samples) == 0:
             return {}
@@ -230,6 +245,10 @@ class EditingDataset(BaseSpeechDataset):
         if hp.get("use_pitch_embed", True):
             batch["f0"], batch["uv"], batch["pitch"] = (frames("f0"), frames("uv"),
                                                         frames("pitch", 0))
+        if "cwt_spec" in samples[0]:
+            batch["cwt_spec"] = frames("cwt_spec")
+            batch["f0_mean"], batch["f0_std"] = (
+                np.asarray([s[k] for s in samples], np.float32) for k in ("f0_mean", "f0_std"))
         batch["mel2ph"] = frames("mel2ph", 0)
         if "stutter_mel_mask" in samples[0]:
             batch["stutter_mel_masks"] = frames("stutter_mel_mask",

@@ -1,6 +1,6 @@
-"""Duration and pitch predictors and the masked-mel encoder. Parameter names
-follow the reference torch modules (``conv.{i}.0`` conv, ``conv.{i}.2``
-LayerNorm, ``linear``)."""
+"""Duration, pitch and energy predictors and the masked-mel encoder.
+Parameter names follow the reference torch modules (``conv.{i}.0`` conv,
+``conv.{i}.2`` LayerNorm, ``linear``)."""
 
 from __future__ import annotations
 
@@ -72,6 +72,10 @@ class PitchPredictor(_ConvStack):
                  odim: int = 2, kernel_size: int = 5, dropout_rate: float = 0.1):
         super().__init__(idim, n_chans, n_layers, kernel_size,
                          nn.Linear(n_chans, odim), dropout_rate)
+
+
+class EnergyPredictor(PitchPredictor):
+    """[B, T, H] -> [B, T, odim]; FastSpeech2-orig reads channel 0."""
 
 
 class MelEncoder(nn.Module):

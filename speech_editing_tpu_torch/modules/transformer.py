@@ -1,5 +1,6 @@
-"""FFT text encoder: token embedding, sinusoidal positions, self-attention +
-conv-FFN layers; and CampNet's cross-attending mel decoder
+"""FFT blocks (self-attention + conv-FFN layers): the FFT text encoder
+(token embedding, sinusoidal positions), FastSpeech's mel decoder (learned-
+alpha positions); and CampNet's cross-attending mel decoder
 (``TransformerDecoder`` of ``DecSALayer``s). Tensors are ``[B, T, C]``;
 parameter names follow the reference torch modules
 (``layers.{i}.op.self_attn.in_proj_weight``, a causal FFN's conv under
@@ -154,30 +155,59 @@ class _Op(nn.Module):
         self.op = op
 
 
-class FastSpeechEncoder(nn.Module):
+class FFTBlocks(nn.Module):
+    """``EncSALayer``s over [B, T, H], the input re-masked after each, and a
+    last LayerNorm (``use_last_norm``); with ``use_pos_embed``, sinusoidal
+    positions over the frames that are not padding are added first, scaled
+    by the learned ``pos_embed_alpha``. ``padding_mask`` [B, T] (True at
+    padding) defaults to the frames whose features are all zero."""
+
+    def __init__(self, hidden_size: int, num_layers: int, ffn_kernel_size: int = 9,
+                 num_heads: int = 2, use_pos_embed: bool = True, use_last_norm: bool = True):
+        super().__init__()
+        self.hidden_size, self.use_pos_embed = hidden_size, use_pos_embed
+        if use_pos_embed:
+            self.pos_embed_alpha = nn.Parameter(torch.ones(1))
+        self.layers = nn.ModuleList(
+            _Op(EncSALayer(hidden_size, num_heads, ffn_kernel_size))
+            for _ in range(num_layers))
+        self.layer_norm = nn.LayerNorm(hidden_size, eps=1e-5) if use_last_norm else None
+
+    def forward(self, x: torch.Tensor, padding_mask: torch.Tensor | None = None) -> torch.Tensor:
+        if padding_mask is None:
+            padding_mask = x.abs().sum(-1) == 0
+        nonpad = (~padding_mask)[:, :, None].to(x.dtype)
+        if self.use_pos_embed:
+            positions = sinusoidal_positional_embedding((~padding_mask).long(), self.hidden_size)
+            x = x + self.pos_embed_alpha * positions.to(x.dtype)
+        x = x * nonpad
+        for layer in self.layers:
+            x = layer.op(x, padding_mask) * nonpad
+        return x if self.layer_norm is None else self.layer_norm(x) * nonpad
+
+
+class FastSpeechEncoder(FFTBlocks):
     """Scaled token embedding + positions + EncSALayers + last LayerNorm."""
 
     def __init__(self, vocab_size: int, hidden_size: int = 256,
                  num_layers: int = 4, kernel_size: int = 9, num_heads: int = 2):
-        super().__init__()
-        self.hidden_size = hidden_size
+        super().__init__(hidden_size, num_layers, kernel_size, num_heads, use_pos_embed=False)
         self.embed_tokens = TokenEmbedding(vocab_size, hidden_size)
         nn.init.normal_(self.embed_tokens.weight, std=hidden_size ** -0.5)
-        self.layers = nn.ModuleList(
-            _Op(EncSALayer(hidden_size, num_heads, kernel_size))
-            for _ in range(num_layers))
-        self.layer_norm = nn.LayerNorm(hidden_size, eps=1e-5)
 
     def forward(self, txt_tokens: torch.Tensor) -> torch.Tensor:
         padding_mask = txt_tokens == 0
         x = self.embed_tokens(txt_tokens)
         x = weak(math.sqrt(self.hidden_size), x) * x
-        # the float32 table and mask cast to x's dtype at the add, as in JAX
-        nonpad = (~padding_mask)[:, :, None].to(x.dtype)
-        x = (x + sinusoidal_positional_embedding(txt_tokens, self.hidden_size).to(x.dtype)) * nonpad
-        for layer in self.layers:
-            x = layer.op(x, padding_mask) * nonpad
-        return self.layer_norm(x) * nonpad
+        # the float32 table casts to x's dtype at the add, as in JAX
+        x = x + sinusoidal_positional_embedding(txt_tokens, self.hidden_size).to(x.dtype)
+        return super().forward(x, padding_mask)
+
+
+class FastSpeechDecoder(FFTBlocks):
+    """FastSpeech's mel decoder: :class:`FFTBlocks` with learned-alpha
+    positions, over frames whose padding is read from the input. On the
+    card its self-attention is K3 (K4 under autograd) over mel frames."""
 
 
 class DecSALayer(nn.Module):

@@ -12,12 +12,14 @@ the six editing families of ``egs/``: FluentSpeech (``spec_denoiser``),
 StutterSpeech and its stutter predictor, CampNet, A3T and EditSpeech; and
 HiFi-GAN's GAN training (``HifiGanTask``, ``egs/hifigan.yaml``: the
 generator against the multi-period and multi-scale discriminators on a
-mel + wav corpus; ``--infer`` is copy synthesis of the test split). The
-shipped ``egs/spec_denoiser.yaml`` sets ``use_bf16: true``: its steps run
-in bf16 against float32 master weights (``training/train_state.py``), its
-validation and ``--infer`` in float32, as in the JAX package; ``-hp
-use_bf16=False`` trains it in float32 (the other five configs train in
-float32 as shipped).
+mel + wav corpus; ``--infer`` is copy synthesis of the test split); and
+the TTS baselines FastSpeech, FastSpeech2-orig and DiffSpeech
+(``egs/{fs,fs2_orig,diffspeech}.yaml``; one sentence from text:
+``infer/tts_infer.py``). The shipped ``egs/spec_denoiser.yaml`` sets
+``use_bf16: true``: its steps run in bf16 against float32 master weights
+(``training/train_state.py``), its validation and ``--infer`` in float32,
+as in the JAX package; ``-hp use_bf16=False`` trains it in float32 (the
+other configs train in float32 as shipped).
 """
 
 from __future__ import annotations
@@ -33,11 +35,14 @@ from speech_editing_tpu_torch.training.tasks.hifigan import HifiGanTask
 from speech_editing_tpu_torch.training.tasks.spec_denoiser import SpecDenoiserTask
 from speech_editing_tpu_torch.training.tasks.stutter_speech import (StutterPredictorTask,
                                                                     StutterSpeechTask)
+from speech_editing_tpu_torch.training.tasks.tts import (DiffSpeechTask, FastSpeech2OrigTask,
+                                                         FastSpeechTask)
 from speech_editing_tpu_torch.training.trainer import Trainer, cuda_or_cpu, float32_on_card
 
 TASKS = {cls.__name__: cls for cls in (SpecDenoiserTask, StutterSpeechTask,
                                        StutterPredictorTask, CampNetTask, A3TTask,
-                                       EditSpeechTask, HifiGanTask)}
+                                       EditSpeechTask, HifiGanTask, FastSpeechTask,
+                                       FastSpeech2OrigTask, DiffSpeechTask)}
 
 
 def task_class(task_cls: str):
@@ -52,7 +57,9 @@ def task_class(task_cls: str):
 def run(argv: Optional[Sequence[str]] = None) -> Trainer:
     """Parse ``argv`` (default ``sys.argv[1:]``), then train, or validate
     with ``--validate``, or with ``--infer`` (or ``infer: true``) generate
-    the test set (``Trainer.test``); returns the trainer."""
+    the test set (``Trainer.test``); returns the trainer. The trainer's
+logging (terminal log, TensorBoard, validation media, ``save_codes``)
+starts with training (``Trainer.fit``)."""
     parser = arg_parser()
     parser.add_argument("--device", type=str, default="cuda")
     args = parser.parse_args(sys.argv[1:] if argv is None else list(argv))

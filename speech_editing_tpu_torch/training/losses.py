@@ -90,14 +90,17 @@ def dur_loss(losses: dict, dur_pred: torch.Tensor, mel2ph: torch.Tensor,
                           * hp["lambda_sent_dur"])
 
 
+def sigmoid_bce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Elementwise binary cross entropy with logits (optax's form)."""
+    return torch.clamp(logits, min=0) - logits * labels + torch.log1p(torch.exp(-logits.abs()))
+
+
 def pitch_loss(losses: dict, pitch_pred: torch.Tensor, f0: torch.Tensor,
                uv: torch.Tensor, mel2ph: torch.Tensor, hp) -> None:
     """uv BCE-with-logits + voiced-frame f0 L1."""
     nonpadding = (mel2ph != 0).float()
     if hp.get("use_uv", True) and hp.get("pitch_type", "frame") == "frame":
-        logits = pitch_pred[:, :, 1]
-        bce = (torch.clamp(logits, min=0) - logits * uv
-               + torch.log1p(torch.exp(-logits.abs())))
+        bce = sigmoid_bce(pitch_pred[:, :, 1], uv)
         losses["uv"] = _weighted_mean(bce, nonpadding) * hp["lambda_uv"]
         nonpadding = nonpadding * (uv == 0).float()
     f0_l1 = (pitch_pred[:, :, 0] - f0).abs()

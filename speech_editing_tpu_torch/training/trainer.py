@@ -11,18 +11,32 @@ GAN task, which ignores it as the JAX trainer does):
 every ``tb_log_interval`` steps it prints the metrics (``max_nan_intervals``
 such intervals in a row with skipped, non-finite updates abort the run),
 every ``val_check_interval`` steps it validates and writes a checkpoint,
-and it writes one on ``KeyboardInterrupt`` and at the end. Metrics are
-printed, not written to TensorBoard. ``test`` (``--infer``) generates
-the test split with the last checkpoint and writes wavs and ``meta.csv``.
+and it writes one on ``KeyboardInterrupt`` and at the end. ``test``
+(``--infer``) generates the test split with the last checkpoint and writes
+wavs, their mel figures (``plot/``) and ``meta.csv``.
+
+Logging, as in the JAX trainer: ``fit`` mirrors the terminal into
+``<work_dir>/terminal_logs/log_<time>.txt``, snapshots the package into
+``<work_dir>/codes/<time>/`` when ``save_codes`` is set, and writes the
+training and validation scalars to TensorBoard (``<work_dir>/tb_logs``);
+each validation also logs the mel figure of its first item's inference
+(``num_valid_plots`` > 0, ``mel_vmin``/``mel_vmax``) and, once training
+has begun and ``valid_infer_interval`` is set, its vocoded audio. Without
+tensorboard the scalars and media are not written, and without matplotlib
+no figure is drawn: neither is an error.
 """
 
 from __future__ import annotations
 
 import csv
 import os
+import shutil
+import sys
 import time
+import types
 from typing import Any, Callable, Optional, Sequence
 
+import numpy as np
 import torch
 
 from speech_editing_tpu_torch.data.datasets import DataLoader
@@ -61,6 +75,45 @@ def float32_on_card() -> None:
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
+class TensorBoardLogger:
+    """A ``SummaryWriter`` into ``log_dir``, or nothing (every call a no-op)
+    when tensorboard is missing or ``log_dir`` is None."""
+
+    def __init__(self, log_dir: Optional[str]):
+        self.writer = None
+        if log_dir is None:
+            return
+        # with TensorFlow installed, tensorboard writes its files through
+        # TensorFlow's gfile and imports all of TensorFlow first, most of
+        # the logger's start-up; the marker module ``tensorboard.compat.notf``
+        # makes it use its own writer, which is all the logger needs
+        if "tensorflow" not in sys.modules:
+            sys.modules.setdefault("tensorboard.compat.notf",
+                                   types.ModuleType("tensorboard.compat.notf"))
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+        except ImportError:
+            return
+        self.writer = SummaryWriter(log_dir)
+
+    def add_scalar(self, tag: str, value, step: int) -> None:
+        if self.writer is not None:
+            self.writer.add_scalar(tag, float(value), int(step))
+
+    def add_audio(self, tag: str, wav, step: int, sr: int) -> None:
+        if self.writer is not None:
+            self.writer.add_audio(tag, torch.as_tensor(np.asarray(wav))[None], int(step),
+                                  sample_rate=int(sr))
+
+    def add_figure(self, tag: str, fig, step: int) -> None:
+        if self.writer is not None:
+            self.writer.add_figure(tag, fig, int(step))
+
+    def close(self) -> None:
+        if self.writer is not None:
+            self.writer.close()
+
+
 class Trainer:
     """Trains ``task``'s model on ``device`` (default ``"cuda"``, which
     raises when no GPU is present; ``"cpu"`` runs every kernel's plain
@@ -96,6 +149,8 @@ class Trainer:
             self.eval_step = make_eval_step(task.make_loss_fn(self.model, train=False))
             self.accum = int(hp.get("accumulate_grad_batches", 1) or 1)
         self._nan_intervals = 0
+        self.logger = TensorBoardLogger(None)   # opened by fit and validate_only
+        self._val_vocoder = None
 
     @classmethod
     def from_hp(cls, hp: Any, device: Any = "cuda", seed: int = 0, vocab_size: int = 80,
@@ -210,6 +265,14 @@ class Trainer:
             (self._device_batch(r) for r in (raw, *more)), self.generator)
 
     def fit(self) -> None:
+        tee = self._start_logging()
+        try:
+            self._fit()
+        finally:
+            self.logger.close()
+            tee.close()
+
+    def _fit(self) -> None:
         hp = self.hp
         max_updates = int(hp.get("max_updates", 100000))
         val_interval = int(hp.get("val_check_interval", 2000))
@@ -239,10 +302,31 @@ class Trainer:
         self.save()
         print(f"| training done at step {self.global_step}", flush=True)
 
+    def _start_logging(self):
+        """The terminal tee, the ``save_codes`` snapshot and the TensorBoard
+        logger; returns the tee."""
+        from speech_editing_tpu_torch.utils.meters import Tee
+
+        stamp = time.strftime("%Y%m%d%H%M%S")
+        log_dir = os.path.join(self.work_dir, "terminal_logs")
+        os.makedirs(log_dir, exist_ok=True)
+        tee = Tee(os.path.join(log_dir, f"log_{stamp}.txt"))
+        if self.hp.get("save_codes"):
+            src = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+            dst = os.path.join(self.work_dir, "codes", stamp, os.path.basename(src))
+            shutil.copytree(src, dst, dirs_exist_ok=True,
+                            ignore=shutil.ignore_patterns("__pycache__", "_build"))
+            print(f"| source snapshot -> {dst}", flush=True)
+        self.logger = TensorBoardLogger(os.path.join(self.work_dir, "tb_logs"))
+        return tee
+
     def _log(self, metrics: dict, steps_per_s: float) -> None:
         m = {k: float(v) for k, v in metrics.items()}
         print(f"| step {self.global_step} | {steps_per_s:.2f} it/s | "
               + " ".join(f"{k}={v:.4f}" for k, v in sorted(m.items())), flush=True)
+        for k, v in m.items():
+            self.logger.add_scalar(f"tr/{k}", v, self.global_step)
+        self.logger.add_scalar("tr/it_per_sec", steps_per_s, self.global_step)
         if m.get("nan_grads", 0) > 0:
             self._nan_intervals += 1
             print(f"| WARNING: non-finite gradients at step {self.global_step}; update "
@@ -267,12 +351,13 @@ class Trainer:
             mb = int(self.hp.get("eval_max_batches", -1))
             max_batches = None if mb == -1 else mb
         totals: dict = {}
-        n = 0
+        n, first = 0, None
         with self._loader("valid", shuffle=False,
                           max_sentences_key="max_valid_sentences") as loader:
             for raw in loader:
                 if max_batches is not None and n >= max_batches:
                     break
+                first = raw if first is None else first
                 for k, v in self._eval_batch(raw).items():
                     totals[k] = totals.get(k, 0.0) + float(v)
                 n += 1
@@ -282,12 +367,60 @@ class Trainer:
         if log:
             print(f"| validation @ step {self.global_step}: "
                   + " ".join(f"{k}={v:.4f}" for k, v in sorted(means.items())), flush=True)
+            for k, v in means.items():
+                self.logger.add_scalar(f"val/{k}", v, self.global_step)
+            if int(self.hp.get("num_valid_plots", 0)) > 0:
+                self._log_valid_media(first)
         return means.get("total_loss")
+
+    def _log_valid_media(self, raw: dict) -> None:
+        """The first validation item's inference: its mel beside the ground
+        truth as a figure, and from step 1 on with ``valid_infer_interval``
+        its vocoded audio. Nothing is run without a TensorBoard writer, and
+        no figure is drawn without matplotlib; a failure is printed, never
+        raised (as in JAX). The inference's noise comes from a generator
+        seeded by ``seed`` and the step, so the training draws do not move."""
+        from speech_editing_tpu_torch.utils.plot import have_matplotlib, spec_to_figure
+
+        hp = self.hp
+        if self.is_gan or self.logger.writer is None:
+            return
+        want_audio = self.global_step > 0 and bool(hp.get("valid_infer_interval"))
+        if not (have_matplotlib() or want_audio):
+            return
+        was_training = self.model.training
+        try:
+            self.model.eval()
+            gen = torch.Generator(device=self.device).manual_seed(
+                int(hp.get("seed", 1234)) + self.global_step)
+            out = self.task.build_infer_fn(self.model)(self._device_batch(raw), generator=gen)
+            mel_pred = out["mel_out"][0].float().cpu().numpy()
+            mel_gt = torch.as_tensor(raw["mels"])[0].numpy()
+            if have_matplotlib():
+                self.logger.add_figure("mel_val_0", spec_to_figure(
+                    np.concatenate([mel_gt, mel_pred], -1), vmin=hp.get("mel_vmin", -6),
+                    vmax=hp.get("mel_vmax", 1.5)), self.global_step)
+            if want_audio:
+                from speech_editing_tpu_torch.infer.vocoder import get_vocoder_cls
+
+                if self._val_vocoder is None:
+                    self._val_vocoder = get_vocoder_cls(hp.get("vocoder", "GriffinLim"))(
+                        hp, self.device)
+                self.logger.add_audio("wav_val_0", self._val_vocoder.spec2wav(mel_pred),
+                                      self.global_step, hp["audio_sample_rate"])
+        except Exception as e:      # media must never stop training
+            print(f"| WARN valid media logging failed: {e!r}", flush=True)
+        finally:
+            self.model.train(was_training)
 
     def validate_only(self) -> Optional[float]:
         """``--validate``: restore the last checkpoint and validate once."""
         self._build_state()
-        return self.validate()
+        self.logger = TensorBoardLogger(os.path.join(self.work_dir, "tb_logs"))
+        try:
+            return self.validate()
+        finally:
+            self.logger.close()
 
 
     # -- test ---------------------------------------------------------------------
@@ -299,6 +432,16 @@ class Trainer:
         batch = self._device_batch(raw)
         noise = None if noise_fn is None else noise_fn(raw)
         return infer_fn(batch, generator=generator, noise=noise)
+
+    def _phones(self, raw: dict, b: int, t_len: int):
+        """Row ``b``'s phones (space-separated, from the corpus's phone set)
+        and its first ``t_len`` frames of ``mel2ph``, for its figure."""
+        enc = getattr(self.task, "token_encoder", None)
+        str_phs = None
+        if enc is not None and "txt_tokens" in raw:
+            str_phs = enc.decode([int(t) for t in torch.as_tensor(raw["txt_tokens"])[b] if t > 0])
+        m2p = torch.as_tensor(raw["mel2ph"])[b, :t_len].numpy() if "mel2ph" in raw else None
+        return str_phs, m2p
 
     def test(self, noise_fn: Optional[Callable] = None) -> Optional[str]:
         """``--infer``: the last checkpoint generates the ``test`` split
@@ -336,6 +479,8 @@ class Trainer:
             os.makedirs(os.path.join(gen_dir, "wavs"), exist_ok=True)
             sr = int(hp["audio_sample_rate"])
             saver = ResultSaverPool(hp.get("test_save_workers"))
+            hp_plot = {"hop_size": int(hp.get("hop_size", 256)),
+                       "mel_vmin": hp.get("mel_vmin", -6), "mel_vmax": hp.get("mel_vmax", 1.5)}
             generator = torch.Generator(device=self.device).manual_seed(
                 int(hp.get("seed", 1234)))
             n_done, test_num = 0, int(hp.get("test_num", 100))
@@ -359,11 +504,13 @@ class Trainer:
                     # vocode here (device work); the file writes go to the pool
                     wav_p = (vocoder.spec2wav(mel_p) if wav_pred is None
                              else wav_pred[b, :t_len * int(hp.get("hop_size", 256))])
+                    str_phs, m2p = self._phones(raw, b, t_len)
                     saver.add_job(save_test_result, (wav_p, mel_p, f"[P]{item_name}", gen_dir,
-                                                     sr, True))
+                                                     sr, True, hp_plot, str_phs, m2p))
                     if hp.get("save_gt", True):
                         saver.add_job(save_test_result, (vocoder.spec2wav(mel_g), mel_g,
-                                                         f"[G]{item_name}", gen_dir, sr))
+                                                         f"[G]{item_name}", gen_dir, sr, False,
+                                                         hp_plot, str_phs, m2p))
                     # the masked frames alone, for segment-level evaluation
                     seg = masks[b, :t_len] == 1 if masks is not None else None
                     if seg is not None and seg.any():

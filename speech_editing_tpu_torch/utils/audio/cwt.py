@@ -1,12 +1,13 @@
 """The continuous wavelet transform of log-f0 over 10 dyadic Mexican-hat
-scales, the binarizer's ``with_f0cwt`` targets: the port's copy of the
-forward (numpy) half of the JAX package's ``utils/audio/cwt.py``. The
-reconstruction ``cwt2f0`` belongs to the TTS baselines and is not ported
-yet."""
+scales: the binarizer's ``with_f0cwt`` targets (numpy, on the host), and
+the reconstruction ``cwt2f0`` that FastSpeech2-orig runs on its predicted
+coefficients (torch, on the model's device). The port's copy of the JAX
+package's ``utils/audio/cwt.py``."""
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 DT = 0.005
 
@@ -58,3 +59,17 @@ def f0_to_cwt(f0: np.ndarray, num_scales: int = 10) -> dict:
     mean, std = float(lf0.mean()), float(lf0.std() + 1e-8)
     w, _ = get_lf0_cwt((lf0 - mean) / std, num_scales)
     return {"cwt_spec": w.astype(np.float32), "cwt_mean": mean, "cwt_std": std}
+
+
+def cwt2f0(cwt_spec: torch.Tensor, mean: torch.Tensor, std: torch.Tensor) -> torch.Tensor:
+    """Linear-domain f0 [B, T] from CWT coefficients [B, T, J] and the
+    log-f0 ``mean`` and ``std`` [B]: the inverse transform's fixed weights
+    (j + 3.5)^-2.5, each row standardised over time, then scaled by ``std``,
+    shifted by ``mean`` and exponentiated."""
+    num_scales = cwt_spec.shape[-1]
+    widths = torch.tensor([(i + 1 + 2.5) ** (-2.5) for i in range(num_scales)],
+                          dtype=cwt_spec.dtype, device=cwt_spec.device)
+    lf0 = (cwt_spec * widths).sum(-1)
+    lf0 = (lf0 - lf0.mean(-1, keepdim=True)) / (lf0.std(-1, unbiased=False, keepdim=True)
+                                                + 1e-8)
+    return torch.exp(lf0 * std[:, None] + mean[:, None])

@@ -1,4 +1,4 @@
-"""f0 quantisation and de-normalisation on torch tensors; on host numpy,
+"""f0 quantisation, normalisation and de-normalisation on torch tensors; on host numpy,
 the dataset's f0 normalisation and the pitch-tracker registry with the
 autocorrelation tracker the region-edit API runs (the port's copy of the
 JAX package's ``extract_pitch`` and ``autocorr_pitch``; its native C++
@@ -41,6 +41,14 @@ def f0_to_coarse_host(f0: np.ndarray, f0_bin: int = 256, f0_max: float = 900.0,
     scaled = (f0_mel - f0_mel_min) * (f0_bin - 2) / (f0_mel_max - f0_mel_min) + 1
     f0_mel = np.where(f0_mel > 0, scaled, f0_mel)
     return np.rint(np.clip(f0_mel, 1, f0_bin - 1)).astype(np.int32)
+
+
+def norm_f0(f0: torch.Tensor, uv: torch.Tensor | None) -> torch.Tensor:
+    """Hz f0 -> log2 (``pitch_norm: log``), zeroed where unvoiced."""
+    f0 = torch.log2(f0 + 1e-8)
+    if uv is not None:
+        f0 = torch.where(uv > 0, torch.zeros_like(f0), f0)
+    return f0
 
 
 def denorm_f0(f0: torch.Tensor, uv: torch.Tensor | None,

@@ -16,6 +16,9 @@ differences handled here:
   (the h side biased) -> ``nn.LSTM``'s stacked ``weight_ih_l{n}``,
   ``weight_hh_l{n}`` and ``bias_hh_l{n}`` (gates i, f, g, o), with
   ``bias_ih_l{n}`` zero;
+* a scanned flax ``GRUCell`` (``ir``/``iz``/``in`` biased, ``hr``/``hz``
+  not, ``hn`` biased) -> ``nn.GRU``'s stacked gates r, z, n, with the r and
+  z thirds of ``bias_hh`` zero (``_reverse`` for the backward direction);
 * a Dense that the reference holds as a 1-wide ``Conv1d`` (the conformer's
   pointwise layers) -> ``[out, in, 1]``;
 * the ``affine`` norm (the reference's eval-mode BatchNorm, folded) ->
@@ -23,7 +26,9 @@ differences handled here:
 
 Parameters that a flax tree lacks because its model never called their
 module (EditSpeech's ``dur_embed``, and ``proj_in`` of a tree made at
-inference) are unused by inference and come out zero.
+inference) are unused by inference and come out zero. The TTS models are
+built without the modules their flax trees lack (no duration embedding;
+FastSpeech2-orig's frame pitch predictor under CWT pitch).
 """
 
 from __future__ import annotations
@@ -78,8 +83,11 @@ def _mha(sd: dict, name: str, att: Mapping) -> None:
     sd[f"{name}.out_proj.weight"] = _t(np.asarray(att["out_proj"]["kernel"]).reshape(e, e).T)
 
 
-def _encoder(sd: dict, name: str, p: Mapping, num_layers: int) -> None:
-    _embedding(sd, f"{name}.embed_tokens", p["embed_tokens"])
+def _encoder(sd: dict, name: str, p: Mapping, num_layers: int, embed: bool = True) -> None:
+    """The FFT blocks under ``p["fft"]`` (and with ``embed`` the token
+    embedding) -> ``name``'s layers and last norm."""
+    if embed:
+        _embedding(sd, f"{name}.embed_tokens", p["embed_tokens"])
     fft = p["fft"]
     for i in range(num_layers):
         lp, prefix = fft[f"layers_{i}"], f"{name}.layers.{i}.op"
@@ -140,29 +148,184 @@ def diffnet_params_from_jax(p: Mapping, residual_layers: int,
     return sd
 
 
-def _fastspeech(sd: dict, fs: Mapping, hp: Any) -> None:
-    """The ``fs.*`` conditioner: encoder, speaker projections, duration and
-    pitch predictors."""
-    h = hp["hidden_size"]
-    if hp.get("encoder_type", "fft") == "conv":
+def _gru(sd: dict, name: str, p: Mapping, suffix: str = "") -> None:
+    """A scanned flax ``GRUCell`` (``cell``: ``ir/iz/in`` biased, ``hr/hz``
+    not, ``hn`` biased) -> one direction of ``nn.GRU`` (gates r, z, n), its
+    reset and update gates' ``bias_hh`` zero."""
+    cell = p["cell"]
+    h = np.asarray(cell["hn"]["bias"]).shape[0]
+    sd[f"{name}.weight_ih_l0{suffix}"] = _t(np.concatenate(
+        [np.asarray(cell[g]["kernel"]).T for g in ("ir", "iz", "in")]))
+    sd[f"{name}.weight_hh_l0{suffix}"] = _t(np.concatenate(
+        [np.asarray(cell[g]["kernel"]).T for g in ("hr", "hz", "hn")]))
+    sd[f"{name}.bias_ih_l0{suffix}"] = _t(np.concatenate(
+        [np.asarray(cell[g]["bias"]) for g in ("ir", "iz", "in")]))
+    sd[f"{name}.bias_hh_l0{suffix}"] = _t(np.concatenate(
+        [np.zeros(2 * h), np.asarray(cell["hn"]["bias"])]))
+
+
+def _bigru(sd: dict, name: str, p: Mapping) -> None:
+    _gru(sd, name, p["fwd"])
+    _gru(sd, name, p["bwd"], "_reverse")
+
+
+def _rel_encoder(sd: dict, name: str, p: Mapping) -> None:
+    sd[f"{name}.emb.weight"] = _t(p["emb"]["embedding"])
+    if "pre" in p:
+        pre = p["pre"]
+        i = 0
+        while f"conv_{i}" in pre:
+            _conv(sd, f"{name}.pre.convs.{i}", pre[f"conv_{i}"])
+            _layer_norm(sd, f"{name}.pre.norms.{i}", pre[f"norm_{i}"])
+            i += 1
+        _linear(sd, f"{name}.pre.proj", pre["proj"])
+    i = 0
+    while f"attn_{i}" in p:
+        att = p[f"attn_{i}"]
+        for n in ("q", "k", "v", "out"):
+            _linear(sd, f"{name}.attn.{i}.{n}", att[n])
+        for n in ("emb_rel_k", "emb_rel_v"):
+            sd[f"{name}.attn.{i}.{n}"] = _t(att[n])
+        for n in ("norm1", "norm2"):
+            _layer_norm(sd, f"{name}.{n}.{i}", p[f"{n}_{i}"])
+        for n in ("ffn1", "ffn2"):
+            _conv(sd, f"{name}.{n}.{i}", p[f"{n}_{i}"])
+        i += 1
+    _layer_norm(sd, f"{name}.last_norm", p["last_norm"])
+
+
+def _tacotron_encoder(sd: dict, name: str, p: Mapping) -> None:
+    sd[f"{name}.embedding.weight"] = _t(p["embedding"]["embedding"])
+    _linear(sd, f"{name}.pre_net.fc1", p["pre_net"]["fc1"])
+    _linear(sd, f"{name}.pre_net.fc2", p["pre_net"]["fc2"])
+    cbhg, prefix = p["cbhg"], f"{name}.cbhg"
+    k = 1
+    while f"bank_{k}" in cbhg:
+        _conv(sd, f"{prefix}.bank.{k - 1}", cbhg[f"bank_{k}"])
+        _layer_norm(sd, f"{prefix}.bank_norm.{k - 1}", cbhg[f"bank_norm_{k}"])
+        k += 1
+    for n in ("proj1", "proj2"):
+        _conv(sd, f"{prefix}.{n}", cbhg[n])
+        _layer_norm(sd, f"{prefix}.{n}_norm", cbhg[f"{n}_norm"])
+    if "pre_highway" in cbhg:
+        _linear(sd, f"{prefix}.pre_highway", cbhg["pre_highway"])
+    i = 0
+    while f"highway_{i}" in cbhg:
+        for n in ("W1", "W2"):
+            _linear(sd, f"{prefix}.highways.{i}.{n}", cbhg[f"highway_{i}"][n])
+        i += 1
+    _bigru(sd, f"{prefix}.rnn", cbhg["rnn"])
+    _linear(sd, f"{name}.proj_out", p["proj_out"])
+
+
+def _rnn_encoder(sd: dict, name: str, p: Mapping) -> None:
+    sd[f"{name}.embedding.weight"] = _t(p["embedding"]["embedding"])
+    for i in range(3):
+        _conv(sd, f"{name}.convs.{i}", p[f"conv_{i}"])
+        _layer_norm(sd, f"{name}.norms.{i}", p[f"norm_{i}"])
+    _bigru(sd, f"{name}.rnn", p["rnn"])
+
+
+def _text_encoder(sd: dict, name: str, p: Mapping, hp: Any) -> None:
+    """The ``encoder_type`` text encoder's parameters under ``name``."""
+    enc_type = hp.get("encoder_type", "fft")
+    if enc_type == "conv":
         sd.update(text_conv_encoder_params_from_jax(
-            fs["encoder"], len(hp["enc_dilations"]), hp.get("layers_in_block", 2),
-            "fs.encoder."))
+            p, len(hp["enc_dilations"]), hp.get("layers_in_block", 2), f"{name}."))
+    elif enc_type == "rel_fft":
+        _rel_encoder(sd, name, p)
+    elif enc_type == "tacotron":
+        _tacotron_encoder(sd, name, p)
+    elif enc_type == "tacotron2":
+        _rnn_encoder(sd, name, p)
     else:
-        _encoder(sd, "fs.encoder", fs["encoder"], hp["enc_layers"])
+        _encoder(sd, name, p, hp["enc_layers"])
+
+
+def _decoder(sd: dict, name: str, p: Mapping, hp: Any) -> None:
+    """The ``decoder_type`` mel decoder's parameters under ``name``."""
+    dec_type = hp.get("decoder_type", "fft")
+    if dec_type == "fft":
+        fft = p["fft"]
+        sd[f"{name}.pos_embed_alpha"] = _t(fft["pos_embed_alpha"])
+        _encoder(sd, name, p, hp["dec_layers"], embed=False)
+    elif dec_type == "conv":
+        _conv_blocks(sd, f"{name}.", p, len(hp["dec_dilations"]), hp.get("layers_in_block", 2))
+    elif dec_type == "wn":
+        for i in range(hp["dec_layers"]):
+            _conv(sd, f"{name}.in_layers.{i}", p[f"in_{i}"])
+            _conv(sd, f"{name}.res_skip_layers.{i}", p[f"res_skip_{i}"])
+    else:
+        _bigru(sd, f"{name}.rnn1", p["rnn1"])
+        _bigru(sd, f"{name}.rnn2", p["rnn2"])
+        _linear(sd, f"{name}.proj", p["proj"])
+
+
+def _fastspeech(sd: dict, fs: Mapping, hp: Any, prefix: str = "fs.",
+                masked: bool = True) -> None:
+    """FastSpeech under ``prefix``: the encoder, speaker projections,
+    duration and pitch predictors, and the decoder and ``mel_out`` where
+    the tree has them; ``masked``: the conditioner's duration embedding
+    (zero where its model never called it)."""
+    h = hp["hidden_size"]
+    _text_encoder(sd, f"{prefix}encoder", fs["encoder"], hp)
     if "spk_id_proj" in fs:
-        _embedding(sd, "fs.spk_id_proj", fs["spk_id_proj"])
+        _embedding(sd, f"{prefix}spk_id_proj", fs["spk_id_proj"])
     if "spk_embed_proj" in fs:
-        _linear(sd, "fs.spk_embed_proj", fs["spk_embed_proj"])
+        _linear(sd, f"{prefix}spk_embed_proj", fs["spk_embed_proj"])
     if "dur_embed" in fs:
-        _embedding(sd, "fs.dur_embed", fs["dur_embed"])
-    else:
-        sd["fs.dur_embed.weight"] = torch.zeros(2000, h)
-    _predictor(sd, "fs.dur_predictor", fs["dur_predictor"],
+        _embedding(sd, f"{prefix}dur_embed", fs["dur_embed"])
+    elif masked:
+        sd[f"{prefix}dur_embed.weight"] = torch.zeros(2000, h)
+    _predictor(sd, f"{prefix}dur_predictor", fs["dur_predictor"],
                hp["dur_predictor_layers"], "linear.0")
     if hp.get("use_pitch_embed"):
-        _embedding(sd, "fs.pitch_embed", fs["pitch_embed"])
-        _predictor(sd, "fs.pitch_predictor", fs["pitch_predictor"], 5, "linear")
+        _embedding(sd, f"{prefix}pitch_embed", fs["pitch_embed"])
+        if "pitch_predictor" in fs:
+            _predictor(sd, f"{prefix}pitch_predictor", fs["pitch_predictor"], 5, "linear")
+    if "decoder" in fs:
+        _decoder(sd, f"{prefix}decoder", fs["decoder"], hp)
+        _linear(sd, f"{prefix}mel_out", fs["mel_out_proj"])
+
+
+def fastspeech_params_from_jax(params: Mapping, hp: Any) -> dict[str, torch.Tensor]:
+    """JAX ``FastSpeech`` (the TTS model, with its decoder) params ->
+    ``state_dict`` of the port's ``FastSpeech(..., decoder=True,
+    masked=False)`` (the reference layout that ``convert_fastspeech(...,
+    include_decoder=True)`` reads, for the fft and conv encoders and the fft
+    decoder)."""
+    params = params.get("params", params)
+    sd: dict[str, torch.Tensor] = {}
+    _fastspeech(sd, params, hp, prefix="", masked=False)
+    return sd
+
+
+def fs2_orig_params_from_jax(params: Mapping, hp: Any) -> dict[str, torch.Tensor]:
+    """JAX ``FastSpeech2Orig`` params -> ``state_dict`` of the port's: the
+    FastSpeech above plus the energy embedding and predictor and the CWT
+    pitch predictor with its three stats layers."""
+    params = params.get("params", params)
+    sd = fastspeech_params_from_jax(params, hp)
+    layers = hp.get("predictor_layers", 5)
+    if "energy_embed" in params:
+        _embedding(sd, "energy_embed", params["energy_embed"])
+        _predictor(sd, "energy_predictor", params["energy_predictor"], layers, "linear")
+    if "cwt_pitch_predictor" in params:
+        _predictor(sd, "cwt_pitch_predictor", params["cwt_pitch_predictor"], layers, "linear")
+        for i in range(3):
+            _linear(sd, f"cwt_stats_layers.{i}", params[f"cwt_stats_layers_{i}"])
+    return sd
+
+
+def diffspeech_params_from_jax(params: Mapping, hp: Any) -> dict[str, torch.Tensor]:
+    """JAX ``DiffSpeech`` params -> ``state_dict`` of the port's: ``fs`` (no
+    decoder, no duration embedding) and ``denoise_fn``."""
+    params = params.get("params", params)
+    sd: dict[str, torch.Tensor] = {}
+    _fastspeech(sd, params["fs"], hp, masked=False)
+    sd.update(diffnet_params_from_jax(params["denoise_fn"], hp["residual_layers"],
+                                      "denoise_fn."))
+    return sd
 
 
 def params_from_jax(params: Mapping, hp: Any) -> dict[str, torch.Tensor]:

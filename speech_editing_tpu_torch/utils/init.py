@@ -14,13 +14,15 @@ parameter (the same distributions, not the same draws):
   its final ``output_projection`` zero, so the first x0 prediction is 0;
 * the conv text encoder's convolutions: xavier-uniform;
 * HiFi-GAN's convolutions after ``conv_pre``: normal with std 0.01;
-* LSTMs (``OptimizedLSTMCell``): each gate's input kernel lecun-normal,
-  its recurrent kernel orthogonal, biases zero;
+* LSTMs (``OptimizedLSTMCell``) and GRUs (``GRUCell``): each gate's input
+  kernel lecun-normal, its recurrent kernel orthogonal, biases zero;
 * the conformer's ``pos_bias_u``/``pos_bias_v``: variance scaling 1.0 over
   fan_avg, uniform; its depthwise and 1-wide convolutions lecun-normal
   (fan_in = kernel x input channels of a group); BatchNorm's affine one and
   zero with running statistics 0 and 1;
 * CampNet's ``mask_emb`` zero and the decoder's ``pos_embed_alpha`` one;
+* the relative-window encoder's prenet projection zero (its relative
+  embeddings keep the normal draw with std d^-0.5 they are built with);
 * StutterSpeech's ``stutter_embed`` (an embedding: normal with std
   dim^-0.5), its frame head's convolutions (``ConditionalConvBlocks``, its
   ``g_prenet`` too) xavier-uniform; the stutter predictor's stride-2
@@ -39,6 +41,7 @@ from speech_editing_tpu_torch.models.campnet import CampNet
 from speech_editing_tpu_torch.models.vocoder.hifigan import HifiGanGenerator
 from speech_editing_tpu_torch.modules.conformer import RelPositionMultiHeadAttention
 from speech_editing_tpu_torch.modules.conv import ConvBlocks
+from speech_editing_tpu_torch.modules.rel_transformer import ConvReluNorm
 from speech_editing_tpu_torch.modules.transformer import MultiheadAttention, TransformerDecoder
 from speech_editing_tpu_torch.modules.wavenet import DiffNet
 
@@ -66,14 +69,15 @@ def _fan_avg_uniform_(w: torch.Tensor) -> None:
     nn.init.uniform_(w, -limit, limit)
 
 
-def _lstm_(lstm: nn.LSTM) -> None:
+def _recurrent_(rnn: nn.LSTM | nn.GRU) -> None:
     """Each gate's block of the stacked weights as flax's cell draws it."""
-    h = lstm.hidden_size
-    for name, w in lstm.named_parameters():
+    h = rnn.hidden_size
+    gates = 4 if isinstance(rnn, nn.LSTM) else 3
+    for name, w in rnn.named_parameters():
         if name.startswith("bias"):
             nn.init.zeros_(w)
             continue
-        for g in range(4):
+        for g in range(gates):
             block = w[g * h:(g + 1) * h]    # [H, in]: flax's kernel [in, H] transposed
             if name.startswith("weight_hh"):
                 nn.init.orthogonal_(block)
@@ -103,8 +107,8 @@ def init_like_flax(model: nn.Module) -> nn.Module:
             nn.init.zeros_(m.bias)
             if isinstance(m, nn.BatchNorm1d):
                 m.reset_running_stats()
-        elif isinstance(m, nn.LSTM):
-            _lstm_(m)
+        elif isinstance(m, (nn.LSTM, nn.GRU)):
+            _recurrent_(m)
         elif isinstance(m, RelPositionMultiHeadAttention):
             _fan_avg_uniform_(m.pos_bias_u)
             _fan_avg_uniform_(m.pos_bias_v)
@@ -124,6 +128,8 @@ def init_like_flax(model: nn.Module) -> nn.Module:
             for layer in m.modules():
                 if isinstance(layer, nn.Conv1d):
                     _reset(layer, nn.init.xavier_uniform_)
+        elif isinstance(m, ConvReluNorm):
+            _reset(m.proj, nn.init.zeros_)
         elif isinstance(m, CampNet):
             nn.init.zeros_(m.mask_emb)
         elif isinstance(m, TransformerDecoder):

@@ -192,12 +192,27 @@ def test_pin_memory_loader_yields_the_same_batches_as_tensors(corpus, ds_workers
 
 
 def test_unported_dataset_options_raise(corpus):
-    """``train_sets``, which the JAX package reads nowhere, and CWT pitch
-    raise; ``use_weighted_sampler`` is ported (the tests below)."""
-    for key, value in (("train_sets", "a|b"), ("pitch_type", "cwt")):
-        with pytest.raises(NotImplementedError) as err:
-            EditingDataset("train", _hp(corpus, **{key: value}))
-        assert key != "train_sets" or "reads this key nowhere" in str(err.value)
+    """``train_sets``, which the JAX package reads nowhere, raises.
+    ``pitch_type: cwt`` is ported (FastSpeech2-orig): its items, and the
+    batches of its loader, carry the CWT targets as JAX's do (decomposed
+    from the raw f0 here: this corpus has no binarized ones);
+    ``use_weighted_sampler`` is ported (the tests below)."""
+    with pytest.raises(NotImplementedError) as err:
+        EditingDataset("train", _hp(corpus, train_sets="a|b"))
+    assert "reads this key nowhere" in str(err.value)
+    hp = _hp(corpus, pitch_type="cwt")
+    port, ref = EditingDataset("valid", hp), JEditingDataset("valid", hp)
+    assert len(ref) > 1
+    for i in range(len(ref)):
+        assert_same(port[i], ref[i], f"item {i}")
+        assert port[i]["cwt_spec"].shape == (port[i]["mel"].shape[0], 10)
+    got = list(DataLoader(EditingDataset("valid", hp), max_sentences=3))
+    want = list(JDataLoader(JEditingDataset("valid", hp), max_sentences=3))
+    assert len(got) == len(want)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert {"cwt_spec", "f0_mean", "f0_std"} <= set(w)
+        assert_same({k: v.numpy() if isinstance(v, torch.Tensor) else v for k, v in g.items()},
+                    w, f"batch {i}")
 
 
 @pytest.fixture(scope="module")

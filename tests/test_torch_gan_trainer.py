@@ -76,7 +76,8 @@ def test_run_trains_validates_resumes_and_infers(tmp_path, corpus_256):
     first = run(entry + ["-hp", hp + ",max_updates=3"])
     assert isinstance(first.task, HifiGanTask) and first.global_step == 3
     path, steps = get_last_checkpoint(work)
-    assert steps == 3 and sorted(os.listdir(work)) == [
+    # beside the trainer's logs (terminal_logs/, tb_logs/)
+    assert steps == 3 and sorted(f for f in os.listdir(work) if not f.endswith("_logs")) == [
         "config.yaml", "model_ckpt_steps_2.ckpt", "model_ckpt_steps_3.ckpt"]
     saved = load_checkpoint(path)["state"]
     assert set(saved) == {"model", "disc", "gen_opt", "disc_opt", "step"}

@@ -1,16 +1,16 @@
 """The PyTorch port stands alone: importing every module of
 ``speech_editing_tpu_torch`` (the in-place editing families' models, their
 modules and ``infer/editors.py``, StutterSpeech's models and the training
-tasks of all six editing families and HiFi-GAN's GAN task among them)
-loads neither JAX, flax,
-optax, PyYAML nor the JAX package, and its entry points (the edit
-pipeline, the trainer, the entry ``run`` with and without ``--infer`` on
-each family's config, the
-CSV region-edit APIs of FluentSpeech and of the in-place families, their
+tasks of all six editing families, HiFi-GAN's GAN task and the TTS
+baselines among them) loads neither JAX, flax, optax, PyYAML nor the JAX
+package, and its entry points (the edit pipeline, the trainer, the entry
+``run`` with and without ``--infer`` on each family's config, the CSV
+region-edit APIs of FluentSpeech and of the in-place families, their
 drivers, the HiFi-GAN vocoder, the batch server, the serve CLI, the
-binarizer, ``align_and_binarize`` and the speaker encoder) refuse to fall
-back to the CPU on their own. The offline data pipeline, its speaker
-encoder and ``evals/`` are among the modules imported."""
+binarizer, ``align_and_binarize``, the speaker encoder and the TTS
+synthesis command line) refuse to fall back to the CPU on their own. The
+offline data pipeline, its speaker encoder and ``evals/`` are among the
+modules imported."""
 
 import os
 import subprocess
@@ -35,7 +35,10 @@ for served in ("infer.online", "infer.quant", "infer.serve", "infer.serving",
                "data.binarizer", "data.align_and_binarize", "data.wav_processors",
                "models.voice_encoder", "utils.audio.vad", "utils.audio.cwt", "evals.dtw",
                "evals.mcd", "evals.stoi", "evals.pesq_np", "evals.pesq_metric",
-               "evals.get_metrics", "evals.batch_tools", "evals.attention_metrics"):
+               "evals.get_metrics", "evals.batch_tools", "evals.attention_metrics",
+               "models.fs2_orig", "models.diffspeech", "modules.rnn",
+               "modules.rel_transformer", "training.tasks.tts", "infer.tts_infer",
+               "utils.plot", "utils.meters"):
     assert f"speech_editing_tpu_torch.{served}" in names, served
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in
                 ("jax", "jaxlib", "flax", "optax", "yaml", "speech_editing_tpu"))
@@ -55,6 +58,7 @@ if not torch.cuda.is_available():
     from speech_editing_tpu_torch.data.binarizer import BaseBinarizer
     from speech_editing_tpu_torch.data.binarizer import main as binarizer_main
     from speech_editing_tpu_torch.models.voice_encoder import VoiceEncoderCtx
+    from speech_editing_tpu_torch.infer.tts_infer import main as tts_main
     never = {"processed_data_dir": "never_made/processed", "binary_data_dir": "never_made/bin"}
     train_argv = ["--config", "egs/spec_denoiser.yaml", "--exp_name", "never_made",
                   "-hp", "use_bf16=False"]
@@ -74,8 +78,12 @@ if not torch.cuda.is_available():
                         *((run, (["--config", f"egs/{family}.yaml", "--exp_name", "never_made"]
                                  + infer,))
                           for family in ("stutter_speech", "stutter_predictor", "campnet",
-                                         "a3t", "editspeech", "hifigan")
-                          for infer in ([], ["--infer"]))):
+                                         "a3t", "editspeech", "hifigan", "fs", "fs2_orig",
+                                         "diffspeech")
+                          for infer in ([], ["--infer"])),
+                        *((tts_main, (["--config", f"egs/{tts}.yaml", "--exp_name", "never_made",
+                                       "--text", "never said"],))
+                          for tts in ("fs", "fs2_orig", "diffspeech"))):
         try:
             entry(*args)
         except RuntimeError as e:

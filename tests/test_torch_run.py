@@ -137,8 +137,9 @@ def test_the_shipped_config_trains_in_bf16(setup, tmp_path):
 
 
 @pytest.mark.parametrize("extra", [
-    ["-hp", "use_bf16=False,train_sets=a|b"], ["-hp", "use_bf16=False,pitch_type=cwt"],
-    ["--infer", "-hp", "use_bf16=False,pitch_type=cwt"],
+    ["-hp", "use_bf16=False,train_sets=a|b"],
+    ["--infer", "-hp", "use_bf16=False,train_sets=a|b"],
+    ["--infer", "-hp", "use_bf16=False,tp_size=2"],
     ["-hp", "use_bf16=False,tp_size=2"],
 ])
 def test_settings_not_ported_raise(setup, tmp_path, extra):
