@@ -139,7 +139,7 @@ Phases, each of which exits non-zero on a failed check:
    chunk (host, busy, K3's and HiFi-GAN's shares); a 128-frame chunk run
    again bit-identical and on the CPU (EditSpeech's splice frames
    replayed and counted, INPLACE_CPU_TOL). CampNet also online through the
-   serve CLI (``--warmup``, every fourth request; wavs bit-identical to
+   serve CLI (``--warmup``, every eighth request; wavs bit-identical to
    batch mode's) and
    EditSpeech on int8 weights. K3 is held against its plain version and
    timed beside SDPA at CampNet's decoder shapes (B=16, T 256-1536, h=2,
@@ -164,8 +164,9 @@ Phases, each of which exits non-zero on a failed check:
    checkpoint of float32 masters each; every step launches the bf16 forms
    (StutterSpeech K1 and K5 20 times, CampNet K3 and K4 9), every
    validation batch the float32 ones; a CampNet step re-run on the CPU
-   agrees at the BF16_* bars; EditSpeech's profiled step runs its LSTMs
-   through cuDNN's recurrence (``aten::_cudnn_rnn``), not a per-step cell.
+   agrees at the BF16_* bars; EditSpeech's profiled step (the bf16 pass's
+   only profile) runs its LSTMs through cuDNN's recurrence
+   (``aten::_cudnn_rnn``), not a per-step cell.
 11. width override: one bf16 step of ``egs/spec_denoiser.yaml`` at ``-hp
    residual_channels=128``, a width K1 and K5 are compiled for beside the
    shipped 256, DiffNet's output projection drawn non-zero so that the
@@ -233,6 +234,22 @@ Phases, each of which exits non-zero on a failed check:
    timed beside its plain version. The trainer's TensorBoard logging (each
    validation's media: its first item's inference and vocoded audio) and
    figures are a no-op where tensorboard or matplotlib is not installed.
+17. multi: the parallel layer (``parallel/``) with the flagship at full
+   width on two ranks of the one card, each a new process on ``cuda:0``
+   over gloo (NCCL refuses two ranks on one device), through
+   ``parallel.dryrun.dryrun_multichip``: 3 data-parallel steps on a global
+   batch of 16 x 512 frames and 3 tensor-parallel steps (data 1 x model 2,
+   the parameters split by ``parallel/tp.py``), each in float32 and bf16,
+   the parameters and Adam moments held to the same steps run
+   single-process (``parallel.dryrun.TOL``); data-parallel serving of 4
+   rows x 256 frames (reverse diffusion with per-row injected noise,
+   composite, HiFi-GAN V1), every row within 1e-5 of the single-process
+   program; every rank launches K1, K5, K3 and K4 as each phase predicts.
+   Then one NCCL rank (world size 1) joins through torchrun's environment:
+   NCCL's all-reduce, all-gather and broadcast on the card, and ``run`` on
+   ``egs/spec_denoiser.yaml`` as shipped for 3 bf16 steps, a validation
+   batch and rank 0's checkpoint. The ranks' start-up and each phase's
+   seconds are printed; gloo on one card says nothing of NCCL across cards.
 
 ``python3 chip_smoke.py --time-attention`` builds K3 and K4 only and times
 them, float32 and bf16 (the flagship step's, CampNet's and the holes
@@ -242,7 +259,9 @@ for K2 at the edit shape beside the cuFFT composite, and ``--time-diffnet``
 for the bf16 K1 (with h) and K5 at the bf16 run step's B=16 x T=446 and
 the bf16 flagship step's B=78 x T=512 beside their cuBLAS composites. Run
 from a copy of another commit, each times that commit's kernels in the
-same call.
+same call. ``python3 chip_smoke.py --multi`` runs the multi phase alone
+(K1, K5, K3 and K4 built, a small corpus of the run path's kind), with
+its checks.
 
 Float32 but for the bf16 phases, with TF32 off for matrix products and
 cuDNN convolutions and bf16 products reduced in float32, so the card and
@@ -2562,10 +2581,11 @@ CSV_ROWS = [
     (2.5, 210.0, "the cat sat on the mat", "the dog sat on the mats", "[2,2]", "[2,2]"),
 ]
 CSV_ROUNDS = 5            # timed passes over the four requests
-# run --infer's spawned result writers: each boots this script's imports,
-# and with the default count, a writer a core but one, waiting for them
-# took most of the phase's --infer (the [infer] line prints the wait)
-INFER_WRITERS = 2
+# run --infer's result writers: spawned ones each boot this script's
+# imports, and waiting for 2 of them took 9.6-11.7 s of the phase's 14-16 s
+# --infer on the H100; 1 writes in this process (the pool's spawned
+# workers are held by the CPU tests)
+INFER_WRITERS = 1
 CSV_TOL = 1e-3            # card vs CPU mel_out of one CSV request
 DUR_TOL = 1e-4            # card vs CPU predicted durations
 EXPECTED_PER_EDIT = dict(NO_LAUNCH, diffnet_block=RUN_LAYERS * FLAGSHIP_HP["timesteps"])
@@ -2911,9 +2931,9 @@ def infer_path(smi: str, tmp: str, work: str, data_dir: str) -> tuple[dict, dict
     print(f"[infer] run --infer: {len(rec.batches)} test items ({lengths} frames) in "
           f"{infer_s:.2f} s, {stats['infer_items_per_s']:.2f} items/s (host clock, model "
           f"and vocoder load and the writes included): inference forwards "
-          f"{sec['forward']:.2f} s, vocoder calls {sec['vocoder']:.2f} s, waiting for the "
-          f"{INFER_WRITERS} spawned writers "
-          f"{sec['writers']:.2f} s, the rest (config, model and checkpoint load, loader) "
+          f"{sec['forward']:.2f} s, vocoder calls {sec['vocoder']:.2f} s, the writers' "
+          f"drain {sec['writers']:.2f} s (the writes in process), the rest (config, "
+          f"model and checkpoint load, loader, writes) "
           f"{stats['infer_other_s']:.2f} s; launches per item "
           f"{rec.batches[0]['launches']}, totals {infer_launches}; every mel_out frame "
           f"outside the mask is the ground truth's; {smi}", flush=True)
@@ -3340,7 +3360,8 @@ def serve_path(smi: str, tmp: str, work: str, data_dir: str) -> tuple[dict, dict
     stats["profile"] = serve_profile(server, next(c for c in full if c["t_b"] == 512), seed, smi)
 
     # online: the CLI, warmed, writing through --fast-io (one subprocess: a
-    # second, unwarmed run without the flag cost 17-19 s, mostly start-up)
+    # second, unwarmed run without the flag cost 17-19 s, mostly start-up;
+    # half the requests saved nothing: 33.8 s against 32.9)
     online = serve_cli(argv_hp, rows, os.path.join(d, "out"), ["--warmup", "--fast-io"])
     check(online["served"] == len(rows),
           f"serve CLI served {online['served']} of {len(rows)}")
@@ -3672,14 +3693,14 @@ def inplace_family(family: str, cls, config: str, smi: str, tmp: str, data_dir: 
     stats["cpu"] = inplace_cpu_rerun(family, cls, hp, server,
                                      next(c for c in chunks if c["t_b"] == INPLACE_CPU_T),
                                      by_name)
-    if family == "campnet":    # every fourth request
-        online = serve_cli(argv_hp, rows[::4], os.path.join(work, "online"), ["--warmup"])
-        check(online["served"] == len(rows[::4]) and online["shapes"] == online["warmup_shapes"],
+    if family == "campnet":    # every eighth request
+        online = serve_cli(argv_hp, rows[::8], os.path.join(work, "online"), ["--warmup"])
+        check(online["served"] == len(rows[::8]) and online["shapes"] == online["warmup_shapes"],
               f"{family} serve CLI: served {online['served']}, {online['shapes']} shapes run, "
               f"{online['warmup_shapes']} warmed")
-        waves = read_wavs(os.path.join(work, "online"), names[::4])
+        waves = read_wavs(os.path.join(work, "online"), names[::8])
         ref_fn = os.path.join(work, "ref.wav")
-        for name in names[::4]:
+        for name in names[::8]:
             save_wav(by_name[name]["wav_out"], ref_fn, SR)
             check(np.array_equal(wavfile.read(ref_fn)[1], waves[name]),
                   f"{family} serve CLI {name}.wav: samples differ from batch mode's")
@@ -3808,8 +3829,9 @@ def family_train(family: str, smi: str, tmp: str, data_dir: str,
     once on the card and on the CPU. With ``bf16``, under ``-hp
     use_bf16=true``: FAMILY_BF16_STEPS steps, one validation batch and a
     checkpoint of float32 masters, no ``--infer``; CampNet steps on the card
-    and on the CPU at the BF16_* bars, and EditSpeech's profile must show
-    cuDNN's recurrence. Returns the launches and statistics."""
+    and on the CPU at the BF16_* bars, and EditSpeech's profile (the only
+    one of the bf16 pass) must show cuDNN's recurrence. Returns the launches
+    and statistics."""
     q = lambda xs, p: float(np.percentile(xs, p))
     root = os.path.join(tmp, "family_bf16" if bf16 else "family")
     work = os.path.join(root, family)
@@ -3889,11 +3911,15 @@ def family_train(family: str, smi: str, tmp: str, data_dir: str,
            for k, v in mid["raw"].items()}
     b, t = mid["shape"]
     events: list = []
-    busy_ms = profile_step(trainer, raw, mid["host_ms"], top=8,
-                           label=f"{label} B={b} x T={t}", keep=events)
-    stats.update(profiled_batch=[b, t], profiled_host_ms=mid["host_ms"],
-                 profiled_busy_ms=busy_ms,
-                 profiled_busy_share=None if busy_ms is None else busy_ms / mid["host_ms"])
+    # profiled: in float32 the families whose steps run the port's kernels
+    # (StutterSpeech K1/K5, CampNet K3/K4) and the device-bound EditSpeech,
+    # in bf16 EditSpeech alone (its cuDNN recurrence is checked)
+    if family in (("editspeech",) if bf16 else ("stutter_speech", "campnet", "editspeech")):
+        busy_ms = profile_step(trainer, raw, mid["host_ms"], top=8,
+                               label=f"{label} B={b} x T={t}", keep=events)
+        stats.update(profiled_batch=[b, t], profiled_host_ms=mid["host_ms"],
+                     profiled_busy_ms=busy_ms,
+                     profiled_busy_share=None if busy_ms is None else busy_ms / mid["host_ms"])
     if bf16 and family == "editspeech":
         stats["recurrence"] = check_cudnn_recurrence(events)
     if family in (FAMILY_BF16_CPU_STEP if bf16 else FAMILY_CPU_STEP):
@@ -4865,6 +4891,159 @@ def tts_path(smi: str, tmp: str, gen) -> tuple[dict, dict, dict]:
     return total, stats, kernels
 
 
+# the multi phase: the flagship at full width on two ranks of the one card
+# over gloo (data and tensor parallel training, data-parallel serving),
+# each held to the same program in this process; then one NCCL rank
+MULTI_RANKS = 2
+MULTI_B, MULTI_T, MULTI_S, MULTI_STEPS = 16, 512, 48, 3
+MULTI_SERVE_ROWS, MULTI_SERVE_T = 2, 256     # a rank's served rows and their frames
+MULTI_FIT_STEPS = 3
+MULTI_FIT_HP = (f"max_updates={MULTI_FIT_STEPS},val_check_interval={MULTI_FIT_STEPS},"
+                "num_sanity_val_steps=0,eval_max_batches=1,tb_log_interval=10,ds_workers=0,"
+                "num_valid_plots=0")
+# each rank's launches in each phase of the dry run
+MULTI_LAUNCHES = {
+    "dp float32": {k: v * MULTI_STEPS for k, v in EXPECTED_PER_STEP.items()},
+    "tp float32": {k: v * MULTI_STEPS for k, v in EXPECTED_PER_STEP.items()},
+    "dp bfloat16": {k: v * MULTI_STEPS for k, v in EXPECTED_PER_BF16_TRAIN_STEP.items()},
+    "tp bfloat16": {k: v * MULTI_STEPS for k, v in EXPECTED_PER_BF16_TRAIN_STEP.items()},
+    "serve": dict(NO_LAUNCH, diffnet_block=RUN_LAYERS * FLAGSHIP_HP["timesteps"],
+                  flash_mha=FLAGSHIP_HP["enc_layers"])}
+
+
+def nccl_collectives(device) -> list:
+    """All-reduce, all-gather and broadcast of a 4 MiB tensor on the card
+    through the job's NCCL group; each must give its world-1 result."""
+    x = torch.arange(1 << 20, device=device, dtype=torch.float32)
+    y = x.clone()
+    torch.distributed.all_reduce(y)
+    out = torch.empty_like(x)
+    torch.distributed.all_gather_into_tensor(out, x)
+    z = x.clone()
+    torch.distributed.broadcast(z, src=0)
+    torch.cuda.synchronize(device)
+    return [float((a - x).abs().max()) for a in (y, out, z)]
+
+
+def multi_path(smi: str, tmp: str, data_dir: str) -> tuple[dict, dict]:
+    """(a) data parallel, (b) tensor parallel and (d) data-parallel serving
+    through ``parallel.dryrun.dryrun_multichip``: MULTI_RANKS spawned ranks,
+    every one on ``cuda:0`` over gloo (NCCL refuses two ranks on one
+    device), the flagship at full width, MULTI_STEPS float32 and bf16 steps
+    on a global batch of MULTI_B x MULTI_T, parameters and Adam moments held
+    to the same steps in this process (``parallel.dryrun.TOL``), the served
+    rows to the single-process program within 1e-5, each rank's launches
+    checked; (c) one NCCL rank (world size 1) joining through torchrun's
+    environment: NCCL's collectives on the card, then ``run`` on
+    ``egs/spec_denoiser.yaml`` as shipped (bf16) over the run path's corpus,
+    MULTI_FIT_STEPS steps, a validation batch and a checkpoint from rank 0.
+    The kernels were built before: the ranks load the same libraries.
+    Returns the launches (every rank's, summed) and the statistics."""
+    from speech_editing_tpu_torch import run as run_module
+    from speech_editing_tpu_torch.parallel.dryrun import dryrun_multichip, free_port
+
+    t0 = time.perf_counter()
+    report = dryrun_multichip(
+        MULTI_RANKS, "cuda", full=True, dtypes=("float32", "bfloat16"), steps=MULTI_STEPS,
+        batch=train_batch(MULTI_B, MULTI_T, MULTI_S, seed=5), serve_rows=MULTI_SERVE_ROWS,
+        serve_frames=MULTI_SERVE_T, min_size=2048,
+        log=lambda line: print(f"[multi] {line}; {smi}", flush=True))
+    dry_s = time.perf_counter() - t0
+    total = dict(NO_LAUNCH)
+    for r, per_rank in enumerate(report["launches"]):
+        for phase, want in MULTI_LAUNCHES.items():
+            check(per_rank[phase] == {k: want[k] for k in per_rank[phase]},
+                  f"multi rank {r} {phase}: launches {per_rank[phase]} != {want}")
+            for k, v in per_rank[phase].items():
+                total[k] += v
+    print(f"[multi] {MULTI_RANKS} gloo ranks on cuda:0: start-up {report['startup_s']} s "
+          f"(process start to a CUDA context, each); the ranks' run {report['ranks_s']:.1f} s, "
+          "rank 0's phases "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in report["seconds"][0].items())
+          + ", its steps (s) " + ", ".join(f"{k} {[round(x, 3) for x in v]}"
+                                          for k, v in report["step_s"][0].items())
+          + f"; tensor parallel split {report['split_share']:.3f} of the parameter elements "
+          f"(min_size 2048); every rank launched "
+          f"{ {p: {k: v for k, v in d.items() if v} for p, d in MULTI_LAUNCHES.items()} }; "
+          f"the whole dry run "
+          f"{dry_s:.1f} s; gloo over one card says nothing of NCCL across cards; {smi}",
+          flush=True)
+
+    # (c) one NCCL rank through the training entry, as torchrun starts it
+    seen: dict = {}
+    orig_init = run_module.init_distributed
+
+    def init(*args, **kwargs):
+        device = orig_init(*args, **kwargs)
+        seen.update(backend=torch.distributed.get_backend(),
+                    world=torch.distributed.get_world_size(), device=str(device),
+                    collectives=nccl_collectives(device))
+        return device
+
+    work = os.path.join(tmp, "checkpoints", "multi_nccl")
+    argv = ["--config", "egs/spec_denoiser.yaml", "--exp_name", work, "-hp",
+            f"binary_data_dir={data_dir},{MULTI_FIT_HP}"]
+    env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(free_port()))
+    rec = RunRecorder()
+    before = counts()
+    t1 = time.perf_counter()
+    os.environ.update(env)
+    run_module.init_distributed = init
+    try:
+        with rec.instrumented():
+            trainer = run_entry(argv)
+    finally:
+        run_module.init_distributed = orig_init
+        for k in env:
+            del os.environ[k]
+    fit_s = time.perf_counter() - t1
+    fit_launches = {k: counts()[k] - before[k] for k in COUNTERS}
+    check(seen.get("backend") == "nccl" and seen["world"] == 1 and seen["device"] == "cuda:0"
+          and max(seen["collectives"]) == 0.0, f"multi NCCL rank: {seen}")
+    check(not torch.distributed.is_initialized(), "multi: the NCCL group outlived run")
+    check(str(trainer.mesh) == "data=1" and trainer.hp["use_bf16"] is True,
+          f"multi NCCL rank: mesh {trainer.mesh}, use_bf16 {trainer.hp['use_bf16']}")
+    check(len(rec.steps) == MULTI_FIT_STEPS and len(rec.valid) == 1,
+          f"multi NCCL rank: {len(rec.steps)} steps, {len(rec.valid)} validation batches")
+    for st in rec.steps:
+        check(st["launches"] == EXPECTED_PER_BF16_STEP,
+              f"multi NCCL rank step {st['step']}: launches {st['launches']}")
+        check(all(np.isfinite(float(v)) for v in st["metrics"].values()),
+              f"multi NCCL rank step {st['step']}: metrics {st['metrics']}")
+    ckpt = os.path.join(work, f"model_ckpt_steps_{MULTI_FIT_STEPS}.ckpt")
+    check(os.path.exists(ckpt), f"multi NCCL rank: no checkpoint {ckpt}")
+    for k, v in fit_launches.items():
+        total[k] += v
+    print(f"[multi] one NCCL rank (world size 1, backend {seen['backend']}, {seen['device']}): "
+          f"all-reduce, all-gather and broadcast on the card exact; run on "
+          f"egs/spec_denoiser.yaml (bf16) {MULTI_FIT_STEPS} steps, a validation batch and "
+          f"rank 0's checkpoint in {fit_s:.1f} s (init and the tensorboard import included); "
+          f"launches a step {rec.steps[-1]['launches']}; {smi}", flush=True)
+    stats = {k: v for k, v in report.items() if k != "launches"}
+    stats.update(launches_per_rank=report["launches"], dryrun_s=dry_s, nccl_fit_s=fit_s,
+                 nccl=seen, card=smi)
+    return total, stats
+
+
+def multi_only(gen) -> None:
+    """``--multi``: the multi phase alone, over a small corpus of the run
+    path's kind (the NCCL rank's run reads it)."""
+    smi = subprocess.run(["nvidia-smi", "--id=0", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_multi_")
+    try:
+        data_dir = os.path.join(tmp, "data")
+        write_run_corpus(data_dir, splits={"train": 64, "valid": 8, "test": 2})
+        t0 = time.perf_counter()
+        launches, stats = multi_path(smi, tmp, data_dir)
+        print(f"[phase] multi: {time.perf_counter() - t0:.1f} s", flush=True)
+        print(json.dumps({"multi": stats, "launches": launches}, default=str))
+    finally:
+        shutil.rmtree(tmp)
+
+
 def check_block_serving(gen) -> tuple[float, list]:
     """K1 against its plain version at B=16 and the serving frame buckets,
     each row but the first padded from its own length (a chunk's ragged
@@ -4899,7 +5078,9 @@ def phase_done(name: str) -> None:
 # the timing-only modes: the kernels they build and the function that times them
 TIMING_MODES = {"--time-attention": (("flash_attention", "flash_attention_bwd"), time_attention),
                 "--time-mel": (("mel_kernel",), time_mel),
-                "--time-diffnet": (("diffnet_block", "diffnet_block_bwd"), time_diffnet)}
+                "--time-diffnet": (("diffnet_block", "diffnet_block_bwd"), time_diffnet),
+                "--multi": (("diffnet_block", "diffnet_block_bwd", "flash_attention",
+                             "flash_attention_bwd"), multi_only)}
 
 
 def main() -> None:
@@ -4989,6 +5170,8 @@ def main() -> None:
         phase_done("evals")
         tts_launches, tts_stats, tts_kernels = tts_path(smi, tmp, gen)
         phase_done("tts")
+        multi_launches, multi_stats = multi_path(smi, tmp, data_dir)
+        phase_done("multi")
     finally:
         shutil.rmtree(tmp)
     block = kernels[0]
@@ -5016,7 +5199,8 @@ def main() -> None:
                                  "family_train_bf16": family_bf16_launches[k["name"]],
                                  "switches": switch_launches[k["name"]],
                                  "data": data_launches[k["name"]],
-                                 "tts": tts_launches[k["name"]]}
+                                 "tts": tts_launches[k["name"]],
+                                 "multi": multi_launches[k["name"]]}
         k["launches"] = sum(k["launches_by_path"].values())
         k["kernel_ms"] = k["ms"]
         check(k["launches"] > 0, f"{k['name']} was not launched on a main path")
@@ -5031,7 +5215,7 @@ def main() -> None:
                       "family_train_bf16": family_bf16_stats, "phase_s": PHASE_S,
                       "width_override": width_stats, "switches": switch_stats,
                       "gan_train": gan_stats, "data": data_stats, "evals": evals_stats,
-                      "tts": tts_stats, "card": smi}))
+                      "tts": tts_stats, "multi": multi_stats, "card": smi}))
     print(smi)
     extra = ("warm_ms", "warm_plain_ms", "host_us", "train_ms", "train_plain_ms",
              "train_bound_ms", "train_device_ms", "train_ops_per_call", "train_host_us",

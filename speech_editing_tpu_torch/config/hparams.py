@@ -367,19 +367,21 @@ def arg_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def set_hparams(args: argparse.Namespace, print_hparams: bool = True) -> dict:
+def set_hparams(args: argparse.Namespace, print_hparams: bool = True,
+                save_config: bool = True) -> dict:
     """Resolve the experiment config from parsed :func:`arg_parser` args.
 
     Precedence, low to high: the ``base_config`` chain, the config file,
     the config saved in the work dir ``checkpoints/<exp_name>`` (unless
     ``--reset``), the ``-hp`` overrides. ``--remove`` deletes the work dir
     first. Outside ``--infer`` the resolved config is saved there as
-    ``config.yaml`` when none is, or on ``--reset``."""
+    ``config.yaml`` when none is, or on ``--reset``. ``save_config`` False
+    (the ranks of a job but rank 0) neither deletes nor saves."""
     cfg = load_config(args.config) if args.config else {}
     work_dir = ""
     if args.exp_name:
         work_dir = os.path.join(cfg.get("work_dir_root", "checkpoints"), args.exp_name)
-        if args.remove and os.path.exists(work_dir):
+        if args.remove and save_config and os.path.exists(work_dir):
             print(f"| removing work dir {work_dir}")
             shutil.rmtree(work_dir)
         saved_fn = os.path.join(work_dir, "config.yaml")
@@ -391,7 +393,7 @@ def set_hparams(args: argparse.Namespace, print_hparams: bool = True) -> dict:
     cfg["infer"] = bool(args.infer or cfg.get("infer", False))
     cfg["validate"] = bool(args.validate)
     cfg["debug"] = bool(args.debug or cfg.get("debug", False))
-    if work_dir and not cfg["infer"]:
+    if work_dir and not cfg["infer"] and save_config:
         os.makedirs(work_dir, exist_ok=True)
         saved_fn = os.path.join(work_dir, "config.yaml")
         if args.reset or not os.path.exists(saved_fn):

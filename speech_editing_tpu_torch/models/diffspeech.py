@@ -24,6 +24,7 @@ from torch import nn
 from speech_editing_tpu_torch.models.fs import FastSpeech
 from speech_editing_tpu_torch.modules.wavenet import DiffNet
 from speech_editing_tpu_torch.ops import diffusion as diff_ops
+from speech_editing_tpu_torch.parallel.mesh import draw_rows
 
 
 class DiffSpeech(nn.Module):
@@ -83,11 +84,13 @@ class DiffSpeech(nn.Module):
         tgt_nonpadding = (ret["mel2ph"] > 0)[:, :, None].to(cond.dtype)
         x_start = self.norm_spec(ref_mels)
         b = txt_tokens.shape[0]
+        # drawn for the global batch under data parallelism, this rank's rows kept
         if t is None:
-            t = torch.randint(0, self.num_timesteps, (b,), device=cond.device,
-                              generator=generator)
+            t = draw_rows(b, lambda n: torch.randint(0, self.num_timesteps, (n,),
+                                                     device=cond.device, generator=generator))
         if noise is None:
-            noise = torch.randn(x_start.shape, device=cond.device, generator=generator)
+            noise = draw_rows(b, lambda n: torch.randn((n,) + tuple(x_start.shape[1:]),
+                                                       device=cond.device, generator=generator))
         x_t = diff_ops.q_sample(self.schedule(cond.device), x_start, t, noise)
         eps = self.denoise(x_t * tgt_nonpadding, t, cond)
         ret["noise_pred"] = eps * tgt_nonpadding

@@ -28,6 +28,7 @@ from speech_editing_tpu_torch.models.fs import FastSpeech
 from speech_editing_tpu_torch.modules.predictors import MelEncoder
 from speech_editing_tpu_torch.modules.wavenet import DiffNet
 from speech_editing_tpu_torch.ops import diffusion as diff_ops
+from speech_editing_tpu_torch.parallel.mesh import draw_rows
 from speech_editing_tpu_torch.utils.dtypes import promoted
 
 
@@ -104,12 +105,14 @@ class GaussianDiffusion(nn.Module):
             ret["mel_out"] = self.one_shot(cond, tgt_nonpadding)
             return ret
         b = txt_tokens.shape[0]
+        # drawn for the global batch under data parallelism, this rank's rows kept
         if t is None:
-            t = torch.randint(0, self.num_timesteps + 1, (b,), device=cond.device,
-                              generator=generator)
+            t = draw_rows(b, lambda n: torch.randint(0, self.num_timesteps + 1, (n,),
+                                                     device=cond.device, generator=generator))
         if noise is None:
-            noise = torch.randn(ref_mels.shape, device=cond.device,
-                                dtype=ref_mels.dtype, generator=generator)
+            noise = draw_rows(b, lambda n: torch.randn(
+                (n,) + tuple(ref_mels.shape[1:]), device=cond.device, dtype=ref_mels.dtype,
+                generator=generator))
         x_t = diff_ops.diffuse(self.schedule(cond.device), ref_mels, t,
                                noise) * tgt_nonpadding
         ret["mel_out"] = self.denoise_fn(x_t, t, cond,

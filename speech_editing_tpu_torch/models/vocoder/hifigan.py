@@ -20,6 +20,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from speech_editing_tpu_torch.parallel.mesh import global_mean
+
 LRELU_SLOPE = 0.1
 
 
@@ -202,7 +204,7 @@ def feature_loss(fmap_r, fmap_g) -> torch.Tensor:
     loss = 0.0
     for dr, dg in zip(fmap_r, fmap_g):
         for rl, gl in zip(dr, dg):
-            loss = loss + torch.mean(torch.abs(rl.detach() - gl))
+            loss = loss + global_mean(torch.abs(rl.detach() - gl))
     return loss * 2.0
 
 
@@ -211,8 +213,8 @@ def discriminator_loss(real_outputs, fake_outputs) -> tuple[torch.Tensor, torch.
     discriminators."""
     r, g = 0.0, 0.0
     for dr, dg in zip(real_outputs, fake_outputs):
-        r = r + torch.mean((1.0 - dr) ** 2)
-        g = g + torch.mean(dg ** 2)
+        r = r + global_mean((1.0 - dr) ** 2)
+        g = g + global_mean(dg ** 2)
     return r / len(real_outputs), g / len(real_outputs)
 
 
@@ -220,5 +222,5 @@ def generator_loss(fake_outputs) -> torch.Tensor:
     """LSGAN: mean (1 - fake)^2, averaged over the discriminators."""
     loss = 0.0
     for dg in fake_outputs:
-        loss = loss + torch.mean((1.0 - dg) ** 2)
+        loss = loss + global_mean((1.0 - dg) ** 2)
     return loss / len(fake_outputs)

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from speech_editing_tpu_torch.parallel.mesh import active_data_mesh, global_mean, global_sums
 from speech_editing_tpu_torch.utils.audio.dsp import mel_filterbank, stft_window
 
 
@@ -97,9 +98,13 @@ def gan_mel_spectrogram(wav: torch.Tensor, hp) -> torch.Tensor:
 def _stft_loss_single(x, y, n_fft: int, hop: int, win: int):
     x_mag = stft_magnitude(x, n_fft, hop, win)
     y_mag = stft_magnitude(y, n_fft, hop, win)
-    sc = torch.linalg.vector_norm(y_mag - x_mag) / torch.clamp(
-        torch.linalg.vector_norm(y_mag), min=1e-8)
-    mag = torch.mean(torch.abs(torch.log(y_mag) - torch.log(x_mag)))
+    if active_data_mesh() is None:
+        sc = torch.linalg.vector_norm(y_mag - x_mag) / torch.clamp(
+            torch.linalg.vector_norm(y_mag), min=1e-8)
+    else:   # the norms of the global batch
+        num, den = global_sums(((y_mag - x_mag) ** 2).sum(), (y_mag ** 2).sum())
+        sc = torch.sqrt(num) / torch.clamp(torch.sqrt(den), min=1e-8)
+    mag = global_mean(torch.abs(torch.log(y_mag) - torch.log(x_mag)))
     return sc, mag
 
 

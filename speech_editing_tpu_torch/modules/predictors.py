@@ -8,15 +8,19 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from speech_editing_tpu_torch.parallel.mesh import draw_rows
 from speech_editing_tpu_torch.utils.dtypes import Softplus
 
 
 def dropout(x: torch.Tensor, rate: float,
             generator: torch.Generator | None = None) -> torch.Tensor:
     """Inverted dropout whose keep mask comes from ``generator`` (flax
-    ``nn.Dropout``: keep with probability 1 - rate, scale by its inverse)."""
+    ``nn.Dropout``: keep with probability 1 - rate, scale by its inverse),
+    drawn for the global batch under data parallelism."""
     keep = 1.0 - rate
-    mask = torch.bernoulli(torch.full_like(x, keep), generator=generator)
+    mask = draw_rows(x.shape[0], lambda n: torch.bernoulli(
+        torch.full((n,) + tuple(x.shape[1:]), keep, dtype=x.dtype, device=x.device),
+        generator=generator))
     return x * mask / keep
 
 

@@ -20,14 +20,30 @@ the TTS baselines FastSpeech, FastSpeech2-orig and DiffSpeech
 (``training/train_state.py``), its validation and ``--infer`` in float32,
 as in the JAX package; ``-hp use_bf16=False`` trains it in float32 (the
 other configs train in float32 as shipped).
+
+On N GPUs, launch it through torchrun, one rank a GPU:
+
+    torchrun --nproc_per_node N -m speech_editing_tpu_torch.run \
+        --config egs/spec_denoiser.yaml --exp_name NAME [-hp tp_size=2,...]
+
+Under torchrun's environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
+``MASTER_ADDR``, ``MASTER_PORT``) ``run`` joins the job over NCCL and
+trains on ``cuda:LOCAL_RANK`` (``--device cpu``: gloo on the CPU), data
+parallel, or with ``tp_size`` ranks a model group tensor parallel
+(``training/trainer.py``); rank 0 alone prints and writes. ``--infer``
+runs single-process.
 """
 
 from __future__ import annotations
 
+import os
 import sys
 from typing import Optional, Sequence
 
+import torch.distributed as dist
+
 from speech_editing_tpu_torch.config.hparams import arg_parser, set_hparams
+from speech_editing_tpu_torch.parallel.mesh import init_distributed
 from speech_editing_tpu_torch.training.tasks.a3t import A3TTask
 from speech_editing_tpu_torch.training.tasks.campnet import CampNetTask
 from speech_editing_tpu_torch.training.tasks.editspeech import EditSpeechTask
@@ -63,21 +79,36 @@ starts with training (``Trainer.fit``)."""
     parser = arg_parser()
     parser.add_argument("--device", type=str, default="cuda")
     args = parser.parse_args(sys.argv[1:] if argv is None else list(argv))
-    device = cuda_or_cpu(args.device, "run")
-    float32_on_card()
-    hp = set_hparams(args)
-    if not hp.get("task_cls"):
-        raise ValueError("the config must set task_cls")
-    task = task_class(hp["task_cls"])(hp)
-    print(f"| Task: {type(task).__name__}", flush=True)
-    trainer = Trainer(task, hp, device)
-    if hp["infer"]:
-        trainer.test()
-    elif hp["validate"]:
-        trainer.validate_only()
+    joined = "RANK" in os.environ and not dist.is_initialized()
+    if joined:      # a torchrun rank: cuda:LOCAL_RANK unless --device says otherwise
+        device = init_distributed(device=None if args.device == "cuda" else args.device)
     else:
-        trainer.fit()
-    return trainer
+        device = cuda_or_cpu(args.device, "run")
+    main = not dist.is_initialized() or dist.get_rank() == 0
+    try:
+        float32_on_card()
+        if main:        # rank 0 resolves and saves the config before the others read it
+            hp = set_hparams(args)
+        if dist.is_initialized():
+            dist.barrier()
+        if not main:
+            hp = set_hparams(args, print_hparams=False, save_config=False)
+        if not hp.get("task_cls"):
+            raise ValueError("the config must set task_cls")
+        task = task_class(hp["task_cls"])(hp)
+        if main:
+            print(f"| Task: {type(task).__name__}", flush=True)
+        trainer = Trainer(task, hp, device)
+        if hp["infer"]:
+            trainer.test()
+        elif hp["validate"]:
+            trainer.validate_only()
+        else:
+            trainer.fit()
+        return trainer
+    finally:
+        if joined:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

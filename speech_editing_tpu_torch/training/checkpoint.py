@@ -6,7 +6,9 @@ the generator under ``model``), "steps", "epoch", "val_loss"}``, written to a
 temporary file and renamed into place; the ``num_ckpt_keep`` newest are
 kept, and with ``save_best`` a checkpoint whose ``val_loss`` beats the one
 in ``model_ckpt_best.pt`` replaces it, as in the JAX package's
-``training/checkpoint.py``.
+``training/checkpoint.py``. In a job of several ranks every rank calls
+``save_checkpoint`` (its state gathered first, a collective under tensor
+parallelism) and rank 0 alone writes.
 
 The JAX package's checkpoints (a pickled flax ``TrainState`` and optax
 states of numpy arrays) load too, their parameters and the adamw chain's
@@ -26,6 +28,8 @@ from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
+
+from speech_editing_tpu_torch.parallel.mesh import is_main
 
 _STEPS = re.compile(r".*steps_(\d+)\.ckpt")
 
@@ -52,12 +56,14 @@ def _write(path: str, payload: dict) -> None:
 def save_checkpoint(work_dir: str, state: dict, steps: int, epoch: int = 0,
                     val_loss: Optional[float] = None, num_ckpt_keep: int = 3,
                     save_best: bool = False) -> str:
-    """Write ``state`` (``TrainStep.state_dict()``) at ``steps``; returns
-    the checkpoint's path."""
+    """Write ``state`` (``TrainStep.state_dict()``) at ``steps``, on rank 0
+    alone; returns the checkpoint's path."""
+    path = os.path.join(work_dir, f"model_ckpt_steps_{steps}.ckpt")
+    if not is_main():
+        return path
     os.makedirs(work_dir, exist_ok=True)
     payload = {"state": state, "steps": int(steps), "epoch": int(epoch),
                "val_loss": None if val_loss is None else float(val_loss)}
-    path = os.path.join(work_dir, f"model_ckpt_steps_{steps}.ckpt")
     _write(path, payload)
     for old in get_all_ckpts(work_dir)[num_ckpt_keep:]:
         os.remove(old)

@@ -6,6 +6,14 @@ the uv-BCE + f0-L1 pitch loss, and StutterSpeech's class-weighted focal
 loss and cross entropy. The word-duration sums run over a static
 ``S + 1`` word segments (a word count never exceeds the token count) with
 ``scatter_add``.
+
+Every normaliser is the global batch's: inside
+``parallel.mesh.data_parallel`` a weighted mean divides the sum over all
+ranks' rows by the sum of all ranks' weights, and a plain mean counts every
+rank's elements (the padding rows that ``pad_batch_to_multiple`` adds
+among them, as JAX's means over a padded batch count them), so each rank
+holds the loss of the global batch, as JAX's loss over a batch-sharded
+input is.
 """
 
 from __future__ import annotations
@@ -17,6 +25,7 @@ import torch
 from speech_editing_tpu_torch.ops.seq_ops import (mel2token_to_dur,
                                                   weights_nonzero_speech)
 from speech_editing_tpu_torch.ops.ssim import ssim_map
+from speech_editing_tpu_torch.parallel.mesh import active_data_mesh, global_mean, global_sums
 
 
 def parse_mel_losses(spec: str) -> Dict[str, float]:
@@ -34,7 +43,17 @@ def parse_mel_losses(spec: str) -> Dict[str, float]:
 
 
 def _weighted_mean(values: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
-    return (values * weights).sum() / weights.sum().clamp(min=1.0)
+    return ratio((values * weights).sum(), weights.sum())
+
+
+def ratio(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
+    """``num / max(den, 1)`` of the global batch's sums (``den`` carries no
+    gradient)."""
+    if active_data_mesh() is None:
+        return num / den.clamp(min=1.0)
+    dtype = num.dtype
+    num, den = global_sums(num, den)
+    return (num / den.clamp(min=1.0)).to(dtype)
 
 
 def l1_loss(mel_out: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -86,7 +105,7 @@ def dur_loss(losses: dict, dur_pred: torch.Tensor, mel2ph: torch.Tensor,
                           * hp["lambda_word_dur"])
     if hp.get("lambda_sent_dur", 0) > 0:
         sent_p, sent_g = dur_pred.sum(-1), dur_gt.sum(-1)
-        losses["sdur"] = (((torch.log1p(sent_p) - torch.log1p(sent_g)) ** 2).mean()
+        losses["sdur"] = (global_mean((torch.log1p(sent_p) - torch.log1p(sent_g)) ** 2)
                           * hp["lambda_sent_dur"])
 
 
@@ -118,7 +137,7 @@ def multi_focal_loss(logits: torch.Tensor, target: torch.Tensor,
     p_t = probs.gather(-1, tgt)[..., 0] + smooth
     logp_t = log_probs.gather(-1, tgt)[..., 0] + smooth
     a = torch.tensor(alpha, dtype=logits.dtype, device=logits.device)[target.long()]
-    return (-a * (1.0 - p_t) ** gamma * logp_t).mean()
+    return global_mean(-a * (1.0 - p_t) ** gamma * logp_t)
 
 
 def cross_entropy_loss(logits: torch.Tensor, target: torch.Tensor,
@@ -130,7 +149,7 @@ def cross_entropy_loss(logits: torch.Tensor, target: torch.Tensor,
     valid = (~ignored).float()   # float32 whatever the logits' dtype, as in JAX
     safe = tgt.masked_fill(ignored, 0)[..., None]
     nll = -torch.log_softmax(logits, dim=-1).gather(-1, safe)[..., 0]
-    return (nll * valid).sum() / valid.sum().clamp(min=1.0)
+    return ratio((nll * valid).sum(), valid.sum())
 
 
 def sil_token_mask(txt_tokens: torch.Tensor, sil_token_ids) -> torch.Tensor:

@@ -16,7 +16,12 @@ generator once on the batch's mels and then, in this order:
    the same fake wav, detached, and their AdamW update.
 
 Both optimizers step every step (no NaN tripwire, no clipping, no
-accumulation); ``total_loss`` is the sum of the two totals. The eval step
+accumulation); ``total_loss`` is the sum of the two totals. With a mesh
+(``parallel/mesh.py``) the batch is this rank's rows of the global batch,
+both losses are the global batch's (``data_parallel``) and each net's
+gradients are summed over the data group before its update, as JAX's step
+over a batch-sharded input computes them; the nets stay whole on every
+rank. The eval step
 is the unscaled mel L1, as ``mel`` and ``total_loss``; the test loop is
 copy synthesis. The GAN-loss mel and the STFT losses are library products,
 and the convolutions cuDNN's: this task runs no kernel of the port's.
@@ -37,6 +42,8 @@ from speech_editing_tpu_torch.models.vocoder.hifigan import (HifiGanGenerator,
                                                              generator_loss)
 from speech_editing_tpu_torch.models.vocoder.losses import (gan_mel_spectrogram,
                                                             multi_resolution_stft_loss)
+from speech_editing_tpu_torch.parallel.mesh import (Mesh, all_reduce_grads, data_parallel,
+                                                    global_mean)
 from speech_editing_tpu_torch.training.optim import (build_gan_lr_schedule,
                                                      build_gan_optimizer, load_adam_state)
 from speech_editing_tpu_torch.training.tasks.base import BaseTask
@@ -61,17 +68,19 @@ class HifiGanDiscriminators(nn.Module):
 
 def mel_l1(y: torch.Tensor, y_hat: torch.Tensor, hp: Any) -> torch.Tensor:
     """Mean |GAN mel(y_hat) - GAN mel(y)|."""
-    return torch.mean(torch.abs(gan_mel_spectrogram(y_hat, hp) - gan_mel_spectrogram(y, hp)))
+    return global_mean(torch.abs(gan_mel_spectrogram(y_hat, hp) - gan_mel_spectrogram(y, hp)))
 
 
 class GanTrainStep:
-    """``step(batch, generator=None) -> metrics`` (0-d tensors) over the
-    batch's ``mels`` [B, T, 80] and ``wavs`` [B, T * hop]: one generator
-    and one discriminator update (see the module doc). ``step`` counts the
-    steps, which is also both optimizers' and the schedule's count."""
+    """``step(batch, generator=None, rows=None) -> metrics`` (0-d tensors)
+    over the batch's ``mels`` [B, T, 80] and ``wavs`` [B, T * hop]: one
+    generator and one discriminator update (see the module doc; ``rows``,
+    the trainer's count of real rows, is unused: the step draws nothing). ``step`` counts the
+    steps, which is also both optimizers' and the schedule's count.
+    ``mesh``: see the module doc."""
 
-    def __init__(self, model: nn.Module, disc: nn.Module, hp: Any):
-        self.model, self.disc, self.hp = model, disc, hp
+    def __init__(self, model: nn.Module, disc: nn.Module, hp: Any, mesh: Mesh | None = None):
+        self.model, self.disc, self.hp, self.mesh = model, disc, hp, mesh
         self.gen_params = [p for p in model.parameters() if p.requires_grad]
         self.disc_params = [p for p in disc.parameters() if p.requires_grad]
         self.gen_opt = build_gan_optimizer(hp, self.gen_params)
@@ -103,19 +112,24 @@ class GanTrainStep:
         return losses
 
     def _update(self, optimizer, params, total) -> None:
-        for p, g in zip(params, torch.autograd.grad(total, params)):
+        grads = torch.autograd.grad(total, params)
+        all_reduce_grads(grads, self.mesh)
+        for p, g in zip(params, grads):
             p.grad = g
         for group in optimizer.param_groups:
             group["lr"] = self.schedule(self.step)
         optimizer.step()
 
-    def __call__(self, batch: dict, generator: torch.Generator | None = None) -> dict:
+    def __call__(self, batch: dict, generator: torch.Generator | None = None,
+                 rows: int | None = None) -> dict:
         y = batch["wavs"]
         y_ = self.model(batch["mels"])
-        g_losses = self.generator_losses(y, y_)
+        with data_parallel(self.mesh):
+            g_losses = self.generator_losses(y, y_)
         g_total = sum(g_losses.values())
         self._update(self.gen_opt, self.gen_params, g_total)
-        d_losses = self.discriminator_losses(y, y_.detach())
+        with data_parallel(self.mesh):
+            d_losses = self.discriminator_losses(y, y_.detach())
         d_total = sum(d_losses.values())
         self._update(self.disc_opt, self.disc_params, d_total)
         self.step += 1
@@ -164,17 +178,21 @@ class HifiGanTask(BaseTask):
     def build_discriminators(self) -> HifiGanDiscriminators:
         return init_like_flax(HifiGanDiscriminators(self.hp))
 
-    def make_gan_train_step(self, model, disc) -> GanTrainStep:
-        return GanTrainStep(model, disc, self.hp)
+    def make_gan_train_step(self, model, disc, mesh: Mesh | None = None) -> GanTrainStep:
+        return GanTrainStep(model, disc, self.hp, mesh)
 
-    def make_gan_eval_step(self, model):
+    def make_gan_eval_step(self, model, mesh: Mesh | None = None):
         """``eval_step(batch, generator=None) -> {"mel", "total_loss"}``:
-        the unscaled mel L1 of the generator's wav."""
+        the unscaled mel L1 of the generator's wav, over the global batch
+        across ``mesh``'s data axis."""
         hp = self.hp
 
         @torch.no_grad()
-        def eval_step(batch: dict, generator: torch.Generator | None = None) -> dict:
-            loss = mel_l1(batch["wavs"], model(batch["mels"]), hp)
+        def eval_step(batch: dict, generator: torch.Generator | None = None,
+                      rows: int | None = None) -> dict:
+            wav = model(batch["mels"])
+            with data_parallel(mesh):
+                loss = mel_l1(batch["wavs"], wav, hp)
             return {"mel": loss, "total_loss": loss}
 
         return eval_step

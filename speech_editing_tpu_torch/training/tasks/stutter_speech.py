@@ -26,10 +26,11 @@ import torch
 
 from speech_editing_tpu_torch.models.stutter_speech import (StutterGaussianDiffusion,
                                                             StutterPredictor)
+from speech_editing_tpu_torch.parallel.mesh import global_sums
 from speech_editing_tpu_torch.training.checkpoint import get_last_checkpoint, load_subtree
 from speech_editing_tpu_torch.training.losses import (add_mel_loss, cross_entropy_loss,
                                                       dur_loss, multi_focal_loss,
-                                                      pitch_loss, sil_token_mask)
+                                                      pitch_loss, ratio, sil_token_mask)
 from speech_editing_tpu_torch.training.tasks.base import BaseTask
 from speech_editing_tpu_torch.utils.convert_jax_params import (
     stutter_predictor_params_from_jax, stutter_speech_params_from_jax,
@@ -166,9 +167,11 @@ class StutterPredictorTask(BaseTask):
             total = losses["ce"] + losses["focal"]
             with torch.no_grad():
                 pred = logits.argmax(-1)
-                losses["acc"] = ((pred == labels) & (pred <= 1)).sum() / labels.numel()
+                right, n = global_sums(((pred == labels) & (pred <= 1)).sum(),
+                                       torch.tensor(float(labels.numel()), device=pred.device))
+                losses["acc"] = right / n
                 stutter = labels == 1
-                losses["acc_1"] = ((pred == 1) & stutter).sum() / stutter.sum().clamp(min=1)
+                losses["acc_1"] = ratio(((pred == 1) & stutter).sum(), stutter.sum())
             return total, losses
 
         return loss_fn

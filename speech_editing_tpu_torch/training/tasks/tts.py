@@ -26,9 +26,10 @@ import torch
 from speech_editing_tpu_torch.models.diffspeech import DiffSpeech
 from speech_editing_tpu_torch.models.fs import FastSpeech
 from speech_editing_tpu_torch.models.fs2_orig import FastSpeech2Orig
+from speech_editing_tpu_torch.parallel.mesh import global_mean
 from speech_editing_tpu_torch.training.losses import (_weighted_mean, add_mel_loss,
-                                                      dur_loss, pitch_loss, sigmoid_bce,
-                                                      sil_token_mask)
+                                                      dur_loss, pitch_loss, ratio,
+                                                      sigmoid_bce, sil_token_mask)
 from speech_editing_tpu_torch.training.tasks.base import BaseTask
 from speech_editing_tpu_torch.utils.convert_jax_params import (diffspeech_params_from_jax,
                                                                fastspeech_params_from_jax,
@@ -125,15 +126,15 @@ class FastSpeech2OrigTask(FastSpeechTask):
         lam_f0 = hp.get("lambda_f0", 1.0)
         t = out["cwt"].shape[1]
         cwt_gt = batch["cwt_spec"][:, :t]
-        losses["C"] = (out["cwt"][:, :cwt_gt.shape[1], :10] - cwt_gt).abs().mean() * lam_f0
+        losses["C"] = global_mean((out["cwt"][:, :cwt_gt.shape[1], :10] - cwt_gt).abs()) * lam_f0
         if hp.get("use_uv", True):
             nonpadding = (batch["mel2ph"] != 0).float()
             uv_logit = out["cwt"][:, :, -1][:, :nonpadding.shape[1]]
             bce = sigmoid_bce(uv_logit, batch["uv"][:, :uv_logit.shape[1]])
             losses["uv"] = (_weighted_mean(bce, nonpadding[:, :uv_logit.shape[1]])
                             * hp.get("lambda_uv", 1.0))
-        losses["f0_mean"] = (out["f0_mean"] - batch["f0_mean"]).abs().mean() * lam_f0
-        losses["f0_std"] = (out["f0_std"] - batch["f0_std"]).abs().mean() * lam_f0
+        losses["f0_mean"] = global_mean((out["f0_mean"] - batch["f0_mean"]).abs()) * lam_f0
+        losses["f0_std"] = global_mean((out["f0_std"] - batch["f0_std"]).abs()) * lam_f0
 
     def add_energy_loss(self, losses, out, batch):
         if self.hp.get("use_energy_embed"):
@@ -169,8 +170,7 @@ class DiffSpeechTask(FastSpeechTask):
         """The epsilon L1 over the frames of ``mel2ph``."""
         nonpadding = (batch["mel2ph"] != 0).float()[:, :, None]
         diff = (out["noise_pred"] - out["noise_gt"]).abs()
-        losses["diff"] = ((diff * nonpadding).sum()
-                          / (nonpadding.sum() * diff.shape[-1]).clamp(min=1.0))
+        losses["diff"] = ratio((diff * nonpadding).sum(), nonpadding.sum() * diff.shape[-1])
 
     def build_infer_fn(self, model):
         """The reverse process from the dataset's durations and pitch, its

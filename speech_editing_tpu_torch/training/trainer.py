@@ -2,9 +2,9 @@
 :class:`~speech_editing_tpu_torch.training.tasks.hifigan.GanTrainStep`):
 loader, validation, checkpoints, resume, logging, and the test loop.
 
-The port of the JAX package's ``training/trainer.py`` without a mesh.
-``fit`` builds the state (resuming from the work
-dir's last checkpoint), runs ``num_sanity_val_steps`` validation batches,
+The port of the JAX package's ``training/trainer.py``. ``fit`` builds the
+state (resuming from the work dir's last checkpoint), runs
+``num_sanity_val_steps`` validation batches,
 then steps through the endless training loader until ``max_updates``
 (an update of ``accumulate_grad_batches`` microbatches each, but for a
 GAN task, which ignores it as the JAX trainer does):
@@ -24,6 +24,18 @@ each validation also logs the mel figure of its first item's inference
 has begun and ``valid_infer_interval`` is set, its vocoded audio. Without
 tensorboard the scalars and media are not written, and without matplotlib
 no figure is drawn: neither is an error.
+
+In a job of several ranks (``parallel/mesh.py::init_distributed``, or
+``torchrun``) the trainer builds a mesh from ``tp_size``: ``{"data":
+world // tp_size, "model": tp_size}``. Every rank iterates the same seeded
+global batch stream, pads each batch to a multiple of the data axis's size
+with all-zero rows and keeps its own rows (``shard_batch``), as the JAX
+package's multi-process loader does; the losses are the global batch's and
+the gradients are summed over the data group (``training/train_state.py``,
+``GanTrainStep``). Rank 0 alone prints, keeps the terminal log, writes
+TensorBoard, ``save_codes`` and the validation media, and writes the
+checkpoints, which every rank gathers together. ``test`` runs
+single-process only.
 """
 
 from __future__ import annotations
@@ -40,6 +52,9 @@ import numpy as np
 import torch
 
 from speech_editing_tpu_torch.data.datasets import DataLoader
+from speech_editing_tpu_torch.parallel.mesh import (make_mesh, pad_batch_to_multiple,
+                                                    replicate_tree, shard_batch, world)
+from speech_editing_tpu_torch.parallel.tp import make_tp_mesh, param_partition_specs
 from speech_editing_tpu_torch.training.checkpoint import (get_last_checkpoint,
                                                           load_checkpoint,
                                                           save_checkpoint)
@@ -47,12 +62,6 @@ from speech_editing_tpu_torch.training.tasks.spec_denoiser import SpecDenoiserTa
 from speech_editing_tpu_torch.training.train_state import TrainStep, make_eval_step
 
 _INT_KEYS = ("txt_tokens", "mel2ph", "spk_ids", "stutter_mel_masks")
-
-
-def check_supported(hp: Any) -> None:
-    """Raise on the settings the port does not run yet."""
-    if int(hp.get("tp_size", 1) or 1) > 1:
-        raise NotImplementedError("tp_size > 1 is not ported (ROADMAP Queue 1 item 4)")
 
 
 def cuda_or_cpu(device: Any, who: str) -> torch.device:
@@ -122,12 +131,15 @@ class Trainer:
     ``hp["work_dir"]``, by default ``checkpoints/<exp_name>``. A GAN task
     (``task.is_gan``) also builds its discriminators (``self.disc``) from
     the seed; its parameter shapes come from the hp, so the state needs no
-    batch to be built, where the JAX trainer's ``init`` takes the first."""
+    batch to be built, where the JAX trainer's ``init`` takes the first.
+    In a job of several ranks it trains on the job's mesh (see the module
+    doc)."""
 
     def __init__(self, task: Any, hp: Any, device: Any = "cuda", dropout: bool = True):
-        check_supported(hp)
         self.device = cuda_or_cpu(device, "Trainer")
         self.task, self.hp = task, hp
+        tp = int(hp.get("tp_size", 1) or 1)
+        self.mesh = mesh = make_tp_mesh(world()[1], tp) if tp > 1 else make_mesh()
         self.work_dir = hp.get("work_dir") or os.path.join(
             "checkpoints", hp.get("exp_name") or "default")
         seed = int(hp.get("seed", 1234))
@@ -140,13 +152,15 @@ class Trainer:
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         if self.is_gan:
             self.disc.to(self.device).train()
-            self.train_step = task.make_gan_train_step(self.model, self.disc)
-            self.eval_step = task.make_gan_eval_step(self.model)
+            self.train_step = task.make_gan_train_step(self.model, self.disc, mesh)
+            self.eval_step = task.make_gan_eval_step(self.model, mesh)
             self.accum = 1
         else:
+            specs = param_partition_specs(self.model, tp) if tp > 1 else None
             self.train_step = TrainStep(self.model, hp,
-                                        task.make_loss_fn(self.model, train=dropout))
-            self.eval_step = make_eval_step(task.make_loss_fn(self.model, train=False))
+                                        task.make_loss_fn(self.model, train=dropout),
+                                        mesh, specs)
+            self.eval_step = make_eval_step(task.make_loss_fn(self.model, train=False), mesh)
             self.accum = int(hp.get("accumulate_grad_batches", 1) or 1)
         self._nan_intervals = 0
         self.logger = TensorBoardLogger(None)   # opened by fit and validate_only
@@ -156,7 +170,7 @@ class Trainer:
     def from_hp(cls, hp: Any, device: Any = "cuda", seed: int = 0, vocab_size: int = 80,
                 sil_token_ids: Sequence[int] = (), dropout: bool = True) -> "Trainer":
         """A FluentSpeech trainer without a corpus, for batches the caller
-        passes to :meth:`step`."""
+        passes to :meth:`step` (each rank the whole global batch)."""
         task = SpecDenoiserTask(dict(hp, seed=seed, vocab_size=vocab_size,
                                      binary_data_dir=""))
         task.sil_token_ids = tuple(sil_token_ids)
@@ -192,9 +206,26 @@ class Trainer:
             out[k] = v.to(self.device, non_blocking=True)
         return out
 
-    def _device_batch(self, raw: dict) -> dict:
-        return self.to_device({k: raw[k] for k in self.task.effective_batch_keys()
-                               if k in raw})
+    def _device_batch(self, raw: dict, shard: bool = True) -> dict:
+        """The step's keys of a global host batch on the device; with
+        ``shard`` padded to a multiple of the data axis and this rank's
+        rows alone."""
+        batch = {k: raw[k] for k in self.task.effective_batch_keys() if k in raw}
+        if shard and self.mesh.data_size > 1:
+            batch = shard_batch(pad_batch_to_multiple(batch, self.mesh.data_size), self.mesh)
+        return self.to_device(batch)
+
+    def _rows(self, raw: dict) -> int:
+        """The rows of a global host batch, before padding."""
+        return len(next(raw[k] for k in self.task.effective_batch_keys() if k in raw))
+
+    @property
+    def is_main(self) -> bool:
+        return self.mesh.is_main
+
+    def _print(self, *args) -> None:
+        if self.is_main:
+            print(*args, flush=True)
 
     # -- state --------------------------------------------------------------------
 
@@ -221,14 +252,21 @@ class Trainer:
                     raise ValueError(f"{ckpt_path}: no Adam state in the JAX checkpoint")
                 self.train_step.load_moments(to_sd(adam["mu"]), to_sd(adam["nu"]),
                                              adam["count"], adam["schedule_count"])
-                print(f"| loaded JAX checkpoint {ckpt_path} (step {self.global_step}): "
-                      f"parameters, Adam's moments and {adam['count']} updates", flush=True)
+                self._print(f"| loaded JAX checkpoint {ckpt_path} (step {self.global_step}): "
+                            f"parameters, Adam's moments and {adam['count']} updates")
             else:
                 self.train_step.load_state_dict(payload["state"])
-                print(f"| loaded checkpoint {ckpt_path} (step {self.global_step})",
-                      flush=True)
+                self._print(f"| loaded checkpoint {ckpt_path} (step {self.global_step})")
+        if self.mesh.size > 1:
+            # every rank holds rank 0's weights (seeded, or read from one work dir)
+            replicate_tree(dict(self.model.named_parameters()), self.mesh)
+            if self.is_gan:
+                replicate_tree(dict(self.disc.named_parameters()), self.mesh)
+            else:
+                self.train_step.sync_split()
         n_params = sum(p.numel() for p in self.model.parameters())
-        print(f"| model params: {n_params / 1e6:.3f}M | device: {self.device}", flush=True)
+        self._print(f"| model params: {n_params / 1e6:.3f}M | device: {self.device} | "
+                    f"mesh: {self.mesh}")
 
     def _load_jax_gan(self, ckpt_path: str, payload: dict) -> None:
         """A JAX ``GanTrainState``: both nets and both Adam states."""
@@ -243,10 +281,11 @@ class Trainer:
         self.train_step.load_jax(maps[0](payload["jax_params"]),
                                  maps[1](payload["jax_disc_params"]), gen_adam, disc_adam,
                                  payload["steps"])
-        print(f"| loaded JAX checkpoint {ckpt_path} (step {self.global_step}): both nets "
-              f"and both Adam states ({adams[0]['count']} updates)", flush=True)
+        self._print(f"| loaded JAX checkpoint {ckpt_path} (step {self.global_step}): both "
+                    f"nets and both Adam states ({adams[0]['count']} updates)")
 
     def save(self, val_loss: Optional[float] = None) -> str:
+        """Every rank gathers the state; rank 0 writes it."""
         hp = self.hp
         return save_checkpoint(self.work_dir, self.train_step.state_dict(),
                                self.global_step, val_loss=val_loss,
@@ -260,9 +299,11 @@ class Trainer:
         one update from the gradients of all of them
         (``TrainStep.accumulate``); its metrics as 0-d device tensors."""
         if not more:
-            return self.train_step(self._device_batch(raw), self.generator)
+            return self.train_step(self._device_batch(raw), self.generator,
+                                   rows=self._rows(raw))
         return self.train_step.accumulate(
-            (self._device_batch(r) for r in (raw, *more)), self.generator)
+            (self._device_batch(r) for r in (raw, *more)), self.generator,
+            rows=[self._rows(r) for r in (raw, *more)])
 
     def fit(self) -> None:
         tee = self._start_logging()
@@ -270,7 +311,8 @@ class Trainer:
             self._fit()
         finally:
             self.logger.close()
-            tee.close()
+            if tee is not None:
+                tee.close()
 
     def _fit(self) -> None:
         hp = self.hp
@@ -294,19 +336,21 @@ class Trainer:
                 if self.global_step % val_interval == 0:
                     self.save(self.validate())
         except KeyboardInterrupt:
-            print("| KeyboardInterrupt: saving checkpoint before exit", flush=True)
+            self._print("| KeyboardInterrupt: saving checkpoint before exit")
             self.save()
             raise
         finally:
             loader.close()
         self.save()
-        print(f"| training done at step {self.global_step}", flush=True)
+        self._print(f"| training done at step {self.global_step}")
 
     def _start_logging(self):
-        """The terminal tee, the ``save_codes`` snapshot and the TensorBoard
-        logger; returns the tee."""
+        """On rank 0, the terminal tee, the ``save_codes`` snapshot and the
+        TensorBoard logger; returns the tee (None elsewhere)."""
         from speech_editing_tpu_torch.utils.meters import Tee
 
+        if not self.is_main:
+            return None
         stamp = time.strftime("%Y%m%d%H%M%S")
         log_dir = os.path.join(self.work_dir, "terminal_logs")
         os.makedirs(log_dir, exist_ok=True)
@@ -322,15 +366,15 @@ class Trainer:
 
     def _log(self, metrics: dict, steps_per_s: float) -> None:
         m = {k: float(v) for k, v in metrics.items()}
-        print(f"| step {self.global_step} | {steps_per_s:.2f} it/s | "
-              + " ".join(f"{k}={v:.4f}" for k, v in sorted(m.items())), flush=True)
+        self._print(f"| step {self.global_step} | {steps_per_s:.2f} it/s | "
+                    + " ".join(f"{k}={v:.4f}" for k, v in sorted(m.items())))
         for k, v in m.items():
             self.logger.add_scalar(f"tr/{k}", v, self.global_step)
         self.logger.add_scalar("tr/it_per_sec", steps_per_s, self.global_step)
         if m.get("nan_grads", 0) > 0:
             self._nan_intervals += 1
-            print(f"| WARNING: non-finite gradients at step {self.global_step}; update "
-                  f"was skipped ({self._nan_intervals} consecutive intervals)", flush=True)
+            self._print(f"| WARNING: non-finite gradients at step {self.global_step}; update "
+                        f"was skipped ({self._nan_intervals} consecutive intervals)")
             if self._nan_intervals >= int(self.hp.get("max_nan_intervals", 5)):
                 raise RuntimeError(f"gradients non-finite for {self._nan_intervals} "
                                    "consecutive log intervals; aborting (set "
@@ -341,7 +385,7 @@ class Trainer:
     # -- validation ---------------------------------------------------------------
 
     def _eval_batch(self, raw: dict) -> dict:
-        return self.eval_step(self._device_batch(raw), self.generator)
+        return self.eval_step(self._device_batch(raw), self.generator, rows=self._rows(raw))
 
     def validate(self, max_batches: Optional[int] = None, log: bool = True) -> Optional[float]:
         """Mean metrics over the valid split (``max_valid_sentences`` a
@@ -365,11 +409,11 @@ class Trainer:
             return None
         means = {k: v / n for k, v in totals.items()}
         if log:
-            print(f"| validation @ step {self.global_step}: "
-                  + " ".join(f"{k}={v:.4f}" for k, v in sorted(means.items())), flush=True)
+            self._print(f"| validation @ step {self.global_step}: "
+                        + " ".join(f"{k}={v:.4f}" for k, v in sorted(means.items())))
             for k, v in means.items():
                 self.logger.add_scalar(f"val/{k}", v, self.global_step)
-            if int(self.hp.get("num_valid_plots", 0)) > 0:
+            if int(self.hp.get("num_valid_plots", 0)) > 0 and self.is_main:
                 self._log_valid_media(first)
         return means.get("total_loss")
 
@@ -393,7 +437,8 @@ class Trainer:
             self.model.eval()
             gen = torch.Generator(device=self.device).manual_seed(
                 int(hp.get("seed", 1234)) + self.global_step)
-            out = self.task.build_infer_fn(self.model)(self._device_batch(raw), generator=gen)
+            out = self.task.build_infer_fn(self.model)(self._device_batch(raw, shard=False),
+                                                       generator=gen)
             mel_pred = out["mel_out"][0].float().cpu().numpy()
             mel_gt = torch.as_tensor(raw["mels"])[0].numpy()
             if have_matplotlib():
@@ -416,7 +461,8 @@ class Trainer:
     def validate_only(self) -> Optional[float]:
         """``--validate``: restore the last checkpoint and validate once."""
         self._build_state()
-        self.logger = TensorBoardLogger(os.path.join(self.work_dir, "tb_logs"))
+        if self.is_main:
+            self.logger = TensorBoardLogger(os.path.join(self.work_dir, "tb_logs"))
         try:
             return self.validate()
         finally:
@@ -464,6 +510,9 @@ class Trainer:
         from speech_editing_tpu_torch.training.result_saver import save_test_result
         from speech_editing_tpu_torch.utils.multiprocess import ResultSaverPool
 
+        if self.mesh.size > 1:
+            raise RuntimeError("Trainer.test (--infer) runs single-process: launch it without "
+                               "torchrun (checkpoints load at any world size)")
         hp = self.hp
         with self._loader("test", shuffle=False,
                           max_sentences_key="max_valid_sentences") as loader:

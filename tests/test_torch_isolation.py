@@ -2,9 +2,11 @@
 ``speech_editing_tpu_torch`` (the in-place editing families' models, their
 modules and ``infer/editors.py``, StutterSpeech's models and the training
 tasks of all six editing families, HiFi-GAN's GAN task and the TTS
-baselines among them) loads neither JAX, flax, optax, PyYAML nor the JAX
-package, and its entry points (the edit pipeline, the trainer, the entry
-``run`` with and without ``--infer`` on each family's config, the CSV
+baselines and the parallel layer among them) loads neither JAX, flax,
+optax, PyYAML nor the JAX package, and its entry points (the edit
+pipeline, the trainer, the entry ``run`` with and without ``--infer`` on
+each family's config and as a torchrun rank, a rank's
+``init_distributed``, the multi-rank dry run, the CSV
 region-edit APIs of FluentSpeech and of the in-place families, their
 drivers, the HiFi-GAN vocoder, the batch server, the serve CLI, the
 binarizer, ``align_and_binarize``, the speaker encoder and the TTS
@@ -38,7 +40,8 @@ for served in ("infer.online", "infer.quant", "infer.serve", "infer.serving",
                "evals.get_metrics", "evals.batch_tools", "evals.attention_metrics",
                "models.fs2_orig", "models.diffspeech", "modules.rnn",
                "modules.rel_transformer", "training.tasks.tts", "infer.tts_infer",
-               "utils.plot", "utils.meters"):
+               "utils.plot", "utils.meters", "parallel.mesh", "parallel.tp",
+               "parallel.dryrun"):
     assert f"speech_editing_tpu_torch.{served}" in names, served
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in
                 ("jax", "jaxlib", "flax", "optax", "yaml", "speech_editing_tpu"))
@@ -59,6 +62,18 @@ if not torch.cuda.is_available():
     from speech_editing_tpu_torch.data.binarizer import main as binarizer_main
     from speech_editing_tpu_torch.models.voice_encoder import VoiceEncoderCtx
     from speech_editing_tpu_torch.infer.tts_infer import main as tts_main
+    from speech_editing_tpu_torch.parallel.dryrun import dryrun_multichip
+    from speech_editing_tpu_torch.parallel.mesh import init_distributed
+
+    def torchrun_rank(argv):
+        import os
+        os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                          MASTER_PORT="1")
+        try:
+            run(argv)
+        finally:
+            for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+                del os.environ[k]
     never = {"processed_data_dir": "never_made/processed", "binary_data_dir": "never_made/bin"}
     train_argv = ["--config", "egs/spec_denoiser.yaml", "--exp_name", "never_made",
                   "-hp", "use_bf16=False"]
@@ -75,6 +90,8 @@ if not torch.cuda.is_available():
                         (binarizer_main, (["--config", "egs/spec_denoiser.yaml"],)),
                         (align_main, (["--config", "egs/spec_denoiser.yaml", "--skip-align"],)),
                         (VoiceEncoderCtx, (None, "cuda", torch.Generator())),
+                        (init_distributed, ("gloo", "tcp://127.0.0.1:1", 1, 0)),
+                        (torchrun_rank, (train_argv,)), (dryrun_multichip, (2,)),
                         *((run, (["--config", f"egs/{family}.yaml", "--exp_name", "never_made"]
                                  + infer,))
                           for family in ("stutter_speech", "stutter_predictor", "campnet",
