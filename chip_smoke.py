@@ -69,11 +69,12 @@ Phases, each of which exits non-zero on a failed check:
    embeddings, ``max_sentences`` 16, ``max_tokens`` 40,000, two loader
    workers, alignment-aware masks; float32 through ``use_bf16=False``) over
    a synthetic binarized corpus of 512/32/8 utterances of 150-700 frames,
-   in a temporary directory: 20 steps with sanity validation, validation
-   and a checkpoint every 10 steps, then a second run resumes to 25. Every
+   in a temporary directory: 16 steps with sanity validation, validation
+   and a checkpoint every 8 steps, then a second run, its loader in
+   process, resumes to 20. Every
    step launches K1 and K5 20 times each and nothing else, every
-   validation batch K1 20 times; metrics are finite; the checkpoints at 15
-   and 30 exist; the resume starts at step 30 with the saved parameters and
+   validation batch K1 20 times; metrics are finite; the checkpoints at 8,
+   16 and 20 exist; the resume starts at step 16 with the saved parameters and
    Adam moments bit for bit; a 2-utterance slice of a corpus batch, stepped
    on the card and on the CPU, agrees. Steps/s, real frames/s, the loader
    wait a step, a profiled step, peak memory, validation time and the
@@ -130,7 +131,8 @@ Phases, each of which exits non-zero on a failed check:
    the infer path's four requests (wavs, launches an edit, the same request
    twice bit-identical, frames outside the mask the source's); the batch
    server (``BatchedInPlaceEditServer``, 16 rows a chunk, default buckets),
-   warmed, over the serve path's 32 requests (each CampNet chunk launches
+   warmed over the (token, frame) buckets its traffic occupies, over the
+   serve path's 32 requests (each CampNet chunk launches
    K3 9 times, the other families nothing; results finite with the
    source's frames outside the mask; requests/s, audio s/s, fill, peak
    memory); one request alone, in its chunk and at another row
@@ -225,20 +227,41 @@ Phases, each of which exits non-zero on a failed check:
    validation batch, item and sentence moves the counters as TTS_LAUNCHES
    predicts (FastSpeech K3 and K4 8 a step; DiffSpeech K1 and K5 20, K3 and
    K4 4 a step, K1 2,000 and K3 4 a sentence); metrics and outputs are
-   finite; a B=2 step of each (192 frames of two utterances) on the card
-   and on the CPU agrees. Step host and event p50/p75, peak memory, a
-   profiled median step (busy, the largest device items) and each
+   finite; a B=2 step of FastSpeech and of DiffSpeech (192 frames of two
+   utterances) on the card and on the CPU agrees. Step host and event
+   p50/p75, peak memory, a profiled median step of those two (busy, the
+   largest device items) and each
    sentence's model and vocoder seconds and real-time factor are printed. K3 and K4 are held against their plain
    versions at FastSpeech's median batch and timed beside SDPA there; K1
    and K5 without a mask at dilation 1 at DiffSpeech's median batch, K1
    timed beside its plain version. The trainer's TensorBoard logging (each
    validation's media: its first item's inference and vocoded audio) and
    figures are a no-op where tensorboard or matplotlib is not installed.
-17. multi: the parallel layer (``parallel/``) with the flagship at full
+17. ps: PortaSpeech, PortaSpeech-flow and adversarial PortaSpeech
+   through the training entry on ``egs/{ps,ps_flow,ps_adv}.yaml`` as shipped
+   (hidden 192, 2 heads, 4 phone and 4 word FFT layers, the FVAE 192 wide
+   with 8 + 4 WN layers, latent 16, stride 4, a prior ResFlow of 4 blocks;
+   the post-Glow 8 blocks x 128; the discriminator's 32/64/128-frame
+   windows at hidden 128; float32) over a synthetic corpus of 32/2/2
+   utterances of 150-700 frames with word fields and a word set, with the
+   infer path's HiFi-GAN: PS_STEPS steps, a validation batch and a
+   checkpoint, ``--infer`` of the 2 test items from that checkpoint (loaded
+   bit for bit). Every step, validation batch and test batch moves the
+   counters as PS_LAUNCHES predicts (K3 16 a forward: the phone encoder,
+   the word encoder twice and ``ph2word_encoder``; K4 16 a step); metrics
+   and outputs finite; PortaSpeech-flow's B=2 step (192 frames of two
+   utterances, the posterior's noise given) on the card and on the CPU
+   agrees. Step host and event p50/p75 and peak memory of each config, and
+   a profiled median step (busy, the largest device items) of
+   PortaSpeech-flow and adversarial PortaSpeech are printed. K3
+   and K4 are held against their plain versions at PortaSpeech's median
+   batch, over its phone rows and over its word rows, and timed beside
+   SDPA there.
+18. multi: the parallel layer (``parallel/``) with the flagship at full
    width on two ranks of the one card, each a new process on ``cuda:0``
    over gloo (NCCL refuses two ranks on one device), through
-   ``parallel.dryrun.dryrun_multichip``: 3 data-parallel steps on a global
-   batch of 16 x 512 frames and 3 tensor-parallel steps (data 1 x model 2,
+   ``parallel.dryrun.dryrun_multichip``: 2 data-parallel steps on a global
+   batch of 16 x 512 frames and 2 tensor-parallel steps (data 1 x model 2,
    the parameters split by ``parallel/tp.py``), each in float32 and bf16,
    the parameters and Adam moments held to the same steps run
    single-process (``parallel.dryrun.TOL``); data-parallel serving of 4
@@ -260,8 +283,9 @@ for the bf16 K1 (with h) and K5 at the bf16 run step's B=16 x T=446 and
 the bf16 flagship step's B=78 x T=512 beside their cuBLAS composites. Run
 from a copy of another commit, each times that commit's kernels in the
 same call. ``python3 chip_smoke.py --multi`` runs the multi phase alone
-(K1, K5, K3 and K4 built, a small corpus of the run path's kind), with
-its checks.
+(K1, K5, K3 and K4 built, a small corpus of the run path's kind), and
+``--ps`` the PortaSpeech phase alone (K3 and K4 built, a HiFi-GAN V1 of
+seeded weights), with their checks.
 
 Float32 but for the bf16 phases, with TF32 off for matrix products and
 cuDNN convolutions and bf16 products reduced in float32, so the card and
@@ -1934,12 +1958,13 @@ def relu_branches(masks: list, replay: bool):
 
 
 def compare_step_with_cpu(label: str, make_twin, state: dict, sub,
-                          diffusion: bool = True, bf16: bool = False) -> None:
+                          diffusion: bool = True, bf16: bool = False, make_draws=None) -> None:
     """One step on ``sub``, a 2-utterance batch (host arrays of the step's
     keys; a list of them: one accumulated update of those microbatches), on
     the card and on the CPU (plain versions): twins from
     ``make_twin(device)`` with dropout off load ``state`` and, with
-    ``diffusion``, take the same diffusion draws, and the CPU's ReLUs take
+    ``diffusion``, take the same diffusion draws (or those of
+    ``make_draws(b, t, generator)``), and the CPU's ReLUs take
     the card's branches (``relu_branches``), so both differentiate the same
     function; losses, gradients, updated parameters and Adam moments must
     agree: at the float32 tolerances (STEP_*), or with ``bf16`` (a bf16
@@ -1950,6 +1975,9 @@ def compare_step_with_cpu(label: str, make_twin, state: dict, sub,
     draws = []
     for batch in micro:
         b, t = batch["mels"].shape[:2]
+        if make_draws is not None:
+            draws.append(make_draws(b, t, gen))
+            continue
         draws.append(dict(t=torch.randint(0, FLAGSHIP_HP["timesteps"] + 1, (b,), generator=gen),
                           noise=torch.randn(b, t, 80, generator=gen)) if diffusion else {})
     masks: list = []
@@ -2067,7 +2095,7 @@ G2P_PHONES = sorted({p for _, phs in _FallbackG2p.DIGRAPHS for p in phs}
 RUN_PHONES = RUN_SIL_PHONES + G2P_PHONES + [
     f"P{i}" for i in range(80 - len(RUN_SIL_PHONES) - len(G2P_PHONES))]
 RUN_SPEAKERS = 24
-RUN_STEPS, RUN_RESUME_TO = 20, 25   # a validation and a checkpoint every RUN_STEPS / 2
+RUN_STEPS, RUN_RESUME_TO = 16, 20   # a validation and a checkpoint every RUN_STEPS / 2
 # num_valid_plots=0: the validation media (where tensorboard is installed;
 # Griffin-Lim here, before the infer path writes a HiFi-GAN) run in the tts
 # phase
@@ -2092,20 +2120,25 @@ def stutter_labels(rs, t: int) -> np.ndarray:
 
 
 def write_run_corpus(data_dir: str, seed: int = 0, splits: dict | None = None,
-                     stutter: bool = False, cwt: bool = False) -> int:
+                     stutter: bool = False, cwt: bool = False, words: bool = False) -> int:
     """A binarized corpus with every key ``EditingDataset`` reads, written
     by the port's ``IndexedDatasetBuilder``: log-mel-like mels, phone
     tokens with a silence phone about one in four, monotonic mel2ph, raw
     f0 in Hz with 20 % unvoiced frames, coarse pitch, a 256-d speaker
     embedding per speaker, with ``stutter`` per-frame stutter labels
-    (``stutter_labels``), and with ``cwt`` the CWT targets the binarizer
-    writes under ``with_f0cwt`` (its ``f0_to_cwt`` of the raw f0);
-    ``splits`` items a split (default RUN_SPLITS). Returns the bytes of mel
-    written."""
+    (``stutter_labels``), with ``cwt`` the CWT targets the binarizer
+    writes under ``with_f0cwt`` (its ``f0_to_cwt`` of the raw f0), and with
+    ``words`` the word fields the binarizer writes (``word_token``,
+    ``ph2word``: words of three phones on average; ``mel2word`` from mel2ph) and a
+    ``word_set.json`` of PS_WORDS words; ``splits`` items a split (default
+    RUN_SPLITS). Returns the bytes of mel written."""
     rs = np.random.RandomState(seed)
     os.makedirs(data_dir)
     with open(os.path.join(data_dir, "phone_set.json"), "w") as f:
         json.dump(RUN_PHONES, f)
+    if words:
+        with open(os.path.join(data_dir, "word_set.json"), "w") as f:
+            json.dump([f"w{i}" for i in range(PS_WORDS)], f)
     speakers = rs.randn(RUN_SPEAKERS, 256).astype(np.float32)
     n_sil = len(RUN_SIL_PHONES)
     mel_bytes = 0
@@ -2133,6 +2166,11 @@ def write_run_corpus(data_dir: str, seed: int = 0, splits: dict | None = None,
             if cwt:
                 d = f0_to_cwt(item["f0"])
                 item.update(cwt_spec=d["cwt_spec"], cwt_mean=d["cwt_mean"], cwt_std=d["cwt_std"])
+            if words:
+                ph2word = np.cumsum(np.concatenate([[1], rs.rand(s - 1) < 0.3])).astype(np.int64)
+                item.update(ph2word=ph2word, mel2word=ph2word[mel2ph - 1],
+                            word_token=rs.randint(3, 3 + PS_WORDS, int(ph2word[-1])).astype(
+                                np.int64))
             builder.add_item(item)
         builder.finalize()
         np.save(os.path.join(data_dir, f"{split}_lengths.npy"), lengths)
@@ -2279,7 +2317,11 @@ def run_path(smi: str, tmp: str) -> tuple[dict, dict]:
         trainer = run_entry(argv)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     with second.instrumented():
-        resumed = run_entry(argv[:-1] + [argv[-1] + f",max_updates={RUN_RESUME_TO}"])
+        # the resume's loader in process: the first run drives the spawned
+        # workers, whose start-up (each re-imports this script) cost the
+        # resume about 10 s more
+        resumed = run_entry(argv[:-1] + [argv[-1]
+                                         + f",max_updates={RUN_RESUME_TO},ds_workers=0"])
     totals = counts()
 
     print(f"[run] launches per step {first.steps[-1]['launches']}, per validation batch "
@@ -2387,9 +2429,12 @@ EXPECTED_PER_BF16_STEP = dict(NO_LAUNCH, diffnet_block_bf16=RUN_LAYERS,
 
 
 def float_dtypes(state: dict) -> set:
-    """The dtypes of a saved state's floating parameters and Adam moments."""
-    tensors = list(state["model"].values()) + [
-        v for s in state["optimizer"]["state"].values() for k, v in s.items()
+    """The dtypes of a saved state's floating parameters and Adam moments
+    (a GAN state's: both nets' and both optimizers')."""
+    nets = [n for n in ("model", "disc") if n in state]
+    opts = [o for o in ("optimizer", "gen_opt", "disc_opt") if o in state]
+    tensors = [v for n in nets for v in state[n].values()] + [
+        v for o in opts for s in state[o]["state"].values() for k, v in s.items()
         if k.startswith("exp_avg")]
     return {t.dtype for t in tensors if t.is_floating_point()}
 
@@ -3630,7 +3675,10 @@ def inplace_family(family: str, cls, config: str, smi: str, tmp: str, data_dir: 
           f"{family}: vocoder {inf.vocoder.kind}, expected HiFi-GAN on the card")
     server = cls.make_server(inf, max_batch=SERVE_BATCH)
     t0 = time.perf_counter()
-    n_warm = server.warmup()
+    # the (token, frame) buckets the traffic occupies, not all 20: the serve
+    # path and the CampNet CLI warm every bucket
+    pairs = sorted({server.prepare(inp).group for inp in inputs})
+    n_warm = server.warmup(pairs=pairs)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     warmed = set(server.program_shapes)
@@ -3912,9 +3960,9 @@ def family_train(family: str, smi: str, tmp: str, data_dir: str,
     b, t = mid["shape"]
     events: list = []
     # profiled: in float32 the families whose steps run the port's kernels
-    # (StutterSpeech K1/K5, CampNet K3/K4) and the device-bound EditSpeech,
-    # in bf16 EditSpeech alone (its cuDNN recurrence is checked)
-    if family in (("editspeech",) if bf16 else ("stutter_speech", "campnet", "editspeech")):
+    # (StutterSpeech K1/K5, CampNet K3/K4), in bf16 EditSpeech alone (its
+    # cuDNN recurrence is checked)
+    if family in (("editspeech",) if bf16 else ("stutter_speech", "campnet")):
         busy_ms = profile_step(trainer, raw, mid["host_ms"], top=8,
                                label=f"{label} B={b} x T={t}", keep=events)
         stats.update(profiled_batch=[b, t], profiled_host_ms=mid["host_ms"],
@@ -4634,6 +4682,9 @@ TTS_HP = (f"max_updates={TTS_STEPS},val_check_interval={TTS_STEPS},num_sanity_va
           f"test_save_workers=1,ds_workers=0")
 TTS_TEXT = " ".join(SERVE_WORDS[:9])
 TTS_CPU_T = 192           # frames of the B=2 step run on the card and the CPU
+# the configs profiled and stepped on the CPU: FastSpeech's FFT path covers
+# FastSpeech2-orig's
+TTS_DEEP = ("fs", "diffspeech")
 TTS_FRAME_KEYS = ("mels", "mel2ph", "f0", "uv", "cwt_spec")
 # the prediction: launches a step, a validation batch, a --infer item (one
 # a batch) and a synthesised sentence; FastSpeech's 4 + 4 FFT layers, K3 in
@@ -4760,20 +4811,25 @@ def tts_config(name: str, smi: str, tmp: str, data_dir: str) -> tuple[dict, dict
            for k, v in mid["raw"].items()}
     b, t = mid["shape"]
     stage_s, t1 = {"run": train_s}, time.perf_counter()
-    busy_ms = profile_step(trainer, raw, mid["host_ms"], top=6, label=f"tts {name} B={b} x T={t}")
-    stage_s["profile"], t1 = time.perf_counter() - t1, time.perf_counter()
-    stats.update(profiled_batch=[b, t], profiled_host_ms=mid["host_ms"], profiled_busy_ms=busy_ms,
-                 profiled_busy_share=None if busy_ms is None else busy_ms / mid["host_ms"],
+    stats.update(profiled_batch=[b, t], profiled_host_ms=mid["host_ms"],
                  median_lengths=[int(n) for n in mid["raw"]["mel_lengths"]],
                  median_tokens=[int(n) for n in (mid["raw"]["txt_tokens"] > 0).sum(1)])
-    # the CPU's step: two utterances of the shortest batch, their first
-    # TTS_CPU_T frames (the step's cost on the CPU grows with the frames)
-    short = min(rec.steps, key=lambda st: st["shape"][1])["raw"]
-    sub = {k: short[k][:2, :TTS_CPU_T] if k in TTS_FRAME_KEYS else short[k][:2]
-           for k in trainer.task.effective_batch_keys()}
-    compare_step_with_cpu(f"tts {name}", lambda dev: Trainer(trainer.task, hp, dev, dropout=False),
-                          trainer.train_step.state_dict(), sub, diffusion=name == "diffspeech")
-    stage_s["cpu_step"] = time.perf_counter() - t1
+    if name in TTS_DEEP:
+        busy_ms = profile_step(trainer, raw, mid["host_ms"], top=6,
+                               label=f"tts {name} B={b} x T={t}")
+        stage_s["profile"], t1 = time.perf_counter() - t1, time.perf_counter()
+        stats.update(profiled_busy_ms=busy_ms,
+                     profiled_busy_share=None if busy_ms is None else busy_ms / mid["host_ms"])
+        # the CPU's step: two utterances of the shortest batch, their first
+        # TTS_CPU_T frames (the step's cost on the CPU grows with the frames)
+        short = min(rec.steps, key=lambda st: st["shape"][1])["raw"]
+        sub = {k: short[k][:2, :TTS_CPU_T] if k in TTS_FRAME_KEYS else short[k][:2]
+               for k in trainer.task.effective_batch_keys()}
+        compare_step_with_cpu(f"tts {name}",
+                              lambda dev: Trainer(trainer.task, hp, dev, dropout=False),
+                              trainer.train_step.state_dict(), sub,
+                              diffusion=name == "diffspeech")
+        stage_s["cpu_step"] = time.perf_counter() - t1
 
     # --infer from the checkpoint, then one sentence from text
     rec_t, irec = RunRecorder(), InferRecorder()
@@ -4891,11 +4947,240 @@ def tts_path(smi: str, tmp: str, gen) -> tuple[dict, dict, dict]:
     return total, stats, kernels
 
 
+# -- PortaSpeech path ------------------------------------------------------------------
+
+# the PortaSpeech family through the training entry at the shipped widths
+# (hidden 192, 2 heads, 4 phone and 4 word FFT layers, the FVAE 192 wide with
+# 8 + 4 WN layers, latent 16, stride 4, a prior ResFlow of 4 blocks; the
+# post-Glow 8 x 128; the discriminator's 32/64/128-frame windows at hidden
+# 128; float32): PS_STEPS steps each on a corpus with word fields, a
+# validation batch, a checkpoint, --infer of the test split
+PS_CONFIGS = {"ps": "PortaSpeechTask", "ps_flow": "PortaSpeechFlowTask",
+              "ps_adv": "PortaSpeechAdvTask"}
+PS_SPLITS = {"train": 32, "valid": 2, "test": 2}
+PS_WORDS = 1000           # the corpus's word set
+PS_STEPS, PS_WARMUP = 5, 2      # steps a config; the first PS_WARMUP left out of the timings
+PS_HP = (f"max_updates={PS_STEPS},val_check_interval={PS_STEPS},num_sanity_val_steps=0,"
+         f"eval_max_batches=1,tb_log_interval={PS_STEPS},test_num={PS_SPLITS['test']},"
+         "test_save_workers=1,ds_workers=0,num_valid_plots=0")
+PS_CPU_T = 192            # frames of the B=2 step run on the card and the CPU
+# profiled (5-7 s each, 27,000-41,000 host operations a step): the widest
+# model's step and the GAN step
+PS_PROFILED = ("ps_flow", "ps_adv")
+PS_FRAME_KEYS = ("mels", "mel2word", "pitch")
+# the prediction: 16 K3 a forward (the phone encoder's 4 layers, the word
+# encoder's 4 twice, ph2word_encoder's 4) and 16 K4 a step's backward; the
+# GAN step's discriminator runs none. A step, a validation batch, an --infer batch
+_PS = dict(NO_LAUNCH, flash_mha=16)
+PS_LAUNCHES = (dict(_PS, flash_mha_bwd=16), _PS, _PS)
+
+
+def ps_config(name: str, smi: str, tmp: str, data_dir: str) -> tuple[dict, dict]:
+    """One PortaSpeech config through ``run`` on the card (PS_STEPS steps,
+    one validation batch, a checkpoint; ``--infer`` of the test split):
+    every step's, validation batch's and test batch's launches checked
+    against PS_LAUNCHES, every metric and output finite, the checkpoint
+    float32 and loaded bit for bit by ``--infer``; host and event p50/p75,
+    peak memory, a profiled median step; PortaSpeech-flow's B=2 step on the
+    card and on the CPU. Returns the launches and the statistics."""
+    q = lambda xs, p: float(np.percentile(xs, p))
+    work = os.path.join(tmp, "ps", name)
+    argv = ["--config", f"egs/{name}.yaml", "--exp_name", work, "-hp",
+            f"binary_data_dir={data_dir},vocoder_ckpt={os.path.join(tmp, 'hifigan')},{PS_HP}"]
+    per_step, per_valid, per_batch = PS_LAUNCHES
+    rec = RunRecorder()
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with rec.instrumented():
+        trainer = run_entry(argv)
+    train_s = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = counts()
+    hp, gan = trainer.hp, trainer.is_gan
+    check(type(trainer.task).__name__ == PS_CONFIGS[name], f"ps {name}: task "
+          f"{type(trainer.task).__name__}")
+    shipped = (hp["hidden_size"], hp["num_heads"], hp["enc_layers"], hp["word_enc_layers"],
+               hp["fvae_enc_dec_hidden"], hp["fvae_enc_n_layers"], hp["fvae_dec_n_layers"],
+               hp["latent_size"], hp["fvae_strides"], hp["frames_multiple"],
+               hp["prior_flow_n_blocks"])
+    check(not hp.get("use_bf16") and shipped == (192, 2, 4, 4, 192, 8, 4, 16, 4, 4, 4)
+          and trainer.task.word_dict_size == PS_WORDS + 3,
+          f"ps {name}: not the shipped float32 widths: {shipped}")
+    if name == "ps_flow":
+        check((hp["post_glow_n_blocks"], hp["post_glow_hidden"]) == (8, 128)
+              and len(trainer.model.post_flow.couplings) == 8, f"ps {name}: post-Glow widths")
+    if gan:
+        check(trainer.disc.time_lengths == (32, 64, 128) and hp["mel_disc_hidden_size"] == 128,
+              f"ps {name}: discriminator windows {trainer.disc.time_lengths}")
+    check(len(rec.steps) == PS_STEPS and len(rec.valid) == 1,
+          f"ps {name}: {len(rec.steps)} steps, {len(rec.valid)} validation batches")
+    for st in rec.steps:
+        check(st["launches"] == per_step,
+              f"ps {name} step {st['step']}: launches {st['launches']} != {per_step}")
+        m = {k: float(v) for k, v in st["metrics"].items()}
+        check(all(np.isfinite(v) for v in m.values()) and m.get("nan_grads", 0) == 0,
+              f"ps {name} step {st['step']}: non-finite metrics {m}")
+    check(rec.valid[0] == per_valid, f"ps {name} validation batch: {rec.valid[0]}")
+    ckpt = os.path.join(work, f"model_ckpt_steps_{PS_STEPS}.ckpt")
+    check(os.path.exists(ckpt), f"ps {name}: checkpoints {sorted(os.listdir(work))}")
+    saved = torch.load(ckpt, map_location="cpu", weights_only=True)["state"]
+    check(float_dtypes(saved) == {torch.float32}, f"ps {name}: {float_dtypes(saved)}")
+    timed = rec.steps[PS_WARMUP:]
+    ev, host = [st["event_ms"] for st in timed], [st["host_ms"] for st in timed]
+    m = {k: float(v) for k, v in rec.steps[-1]["metrics"].items()}
+    stats = dict(task=PS_CONFIGS[name], params=sum(p.numel() for p in trainer.model.parameters()),
+                 train_s=train_s, peak_gib=peak_gib, timed_steps=len(timed),
+                 launches_per_step=per_step, host_ms_p50=q(host, 50), host_ms_p75=q(host, 75),
+                 event_ms_p50=q(ev, 50), event_ms_p75=q(ev, 75),
+                 padded_frames_p50=q([st["shape"][1] for st in timed], 50),
+                 real_frames_per_step_mean=sum(st["frames"] for st in timed) / len(timed),
+                 last_metrics=m)
+    if gan:
+        stats["disc_params"] = sum(p.numel() for p in trainer.disc.parameters())
+    print(f"[ps] {name} (egs/{name}.yaml, {stats['params']} parameters"
+          + (f", discriminator {stats['disc_params']}" if gan else "") + f"), {len(timed)} "
+          f"timed steps of {PS_STEPS}: host clock p50 {stats['host_ms_p50']:.3f} ms, p75 "
+          f"{stats['host_ms_p75']:.3f} ms; CUDA events p50 {stats['event_ms_p50']:.3f} ms, p75 "
+          f"{stats['event_ms_p75']:.3f} ms; padded frames p50 {stats['padded_frames_p50']:.0f}, "
+          f"{stats['real_frames_per_step_mean']:.0f} real frames a step; launches a step "
+          f"{per_step}; peak memory {peak_gib:.3f} GiB; {train_s:.1f} s with the validation "
+          f"and the checkpoint; {smi}", flush=True)
+    print(f"[ps] {name} last step: " + " ".join(f"{k}={v:.5f}" for k, v in sorted(m.items())),
+          flush=True)
+    mid = sorted(timed, key=lambda st: st["shape"][1])[len(timed) // 2]
+    raw = {k: v.pin_memory() if isinstance(v, torch.Tensor) else v
+           for k, v in mid["raw"].items()}
+    b, t = mid["shape"]
+    stage_s, t1 = {"run": train_s}, time.perf_counter()
+    if name in PS_PROFILED:
+        busy_ms = profile_step(trainer, raw, mid["host_ms"], top=6,
+                               label=f"ps {name} B={b} x T={t}")
+        stage_s["profile"], t1 = time.perf_counter() - t1, time.perf_counter()
+        stats.update(profiled_busy_ms=busy_ms,
+                     profiled_busy_share=None if busy_ms is None else busy_ms / mid["host_ms"])
+    stats.update(profiled_batch=[b, t], profiled_host_ms=mid["host_ms"],
+                 median_tokens=[int(n) for n in (mid["raw"]["txt_tokens"] > 0).sum(1)],
+                 median_words=[int(n) for n in (mid["raw"]["word_tokens"] > 0).sum(1)],
+                 median_shapes=dict(ph=list(mid["raw"]["txt_tokens"].shape),
+                                    word=list(mid["raw"]["word_tokens"].shape)))
+    if name == "ps_flow":
+        # the CPU's step: two utterances of the shortest batch, their first
+        # PS_CPU_T frames; the posterior's noise given to both
+        short = min(rec.steps, key=lambda st: st["shape"][1])["raw"]
+        sub = {k: short[k][:2, :PS_CPU_T] if k in PS_FRAME_KEYS else short[k][:2]
+               for k in trainer.task.effective_batch_keys()}
+        latent, stride = hp["latent_size"], hp["fvae_strides"]
+        compare_step_with_cpu(
+            f"ps {name}", lambda dev: Trainer(trainer.task, hp, dev, dropout=False),
+            trainer.train_step.state_dict(), sub,
+            make_draws=lambda b, t, g: dict(eps=torch.randn(b, t // stride, latent, generator=g)))
+        stage_s["cpu_step"] = time.perf_counter() - t1
+
+    # --infer from the checkpoint
+    rec_t, irec = RunRecorder(), InferRecorder()
+    before = counts()
+    t0 = time.perf_counter()
+    with rec_t.instrumented(), irec.instrumented():
+        run_entry(argv + ["--infer"])
+    infer_s = time.perf_counter() - t0
+    check((gan_states_equal if gan else states_equal)(rec_t.loaded, saved),
+          f"ps {name} --infer: the state loaded is not the checkpoint's bit for bit")
+    gen_dir = os.path.join(work, f"generated_{PS_STEPS}_test")
+    wavs = set(os.listdir(os.path.join(gen_dir, "wavs")))
+    for bt in irec.batches:
+        check(bt["launches"] == per_batch, f"ps {name} --infer {bt['names']}: launches "
+                                           f"{bt['launches']} != {per_batch}")
+        check(bool(torch.isfinite(bt["mel_out"]).all()) and bt["mel_out"].abs().sum() > 0,
+              f"ps {name} --infer: not finite, or all zero")
+        for n in bt["names"]:
+            check({f"[P]{n}.wav", f"[G]{n}.wav", f"[P]{n}_mel.npy"} <= wavs,
+                  f"ps {name} --infer {n}: wavs {sorted(wavs)}")
+    n_items = sum(len(bt["names"]) for bt in irec.batches)
+    check(n_items == PS_SPLITS["test"], f"ps {name} --infer: {n_items} items")
+    launches = {k: launches[k] + counts()[k] - before[k] for k in COUNTERS}
+    stage_s["infer"] = infer_s
+    stats.update(infer_s=infer_s, infer_items=n_items, infer_forward_s=irec.seconds["forward"],
+                 infer_launches_per_batch=per_batch, stage_s=stage_s)
+    print(f"[ps] {name} --infer: {n_items} test items from step {PS_STEPS}'s checkpoint (loaded "
+          f"bit for bit) in {infer_s:.1f} s (forwards {irec.seconds['forward']:.2f} s, HiFi-GAN "
+          f"{irec.seconds['vocoder']:.2f} s), launches a batch {per_batch}; stages (s) "
+          + ", ".join(f"{k} {v:.2f}" for k, v in stage_s.items()) + f"; {smi}", flush=True)
+    return launches, dict(stats, card=smi)
+
+
+def check_ps_kernels(gen, ps: dict) -> dict:
+    """K3 and K4 at PortaSpeech's median batch, h=2, d=96: over its phone
+    rows (the phone encoder's keys) and over its word rows (the word
+    encoder's and ``ph2word_encoder``'s), each row's keys its own count,
+    against their plain versions, timed beside SDPA. Returns the readings
+    by kernel."""
+    out = {"flash_mha": {}, "flash_mha_bwd": {}}
+    for level, key in (("phone", "median_tokens"), ("word", "median_words")):
+        b, s = ps["median_shapes"]["ph" if level == "phone" else "word"]
+        lengths = ps[key]
+        fwd = check_attention_at(gen, b, s, 1e-4, lengths,
+                                 f"PortaSpeech's {level} self-attention")
+        bwd = check_attention_bwd_at(gen, b, s, lengths,
+                                     f"PortaSpeech's {level} self-attention in training")
+        for name, r in (("flash_mha", fwd), ("flash_mha_bwd", bwd)):
+            prefix = "ps" if level == "phone" else "ps_word"
+            out[name].update({f"{prefix}_max_abs_err": r["max_err"], f"{prefix}_ms": r["ms"],
+                              f"{prefix}_device_ms": r["device_ms"],
+                              f"{prefix}_sdpa_ms": r["library_ms"],
+                              f"{prefix}_sdpa_device_ms": r["library_device_ms"],
+                              f"{prefix}_plain_ms": r["plain_ms"],
+                              f"{prefix}_bound_ms": r["bound_ms"],
+                              f"{prefix}_shape": dict(b=b, s=s)})
+    for r in out.values():
+        r["ps_max_abs_err"] = max(r["ps_max_abs_err"], r.pop("ps_word_max_abs_err"))
+    return out
+
+
+def ps_path(smi: str, tmp: str, gen) -> tuple[dict, dict, dict]:
+    """The PortaSpeech phase (module doc, 17): a corpus with word fields, the
+    three configs (``ps_config``), K3 and K4 at their shapes
+    (``check_ps_kernels``). Returns the launches summed, the statistics and
+    the kernel readings."""
+    t0 = time.perf_counter()
+    data_dir = os.path.join(tmp, "ps_data")
+    write_run_corpus(data_dir, seed=6, splits=PS_SPLITS, words=True)
+    print(f"[ps] corpus of {PS_SPLITS} utterances of {RUN_MIN_T}-{RUN_MAX_T} frames with word "
+          f"fields, {PS_WORDS} words", flush=True)
+    total, stats = dict(NO_LAUNCH), {}
+    for name in PS_CONFIGS:
+        launches, stats[name] = ps_config(name, smi, tmp, data_dir)
+        total = {k: total[k] + launches[k] for k in COUNTERS}
+    kernels = check_ps_kernels(gen, stats["ps"])
+    stats["seconds"] = time.perf_counter() - t0
+    print(f"[ps] three configs in {stats['seconds']:.1f} s; launches {total}", flush=True)
+    for k in ("flash_mha", "flash_mha_bwd"):
+        check(total[k] > 0, f"{k} was not launched on the PortaSpeech path")
+    return total, stats, kernels
+
+
+def ps_only(gen) -> None:
+    """``--ps``: the PortaSpeech phase alone, with a HiFi-GAN V1 of seeded
+    weights for ``--infer``."""
+    smi = subprocess.run(["nvidia-smi", "--id=0", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ps_")
+    try:
+        write_vocoder(os.path.join(tmp, "hifigan"))
+        t0 = time.perf_counter()
+        launches, stats, kernels = ps_path(smi, tmp, gen)
+        print(f"[phase] ps: {time.perf_counter() - t0:.1f} s", flush=True)
+        print(json.dumps({"ps": stats, "launches": launches, "kernels": kernels}, default=str))
+    finally:
+        shutil.rmtree(tmp)
+
+
 # the multi phase: the flagship at full width on two ranks of the one card
 # over gloo (data and tensor parallel training, data-parallel serving),
 # each held to the same program in this process; then one NCCL rank
 MULTI_RANKS = 2
-MULTI_B, MULTI_T, MULTI_S, MULTI_STEPS = 16, 512, 48, 3
+MULTI_B, MULTI_T, MULTI_S, MULTI_STEPS = 16, 512, 48, 2
 MULTI_SERVE_ROWS, MULTI_SERVE_T = 2, 256     # a rank's served rows and their frames
 MULTI_FIT_STEPS = 3
 MULTI_FIT_HP = (f"max_updates={MULTI_FIT_STEPS},val_check_interval={MULTI_FIT_STEPS},"
@@ -5080,7 +5365,8 @@ TIMING_MODES = {"--time-attention": (("flash_attention", "flash_attention_bwd"),
                 "--time-mel": (("mel_kernel",), time_mel),
                 "--time-diffnet": (("diffnet_block", "diffnet_block_bwd"), time_diffnet),
                 "--multi": (("diffnet_block", "diffnet_block_bwd", "flash_attention",
-                             "flash_attention_bwd"), multi_only)}
+                             "flash_attention_bwd"), multi_only),
+                "--ps": (("flash_attention", "flash_attention_bwd"), ps_only)}
 
 
 def main() -> None:
@@ -5170,6 +5456,8 @@ def main() -> None:
         phase_done("evals")
         tts_launches, tts_stats, tts_kernels = tts_path(smi, tmp, gen)
         phase_done("tts")
+        ps_launches, ps_stats, ps_kernels = ps_path(smi, tmp, gen)
+        phase_done("ps")
         multi_launches, multi_stats = multi_path(smi, tmp, data_dir)
         phase_done("multi")
     finally:
@@ -5186,6 +5474,9 @@ def main() -> None:
         if k["name"] in tts_kernels:
             k.update(tts_kernels[k["name"]])
             k["max_abs_err"] = max(k["max_abs_err"], k["tts_max_abs_err"])
+        if k["name"] in ps_kernels:
+            k.update(ps_kernels[k["name"]])
+            k["max_abs_err"] = max(k["max_abs_err"], k["ps_max_abs_err"])
         k["launches_by_path"] = {"edit": edit_launches[k["name"]],
                                  "train": train_launches[k["name"]],
                                  "train_bf16": train_bf16_launches[k["name"]],
@@ -5200,6 +5491,7 @@ def main() -> None:
                                  "switches": switch_launches[k["name"]],
                                  "data": data_launches[k["name"]],
                                  "tts": tts_launches[k["name"]],
+                                 "ps": ps_launches[k["name"]],
                                  "multi": multi_launches[k["name"]]}
         k["launches"] = sum(k["launches_by_path"].values())
         k["kernel_ms"] = k["ms"]
@@ -5215,7 +5507,7 @@ def main() -> None:
                       "family_train_bf16": family_bf16_stats, "phase_s": PHASE_S,
                       "width_override": width_stats, "switches": switch_stats,
                       "gan_train": gan_stats, "data": data_stats, "evals": evals_stats,
-                      "tts": tts_stats, "multi": multi_stats, "card": smi}))
+                      "tts": tts_stats, "ps": ps_stats, "multi": multi_stats, "card": smi}))
     print(smi)
     extra = ("warm_ms", "warm_plain_ms", "host_us", "train_ms", "train_plain_ms",
              "train_bound_ms", "train_device_ms", "train_ops_per_call", "train_host_us",
@@ -5227,7 +5519,10 @@ def main() -> None:
              "train_cublas_ms", "train_cublas_device_ms", "train_cublas_ops_per_call",
              "switches_max_abs_err", "nomask_ms", "masked_ms", "tts_max_abs_err", "tts_ms",
              "tts_device_ms", "tts_sdpa_ms", "tts_sdpa_device_ms", "tts_plain_ms",
-             "tts_bound_ms", "tts_shape")
+             "tts_bound_ms", "tts_shape", "ps_max_abs_err", "ps_ms", "ps_device_ms",
+             "ps_sdpa_ms", "ps_sdpa_device_ms", "ps_plain_ms", "ps_bound_ms", "ps_shape",
+             "ps_word_ms", "ps_word_device_ms", "ps_word_sdpa_ms", "ps_word_sdpa_device_ms",
+             "ps_word_plain_ms", "ps_word_bound_ms", "ps_word_shape")
     print(json.dumps({"kernels": [{key: k[key] for key in keys + extra if key in k}
                                   for k in kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

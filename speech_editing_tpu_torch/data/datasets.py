@@ -5,7 +5,8 @@
 mel2ph, normalised f0 and uv (under ``pitch_type: cwt`` also the CWT
 targets ``cwt_spec``, ``f0_mean`` and ``f0_std``), the speaker embedding
 and a time mask (train: ``random`` or ``alignment_aware`` at
-``training_mask_ratio``; infer: one contiguous half of the phones). The port's copy of the JAX package's
+``training_mask_ratio``; infer: one contiguous half of the phones);
+``WordSpeechDataset`` adds PortaSpeech's word fields. The port's copy of the JAX package's
 ``data/datasets.py``: per-item masks draw from a ``RandomState`` seeded by
 (seed, epoch, index), epochs order the items by length after a seeded
 shuffle and shuffle the batches, so the port's batches and their order
@@ -254,6 +255,34 @@ class EditingDataset(BaseSpeechDataset):
             batch["stutter_mel_masks"] = frames("stutter_mel_mask",
                                                 hp.get("stutter_pad_idx", -1))
         batch["time_mel_masks"] = frames("time_mel_mask", 0)
+        return batch
+
+
+class WordSpeechDataset(EditingDataset):
+    """Adds PortaSpeech's word fields: ``word_token``, ``ph2word`` (cut to
+    the phone tokens) and ``mel2word`` (cut to the mel), collated as
+    ``word_tokens`` and ``ph2word`` to ``token_size_multiple`` and
+    ``mel2word`` to ``frame_size_multiple``."""
+
+    def _sample(self, index: int, item: dict) -> dict:
+        sample = super()._sample(index, item)
+        sample["word_token"] = np.asarray(item["word_token"], np.int64)
+        sample["ph2word"] = np.asarray(item["ph2word"][:len(sample["txt_token"])], np.int64)
+        if "mel2word" in item:
+            sample["mel2word"] = np.asarray(item["mel2word"], np.int64)[:sample["mel"].shape[0]]
+        return sample
+
+    def collater(self, samples: list) -> dict:
+        batch = super().collater(samples)
+        if not samples:
+            return batch
+        sm = int(self.hp.get("frame_size_multiple", 1))
+        tok_m = int(self.hp.get("token_size_multiple", 1))
+        for key, name, multiple in (("word_token", "word_tokens", tok_m),
+                                    ("ph2word", "ph2word", tok_m), ("mel2word", "mel2word", sm)):
+            if key in samples[0]:
+                batch[name] = collate_1d_or_2d([s[key] for s in samples], 0,
+                                               size_multiple=multiple)
         return batch
 
 

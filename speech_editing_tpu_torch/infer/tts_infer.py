@@ -5,7 +5,9 @@ with no source utterance. The port of the JAX package's
     python -m speech_editing_tpu_torch.infer.tts_infer --config egs/fs.yaml \
         --exp_name NAME --text "hello world" [--out out.wav] [--device cpu]
 
-The driver comes from the config's ``task_cls`` (``infer_cls_for``):
+The driver comes from the config's ``task_cls`` (``infer_cls_for``; the
+PortaSpeech tasks are refused: ``run --infer`` is their inference entry
+point):
 FastSpeech and FastSpeech2-orig predict the durations and the pitch (the
 latter from its CWT coefficients) and the energy; DiffSpeech runs its
 reverse process from a ``torch.Generator`` seeded by ``seed``. As in the
@@ -111,6 +113,11 @@ def infer_cls_for(hp: Any):
     JAX package's pattern (``fs2orig|fs2_orig``) misses that name and gives
     it FastSpeech's, which cannot load its weights."""
     task = hp.get("task_cls", "")
+    if re.search(r"portaspeech", task, re.IGNORECASE):
+        # the JAX package gives these FastSpeech's driver, whose model cannot
+        # load PortaSpeech's weights
+        raise ValueError(f"task_cls {task!r}: tts_infer has no PortaSpeech driver; generate "
+                         "with `python -m speech_editing_tpu_torch.run --config ... --infer`")
     if re.search(r"diffspeech", task, re.IGNORECASE):
         return DiffSpeechInfer
     if re.search(r"fastspeech2orig|fs2_?orig", task, re.IGNORECASE):

@@ -65,3 +65,29 @@ def predictor_grad_scale(x: torch.Tensor, grad_scale: float) -> torch.Tensor:
     if grad_scale == 1.0:
         return x
     return x.detach() + grad_scale * (x - x.detach())
+
+
+def segment_sum(values: torch.Tensor, seg_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """Per row, the sum of ``values`` [B, T, ...] over each id of
+    ``seg_ids`` [B, T] in [0, num_segments): [B, num_segments, ...]
+    (``jax.ops.segment_sum`` under ``vmap``)."""
+    ids = seg_ids.long().reshape(seg_ids.shape + (1,) * (values.ndim - 2))
+    out = values.new_zeros((values.shape[0], num_segments) + tuple(values.shape[2:]))
+    return out.scatter_add(1, ids.expand_as(values), values)
+
+
+def build_word_mask(x2word: torch.Tensor, y2word: torch.Tensor) -> torch.Tensor:
+    """[B, X] and [B, Y] word ids -> [B, X, Y] int: 1 where the ids are
+    equal (padding id 0 meets padding id 0 too)."""
+    return (x2word[:, :, None] == y2word[:, None, :]).int()
+
+
+def group_hidden_by_segs(h: torch.Tensor, seg_ids: torch.Tensor,
+                         max_len: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mean of the states [B, T, H] of each segment of ``seg_ids`` [B, T]
+    (1-based, 0 padding): ([B, max_len, H], the counts [B, max_len]), a
+    segment without states zero."""
+    sums = segment_sum(h, seg_ids, max_len + 1)[:, 1:]
+    cnts = segment_sum(torch.ones(seg_ids.shape, dtype=h.dtype, device=h.device), seg_ids,
+                       max_len + 1)[:, 1:]
+    return sums / cnts.clamp(min=1.0)[..., None], cnts

@@ -15,7 +15,10 @@ generator against the multi-period and multi-scale discriminators on a
 mel + wav corpus; ``--infer`` is copy synthesis of the test split); and
 the TTS baselines FastSpeech, FastSpeech2-orig and DiffSpeech
 (``egs/{fs,fs2_orig,diffspeech}.yaml``; one sentence from text:
-``infer/tts_infer.py``). The shipped ``egs/spec_denoiser.yaml`` sets
+``infer/tts_infer.py``); and the PortaSpeech family
+(``egs/{ps,ps_flow,ps_adv}.yaml``: PortaSpeech, PortaSpeech-flow and
+adversarial PortaSpeech on a corpus with word fields; ``--infer`` is its
+inference entry point). The shipped ``egs/spec_denoiser.yaml`` sets
 ``use_bf16: true``: its steps run in bf16 against float32 master weights
 (``training/train_state.py``), its validation and ``--infer`` in float32,
 as in the JAX package; ``-hp use_bf16=False`` trains it in float32 (the
@@ -48,6 +51,9 @@ from speech_editing_tpu_torch.training.tasks.a3t import A3TTask
 from speech_editing_tpu_torch.training.tasks.campnet import CampNetTask
 from speech_editing_tpu_torch.training.tasks.editspeech import EditSpeechTask
 from speech_editing_tpu_torch.training.tasks.hifigan import HifiGanTask
+from speech_editing_tpu_torch.training.tasks.portaspeech import (PortaSpeechFlowTask,
+                                                                 PortaSpeechTask)
+from speech_editing_tpu_torch.training.tasks.ps_adv import PortaSpeechAdvTask
 from speech_editing_tpu_torch.training.tasks.spec_denoiser import SpecDenoiserTask
 from speech_editing_tpu_torch.training.tasks.stutter_speech import (StutterPredictorTask,
                                                                     StutterSpeechTask)
@@ -58,7 +64,8 @@ from speech_editing_tpu_torch.training.trainer import Trainer, cuda_or_cpu, floa
 TASKS = {cls.__name__: cls for cls in (SpecDenoiserTask, StutterSpeechTask,
                                        StutterPredictorTask, CampNetTask, A3TTask,
                                        EditSpeechTask, HifiGanTask, FastSpeechTask,
-                                       FastSpeech2OrigTask, DiffSpeechTask)}
+                                       FastSpeech2OrigTask, DiffSpeechTask, PortaSpeechTask,
+                                       PortaSpeechFlowTask, PortaSpeechAdvTask)}
 
 
 def task_class(task_cls: str):

@@ -5,7 +5,7 @@ Port of the JAX package's ``training/losses.py``: the weighted mel losses
 the uv-BCE + f0-L1 pitch loss, and StutterSpeech's class-weighted focal
 loss and cross entropy. The word-duration sums run over a static
 ``S + 1`` word segments (a word count never exceeds the token count) with
-``scatter_add``.
+``segment_sum``.
 
 Every normaliser is the global batch's: inside
 ``parallel.mesh.data_parallel`` a weighted mean divides the sum over all
@@ -22,7 +22,7 @@ from typing import Dict
 
 import torch
 
-from speech_editing_tpu_torch.ops.seq_ops import (mel2token_to_dur,
+from speech_editing_tpu_torch.ops.seq_ops import (mel2token_to_dur, segment_sum,
                                                   weights_nonzero_speech)
 from speech_editing_tpu_torch.ops.ssim import ssim_map
 from speech_editing_tpu_torch.parallel.mesh import active_data_mesh, global_mean, global_sums
@@ -94,10 +94,7 @@ def dur_loss(losses: dict, dur_pred: torch.Tensor, mel2ph: torch.Tensor,
         # word id = running count of silences, zeroed on the silence itself;
         # segment 0 collects the silences and is dropped
         word_id = (torch.cumsum(is_sil, -1) * (1 - is_sil)).long()
-
-        def seg_sum(v):
-            out = v.new_zeros(b, s + 1)
-            return out.scatter_add(1, word_id, v)[:, 1:]
+        seg_sum = lambda v: segment_sum(v, word_id, s + 1)[:, 1:]
 
         word_dur_p, word_dur_g = seg_sum(dur_pred), seg_sum(dur_gt)
         wdur = (torch.log1p(word_dur_p) - torch.log1p(word_dur_g)) ** 2

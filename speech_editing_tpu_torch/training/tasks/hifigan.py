@@ -71,7 +71,40 @@ def mel_l1(y: torch.Tensor, y_hat: torch.Tensor, hp: Any) -> torch.Tensor:
     return global_mean(torch.abs(gan_mel_spectrogram(y_hat, hp) - gan_mel_spectrogram(y, hp)))
 
 
-class GanTrainStep:
+class TwoNetState:
+    """The state of a step that updates a generator (``model``,
+    ``gen_opt`` over ``gen_params``) and its discriminators (``disc``,
+    ``disc_opt`` over ``disc_params``), ``step`` counting the steps: its
+    checkpoint form and a JAX ``GanTrainState``'s."""
+
+    def state_dict(self) -> dict:
+        """The generator under ``model`` (where the vocoder reads it), the
+        discriminators, both optimizers and the step."""
+        return {"model": self.model.state_dict(), "disc": self.disc.state_dict(),
+                "gen_opt": self.gen_opt.state_dict(), "disc_opt": self.disc_opt.state_dict(),
+                "step": self.step}
+
+    def load_state_dict(self, state: dict) -> None:
+        """Load a state from any device onto this step's device."""
+        self.model.load_state_dict(state["model"])
+        self.disc.load_state_dict(state["disc"])
+        self.gen_opt.load_state_dict(state["gen_opt"])
+        self.disc_opt.load_state_dict(state["disc_opt"])
+        self.step = state["step"]
+
+    def load_jax(self, gen: dict, disc: dict, gen_adam: dict, disc_adam: dict,
+                 steps: int) -> None:
+        """A JAX ``GanTrainState`` converted to ``state_dict``s: both nets,
+        both Adam states (``{"mu", "nu", "count"}`` in the nets' names)."""
+        self.model.load_state_dict(gen)
+        self.disc.load_state_dict(disc)
+        for opt, net, params, adam in ((self.gen_opt, self.model, self.gen_params, gen_adam),
+                                       (self.disc_opt, self.disc, self.disc_params, disc_adam)):
+            load_adam_state(opt, net, params, adam["mu"], adam["nu"], adam["count"])
+        self.step = steps
+
+
+class GanTrainStep(TwoNetState):
     """``step(batch, generator=None, rows=None) -> metrics`` (0-d tensors)
     over the batch's ``mels`` [B, T, 80] and ``wavs`` [B, T * hop]: one
     generator and one discriminator update (see the module doc; ``rows``,
@@ -137,31 +170,6 @@ class GanTrainStep:
         metrics["total_loss"] = (g_total + d_total).detach()
         return metrics
 
-    def state_dict(self) -> dict:
-        """The generator under ``model`` (where the vocoder reads it), the
-        discriminators, both optimizers and the step."""
-        return {"model": self.model.state_dict(), "disc": self.disc.state_dict(),
-                "gen_opt": self.gen_opt.state_dict(), "disc_opt": self.disc_opt.state_dict(),
-                "step": self.step}
-
-    def load_state_dict(self, state: dict) -> None:
-        """Load a state from any device onto this step's device."""
-        self.model.load_state_dict(state["model"])
-        self.disc.load_state_dict(state["disc"])
-        self.gen_opt.load_state_dict(state["gen_opt"])
-        self.disc_opt.load_state_dict(state["disc_opt"])
-        self.step = state["step"]
-
-    def load_jax(self, gen: dict, disc: dict, gen_adam: dict, disc_adam: dict,
-                 steps: int) -> None:
-        """A JAX ``GanTrainState`` converted to ``state_dict``s: both nets,
-        both Adam states (``{"mu", "nu", "count"}`` in the nets' names)."""
-        self.model.load_state_dict(gen)
-        self.disc.load_state_dict(disc)
-        for opt, net, params, adam in ((self.gen_opt, self.model, self.gen_params, gen_adam),
-                                       (self.disc_opt, self.disc, self.disc_params, disc_adam)):
-            load_adam_state(opt, net, params, adam["mu"], adam["nu"], adam["count"])
-        self.step = steps
 
 
 class HifiGanTask(BaseTask):

@@ -61,7 +61,8 @@ from speech_editing_tpu_torch.training.checkpoint import (get_last_checkpoint,
 from speech_editing_tpu_torch.training.tasks.spec_denoiser import SpecDenoiserTask
 from speech_editing_tpu_torch.training.train_state import TrainStep, make_eval_step
 
-_INT_KEYS = ("txt_tokens", "mel2ph", "spk_ids", "stutter_mel_masks")
+_INT_KEYS = ("txt_tokens", "mel2ph", "spk_ids", "stutter_mel_masks", "word_tokens",
+             "ph2word", "mel2word", "pitch")
 
 
 def cuda_or_cpu(device: Any, who: str) -> torch.device:

@@ -354,6 +354,18 @@ def stutter_speech_params_from_jax(params: Mapping, hp: Any) -> dict[str, torch.
     return sd
 
 
+def _wn(sd: dict, name: str, p: Mapping) -> None:
+    """A JAX ``WN`` (``in_{i}``, ``res_skip_{i}``, ``cond_layer``) -> the
+    port's (``in_layers.{i}``, ``res_skip_layers.{i}``, ``cond_layer``)."""
+    if "cond_layer" in p:
+        _conv(sd, f"{name}.cond_layer", p["cond_layer"])
+    i = 0
+    while f"in_{i}" in p:
+        _conv(sd, f"{name}.in_layers.{i}", p[f"in_{i}"])
+        _conv(sd, f"{name}.res_skip_layers.{i}", p[f"res_skip_{i}"])
+        i += 1
+
+
 def _mel_prenet(sd: dict, name: str, p: Mapping) -> None:
     for i in range(4):
         _conv(sd, f"{name}.convs.{i}", p[f"conv_{i}"])
@@ -368,13 +380,7 @@ def stutter_predictor_params_from_jax(params: Mapping, hp: Any) -> dict[str, tor
     _mel_prenet(sd, "mel_prenet", params["mel_prenet"])
     _conv_blocks(sd, "mel_convs.", params["mel_convs"], 5, 2)
     _mel_prenet(sd, "decoder_text_prenet", params["decoder_text_prenet"])
-    dec = params["decoder"]
-    _conv(sd, "decoder.cond_layer", dec["cond_layer"])
-    i = 0
-    while f"in_{i}" in dec:
-        _conv(sd, f"decoder.in_layers.{i}", dec[f"in_{i}"])
-        _conv(sd, f"decoder.res_skip_layers.{i}", dec[f"res_skip_{i}"])
-        i += 1
+    _wn(sd, "decoder", params["decoder"])
     _linear(sd, "out_proj", params["out_proj"])
     return sd
 
@@ -539,6 +545,92 @@ def discriminator_params_from_jax(params: Mapping, hp: Any) -> dict[str, torch.T
         for j in range(7):
             _conv(sd, f"{name}.convs.{j}", d[f"Conv_{j}"])
         _conv(sd, f"{name}.conv_post", d["Conv_7"])
+    return sd
+
+
+def _couplings(sd: dict, name: str, p: Mapping) -> None:
+    """A flow's ``coupling_{i}`` (``pre``, ``enc`` a WN, ``post``) ->
+    ``{name}.couplings.{i}``."""
+    i = 0
+    while f"coupling_{i}" in p:
+        c, prefix = p[f"coupling_{i}"], f"{name}.couplings.{i}"
+        _linear(sd, f"{prefix}.pre", c["pre"])
+        _wn(sd, f"{prefix}.enc", c["enc"])
+        _linear(sd, f"{prefix}.post", c["post"])
+        i += 1
+
+
+def _glow(sd: dict, name: str, p: Mapping) -> None:
+    """A JAX ``Glow`` (``actnorm_{i}``, ``invconv_{i}``, ``coupling_{i}``)."""
+    i = 0
+    while f"actnorm_{i}" in p:
+        sd[f"{name}.actnorms.{i}.logs"] = _t(p[f"actnorm_{i}"]["logs"])
+        sd[f"{name}.actnorms.{i}.bias"] = _t(p[f"actnorm_{i}"]["bias"])
+        sd[f"{name}.invconvs.{i}.weight"] = _t(p[f"invconv_{i}"]["weight"])
+        i += 1
+    _couplings(sd, name, p)
+
+
+def _fvae(sd: dict, name: str, p: Mapping) -> None:
+    _conv(sd, f"{name}.g_pre_net", p["g_pre_net"])
+    for part in ("encoder", "decoder"):
+        q, prefix = p[part], f"{name}.{part}"
+        (_conv_transpose if part == "decoder" else _conv)(sd, f"{prefix}.pre", q["pre"])
+        _wn(sd, f"{prefix}.wn", q["wn"])
+        _linear(sd, f"{prefix}.out_proj", q["out_proj"])
+    if "prior_flow" in p:
+        _couplings(sd, f"{name}.prior_flow", p["prior_flow"])
+
+
+def portaspeech_params_from_jax(params: Mapping, hp: Any) -> dict[str, torch.Tensor]:
+    """JAX ``PortaSpeech`` or ``PortaSpeechFlow`` params -> ``state_dict``
+    of the port's: the phone and word encoders (``FastSpeechEncoder``),
+    ``ph2word_encoder`` (``FFTBlocks``), the projections, the postnet
+    (``ConvBlocks``), the duration predictor, the FVAE (its decoder's
+    ``ConvTranspose`` kernel flipped), the embeddings; and the Glow
+    post-flow with its condition projection."""
+    params = params.get("params", params)
+    sd: dict[str, torch.Tensor] = {}
+    _encoder(sd, "encoder", params["encoder"], hp["enc_layers"])
+    n_word = hp.get("word_enc_layers", 4)
+    if "word_encoder" in params:
+        _encoder(sd, "word_encoder", params["word_encoder"], n_word)
+    ph2word = params["ph2word_encoder"]
+    sd["ph2word_encoder.pos_embed_alpha"] = _t(ph2word["pos_embed_alpha"])
+    _encoder(sd, "ph2word_encoder", {"fft": ph2word}, n_word, embed=False)
+    for n in ("enc_pos_proj", "dec_res_proj", "attn_q", "attn_k", "attn_v", "word_pos_proj",
+              "spk_embed_proj", "post_flow_cond_proj"):
+        if n in params:
+            _linear(sd, n, params[n])
+    if "text_encoder_postnet" in params:
+        _conv_blocks(sd, "text_encoder_postnet.", params["text_encoder_postnet"], 3, 2)
+    _predictor(sd, "dur_predictor", params["dur_predictor"], hp["dur_predictor_layers"],
+               "linear.0")
+    _fvae(sd, "fvae", params["fvae"])
+    for n in ("pitch_embed", "spk_id_proj"):
+        if n in params:
+            _embedding(sd, n, params[n])
+    if "post_flow" in params:
+        _glow(sd, "post_flow", params["post_flow"])
+    return sd
+
+
+def multi_window_disc_params_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """JAX ``MultiWindowDiscriminator`` params (``disc_win<w>``: ``conv_{i}``
+    2-D kernels ``[kh, kw, in, out]``, ``norm_{i}`` LayerNorms,
+    ``adv_layer`` over the channel-last flattening) -> ``state_dict`` of
+    the port's (``discs.{k}.convs.{i}``, ``discs.{k}.norms.{i}``,
+    ``discs.{k}.adv_layer``; windows in ascending order)."""
+    params = params.get("params", params)
+    sd: dict[str, torch.Tensor] = {}
+    wins = sorted(int(k[len("disc_win"):]) for k in params if k.startswith("disc_win"))
+    for k, win in enumerate(wins):
+        d, name = params[f"disc_win{win}"], f"discs.{k}"
+        for i in range(3):
+            _conv2d(sd, f"{name}.convs.{i}", d[f"conv_{i}"])
+        for i in range(2):
+            _layer_norm(sd, f"{name}.norms.{i}", d[f"norm_{i}"])
+        _linear(sd, f"{name}.adv_layer", d["adv_layer"])
     return sd
 
 

@@ -7,8 +7,9 @@ parameter (the same distributions, not the same draws):
 
 * token embeddings: normal with std dim^-0.5 (``TokenEmbedding``);
 * dense layers, convolutions, attention projections: lecun-normal (a
-  normal truncated at two standard deviations with variance 1 / fan_in),
-  zero biases;
+  normal truncated at two standard deviations with variance 1 / fan_in,
+  a transposed convolution's fan_in its input channels times its width,
+  as flax counts it), zero biases;
 * LayerNorm and GroupNorm: scale one, bias zero;
 * DiffNet's convolutions: kaiming-normal (variance 2 / fan_in, truncated),
   its final ``output_projection`` zero, so the first x0 prediction is 0;
@@ -27,7 +28,9 @@ parameter (the same distributions, not the same draws):
   dim^-0.5), its frame head's convolutions (``ConditionalConvBlocks``, its
   ``g_prenet`` too) xavier-uniform; the stutter predictor's stride-2
   prenets and ``WN`` convolutions lecun-normal, its ``ConvBlocks``
-  xavier-uniform.
+  xavier-uniform;
+* the flows' 1x1 products orthogonal and ActNorms zero (as built), each
+  affine coupling's output layer zero.
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ from speech_editing_tpu_torch.models.campnet import CampNet
 from speech_editing_tpu_torch.models.vocoder.hifigan import HifiGanGenerator
 from speech_editing_tpu_torch.modules.conformer import RelPositionMultiHeadAttention
 from speech_editing_tpu_torch.modules.conv import ConvBlocks
+from speech_editing_tpu_torch.modules.flows import _AffineCoupling, zero_post
 from speech_editing_tpu_torch.modules.rel_transformer import ConvReluNorm
 from speech_editing_tpu_torch.modules.transformer import MultiheadAttention, TransformerDecoder
 from speech_editing_tpu_torch.modules.wavenet import DiffNet
@@ -100,8 +104,10 @@ def init_like_flax(model: nn.Module) -> nn.Module:
     for m in model.modules():
         if isinstance(m, nn.Embedding):
             nn.init.normal_(m.weight, std=m.embedding_dim ** -0.5)
-        elif isinstance(m, (nn.Linear, nn.Conv1d, nn.Conv2d, nn.ConvTranspose1d)):
+        elif isinstance(m, (nn.Linear, nn.Conv1d, nn.Conv2d)):
             _reset(m, lecun_normal_)
+        elif isinstance(m, nn.ConvTranspose1d):   # torch's weight [in, out, k]
+            _reset(m, lambda w: _variance_scaling_normal_(w.transpose(0, 1), 1.0))
         elif isinstance(m, (nn.LayerNorm, nn.GroupNorm, nn.BatchNorm1d)):
             nn.init.ones_(m.weight)
             nn.init.zeros_(m.bias)
@@ -134,6 +140,8 @@ def init_like_flax(model: nn.Module) -> nn.Module:
             nn.init.zeros_(m.mask_emb)
         elif isinstance(m, TransformerDecoder):
             nn.init.ones_(m.pos_embed_alpha)
+        elif isinstance(m, _AffineCoupling):
+            zero_post(m)
         elif isinstance(m, HifiGanGenerator):
             for layer in m.modules():
                 if isinstance(layer, (nn.Conv1d, nn.ConvTranspose1d)) and layer is not m.conv_pre:

@@ -182,8 +182,9 @@ def test_a_jax_checkpoint_loads_through_the_familys_converter(family, tmp_path):
 def test_the_entry_resolves_every_editing_task():
     for name in ("spec_denoiser.SpecDenoiserTask", "stutter_speech.StutterSpeechTask",
                  "stutter_speech.StutterPredictorTask", "campnet.CampNetTask",
-                 "a3t.A3TTask", "editspeech.EditSpeechTask"):
+                 "a3t.A3TTask", "editspeech.EditSpeechTask", "ps_adv.PortaSpeechAdvTask",
+                 "portaspeech.PortaSpeechTask", "portaspeech.PortaSpeechFlowTask"):
         cls = task_class(f"speech_editing_tpu.training.tasks.{name}")
         assert cls is TASKS[name.split(".")[1]]
     with pytest.raises(ValueError, match="has no task"):
-        task_class("speech_editing_tpu.training.tasks.ps_adv.PortaSpeechAdvTask")
+        task_class("speech_editing_tpu.training.tasks.tts.TacotronTask")
