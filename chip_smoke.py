@@ -7,7 +7,8 @@ Phases, each of which exits non-zero on a failed check:
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: ``nvcc`` builds every kernel from ``speech_editing_tpu_torch/csrc``
-   for ``sm_90a``, one compiler per source, in parallel;
+   for ``sm_90a``, one compiler per source, in parallel, and ``g++`` the
+   native DSP library beside them;
 3. kernels: each CUDA kernel against its plain PyTorch version at the
    shapes of the edit and train paths, with the error against the stated
    tolerance, the kernel's, the plain version's and (for attention) SDPA's
@@ -81,14 +82,14 @@ Phases, each of which exits non-zero on a failed check:
    checkpoint's size, save and load times are printed.
 6b. bf16 run path: the same entry on ``egs/spec_denoiser.yaml`` as shipped
    (``use_bf16: true``, no override) over the same corpus, the loader in
-   process: 20 steps, a
-   validation of 4 batches and a checkpoint, then a resume to 25. Every
+   process: 30 steps, a
+   validation of 4 batches and a checkpoint, then a resume to 35. Every
    step launches the bf16 K1 and K5 20 times each and nothing else, every
    validation batch the float32 K1 20 times; metrics are finite; the
    checkpoint holds float32 parameters and moments, which the resume
    restores bit for bit; a 2-utterance bf16 step on the card and on the
-   CPU agree at the BF16_* bars. Steps/s, host p50/p75, a profiled median
-   step and peak memory are printed.
+   CPU agree at the BF16_* bars. Steps/s, host p50/p75 and peak memory are
+   printed (the bf16 step is profiled in the train phase, 5b).
 7. infer path, on the run path's checkpoint and corpus with a HiFi-GAN V1
    checkpoint of seeded weights at ``egs/hifigan.yaml``'s widths (the
    vocoder must load as HiFi-GAN on the card): ``run --infer`` over the 8
@@ -137,8 +138,8 @@ Phases, each of which exits non-zero on a failed check:
    source's frames outside the mask; requests/s, audio s/s, fill, peak
    memory); one request alone, in its chunk and at another row
    bit-identical, and at its exact-fit bucket with max_batch 1 the
-   per-item driver's mel and wav bit for bit; a profiled B=16 x T=512
-   chunk (host, busy, K3's and HiFi-GAN's shares); a 128-frame chunk run
+   per-item driver's mel and wav bit for bit; CampNet's profiled B=16 x
+   T=512 chunk (host, busy, K3's and HiFi-GAN's shares); a 128-frame chunk run
    again bit-identical and on the CPU (EditSpeech's splice frames
    replayed and counted, INPLACE_CPU_TOL). CampNet also online through the
    serve CLI (``--warmup``, every eighth request; wavs bit-identical to
@@ -159,7 +160,7 @@ Phases, each of which exits non-zero on a failed check:
    starts as StutterSpeech's checkpoint's ``fs.encoder`` bit for bit and
    its ``meta.csv`` holds the block labels; a StutterSpeech and a CampNet
    step re-run on the CPU agree. Step host p50/p75, steps/s, peak memory
-   and a profiled median step are printed. K4 is held against its plain
+   and StutterSpeech's profiled median step are printed. K4 is held against its plain
    version and timed beside SDPA's backward at CampNet's decoder shapes in
    the kernels phase. Then the same five under ``-hp use_bf16=true``:
    8 steps, a validation batch (float32, as JAX validates) and a
@@ -197,9 +198,9 @@ Phases, each of which exits non-zero on a failed check:
    and both Adam states bit for bit), ``--infer`` (copy synthesis) of the 2
    test items; the trained work dir loads through ``infer/vocoder.py``'s
    HiFi-GAN and vocodes a mel bit for bit as the generator does; one B=2 GAN
-   step on the card and on the CPU agrees; step times, peak memory and a
-   profiled step. No kernel of the port runs on this path (cuDNN's
-   convolutions and cuBLAS's DFT products).
+   step on the card and on the CPU agrees; step times and peak memory
+   (PERF.md section 5 holds the step's device breakdown). No kernel of the
+   port runs on this path (cuDNN's convolutions and cuBLAS's DFT products).
 14. data: the offline pipeline on a raw vctk-layout corpus of 24 synthetic
    utterances of 1.5-6 s at 22,050 Hz over 3 speakers, with TextGrids
    written here in place of the aligner's and a resemblyzer-format
@@ -229,7 +230,7 @@ Phases, each of which exits non-zero on a failed check:
    K4 4 a step, K1 2,000 and K3 4 a sentence); metrics and outputs are
    finite; a B=2 step of FastSpeech and of DiffSpeech (192 frames of two
    utterances) on the card and on the CPU agrees. Step host and event
-   p50/p75, peak memory, a profiled median step of those two (busy, the
+   p50/p75, peak memory, DiffSpeech's profiled median step (busy, the
    largest device items) and each
    sentence's model and vocoder seconds and real-time factor are printed. K3 and K4 are held against their plain
    versions at FastSpeech's median batch and timed beside SDPA there; K1
@@ -253,11 +254,31 @@ Phases, each of which exits non-zero on a failed check:
    utterances, the posterior's noise given) on the card and on the CPU
    agrees. Step host and event p50/p75 and peak memory of each config, and
    a profiled median step (busy, the largest device items) of
-   PortaSpeech-flow and adversarial PortaSpeech are printed. K3
+   PortaSpeech-flow are printed. K3
    and K4 are held against their plain versions at PortaSpeech's median
    batch, over its phone rows and over its word rows, and timed beside
    SDPA there.
-18. multi: the parallel layer (``parallel/``) with the flagship at full
+18. reference: released reference checkpoints, the native DSP library
+   and the gradio demo. (a) Seeded checkpoints in the reference toolkit's
+   layout, saved with ``torch.save`` in its trainer's nestings: the
+   flagship FluentSpeech (with the schedule buffers and the conditioner's
+   unused decoder a reference checkpoint holds) and HiFi-GAN V1 with every
+   conv weight-normed, read back through ``load_torch_checkpoint`` and the
+   converters (``utils/convert_torch_ckpt.py``, strict loads); one 192-frame
+   edit through ``EditPipeline`` launches K2 1, K3 4 and K1 160 times and
+   agrees with the same edit on the CPU (REF_TOL). (b) Copy synthesis
+   (``scripts/copy_synthesis.py``) of one utterance through that HiFi-GAN,
+   as the converter's command line writes it. (c) The native DSP library
+   builds and loads; ``wav2spec`` native against numpy (mel bit-equal,
+   linear 1e-4) and ``autocorr_native`` against ``autocorr`` (the same
+   voicing, f0 within 1e-3); the data phase's binarize ran each item's
+   log-mel through it (counted). (d) The gradio demo's callback
+   (``infer/gradio_app.py``) under a stub ``gradio`` module on the card, over
+   the converted FluentSpeech work dir: a 44.1 kHz stereo int16 upload comes
+   back as 22,050 Hz int16 audio, K1 160 launches; the same callback on the
+   CPU, replaying the card's durations and draw, agrees (mel_out within
+   REF_TOL, the int16 output within REF_GRADIO_LSB).
+19. multi: the parallel layer (``parallel/``) with the flagship at full
    width on two ranks of the one card, each a new process on ``cuda:0``
    over gloo (NCCL refuses two ranks on one device), through
    ``parallel.dryrun.dryrun_multichip``: 2 data-parallel steps on a global
@@ -285,7 +306,10 @@ from a copy of another commit, each times that commit's kernels in the
 same call. ``python3 chip_smoke.py --multi`` runs the multi phase alone
 (K1, K5, K3 and K4 built, a small corpus of the run path's kind), and
 ``--ps`` the PortaSpeech phase alone (K3 and K4 built, a HiFi-GAN V1 of
-seeded weights), with their checks.
+seeded weights), ``--reference`` the data and reference phases, with their
+checks. ``--dsp-ab`` times the binarizer's per-item work over the data
+phase's corpus with ``dsp_backend`` numpy and native (and native with the
+native f0 tracker).
 
 Float32 but for the bf16 phases, with TF32 off for matrix products and
 cuDNN convolutions and bf16 products reduced in float32, so the card and
@@ -308,6 +332,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import types
 
@@ -337,6 +362,7 @@ from speech_editing_tpu_torch.infer.spec_denoiser import (SpecDenoiserInfer, req
 from speech_editing_tpu_torch.infer.tts_infer import FastSpeechInfer
 from speech_editing_tpu_torch.infer.tts_infer import main as tts_infer_main
 from speech_editing_tpu_torch.infer.vocoder import HifiGAN, get_vocoder_cls
+from speech_editing_tpu_torch.models.spec_denoiser.spec_denoiser import GaussianDiffusion
 from speech_editing_tpu_torch.models.vocoder.hifigan import HifiGanGenerator
 from speech_editing_tpu_torch.models.voice_encoder import (VoiceEncoder, VoiceEncoderCtx,
                                                            load_voice_encoder, seeded_state_dict)
@@ -365,6 +391,7 @@ from speech_editing_tpu_torch.training.tasks.spec_denoiser import SpecDenoiserTa
 from speech_editing_tpu_torch.training.tasks.stutter_speech import StutterPredictorTask
 from speech_editing_tpu_torch.training.trainer import Trainer, float32_on_card
 from speech_editing_tpu_torch.utils.audio.cwt import f0_to_cwt
+from speech_editing_tpu_torch.utils.audio import native
 from speech_editing_tpu_torch.utils.audio.dsp import stft_window, wav2spec
 from speech_editing_tpu_torch.utils.audio.io import save_wav
 from speech_editing_tpu_torch.utils.init import init_like_flax
@@ -2514,18 +2541,7 @@ def run_bf16_path(smi: str, tmp: str, data_dir: str) -> tuple[dict, dict]:
           f"real frames/s); CUDA events p50 {stats['event_ms_p50']:.3f} ms; peak memory "
           f"{peak_gib:.3f} GiB; validation {[round(v, 3) for v in first.validate_s]} s; "
           f"{train_s:.1f} s for the first run; {smi}", flush=True)
-    mid = sorted(timed, key=lambda st: st["shape"][1])[len(timed) // 2]
-    raw = {k: v.pin_memory() if isinstance(v, torch.Tensor) else v
-           for k, v in mid["raw"].items()}
-    b, t = mid["shape"]
-    print(f"[run bf16] profiled batch: B={b} x T={t} ({mid['frames']} real frames; "
-          f"{plan_text('diffnet_block', b, t, 1, 'bf16')} for K1, "
-          f"{plan_text('diffnet_block_bwd', b, t, 1, 'bf16')} for K5), {mid['host_ms']:.3f} "
-          f"ms host clock in the run", flush=True)
-    busy_ms = profile_step(trainer, raw, mid["host_ms"], label=f"run bf16 B={b} x T={t}")
-    stats.update(profiled_batch=[b, t], profiled_host_ms=mid["host_ms"],
-                 profiled_busy_ms=busy_ms,
-                 profiled_busy_share=None if busy_ms is None else busy_ms / mid["host_ms"])
+    raw = sorted(timed, key=lambda st: st["shape"][1])[len(timed) // 2]["raw"]
     keys = resumed.task.effective_batch_keys()
     compare_step_with_cpu("run bf16", lambda dev: Trainer(resumed.task, resumed.hp, dev,
                                                           dropout=False),
@@ -3465,6 +3481,7 @@ CAMPNET_K3 = 9
 INPLACE_CPU_T = 128       # the frame bucket of the chunk re-run on the CPU
 INPLACE_CPU_TOL = 1e-3    # card vs CPU mel_out of that chunk
 INPLACE_PROFILE_T = 512   # the frame bucket of the profiled chunk
+INPLACE_PROFILED = ("campnet",)   # the family whose chunk runs a kernel of the port (K3)
 INPLACE_INT8 = "editspeech"   # the family served on int8 weights (LSTM, conv and linear layouts)
 
 
@@ -3650,7 +3667,8 @@ def inplace_family(family: str, cls, config: str, smi: str, tmp: str, data_dir: 
     the CSV edit API, batch mode over the serve path's 32 requests (warmed;
     checked, timed), one request alone, at another row and at its exact-fit
     bucket with max_batch 1 against the per-item driver (bit for bit), a
-    profiled B=16 x T=512 chunk, a 128-frame chunk re-run on the CPU.
+    profiled B=16 x T=512 chunk (INPLACE_PROFILED), a 128-frame chunk re-run
+    on the CPU.
     Returns the batch run's launches and the statistics."""
     voc_dir = os.path.join(tmp, "hifigan")
     work = os.path.join(tmp, "inplace", family)
@@ -3735,9 +3753,10 @@ def inplace_family(family: str, cls, config: str, smi: str, tmp: str, data_dir: 
     print(f"[inplace] {family} {alone_name} ({len(item['mel'])} frames): alone, in its 16-row "
           f"chunk and at row 1 bit-identical; at its exact-fit bucket with max_batch 1 the "
           f"server's mel and wav equal the per-item driver's bit for bit", flush=True)
-    stats["profile"] = inplace_profile(
-        family, server, next(c for c in chunks if c["t_b"] == INPLACE_PROFILE_T
-                             and c["n"] == c["b"]), smi)
+    if family in INPLACE_PROFILED:
+        stats["profile"] = inplace_profile(
+            family, server, next(c for c in chunks if c["t_b"] == INPLACE_PROFILE_T
+                                 and c["n"] == c["b"]), smi)
     stats["cpu"] = inplace_cpu_rerun(family, cls, hp, server,
                                      next(c for c in chunks if c["t_b"] == INPLACE_CPU_T),
                                      by_name)
@@ -3872,8 +3891,9 @@ def family_train(family: str, smi: str, tmp: str, data_dir: str,
     widths: FAMILY_STEPS steps, one validation of FAMILY_VALID batches and a
     checkpoint, then ``--infer`` on the test split from that checkpoint.
     Every step's, validation batch's and item's launches are checked, and
-    every metric is finite; the timed steps (after RUN_WARMUP), peak memory
-    and a profiled median step are printed; StutterSpeech and CampNet step
+    every metric is finite; the timed steps (after RUN_WARMUP) and peak
+    memory are printed, StutterSpeech's profiled median step (EditSpeech's
+    under bf16); StutterSpeech and CampNet step
     once on the card and on the CPU. With ``bf16``, under ``-hp
     use_bf16=true``: FAMILY_BF16_STEPS steps, one validation batch and a
     checkpoint of float32 masters, no ``--infer``; CampNet steps on the card
@@ -3959,10 +3979,9 @@ def family_train(family: str, smi: str, tmp: str, data_dir: str,
            for k, v in mid["raw"].items()}
     b, t = mid["shape"]
     events: list = []
-    # profiled: in float32 the families whose steps run the port's kernels
-    # (StutterSpeech K1/K5, CampNet K3/K4), in bf16 EditSpeech alone (its
-    # cuDNN recurrence is checked)
-    if family in (("editspeech",) if bf16 else ("stutter_speech", "campnet")):
+    # profiled: in float32 StutterSpeech (K1/K5), in bf16 EditSpeech alone
+    # (its cuDNN recurrence is checked)
+    if family in (("editspeech",) if bf16 else ("stutter_speech",)):
         busy_ms = profile_step(trainer, raw, mid["host_ms"], top=8,
                                label=f"{label} B={b} x T={t}", keep=events)
         stats.update(profiled_batch=[b, t], profiled_host_ms=mid["host_ms"],
@@ -4362,8 +4381,8 @@ def gan_path(smi: str, tmp: str) -> tuple[dict, dict]:
     checkpoint, a resume to GAN_RESUME_TO (both nets and optimizers bit for
     bit), ``--infer`` of the GAN_SPLITS test items (copy synthesis), the
     trained work dir through ``infer/vocoder.py::HifiGAN`` (a mel vocoded as
-    the generator gives it), one step on the card and on the CPU, and a
-    profiled step. The path launches none of the port's kernels."""
+    the generator gives it), and one step on the card and on the CPU. The
+    path launches none of the port's kernels."""
     q = lambda xs, p: float(np.percentile(xs, p))
     t0 = time.perf_counter()
     data_dir, work = os.path.join(tmp, "gan_data"), os.path.join(tmp, "gan", "run")
@@ -4439,17 +4458,11 @@ def gan_path(smi: str, tmp: str) -> tuple[dict, dict]:
           f"memory {peak_gib:.3f} GiB; checkpoint {stats['ckpt_mb']:.1f} MB; {smi}", flush=True)
     print("[gan] last step: " + " ".join(f"{k}={v:.5f}" for k, v in sorted(m.items())),
           flush=True)
-    mid = sorted(timed, key=lambda st: st["host_ms"])[len(timed) // 2]
-    raw = {k: v.pin_memory() if isinstance(v, torch.Tensor) else v
-           for k, v in mid["raw"].items()}
+    raw = sorted(timed, key=lambda st: st["host_ms"])[len(timed) // 2]["raw"]
     stats["cpu_step"] = compare_gan_step_with_cpu(
         resumed.task, resumed.hp, resumed.train_step.state_dict(),
         {k: raw[k][:2] for k in resumed.task.effective_batch_keys() if k in raw})
-    busy_ms = profile_step(trainer, raw, mid["host_ms"], top=12,
-                           label=f"gan B={GAN_B} x {GAN_SAMPLES}")
-    stats.update(profiled_host_ms=mid["host_ms"], profiled_busy_ms=busy_ms,
-                 profiled_busy_share=None if busy_ms is None else busy_ms / mid["host_ms"],
-                 seconds=time.perf_counter() - t0)
+    stats["seconds"] = time.perf_counter() - t0
     return launches, stats
 
 
@@ -4555,6 +4568,7 @@ def data_path(smi: str, tmp: str) -> tuple[dict, dict]:
     rec, env = EncoderRecorder(), {k: os.environ.get(k) for k in ("VOICE_ENCODER_CKPT", "N_PROC")}
     os.environ.update(VOICE_ENCODER_CKPT=ckpt, N_PROC="1")
     reset_counts()
+    native_before = dict(native.calls)
     t1 = time.perf_counter()
     try:
         with rec.instrumented():
@@ -4569,6 +4583,10 @@ def data_path(smi: str, tmp: str) -> tuple[dict, dict]:
     stages.update(rec.seconds, pipeline=time.perf_counter() - t1)
     check(counts() == NO_LAUNCH, f"data: the pipeline launched {counts()}")
     n_items = DATA_SPEAKERS * DATA_PER_SPEAKER
+    # dsp_backend auto: each item's log-mel through the native library
+    native_calls = {k: native.calls[k] - native_before[k] for k in native_before}
+    check(native_calls["stft_mel"] == n_items,
+          f"data: the native library's mel ran {native_calls} for {n_items} items")
     stored = [it for split in ("valid", "test", "train")
               for it in (lambda ds: [ds[i] for i in range(len(ds))])(
                   IndexedDataset(os.path.join(binary, split)))]
@@ -4610,6 +4628,7 @@ def data_path(smi: str, tmp: str) -> tuple[dict, dict]:
                  stage_s=stages, encoder_ms_p50=float(np.median(ms)),
                  encoder_ms_mean=float(np.mean(ms)), encoder_ms_first=ms[0],
                  partials_mean=float(np.mean(partials)), cpu_max_abs_err=err,
+                 native_calls=native_calls,
                  vocab=task.vocab_size,
                  batch=list(batch["mels"].shape[:2]), launches=launches,
                  seconds=time.perf_counter() - t0, card=smi)
@@ -4617,7 +4636,8 @@ def data_path(smi: str, tmp: str) -> tuple[dict, dict]:
           f"speakers: stages (s) " + ", ".join(f"{k} {v:.2f}" for k, v in stages.items())
           + f"; speaker encoder on cuda, {len(ms)} forwards of {stats['partials_mean']:.1f} "
           f"partials on average, CUDA events p50 {stats['encoder_ms_p50']:.3f} ms, mean "
-          f"{stats['encoder_ms_mean']:.3f} ms, first {ms[0]:.3f} ms an utterance; card vs CPU "
+          f"{stats['encoder_ms_mean']:.3f} ms, first {ms[0]:.3f} ms an utterance; native DSP "
+          f"calls {native_calls}; card vs CPU "
           f"embedding max_abs_err {err:.3e} (tol {DATA_TOL}); one shipped-config bf16 step "
           f"on B={stats['batch'][0]} x T={stats['batch'][1]}: launches {launches}; {smi}",
           flush=True)
@@ -4685,6 +4705,7 @@ TTS_CPU_T = 192           # frames of the B=2 step run on the card and the CPU
 # the configs profiled and stepped on the CPU: FastSpeech's FFT path covers
 # FastSpeech2-orig's
 TTS_DEEP = ("fs", "diffspeech")
+TTS_PROFILED = ("diffspeech",)   # of TTS_DEEP, the one profiled
 TTS_FRAME_KEYS = ("mels", "mel2ph", "f0", "uv", "cwt_spec")
 # the prediction: launches a step, a validation batch, a --infer item (one
 # a batch) and a synthesised sentence; FastSpeech's 4 + 4 FFT layers, K3 in
@@ -4815,11 +4836,12 @@ def tts_config(name: str, smi: str, tmp: str, data_dir: str) -> tuple[dict, dict
                  median_lengths=[int(n) for n in mid["raw"]["mel_lengths"]],
                  median_tokens=[int(n) for n in (mid["raw"]["txt_tokens"] > 0).sum(1)])
     if name in TTS_DEEP:
-        busy_ms = profile_step(trainer, raw, mid["host_ms"], top=6,
-                               label=f"tts {name} B={b} x T={t}")
-        stage_s["profile"], t1 = time.perf_counter() - t1, time.perf_counter()
-        stats.update(profiled_busy_ms=busy_ms,
-                     profiled_busy_share=None if busy_ms is None else busy_ms / mid["host_ms"])
+        if name in TTS_PROFILED:
+            busy_ms = profile_step(trainer, raw, mid["host_ms"], top=6,
+                                   label=f"tts {name} B={b} x T={t}")
+            stage_s["profile"], t1 = time.perf_counter() - t1, time.perf_counter()
+            stats.update(profiled_busy_ms=busy_ms, profiled_busy_share=None if busy_ms is None
+                         else busy_ms / mid["host_ms"])
         # the CPU's step: two utterances of the shortest batch, their first
         # TTS_CPU_T frames (the step's cost on the CPU grows with the frames)
         short = min(rec.steps, key=lambda st: st["shape"][1])["raw"]
@@ -4966,7 +4988,7 @@ PS_HP = (f"max_updates={PS_STEPS},val_check_interval={PS_STEPS},num_sanity_val_s
 PS_CPU_T = 192            # frames of the B=2 step run on the card and the CPU
 # profiled (5-7 s each, 27,000-41,000 host operations a step): the widest
 # model's step and the GAN step
-PS_PROFILED = ("ps_flow", "ps_adv")
+PS_PROFILED = ("ps_flow",)
 PS_FRAME_KEYS = ("mels", "mel2word", "pitch")
 # the prediction: 16 K3 a forward (the phone encoder's 4 layers, the word
 # encoder's 4 twice, ph2word_encoder's 4) and 16 K4 a step's backward; the
@@ -5176,6 +5198,316 @@ def ps_only(gen) -> None:
         shutil.rmtree(tmp)
 
 
+# the reference phase: released-style reference checkpoints through the
+# converters, copy synthesis, the native DSP library, the gradio callback
+REF_T = 192               # frames of the released-style edit (K1 160, K3 4, K2 1 at any T)
+REF_TOL = 1e-3            # card vs CPU mel_out of that edit
+REF_COPY = (3.0, 150.0)   # seconds and f0 of the copy-synthesis utterance
+REF_GRADIO = CSV_ROWS[0]  # the demo's source (44.1 kHz stereo int16), texts and regions
+REF_GRADIO_SR = 44100
+REF_GRADIO_LSB = 1        # card vs CPU int16 output of the demo's callback
+SCHEDULE_KEYS = ("betas", "alphas_cumprod", "alphas_cumprod_prev", "sqrt_alphas_cumprod",
+                 "sqrt_one_minus_alphas_cumprod", "log_one_minus_alphas_cumprod",
+                 "sqrt_recip_alphas_cumprod", "sqrt_recipm1_alphas_cumprod",
+                 "posterior_variance", "posterior_log_variance_clipped", "posterior_mean_coef1",
+                 "posterior_mean_coef2")
+
+
+def write_reference_checkpoints(root: str) -> tuple[str, str, int]:
+    """Seeded checkpoints in the reference toolkit's layout and its trainer's
+    nestings: the flagship FluentSpeech (``{"state_dict": {"model": ...}}``,
+    DiffNet's output projection drawn non-zero, with the schedule buffers
+    and the conditioner's unused decoder and ``mel_out`` a reference
+    checkpoint holds) and HiFi-GAN V1 with every conv weight-normed
+    (``{"state_dict": {"model_gen": ...}}``, ``weight_v`` the weight and
+    ``weight_g`` its norm, as ``weight_norm`` leaves them at init). Returns
+    (FluentSpeech path, HiFi-GAN path, vocabulary size)."""
+    vocab = len(RUN_PHONES) + 3
+    h = FLAGSHIP_HP["hidden_size"]
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(7)
+        sd = dict(init_like_flax(GaussianDiffusion(vocab, FLAGSHIP_HP, 80)).state_dict())
+        out = sd["denoise_fn.output_projection.weight"]
+        sd["denoise_fn.output_projection.weight"] = (torch.randn(out.shape)
+                                                     * (2 / out.shape[1]) ** 0.5)
+        sd["fs.decoder.layers.0.op.layer_norm1.weight"] = torch.ones(h)
+        sd["fs.mel_out.weight"] = torch.randn(80, h) * 0.05
+        sd.update({k: torch.rand(FLAGSHIP_HP["timesteps"] + 1) for k in SCHEDULE_KEYS})
+        sd.update(spec_min=torch.full((80,), -6.0), spec_max=torch.full((80,), 1.5))
+        gen = init_like_flax(HifiGanGenerator(HIFIGAN_V1_HP)).state_dict()
+    voc = {}
+    for k, v in gen.items():
+        if k.endswith(".weight"):
+            voc[k + "_v"] = v
+            voc[k + "_g"] = v.reshape(v.shape[0], -1).norm(dim=1).reshape(-1, *[1] * (v.dim() - 1))
+        else:
+            voc[k] = v
+    fluent, hifigan = os.path.join(root, "fluentspeech.ckpt"), os.path.join(root, "hifigan.ckpt")
+    torch.save({"state_dict": {"model": sd}, "global_step": 0}, fluent)
+    torch.save({"state_dict": {"model_gen": voc, "model_disc": {}}, "global_step": 0}, hifigan)
+    return fluent, hifigan, vocab
+
+
+def reference_hp(root: str, work: str, voc_dir: str) -> dict:
+    """``egs/spec_denoiser.yaml`` at the flagship's widths over the converted
+    work dir, with the converted HiFi-GAN, for the demo."""
+    hp = load_config("egs/spec_denoiser.yaml")
+    hp.update(FLAGSHIP_HP, binary_data_dir=os.path.join(root, "binary"), work_dir=work,
+              infer=True, vocoder="HifiGAN", vocoder_ckpt=voc_dir, language="en", f0_min=80,
+              f0_max=600, seed=1234)
+    return hp
+
+
+class _Interface:
+    """The ``gradio.Interface`` the demo builds, under the stub module."""
+
+    def __init__(self, fn=None, inputs=None, outputs=None, **kw):
+        self.fn, self.inputs, self.outputs = fn, inputs, outputs
+
+
+def stub_gradio() -> types.ModuleType:
+    mod = types.ModuleType("gradio")
+    mod.Interface = _Interface
+    mod.Audio = mod.Textbox = lambda *a, **kw: kw
+    return mod
+
+
+def reference_path(smi: str, tmp: str, gen, data_native: dict) -> tuple[dict, dict]:
+    """The reference phase (module doc, 18); ``data_native``: the native
+    library's calls during the data phase's binarize. Returns the launches
+    of the edit and the demo, and the statistics."""
+    from speech_editing_tpu_torch.infer import gradio_app
+    from speech_editing_tpu_torch.scripts import copy_synthesis
+    from speech_editing_tpu_torch.utils import convert_torch_ckpt as conv
+    from speech_editing_tpu_torch.utils.audio.pitch import extract_pitch
+
+    t0 = time.perf_counter()
+    root = os.path.join(tmp, "reference")
+    os.makedirs(os.path.join(root, "binary"))
+    with open(os.path.join(root, "binary", "phone_set.json"), "w") as f:
+        json.dump(RUN_PHONES, f)
+    fluent, hifigan, vocab = write_reference_checkpoints(root)
+    stats: dict = {"card": smi, "ckpt_mb": {os.path.basename(p): os.path.getsize(p) / 2 ** 20
+                                            for p in (fluent, hifigan)}}
+
+    # (a) the released-style edit, card against CPU
+    sd = conv.convert_gaussian_diffusion(conv.load_torch_checkpoint(fluent), FLAGSHIP_HP)
+    voc_sd = conv.convert_hifigan_generator(conv.load_torch_checkpoint(hifigan), HIFIGAN_V1_HP)
+    pipes = {}
+    for device in ("cuda", "cpu"):
+        pipes[device] = EditPipeline(FLAGSHIP_HP, HIFIGAN_V1_HP, device=device, vocab_size=vocab)
+        pipes[device].model.load_state_dict(sd, strict=True)
+        pipes[device].vocoder.load_state_dict(voc_sd, strict=True)
+    req = edit_request(REF_T, seed=21, device="cuda")
+    noise = [torch.randn(1, REF_T, 80, device="cuda", generator=gen)
+             for _ in range(FLAGSHIP_HP["timesteps"] + 1)]
+    reset_counts()
+    wav_out, mel_out = pipes["cuda"](*req, noise=noise)
+    torch.cuda.synchronize()
+    edit_launches = counts()
+    check(edit_launches == EXPECTED_PER_REQUEST,
+          f"reference edit: launches {edit_launches} != {EXPECTED_PER_REQUEST}")
+    wav_cpu, mel_cpu = pipes["cpu"](*(a.cpu() for a in req), noise=[n.cpu() for n in noise])
+    mel_err = float((mel_out.cpu() - mel_cpu).abs().max())
+    wav_err = float((wav_out.cpu() - wav_cpu).abs().max())
+    check(bool(torch.isfinite(wav_out).all()) and mel_err <= REF_TOL,
+          f"reference edit: card vs CPU mel_out error {mel_err} > {REF_TOL}")
+    stats["edit"] = dict(frames=REF_T, launches={k: v for k, v in edit_launches.items() if v},
+                         mel_max_abs_err=mel_err, wav_max_abs_err=wav_err,
+                         seconds=time.perf_counter() - t0)
+    print(f"[reference] released-style checkpoints (torch.save, the reference trainer's "
+          f"nestings; MB {stats['ckpt_mb']}) converted strictly: the flagship FluentSpeech "
+          f"({len(sd)} tensors, vocab {vocab}) and weight-normed HiFi-GAN V1 ({len(voc_sd)}); "
+          f"one {REF_T}-frame edit on the card launched {stats['edit']['launches']}; card vs "
+          f"CPU mel_out max_abs_err {mel_err:.3e} (tol {REF_TOL}), wav {wav_err:.3e}; {smi}",
+          flush=True)
+
+    # (b) copy synthesis through the converted vocoder, a work dir the
+    # converter's command line writes
+    t1 = time.perf_counter()
+    voc_dir = os.path.join(root, "hifigan")
+    conv.main(["--family", "hifigan", "--config", "egs/hifigan.yaml", hifigan, voc_dir])
+    in_wav, out_wav = os.path.join(root, "copy_in.wav"), os.path.join(root, "copy_out.wav")
+    save_wav(csv_wav(*REF_COPY, 5), in_wav, SR)
+    copy = copy_synthesis.main([in_wav, out_wav, "--vocoder_ckpt", voc_dir])
+    check(all(np.isfinite(copy[k]) for k in ("vocode_s", "rtf", "mel_consistency_l1"))
+          and copy["frames"] == len(csv_wav(*REF_COPY, 5)) // HOP + 1,
+          f"reference copy synthesis: {copy}")
+    stats["copy_synthesis"] = dict(copy, seconds=time.perf_counter() - t1)
+    print(f"[reference] copy synthesis of {REF_COPY[0]} s through the converted HiFi-GAN on "
+          f"the card: {copy}; {smi}", flush=True)
+
+    # (c) the native DSP library
+    t1 = time.perf_counter()
+    check(native.available(), "reference: the native DSP library did not build or load")
+    wav = utterance(int(3.5 * SR), 9)
+    a = wav2spec(wav, fmin=55, fmax=7600, backend="numpy")
+    b = wav2spec(wav, fmin=55, fmax=7600, backend="native")
+    lin_err = float(np.abs(10.0 ** a["linear"] - 10.0 ** b["linear"]).max())
+    f0_np = extract_pitch("autocorr", wav, HOP, SR, f0_min=80, f0_max=600)
+    before = native.calls["autocorr_f0"]
+    f0_nat = extract_pitch("autocorr_native", wav, HOP, SR, f0_min=80, f0_max=600)
+    f0_err = float(np.abs(f0_np - f0_nat).max())
+    check(np.array_equal(a["mel"], b["mel"]) and lin_err <= 1e-4,
+          f"reference: native mel not bit-equal to numpy's, or linear error {lin_err} > 1e-4")
+    check(native.calls["autocorr_f0"] == before + 1 and np.array_equal(f0_np > 0, f0_nat > 0)
+          and f0_err <= 1e-3 and (f0_nat > 0).any(),
+          f"reference: native f0 voicing differs or error {f0_err} > 1e-3")
+    check(data_native.get("stft_mel", 0) > 0,
+          f"reference: the data phase's binarize did not take the native path: {data_native}")
+    stats["native"] = dict(mel_bit_equal=True, linear_max_abs_err=lin_err,
+                           f0_max_abs_err=f0_err, binarize_calls=data_native,
+                           seconds=time.perf_counter() - t1)
+    print(f"[reference] native DSP: built and loaded; wav2spec native vs numpy mel bit-equal, "
+          f"linear max_abs_err {lin_err:.3e} (tol 1e-4); autocorr_native vs autocorr voicing "
+          f"equal, f0 max_abs_err {f0_err:.3e} (tol 1e-3); the data phase's binarize called "
+          f"the library {data_native}", flush=True)
+
+    # (d) the gradio callback on the card, over the converted work dir
+    t1 = time.perf_counter()
+    work, cfg = os.path.join(root, "fluentspeech"), os.path.join(root, "flagship.yaml")
+    with open(cfg, "w") as f:
+        f.write(dump_yaml(FLAGSHIP_HP))
+    conv.main(["--family", "spec_denoiser", "--config", cfg, fluent, work])
+    seconds, f0, text, edited, region, edited_region = REF_GRADIO
+    mono = csv_wav(seconds * REF_GRADIO_SR / SR, f0, 6)[: int(seconds * REF_GRADIO_SR)]
+    clip = (np.stack([mono, 0.7 * mono], axis=1) * 32767 * 0.8).astype(np.int16)
+    # the card's callback keeps its request, rounded durations and draw,
+    # which the same callback on the CPU replays
+    seen: dict = {}
+    forward = SpecDenoiserInfer.forward_model
+
+    def card_forward(self, item, noise=None, dur_int=None):
+        dur = self.predict_durations(item, self.spk_embedder(item["wav"])[None])
+        out = forward(self, item, dur_int=dur)
+        gen = request_generator(int(self.hp.get("seed", 1234)), item, self.device)
+        seen.update(item=item, dur=dur, mel_out=out[2], noise=request_noise(
+            gen, self.model.num_timesteps, out[2].shape[0], self.model.out_dims)[:, None].cpu())
+        return out
+
+    def cpu_forward(self, item, noise=None, dur_int=None):
+        check(np.array_equal(item["mel"], seen["item"]["mel"])
+              and np.array_equal(item["mel2ph"], seen["item"]["mel2ph"]),
+              "reference gradio: the CPU's request differs from the card's")
+        out = forward(self, item, noise=seen["noise"], dur_int=seen["dur"])
+        seen["cpu_mel_out"] = out[2]
+        return out
+
+    hp = reference_hp(root, work, voc_dir)
+    upload = ((REF_GRADIO_SR, clip), text, edited, region, edited_region)
+    saved = sys.modules.get("gradio")
+    sys.modules["gradio"] = stub_gradio()
+    try:
+        SpecDenoiserInfer.forward_model = card_forward
+        app = gradio_app.build_app(hp, device="cuda")
+        reset_counts()
+        out_sr, out = app.fn(*upload)
+        torch.cuda.synchronize()
+        gradio_launches = counts()
+        SpecDenoiserInfer.forward_model = cpu_forward
+        cpu_sr, cpu_out = gradio_app.build_app(hp, device="cpu").fn(*upload)
+    finally:
+        SpecDenoiserInfer.forward_model = forward
+        if saved is None:
+            sys.modules.pop("gradio", None)
+        else:
+            sys.modules["gradio"] = saved
+    check(out_sr == SR and out.dtype == np.int16 and out.ndim == 1 and len(out) > SR
+          and np.abs(out).max() > 0, f"reference gradio: {out_sr}, {out.dtype}, {out.shape}")
+    check(gradio_launches["diffnet_block"] == EXPECTED_PER_EDIT["diffnet_block"],
+          f"reference gradio: launches {gradio_launches}")
+    g_mel_err = float(np.abs(seen["mel_out"] - seen["cpu_mel_out"]).max())
+    g_lsb = int(np.abs(out.astype(np.int32) - cpu_out.astype(np.int32)).max()) \
+        if cpu_out.shape == out.shape else None
+    check(cpu_sr == out_sr and g_lsb is not None and g_lsb <= REF_GRADIO_LSB
+          and g_mel_err <= REF_TOL,
+          f"reference gradio: card vs CPU mel_out error {g_mel_err} (tol {REF_TOL}), int16 "
+          f"{g_lsb} (tol {REF_GRADIO_LSB}), shapes {out.shape} {cpu_out.shape}")
+    stats["gradio"] = dict(launches={k: v for k, v in gradio_launches.items() if v},
+                           samples=int(len(out)), peak=int(np.abs(out).max()),
+                           mel_max_abs_err=g_mel_err, int16_max_diff=g_lsb,
+                           seconds=time.perf_counter() - t1)
+    print(f"[reference] gradio callback on the card (stub gradio): a {seconds} s 44.1 kHz "
+          f"stereo int16 upload, {text!r} -> {edited!r}: {len(out)} int16 samples at {out_sr} "
+          f"Hz, peak {stats['gradio']['peak']}, launches {stats['gradio']['launches']}; the "
+          f"same callback on the CPU (the card's durations and draw): mel_out max_abs_err "
+          f"{g_mel_err:.3e} (tol {REF_TOL}), int16 max difference {g_lsb} (tol "
+          f"{REF_GRADIO_LSB}); {smi}", flush=True)
+    stats["seconds"] = time.perf_counter() - t0
+    return {k: edit_launches[k] + gradio_launches[k] for k in COUNTERS}, stats
+
+
+def reference_only(gen) -> None:
+    """``--reference``: the data phase (its binarize is the one counted
+    through the native library) and the reference phase alone."""
+    smi = subprocess.run(["nvidia-smi", "--id=0", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_reference_")
+    try:
+        _, data_stats = data_path(smi, tmp)
+        t0 = time.perf_counter()
+        launches, stats = reference_path(smi, tmp, gen, data_stats["native_calls"])
+        print(f"[phase] reference: {time.perf_counter() - t0:.1f} s", flush=True)
+        print(json.dumps({"reference": stats, "launches": launches}, default=str))
+    finally:
+        shutil.rmtree(tmp)
+
+
+DSP_ARMS = (("numpy", "autocorr"), ("native", "autocorr"), ("native", "autocorr_native"))
+
+
+def dsp_ab(gen) -> None:
+    """``--dsp-ab``: the binarizer's per-item work (``BaseBinarizer.
+    process_item``: the log-mel, the alignment, the f0) over the data
+    phase's corpus, preprocessed and binarized once as the data phase does,
+    with each ``(dsp_backend, pitch_extractor)`` of DSP_ARMS put into the
+    item parameters, in the order A B C C B A: each pass's seconds and the
+    native library's calls; every arm's mels equal."""
+    from speech_editing_tpu_torch.data.binarizer import BaseBinarizer
+
+    smi = subprocess.run(["nvidia-smi", "--id=0", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dsp_")
+    try:
+        raw, processed, ckpt = write_data_corpus(tmp)
+        config = os.path.join(tmp, "data.yaml")
+        with open(config, "w") as f:
+            f.write(dump_yaml(dict(base_config=os.path.abspath("egs/spec_denoiser.yaml"),
+                                   raw_data_dir=raw, processed_data_dir=processed,
+                                   binary_data_dir=os.path.join(tmp, "binary"),
+                                   **DATA_SPLITS)))
+        os.environ.update(VOICE_ENCODER_CKPT=ckpt, N_PROC="1")
+        align_and_binarize_main(["--config", config, "--skip-align"])
+        binarizer = BaseBinarizer(load_config(config), device="cpu")
+        binarizer.load_meta_data()
+        items = [binarizer.items[name] for name in binarizer.item_names]
+        rows, mels = [], {}
+        for backend, pitch in DSP_ARMS + DSP_ARMS[::-1]:
+            p = dict(binarizer.text2mel_params, dsp_backend=backend, pitch_extractor=pitch)
+            before = dict(native.calls)
+            t1 = time.perf_counter()
+            done = [BaseBinarizer.process_item(it, p) for it in items]
+            rows.append(dict(backend=backend, pitch_extractor=pitch,
+                             items_s=time.perf_counter() - t1,
+                             native_calls={k: native.calls[k] - before[k] for k in before}))
+            check(all(d is not None for d in done), f"dsp: {backend}/{pitch} skipped items")
+            mels.setdefault(backend, [d["mel"] for d in done])
+            print(f"[dsp] {json.dumps(rows[-1])}; {smi}", flush=True)
+        n_items = DATA_SPEAKERS * DATA_PER_SPEAKER
+        check(len(items) == n_items, f"dsp: {len(items)} items of {n_items}")
+        for row in rows:
+            want = {"stft_mel": n_items * (row["backend"] == "native"),
+                    "autocorr_f0": n_items * (row["pitch_extractor"] == "autocorr_native")}
+            check(row["native_calls"] == want, f"dsp: native calls {row} != {want}")
+        check(all(np.array_equal(a, b) for a, b in zip(mels["numpy"], mels["native"])),
+              "dsp: the items' mels differ between the backends")
+        print(json.dumps({"dsp_ab": rows, "items": n_items, "card": smi}))
+    finally:
+        shutil.rmtree(tmp)
+
+
 # the multi phase: the flagship at full width on two ranks of the one card
 # over gloo (data and tensor parallel training, data-parallel serving),
 # each held to the same program in this process; then one NCCL rank
@@ -5366,7 +5698,9 @@ TIMING_MODES = {"--time-attention": (("flash_attention", "flash_attention_bwd"),
                 "--time-diffnet": (("diffnet_block", "diffnet_block_bwd"), time_diffnet),
                 "--multi": (("diffnet_block", "diffnet_block_bwd", "flash_attention",
                              "flash_attention_bwd"), multi_only),
-                "--ps": (("flash_attention", "flash_attention_bwd"), ps_only)}
+                "--ps": (("flash_attention", "flash_attention_bwd"), ps_only),
+                "--reference": (build.SOURCES, reference_only),
+                "--dsp-ab": ((), dsp_ab)}
 
 
 def main() -> None:
@@ -5392,10 +5726,15 @@ def main() -> None:
         print(smi, flush=True)
         run(torch.Generator(device="cuda").manual_seed(0))
         return
+    # the native DSP library (g++, host code) builds beside the kernels
+    native_build = threading.Thread(target=native.available)
+    native_build.start()
     reports = build.build_all()
+    native_build.join()
     phase_done("build")
     print(f"[build] {len(build.SOURCES)} kernels ({', '.join(build.SOURCES)}) in "
-          f"{time.perf_counter() - t0:.1f} s; built now: {sorted(reports)}", flush=True)
+          f"{time.perf_counter() - t0:.1f} s; built now: {sorted(reports)}; the native DSP "
+          f"library {'built and loaded' if native.available() else 'NOT built'}", flush=True)
     for name, text in reports.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
@@ -5458,6 +5797,8 @@ def main() -> None:
         phase_done("tts")
         ps_launches, ps_stats, ps_kernels = ps_path(smi, tmp, gen)
         phase_done("ps")
+        ref_launches, ref_stats = reference_path(smi, tmp, gen, data_stats["native_calls"])
+        phase_done("reference")
         multi_launches, multi_stats = multi_path(smi, tmp, data_dir)
         phase_done("multi")
     finally:
@@ -5492,6 +5833,7 @@ def main() -> None:
                                  "data": data_launches[k["name"]],
                                  "tts": tts_launches[k["name"]],
                                  "ps": ps_launches[k["name"]],
+                                 "reference": ref_launches[k["name"]],
                                  "multi": multi_launches[k["name"]]}
         k["launches"] = sum(k["launches_by_path"].values())
         k["kernel_ms"] = k["ms"]
@@ -5507,7 +5849,8 @@ def main() -> None:
                       "family_train_bf16": family_bf16_stats, "phase_s": PHASE_S,
                       "width_override": width_stats, "switches": switch_stats,
                       "gan_train": gan_stats, "data": data_stats, "evals": evals_stats,
-                      "tts": tts_stats, "ps": ps_stats, "multi": multi_stats, "card": smi}))
+                      "tts": tts_stats, "ps": ps_stats, "reference": ref_stats,
+                      "multi": multi_stats, "card": smi}))
     print(smi)
     extra = ("warm_ms", "warm_plain_ms", "host_us", "train_ms", "train_plain_ms",
              "train_bound_ms", "train_device_ms", "train_ops_per_call", "train_host_us",

@@ -5,9 +5,9 @@ numpy only (scipy for the window), computed in float64 and cast at the
 end, with the conventions of librosa's defaults (periodic Hann window
 zero-centred to ``n_fft``, ``center=True`` constant padding, slaney mel
 scale with slaney area normalisation, log10 mel with eps 1e-6). The port's
-copy of the JAX package's ``utils/audio/dsp.py`` without its native
-backend: the region-edit API's and the binarizer's log-mel is this host
-function, as in the JAX package, not kernel K2.
+copy of the JAX package's ``utils/audio/dsp.py``, with its native backend
+(``native.py``): the region-edit API's and the binarizer's log-mel is this
+host function, as in the JAX package, not kernel K2.
 """
 
 from __future__ import annotations
@@ -151,12 +151,10 @@ def wav2spec(wav_or_path, fft_size: int = 1024, hop_size: int = 256,
     linear spectrogram, the wav zero-padded or cut to exactly ``T *
     hop_size`` samples. ``fmin``/``fmax`` of -1 mean 0 and Nyquist.
     ``trim_long_sil`` shortens the long silences of a wav read from a path
-    first (``vad.trim_long_silences``). ``backend``: ``native`` (the JAX
-    package's C++ library, not ported) raises; any other (``numpy``,
-    ``auto``) computes here."""
-    if backend == "native":
-        raise RuntimeError("backend='native' unavailable: the port has no native DSP "
-                           "library; use backend='numpy' or 'auto'")
+    first (``vad.trim_long_silences``). ``backend``: ``numpy`` computes
+    here; ``native`` runs the threaded C++ library (``native.py``; hann
+    windows and power-of-two FFT sizes) and raises where it cannot;
+    ``auto`` runs it where it can, else numpy."""
     if isinstance(wav_or_path, str):
         from speech_editing_tpu_torch.utils.audio.io import load_wav
 
@@ -177,10 +175,28 @@ def wav2spec(wav_or_path, fft_size: int = 1024, hop_size: int = 256,
     fmin = 0 if fmin == -1 else fmin
     fmax = sample_rate / 2 if fmax == -1 else fmax
     mel_basis = mel_filterbank(sample_rate, fft_size, num_mels, fmin, fmax)
-    x_stft = stft(wav, fft_size, hop_size, win_length, window, center=True,
-                  pad_mode="constant")
-    linear = np.abs(x_stft)  # [n_bins, T]
-    mel = np.log10(np.maximum(eps, mel_basis @ linear))
+    use_native = False
+    if backend in ("native", "auto"):
+        eligible = window == "hann" and fft_size > 0 and (fft_size & (fft_size - 1)) == 0
+        if eligible:
+            from speech_editing_tpu_torch.utils.audio import native
+
+            use_native = native.available()
+        if backend == "native" and not use_native:
+            raise RuntimeError(
+                "backend='native' unavailable: "
+                + (f"unsupported window/fft_size (window={window!r}, fft_size={fft_size})"
+                   if not eligible else "library not built (g++ missing or the build failed)"))
+    if use_native:
+        mel, linear = native.stft_mel_native(
+            wav, fft_size, hop_size, win_length, num_mels, fmin, fmax, eps=eps,
+            sample_rate=sample_rate, want_linear=True,
+            window=stft_window("hann", win_length, fft_size), mel_basis=mel_basis)
+        mel, linear = mel.T, linear.astype(np.float64).T
+    else:
+        linear = np.abs(stft(wav, fft_size, hop_size, win_length, window, center=True,
+                             pad_mode="constant"))  # [n_bins, T]
+        mel = np.log10(np.maximum(eps, mel_basis @ linear))
     l_pad, r_pad = pad_lr(wav, fft_size, hop_size, 1)
     wav = np.pad(wav, (l_pad, r_pad), mode="constant")
     wav = wav[: mel.shape[1] * hop_size]

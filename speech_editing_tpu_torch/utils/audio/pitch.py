@@ -1,8 +1,8 @@
 """f0 quantisation, normalisation and de-normalisation on torch tensors; on host numpy,
 the dataset's f0 normalisation and the pitch-tracker registry with the
 autocorrelation tracker the region-edit API runs (the port's copy of the
-JAX package's ``extract_pitch`` and ``autocorr_pitch``; its native C++
-tracker is not ported)."""
+JAX package's ``extract_pitch`` and ``autocorr_pitch``; ``autocorr_native``
+names the same tracker in C++, ``native.py``)."""
 
 from __future__ import annotations
 
@@ -102,11 +102,16 @@ def extract_pitch(extractor_name, wav, hop_size, audio_sample_rate,
 @register_pitch_extractor("autocorr_native")
 def autocorr_pitch_native(wav, hop_size, audio_sample_rate, f0_min=75, f0_max=800,
                           voicing_threshold=0.45, **kw) -> np.ndarray:
-    """The JAX package's threaded C++ tracker's key: the port has no native
-    library, so this is :func:`autocorr_pitch`, as the JAX package falls
-    back to it when its library is not built."""
-    return autocorr_pitch(wav, hop_size, audio_sample_rate, f0_min, f0_max,
-                          voicing_threshold, **kw)
+    """The threaded C++ tracker (``native.py``), numerically
+    :func:`autocorr_pitch`; where the library cannot be built this is
+    :func:`autocorr_pitch`, as in the JAX package."""
+    from speech_editing_tpu_torch.utils.audio import native
+
+    if not native.available():
+        return autocorr_pitch(wav, hop_size, audio_sample_rate, f0_min, f0_max,
+                              voicing_threshold, **kw)
+    return native.autocorr_pitch_native(wav, hop_size, audio_sample_rate, f0_min, f0_max,
+                                        voicing_threshold)
 
 
 @register_pitch_extractor("autocorr")

@@ -1,7 +1,8 @@
 """PyTorch port, the host audio tools of the offline pipeline against the
 JAX package on CPU: the silence trimmer and ``wav2spec(trim_long_sil=True)``,
-``wav2spec``'s ``backend`` (``native`` raises in the port, which has no
-native library), the ``autocorr_native`` pitch-tracker key, the CWT
+``wav2spec``'s ``backend`` (``native`` raises where JAX's does: a window or
+FFT size the C++ library does not take, or no library), the
+``autocorr_native`` pitch-tracker key (the C++ tracker), the CWT
 forward half, and the wav processors with ``sox`` absent."""
 
 import shutil
@@ -17,6 +18,7 @@ from speech_editing_tpu.utils.audio import vad as jvad
 from speech_editing_tpu_torch.data import wav_processors as twp
 from speech_editing_tpu_torch.utils.audio import cwt as tcwt
 from speech_editing_tpu_torch.utils.audio import dsp as tdsp
+from speech_editing_tpu_torch.utils.audio import native
 from speech_editing_tpu_torch.utils.audio import pitch as tpitch
 from speech_editing_tpu_torch.utils.audio import vad as tvad
 from speech_editing_tpu_torch.utils.audio.io import save_wav
@@ -64,15 +66,30 @@ def test_wav2spec_backends():
     for backend in ("numpy", "auto"):
         got = tdsp.wav2spec(wav, backend=backend)
         np.testing.assert_allclose(got["mel"], ref["mel"], atol=1e-5, rtol=0)
-    with pytest.raises(RuntimeError, match="native"):
-        tdsp.wav2spec(wav, backend="native")
+    for kw in ({"window": "hamming"}, {"fft_size": 1000, "win_length": 1000}):
+        with pytest.raises(RuntimeError, match="backend='native' unavailable: unsupported"):
+            tdsp.wav2spec(wav, backend="native", **kw)
+        with pytest.raises(RuntimeError, match="backend='native' unavailable: unsupported"):
+            jdsp.wav2spec(wav, backend="native", **kw)
+    if native.available():
+        got = tdsp.wav2spec(wav, backend="native")
+        np.testing.assert_array_equal(got["mel"], tdsp.wav2spec(wav, backend="auto")["mel"])
+        np.testing.assert_allclose(got["mel"], ref["mel"], atol=1e-5, rtol=0)
+    else:
+        with pytest.raises(RuntimeError, match="library not built"):
+            tdsp.wav2spec(wav, backend="native")
 
 
 def test_autocorr_native_key_is_the_numpy_tracker():
     wav = speech_with_pauses(5)
     got = tpitch.extract_pitch("autocorr_native", wav, 256, SR, f0_min=80, f0_max=600)
-    np.testing.assert_array_equal(
-        got, tpitch.extract_pitch("autocorr", wav, 256, SR, f0_min=80, f0_max=600))
+    numpy_f0 = tpitch.extract_pitch("autocorr", wav, 256, SR, f0_min=80, f0_max=600)
+    if native.available():      # the C++ tracker: the numpy one's voicing, its f0 within 1e-3
+        np.testing.assert_array_equal(got, native.autocorr_pitch_native(wav, 256, SR, 80, 600))
+        np.testing.assert_array_equal(got > 0, numpy_f0 > 0)
+        np.testing.assert_allclose(got, numpy_f0, atol=1e-3, rtol=0)
+    else:
+        np.testing.assert_array_equal(got, numpy_f0)
     np.testing.assert_allclose(
         got, jpitch.extract_pitch("autocorr_native", wav, 256, SR, f0_min=80, f0_max=600),
         atol=1e-3, rtol=1e-5)

@@ -9,10 +9,13 @@ each family's config and as a torchrun rank, a rank's
 ``init_distributed``, the multi-rank dry run, the CSV
 region-edit APIs of FluentSpeech and of the in-place families, their
 drivers, the HiFi-GAN vocoder, the batch server, the serve CLI, the
-binarizer, ``align_and_binarize``, the speaker encoder and the TTS
-synthesis command line) refuse to fall back to the CPU on their own. The
+binarizer, ``align_and_binarize``, the speaker encoder, the TTS
+synthesis command line, the gradio demo and the tools under ``scripts/``)
+refuse to fall back to the CPU on their own. The
 offline data pipeline, its speaker encoder and ``evals/`` are among the
-modules imported."""
+modules imported, and so are the native DSP bindings, the reference
+checkpoint converters, the gradio demo and the tools under ``scripts/``,
+which import neither the repository's tests nor gradio."""
 
 import os
 import subprocess
@@ -41,10 +44,13 @@ for served in ("infer.online", "infer.quant", "infer.serve", "infer.serving",
                "models.fs2_orig", "models.diffspeech", "modules.rnn",
                "modules.rel_transformer", "training.tasks.tts", "infer.tts_infer",
                "utils.plot", "utils.meters", "parallel.mesh", "parallel.tp",
-               "parallel.dryrun"):
+               "parallel.dryrun", "utils.audio.native", "utils.convert_torch_ckpt",
+               "infer.gradio_app", "scripts.e2e_acceptance", "scripts.quant_quality_ab",
+               "scripts.copy_synthesis", "scripts.make_example_audio"):
     assert f"speech_editing_tpu_torch.{served}" in names, served
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in
-                ("jax", "jaxlib", "flax", "optax", "yaml", "speech_editing_tpu"))
+                ("jax", "jaxlib", "flax", "optax", "yaml", "speech_editing_tpu", "tests",
+                 "helpers", "gradio"))
 assert not leaked, leaked
 if not torch.cuda.is_available():
     from speech_editing_tpu_torch.infer.edit import EditPipeline
@@ -64,6 +70,10 @@ if not torch.cuda.is_available():
     from speech_editing_tpu_torch.infer.tts_infer import main as tts_main
     from speech_editing_tpu_torch.parallel.dryrun import dryrun_multichip
     from speech_editing_tpu_torch.parallel.mesh import init_distributed
+    from speech_editing_tpu_torch.infer.gradio_app import main as gradio_main
+    from speech_editing_tpu_torch.scripts.copy_synthesis import main as copy_main
+    from speech_editing_tpu_torch.scripts.e2e_acceptance import main as e2e_main
+    from speech_editing_tpu_torch.scripts.quant_quality_ab import main as quant_main
 
     def torchrun_rank(argv):
         import os
@@ -92,6 +102,10 @@ if not torch.cuda.is_available():
                         (VoiceEncoderCtx, (None, "cuda", torch.Generator())),
                         (init_distributed, ("gloo", "tcp://127.0.0.1:1", 1, 0)),
                         (torchrun_rank, (train_argv,)), (dryrun_multichip, (2,)),
+                        (gradio_main, (train_argv,)),
+                        (copy_main, (["never_read.wav", "never_made.wav"],)),
+                        (e2e_main, (["--workdir", "never_made"],)),
+                        (quant_main, (["--workdir", "never_made"],)),
                         *((run, (["--config", f"egs/{family}.yaml", "--exp_name", "never_made"]
                                  + infer,))
                           for family in ("stutter_speech", "stutter_predictor", "campnet",
