@@ -54,17 +54,26 @@ Phases, each of which exits non-zero on a failed check:
    outputs are finite, frames outside the edit equal the source mel, and
    one request re-run on the CPU (plain versions, same weights and noise)
    agrees; the edit's real-time factor is timed;
-5. train path: ``Trainer`` at the flagship width takes 3 warm-up and 10
+5. train path: ``Trainer`` at the flagship width takes 3 warm-up and 6
    timed steps on a seeded synthetic batch at the flagship token budget
    (78 utterances x 512 frames); every loss term and the gradient norm are
    finite and every launch counter moves by exactly its expected amount
    per step; one step on a 2-utterance slice, re-run on the CPU (plain
    versions, same weights, optimizer state, diffusion draw, dropout off),
    agrees in losses, gradients, parameters and Adam moments; step time,
-   frames per second, peak memory and a profiled step are printed;
+   frames per second and peak memory are printed (5c profiles the step);
 5b. bf16 train path: the same steps under ``use_bf16``, each launching
    the bf16 forms of K1 and K5 20 times and of K3 and K4 4 times (the fft
-   text encoder), nothing else; timed and profiled the same way;
+   text encoder), nothing else; timed the same way;
+5c. remat: the flagship step of 5 and 5b with ``remat_diffnet`` and
+   ``remat_fft`` and without, on the same weights: losses and every
+   gradient on the same batch, diffusion draws and dropout (remat within
+   REMAT_LOSS_RTOL and REMAT_GRAD_L2 of no remat; two runs without remat
+   printed beside); each remat step launches K1 40, K5 20, K3 8 and K4 4
+   times (their bf16 forms under ``use_bf16``), each step without remat
+   as 5 and 5b; host p50 of the two steps taken in turn, a profiled step
+   of each (busy, the largest device and host items), and the peak memory
+   of a step at B=78 and at B=312;
 6. run path: the training entry ``speech_editing_tpu_torch.run`` on
    ``egs/spec_denoiser.yaml`` as shipped (conv text encoder, speaker
    embeddings, ``max_sentences`` 16, ``max_tokens`` 40,000, two loader
@@ -78,18 +87,18 @@ Phases, each of which exits non-zero on a failed check:
    16 and 20 exist; the resume starts at step 16 with the saved parameters and
    Adam moments bit for bit; a 2-utterance slice of a corpus batch, stepped
    on the card and on the CPU, agrees. Steps/s, real frames/s, the loader
-   wait a step, a profiled step, peak memory, validation time and the
-   checkpoint's size, save and load times are printed.
+   wait a step, peak memory, validation time and the checkpoint's size,
+   save and load times are printed.
 6b. bf16 run path: the same entry on ``egs/spec_denoiser.yaml`` as shipped
    (``use_bf16: true``, no override) over the same corpus, the loader in
-   process: 30 steps, a
-   validation of 4 batches and a checkpoint, then a resume to 35. Every
+   process: 16 steps, a
+   validation of 4 batches and a checkpoint, then a resume to 20. Every
    step launches the bf16 K1 and K5 20 times each and nothing else, every
    validation batch the float32 K1 20 times; metrics are finite; the
    checkpoint holds float32 parameters and moments, which the resume
    restores bit for bit; a 2-utterance bf16 step on the card and on the
    CPU agree at the BF16_* bars. Steps/s, host p50/p75 and peak memory are
-   printed (the bf16 step is profiled in the train phase, 5b).
+   printed (5c profiles the bf16 flagship step).
 7. infer path, on the run path's checkpoint and corpus with a HiFi-GAN V1
    checkpoint of seeded weights at ``egs/hifigan.yaml``'s widths (the
    vocoder must load as HiFi-GAN on the card): ``run --infer`` over the 8
@@ -102,8 +111,8 @@ Phases, each of which exits non-zero on a failed check:
    written here): an output and a ``_ref`` wav each, 160 K1 launches an
    edit, head and tail frames equal to the source's, the edited span as
    long as its predicted durations, the same request twice bit-identical;
-   each edit's host latency and its parts over 20 edits, one profiled
-   edit, and one request re-run on the CPU with the card's noise (a
+   each edit's host latency and its parts over 12 edits, and one request
+   re-run on the CPU with the card's noise (a
    duration or pitch bin that rounds the other way is replayed and
    counted). K1 is then held against its plain version at every length
    this phase ran it at.
@@ -116,14 +125,15 @@ Phases, each of which exits non-zero on a failed check:
    request gives the same mel bit for bit alone, in its 16-row chunk and at
    another row, and at its exact-fit bucket agrees with the per-item driver
    (SERVE_FIT_TOL); a 128-frame diff chunk runs again bit-identical and on
-   the CPU with the card's noise (pitch bins replayed, CSV_TOL); a B=16 x
-   T=512 diff chunk is profiled (host, busy, K1's and HiFi-GAN's shares).
-   Then the serve CLI in a subprocess over the same requests as JSONL, with
-   ``--warmup --fast-io --workers 2 --max-wait-ms 100``: all served, 16-bit
-   wavs bit-identical to batch mode's, no shape added after warmup;
-   latency p50/p99 and chunk fill. Then the same requests on int8 weights
-   (``serve_quant_int8``): bytes against float32 and the largest mel_out
-   difference. K1 is held against its plain
+   the CPU with the card's noise (pitch bins replayed, CSV_TOL); the same
+   requests on int8 weights (``serve_quant_int8``): bytes against float32
+   and the largest mel_out difference. Beside all of it run the serve CLI
+   in a subprocess over the same requests as JSONL, with ``--warmup
+   --fast-io --workers 2 --max-wait-ms 100`` (all served, 16-bit wavs
+   bit-identical to batch mode's, no shape added after warmup; latency
+   p50/p99 and chunk fill; checked at the end of the in-place phase, which
+   also runs beside it), and the in-place phase's CampNet CLI, both
+   started first. K1 is held against its plain
    version at B=16 and T 256-1536 with ragged masks.
 9. in-place path: CampNet, A3T and EditSpeech (``infer/editors.py``) in
    turn at their shipped widths (``egs/{campnet,a3t,editspeech}.yaml``),
@@ -138,12 +148,11 @@ Phases, each of which exits non-zero on a failed check:
    source's frames outside the mask; requests/s, audio s/s, fill, peak
    memory); one request alone, in its chunk and at another row
    bit-identical, and at its exact-fit bucket with max_batch 1 the
-   per-item driver's mel and wav bit for bit; CampNet's profiled B=16 x
-   T=512 chunk (host, busy, K3's and HiFi-GAN's shares); a 128-frame chunk run
+   per-item driver's mel and wav bit for bit; a 128-frame chunk run
    again bit-identical and on the CPU (EditSpeech's splice frames
    replayed and counted, INPLACE_CPU_TOL). CampNet also online through the
-   serve CLI (``--warmup``, every eighth request; wavs bit-identical to
-   batch mode's) and
+   serve CLI (``--warmup``, every eighth request; started in the serve
+   phase beside its CLI, its wavs bit-identical to batch mode's) and
    EditSpeech on int8 weights. K3 is held against its plain version and
    timed beside SDPA at CampNet's decoder shapes (B=16, T 256-1536, h=2,
    d=96, ragged key padding) in the kernels phase.
@@ -159,17 +168,17 @@ Phases, each of which exits non-zero on a failed check:
    others nothing); metrics are finite; the predictor's text encoder
    starts as StutterSpeech's checkpoint's ``fs.encoder`` bit for bit and
    its ``meta.csv`` holds the block labels; a StutterSpeech and a CampNet
-   step re-run on the CPU agree. Step host p50/p75, steps/s, peak memory
-   and StutterSpeech's profiled median step are printed. K4 is held against its plain
+   step re-run on the CPU agree. Step host p50/p75, steps/s and peak memory
+   are printed. K4 is held against its plain
    version and timed beside SDPA's backward at CampNet's decoder shapes in
    the kernels phase. Then the same five under ``-hp use_bf16=true``:
    8 steps, a validation batch (float32, as JAX validates) and a
    checkpoint of float32 masters each; every step launches the bf16 forms
    (StutterSpeech K1 and K5 20 times, CampNet K3 and K4 9), every
    validation batch the float32 ones; a CampNet step re-run on the CPU
-   agrees at the BF16_* bars; EditSpeech's profiled step (the bf16 pass's
-   only profile) runs its LSTMs through cuDNN's recurrence
-   (``aten::_cudnn_rnn``), not a per-step cell.
+   agrees at the BF16_* bars; an EditSpeech step's host operations (the
+   profiler without its device activity) show its LSTMs on cuDNN's
+   recurrence (``aten::_cudnn_rnn``), not a per-step cell.
 11. width override: one bf16 step of ``egs/spec_denoiser.yaml`` at ``-hp
    residual_channels=128``, a width K1 and K5 are compiled for beside the
    shipped 256, DiffNet's output projection drawn non-zero so that the
@@ -198,7 +207,8 @@ Phases, each of which exits non-zero on a failed check:
    and both Adam states bit for bit), ``--infer`` (copy synthesis) of the 2
    test items; the trained work dir loads through ``infer/vocoder.py``'s
    HiFi-GAN and vocodes a mel bit for bit as the generator does; one B=2 GAN
-   step on the card and on the CPU agrees; step times and peak memory
+   step on the card and on the CPU agrees (the CPU's leaky ReLUs replaying
+   the card's branches); step times and peak memory
    (PERF.md section 5 holds the step's device breakdown). No kernel of the
    port runs on this path (cuDNN's convolutions and cuBLAS's DFT products).
 14. data: the offline pipeline on a raw vctk-layout corpus of 24 synthetic
@@ -230,9 +240,8 @@ Phases, each of which exits non-zero on a failed check:
    K4 4 a step, K1 2,000 and K3 4 a sentence); metrics and outputs are
    finite; a B=2 step of FastSpeech and of DiffSpeech (192 frames of two
    utterances) on the card and on the CPU agrees. Step host and event
-   p50/p75, peak memory, DiffSpeech's profiled median step (busy, the
-   largest device items) and each
-   sentence's model and vocoder seconds and real-time factor are printed. K3 and K4 are held against their plain
+   p50/p75, peak memory and each sentence's model and vocoder seconds and
+   real-time factor are printed. K3 and K4 are held against their plain
    versions at FastSpeech's median batch and timed beside SDPA there; K1
    and K5 without a mask at dilation 1 at DiffSpeech's median batch, K1
    timed beside its plain version. The trainer's TensorBoard logging (each
@@ -252,9 +261,8 @@ Phases, each of which exits non-zero on a failed check:
    the word encoder twice and ``ph2word_encoder``; K4 16 a step); metrics
    and outputs finite; PortaSpeech-flow's B=2 step (192 frames of two
    utterances, the posterior's noise given) on the card and on the CPU
-   agrees. Step host and event p50/p75 and peak memory of each config, and
-   a profiled median step (busy, the largest device items) of
-   PortaSpeech-flow are printed. K3
+   agrees. Step host and event p50/p75 and peak memory of each config are
+   printed. K3
    and K4 are held against their plain versions at PortaSpeech's median
    batch, over its phone rows and over its word rows, and timed beside
    SDPA there.
@@ -306,7 +314,8 @@ from a copy of another commit, each times that commit's kernels in the
 same call. ``python3 chip_smoke.py --multi`` runs the multi phase alone
 (K1, K5, K3 and K4 built, a small corpus of the run path's kind), and
 ``--ps`` the PortaSpeech phase alone (K3 and K4 built, a HiFi-GAN V1 of
-seeded weights), ``--reference`` the data and reference phases, with their
+seeded weights), ``--remat`` the remat phase alone (K1, K5, K3 and K4
+built), ``--reference`` the data and reference phases, with their
 checks. ``--dsp-ab`` times the binarizer's per-item work over the data
 phase's corpus with ``dsp_backend`` numpy and native (and native with the
 native f0 tracker).
@@ -319,6 +328,7 @@ the CPU compute the same function. The second-to-last line is
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import copy
 import csv
@@ -436,7 +446,7 @@ CPU_MEL_TOL = 2e-2
 # max_tokens of 40,000 frames per step; 48 text tokens
 TRAIN_B, TRAIN_T, TRAIN_S = 78, 512, 48
 TRAIN_MIN_T, TRAIN_MIN_S = 300, 24     # utterance lengths drawn from these up
-TRAIN_WARMUP, TRAIN_TIMED = 3, 10
+TRAIN_WARMUP, TRAIN_TIMED = 3, 6
 SIL_IDS = (1, 2)          # the synthetic batch's silence tokens
 BWD_TOL = 1e-4            # backward kernels, relative to the reference's max
 STEP_LOSS_RTOL, STEP_GRAD_TOL = 1e-4, 1e-3
@@ -472,6 +482,13 @@ def fail(msg: str) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         fail(msg)
+
+
+def card_smi() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(["nvidia-smi", "--id=0", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip()
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -789,9 +806,7 @@ def time_bf16_call(out: dict, call, plain, composite, flops: float, n_bytes: int
     out.update({prefix + k: v for k, v in dict(
         ms=t["ms"], plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
         device_ms=t["device_ms"], ops_per_call=t["ops_per_call"], host_us=t["host_us"],
-        gflop=flops / 1e9, mbytes=n_bytes / 1e6, cublas_ms=t["library_ms"],
-        cublas_device_ms=t["library_device_ms"],
-        cublas_ops_per_call=t["library_ops_per_call"]).items()})
+        gflop=flops / 1e9, mbytes=n_bytes / 1e6, cublas_ms=t["library_ms"]).items()})
     return (f"; plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
             f"{flops / 1e9:.2f} GFLOP, {n_bytes / 1e6:.1f} MB); {times_text(t, CUBLAS)}; device "
             f"{bf16_rate(flops, t['device_ms'], bound_ms)}")
@@ -1016,9 +1031,7 @@ def phase_mel() -> dict:
                 replaces="speech_editing_tpu/ops/pallas/mel_kernel.py:53", tol=MEL_TOL,
                 ms=t["ms"], device_ms=t["device_ms"], ops_per_call=t["ops_per_call"],
                 host_us=t["host_us"], plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                old_bound_ms=old_ms, library_ms=None, cufft_ms=t["library_ms"],
-                cufft_device_ms=t["library_device_ms"],
-                cufft_ops_per_call=t["library_ops_per_call"])
+                old_bound_ms=old_ms, library_ms=None, cufft_ms=t["library_ms"])
 
 
 def time_mel(gen=None) -> None:
@@ -1032,6 +1045,7 @@ def time_mel(gen=None) -> None:
 
 
 PROFILE_EDGE_S = 0.05
+PROFILER_S = [0.0]         # seconds inside ``profiled`` since the last phase ended
 MARKER = "bitwise_not"     # the marker kernel's name holds this; no measured call's does
 
 
@@ -1045,6 +1059,7 @@ def profiled(run) -> tuple[list, float]:
     the window opens and closes PROFILE_EDGE_S of host sleep away from the
     work."""
     from torch.profiler import ProfilerActivity, profile, schedule
+    t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1), acc_events=True) as prof:
         for _ in range(2):
@@ -1053,7 +1068,9 @@ def profiled(run) -> tuple[list, float]:
             torch.cuda.synchronize()
             time.sleep(PROFILE_EDGE_S)
             prof.step()
-    return list(prof.key_averages()), device_busy_ms(prof.events())
+    out = list(prof.key_averages()), device_busy_ms(prof.events())
+    PROFILER_S[0] += time.perf_counter() - t0
+    return out
 
 
 def device_busy_ms(events) -> float:
@@ -1067,7 +1084,7 @@ def device_busy_ms(events) -> float:
     return total / 1e3
 
 
-def profile_calls(fn, iters: int = 50, tries: int = 3) -> tuple[float, int]:
+def profile_calls(fn, iters: int = 10, tries: int = 3) -> tuple[float, int]:
     """The device time of one call in ms and the device operations a call
     issues, from ``torch.profiler`` over ``iters`` calls, each followed by
     a marker of one kernel (``bitwise_not_`` of one int16). Should the
@@ -1093,22 +1110,37 @@ def profile_calls(fn, iters: int = 50, tries: int = 3) -> tuple[float, int]:
     return sum(n * us for n, us in per_call) / 1e3, sum(n for n, _ in per_call)
 
 
-def call_times(fn, library) -> dict:
+def call_times(fn, library, device: bool = True) -> dict:
     """A kernel's wrapper call and one PyTorch call computing the same
-    function: event time, device time and device operations a call, host
-    time of the wrapper call."""
-    device_ms, ops = profile_calls(fn)
-    lib_device_ms, lib_ops = profile_calls(library)
+    function: event time, with ``device`` device time and device operations
+    a call (else None), host time of the wrapper call; the PyTorch call's
+    event time."""
+    device_ms, ops = profile_calls(fn) if device else (None, None)
     return dict(ms=time_ms(fn), device_ms=device_ms, ops_per_call=ops, host_us=host_us(fn),
-                library_ms=time_ms(library), library_device_ms=lib_device_ms,
-                library_ops_per_call=lib_ops)
+                library_ms=time_ms(library))
+
+
+def device_profiled(t: int) -> bool:
+    """Whether a kernel phase takes device time and operations (a profiler
+    window) at T=``t``: everywhere but CampNet's three shorter rows, which
+    run the long rows' code paths (1536 is profiled)."""
+    return t not in CAMPNET_T[:-1]
+
+
+def timed_rate(flops: float, t: dict, bound_ms: float, form=None) -> str:
+    """``rate`` (or ``form``) of a timed call on its device time, or on its
+    event time where the device was not profiled."""
+    form = form or rate
+    if t["device_ms"] is None:
+        return f"events {form(flops, t['ms'], bound_ms)}"
+    return f"device {form(flops, t['device_ms'], bound_ms)}"
 
 
 def times_text(t: dict, library: str) -> str:
-    return (f"kernel {t['ms']:.4f} ms events, {t['device_ms']:.4f} ms device, "
-            f"{t['ops_per_call']} device ops a call, host {t['host_us']:.1f} us a call; "
-            f"{library} {t['library_ms']:.4f} ms events, {t['library_device_ms']:.4f} ms "
-            f"device ({t['library_ops_per_call']} ops)")
+    device = ("device not profiled at this shape" if t["device_ms"] is None else
+              f"{t['device_ms']:.4f} ms device, {t['ops_per_call']} device ops a call")
+    return (f"kernel {t['ms']:.4f} ms events, {device}, host {t['host_us']:.1f} us a call; "
+            f"{library} {t['library_ms']:.4f} ms events")
 
 
 def sdpa_fwd(q, k, v, pad):
@@ -1141,8 +1173,9 @@ NARROW_D, NARROW_LENGTHS = 36, [48, 40, 24]
 
 
 def check_one_op(name: str, t: dict) -> None:
-    check(t["ops_per_call"] == 1, f"{name}: {t['ops_per_call']} device operations a call, "
-                                  f"expected 1")
+    """One device operation a call, where the device was profiled."""
+    check(t["ops_per_call"] in (1, None), f"{name}: {t['ops_per_call']} device operations a "
+                                          f"call, expected 1")
 
 
 def phase_attention(gen) -> dict:
@@ -1228,15 +1261,16 @@ def check_attention_at(gen, b: int, t: int, tol: float, lengths=None,
     got = flash_mha(q, k, v, pad)
     err = float((got - attention_plain(q, k, v, pad)).abs().max())
     torch.cuda.synchronize()
-    times = call_times(lambda: flash_mha(q, k, v, pad), sdpa_fwd(q, k, v, pad))
+    times = call_times(lambda: flash_mha(q, k, v, pad), sdpa_fwd(q, k, v, pad),
+                       device_profiled(t))
     plain_ms = time_ms(lambda: attention_plain(q, k, v, pad), iters=5)
     flops = 4 * h * t * d * sum(lengths)       # q k^T and p v over valid keys
     bound_ms, bound_by = bound(flops, nbytes(q, k, v, pad, got))
     print(f"[kernel] flash_mha B={b} T={t} h={h} d={d} ({what}), "
           f"valid keys {min(lengths)}..{max(lengths)}: max err {err:.3e} (absolute, tol {tol}); "
           f"{times_text(times, 'sdpa')}; plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms "
-          f"({bound_by}, {flops / 1e9:.2f} GFLOP); device "
-          f"{rate(flops, times['device_ms'], bound_ms)}", flush=True)
+          f"({bound_by}, {flops / 1e9:.2f} GFLOP); {timed_rate(flops, times, bound_ms)}",
+          flush=True)
     check(err <= tol, f"flash_mha B={b} T={t} d={d}: error {err} > {tol}")
     check_one_op(f"flash_mha B={b} T={t}", times)
     return dict(times, b=b, s=t, h=h, d=d, plain_ms=plain_ms, bound_ms=bound_ms,
@@ -1289,7 +1323,8 @@ def check_attention_bwd_at(gen, b: int, t: int, lengths=None,
     do = torch.randn_like(q)
     err, err_ag, got, args = bwd_errors(q, k, v, pad, do)
     pad_zero = bool((got[1][pad] == 0).all() and (got[2][pad] == 0).all())
-    times = call_times(lambda: flash_mha_bwd(*args), sdpa_bwd(q, k, v, do, pad))
+    times = call_times(lambda: flash_mha_bwd(*args), sdpa_bwd(q, k, v, do, pad),
+                       device_profiled(t))
     plain_ms = time_ms(lambda: attention_bwd_plain(*args), iters=5)
     flops = 10 * h * t * d * sum(lengths)
     bound_ms, bound_by = bound(flops, nbytes(*args, *got))
@@ -1299,8 +1334,8 @@ def check_attention_bwd_at(gen, b: int, t: int, lengths=None,
           f"{err:.3e}, vs autograd of the plain forward {err_ag:.3e} (tol {BWD_TOL}, relative "
           f"to the reference's max); pad keys' dk, dv exactly 0: {pad_zero}; "
           f"{times_text(times, 'sdpa backward')}; plain {plain_ms:.4f} ms, bound "
-          f"{bound_ms:.6f} ms ({bound_by}, {flops / 1e9:.2f} GFLOP); device "
-          f"{rate(flops, times['device_ms'], bound_ms)}", flush=True)
+          f"{bound_ms:.6f} ms ({bound_by}, {flops / 1e9:.2f} GFLOP); "
+          f"{timed_rate(flops, times, bound_ms)}", flush=True)
     check(worst <= BWD_TOL, f"flash_mha_bwd B={b} T={t} d={d}: error {worst} > {BWD_TOL}")
     check(pad_zero, f"flash_mha_bwd B={b} T={t}: pad keys got nonzero dk or dv")
     check_one_op(f"flash_mha_bwd B={b} T={t}", times)
@@ -1463,7 +1498,8 @@ def phase_attention_bf16(gen) -> dict:
         check(err <= BF16_TOL and zero, f"flash_mha bf16 {label}: error {err}, zero rows {zero}")
         out["max_abs_err"] = max(out["max_abs_err"], err)
         if timed:
-            t = call_times(lambda: flash_mha(q, k, v, pad, return_lse=True), sdpa_fwd(q, k, v, pad))
+            t = call_times(lambda: flash_mha(q, k, v, pad, return_lse=True), sdpa_fwd(q, k, v, pad),
+                           device_profiled(q.shape[1]))
             plain_ms = time_ms(lambda: (attention_plain(q, k, v, pad),
                                         attention_lse_plain(q, k, pad)), iters=5)
             f32 = [a.float() for a in (q, k, v)]
@@ -1472,7 +1508,7 @@ def phase_attention_bf16(gen) -> dict:
             bound_ms, bound_by = bound(flops, nbytes(q, k, v, pad, got, lse), PEAK_BF16_FLOPS)
             msg += (f"; {times_text(t, 'sdpa bf16')}; float32 form {f32_ms:.4f} ms; plain "
                     f"{plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by}, {flops / 1e9:.2f} "
-                    f"GFLOP at the bf16 rate); device {bf16_rate(flops, t['device_ms'], bound_ms)}")
+                    f"GFLOP at the bf16 rate); {timed_rate(flops, t, bound_ms, bf16_rate)}")
             check_one_op(f"flash_mha bf16 {label}", t)
             b, s, h, d = q.shape[0], q.shape[1], q.shape[2], q.shape[3]
             shapes.append(dict(t, b=b, s=s, h=h, d=d, plain_ms=plain_ms, f32_ms=f32_ms,
@@ -1520,7 +1556,8 @@ def phase_attention_bwd_bf16(gen) -> dict:
         out["max_abs_err"] = max(out["max_abs_err"], err)
         out["autograd_err"] = max(out.get("autograd_err", 0.0), err_ag)
         if timed:
-            t = call_times(lambda: flash_mha_bwd(*args), sdpa_bwd(q, k, v, do, pad))
+            t = call_times(lambda: flash_mha_bwd(*args), sdpa_bwd(q, k, v, do, pad),
+                           device_profiled(q.shape[1]))
             plain_ms = time_ms(lambda: attention_bwd_plain(*args), iters=5)
             f32 = [a.float() for a in (q, k, v)]
             o32, lse32 = flash_mha(*f32, pad, return_lse=True)
@@ -1529,8 +1566,8 @@ def phase_attention_bwd_bf16(gen) -> dict:
             bound_ms, bound_by = bound(flops, nbytes(*args, *got), PEAK_BF16_FLOPS)
             msg += (f"; {times_text(t, 'sdpa backward bf16')}; float32 form {f32_ms:.4f} ms; "
                     f"plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by}, "
-                    f"{flops / 1e9:.2f} GFLOP at the bf16 rate); device "
-                    f"{bf16_rate(flops, t['device_ms'], bound_ms)}")
+                    f"{flops / 1e9:.2f} GFLOP at the bf16 rate); "
+                    f"{timed_rate(flops, t, bound_ms, bf16_rate)}")
             check_one_op(f"flash_mha_bwd bf16 {label}", t)
             b, s, h, d = q.shape[0], q.shape[1], q.shape[2], q.shape[3]
             shapes.append(dict(t, b=b, s=s, h=h, d=d, plain_ms=plain_ms, f32_ms=f32_ms,
@@ -1747,11 +1784,10 @@ def edit_path(gen) -> tuple[dict, dict]:
 
     # real-time factor of the 512-frame edit (bench.py's utterance)
     rtf = time_edits(pipe, requests[512], gen)
-    profile_edit(pipe, requests[512], gen, rtf["host_ms_p50"])
     return totals, rtf
 
 
-def time_edits(pipe, req, gen, n: int = 40, warmup: int = 3) -> dict:
+def time_edits(pipe, req, gen, n: int = 20, warmup: int = 3) -> dict:
     """One edit at a time, ``n`` times: CUDA events around each edit (the
     device timeline from its first launch to its last kernel's end) and the
     host clock to the synchronise after it. Median and p75 (ten samples
@@ -1802,24 +1838,6 @@ def host_ops(events: list) -> list:
             and not e.key.startswith(("ProfilerStep", "Optimizer."))]
 
 
-def profile_edit(pipe, req, gen, edit_ms: float, top: int = 12) -> None:
-    """Device time by kernel over one 512-frame edit (``torch.profiler``,
-    after one profiled warm-up edit), and its share of ``edit_ms``, the
-    edit's host-clock time without the profiler."""
-    events, busy = profiled(lambda: pipe(*req, generator=gen))
-    kernels = device_ops(events)
-    if busy == 0:
-        print("[profile] the profiler saw no device time: not measured", flush=True)
-        return
-    n_ops = sum(e.count for e in kernels)
-    print(f"[profile] edit T=512: {n_ops} device operations, busy {busy:.3f} ms, "
-          f"{busy / edit_ms:.3f} of the unprofiled edit's {edit_ms:.3f} ms "
-          f"host clock", flush=True)
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
-        print(f"[profile] {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d}x "
-              f"{e.key[:90]}", flush=True)
-
-
 # -- train path ------------------------------------------------------------------
 
 def train_batch(b: int, t: int, s: int, seed: int) -> dict:
@@ -1854,8 +1872,8 @@ def train_batch(b: int, t: int, s: int, seed: int) -> dict:
 def train_path(bf16: bool = False) -> tuple[dict, dict]:
     """The flagship's train step at B=78 x T=512, float32 or (``bf16``)
     under ``use_bf16``: TRAIN_WARMUP + TRAIN_TIMED steps, each launching
-    its kernels' forms as expected; timed, profiled, and in float32 a B=2
-    step re-run on the CPU."""
+    its kernels' forms as expected; timed, and in float32 a B=2 step re-run
+    on the CPU (the remat phase profiles the same step)."""
     label, expected = ("train bf16", EXPECTED_PER_BF16_TRAIN_STEP) if bf16 else \
         ("train", EXPECTED_PER_STEP)
     batch = train_batch(TRAIN_B, TRAIN_T, TRAIN_S, seed=0)
@@ -1902,15 +1920,149 @@ def train_path(bf16: bool = False) -> tuple[dict, dict]:
           f"clock p50 {stats['host_ms_p50']:.3f} ms, p75 {stats['host_ms_p75']:.3f} ms; "
           f"{stats['frames_per_s']:.0f} frames/s ({stats['real_frames_per_s']:.0f} real); "
           f"peak memory {peak_gib:.3f} GiB", flush=True)
-    busy_ms = profile_step(trainer, batch, stats["host_ms_p50"], label=label)
-    stats.update(launches_per_step=expected, profiled_busy_ms=busy_ms,
-                 profiled_busy_share=None if busy_ms is None else busy_ms / stats["host_ms_p50"])
+    stats.update(launches_per_step=expected)
     if bf16:
         return totals, stats
     compare_step_with_cpu("train", lambda dev: Trainer.from_hp(
         FLAGSHIP_HP, device=dev, seed=1, vocab_size=80, sil_token_ids=SIL_IDS,
         dropout=False), trainer.train_step.state_dict(), {k: v[:2] for k, v in batch.items()})
     return totals, stats
+
+
+# the remat phase: the flagship step under remat_diffnet and remat_fft,
+# at the train path's batch and at four times it
+REMAT = dict(remat_diffnet=True, remat_fft=True)
+REMAT_BATCHES = (TRAIN_B, 4 * TRAIN_B)
+REMAT_WARMUP, REMAT_TIMED = 1, 4
+# each kernel's launches a step with both switches: K1 twice a block (the
+# backward's with h), K5 once, K3 twice a layer (the backward reruns it), K4 once
+EXPECTED_PER_REMAT_STEP = dict(
+    NO_LAUNCH, diffnet_block=2 * FLAGSHIP_HP["residual_layers"],
+    diffnet_block_bwd=FLAGSHIP_HP["residual_layers"], flash_mha=2 * FLAGSHIP_HP["enc_layers"],
+    flash_mha_bwd=FLAGSHIP_HP["enc_layers"])
+EXPECTED_PER_REMAT_BF16_STEP = dict(NO_LAUNCH, **{k + "_bf16": v for k, v in
+                                                   EXPECTED_PER_REMAT_STEP.items() if v})
+# remat against no remat on the same weights, batch, draws and dropout:
+# the recomputed activations are the forward's bit for bit (K1, K3 and
+# their bf16 forms are deterministic). The card's atomic sums (embedding
+# and gather backwards) differ from run to run: on the H100 two plain runs
+# differ by 5.6e-7 in float32 and 2.3e-3 in bf16 (the bf16 embedding's
+# gradient); so both are compared under PyTorch's deterministic algorithms,
+# and two plain runs are printed beside
+REMAT_LOSS_RTOL, REMAT_GRAD_L2 = 1e-6, 1e-6
+
+
+def step_grads(trainer, raw: dict, draws: dict) -> tuple[dict, dict]:
+    """The loss terms and every parameter's gradient of one backward of
+    ``trainer``'s step on ``raw``, with ``draws`` (t, noise) and dropout
+    drawn from a generator of seed 3, PyTorch's deterministic algorithms
+    on (a warning where an operation has none): no update."""
+    step = trainer.train_step
+    step._zero_grad()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        metrics = step._backward(trainer._device_batch(raw), gen, draws)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    grads = {n: p.grad.detach().clone() for n, p in step.model.named_parameters()
+             if p.grad is not None}
+    return {k: float(v) for k, v in metrics.items()}, grads
+
+
+def grads_apart(a: tuple, b: tuple) -> tuple[float, float, str]:
+    """The largest relative difference of two ``step_grads`` results' loss
+    terms, and the worst relative L2 difference over their gradients with
+    its parameter."""
+    (ma, ga), (mb, gb) = a, b
+    check(ga.keys() == gb.keys() and ma.keys() == mb.keys(), "remat: different parameters")
+    loss = max(abs(ma[k] - mb[k]) / max(abs(mb[k]), 1e-12) for k in mb)
+    worst = max((float((ga[n] - gb[n]).norm() / gb[n].norm().clamp_min(1e-30)), n) for n in gb)
+    return loss, worst[0], worst[1]
+
+
+def step_peak_gib(trainer, raw: dict) -> tuple[float, float]:
+    """(the peak of device memory over one step of ``trainer`` on ``raw``,
+    that peak less what was allocated before the step), GiB."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    trainer.step(raw)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    return peak / 2 ** 30, (peak - before) / 2 ** 30
+
+
+def remat_path(smi: str) -> tuple[dict, dict]:
+    """The flagship step at full width (fft encoder, 20 x 256 DiffNet,
+    B=78 x T=512) with ``remat_diffnet`` and ``remat_fft`` and without, in
+    float32 and in bf16, on the same weights: losses and gradients on the
+    same batch, draws and dropout; each remat step's launches; host p50 of
+    steps taken in turn; a profiled step of each; the peak memory of a step
+    at B=78 and at B=312. Returns the launches of the phase's steps."""
+    stats = {"card": smi}
+    batches = {b: train_batch(b, TRAIN_T, TRAIN_S, seed=0) for b in REMAT_BATCHES}
+    raw = batches[TRAIN_B]
+    gen = torch.Generator().manual_seed(11)
+    draws = dict(t=torch.randint(0, FLAGSHIP_HP["timesteps"] + 1, (TRAIN_B,), generator=gen),
+                 noise=torch.randn(TRAIN_B, TRAIN_T, 80, generator=gen))
+    draws = {k: v.cuda() for k, v in draws.items()}
+    reset_counts()
+    for bf16 in (False, True):
+        label = "remat bf16" if bf16 else "remat"
+        expected = EXPECTED_PER_REMAT_BF16_STEP if bf16 else EXPECTED_PER_REMAT_STEP
+        hp = dict(FLAGSHIP_HP, use_bf16=bf16)
+        make = lambda hp: Trainer.from_hp(hp, device="cuda", seed=0, vocab_size=80,
+                                          sil_token_ids=SIL_IDS)
+        trainers = {"plain": make(hp), "remat": make(dict(hp, **REMAT))}
+        trainers["remat"].model.load_state_dict(trainers["plain"].model.state_dict())
+        got = {k: step_grads(t, raw, draws) for k, t in trainers.items()}
+        loss_err, grad_err, worst = grads_apart(got["remat"], got["plain"])
+        floor = grads_apart(step_grads(trainers["plain"], raw, draws), got["plain"])
+        print(f"[{label}] loss terms and gradients, remat against plain on the same weights, "
+              f"batch, draws and dropout: loss terms {loss_err:.3e} relative (tol "
+              f"{REMAT_LOSS_RTOL}), gradients {grad_err:.3e} worst relative L2 (tol "
+              f"{REMAT_GRAD_L2}, {worst}); two plain runs: {floor[0]:.3e}, {floor[1]:.3e} "
+              f"({floor[2]})", flush=True)
+        check(loss_err <= REMAT_LOSS_RTOL, f"[{label}] loss terms {loss_err}")
+        check(grad_err <= REMAT_GRAD_L2, f"[{label}] gradients {grad_err} ({worst})")
+        host = {k: [] for k in trainers}
+        for i in range(REMAT_WARMUP + REMAT_TIMED):
+            for name, trainer in trainers.items():
+                before = counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                metrics = trainer.step(raw)
+                torch.cuda.synchronize()
+                if i >= REMAT_WARMUP:
+                    host[name].append((time.perf_counter() - t0) * 1e3)
+                moved = {k: counts()[k] - before[k] for k in COUNTERS}
+                want = expected if name == "remat" else (
+                    EXPECTED_PER_BF16_TRAIN_STEP if bf16 else EXPECTED_PER_STEP)
+                check(moved == want, f"[{label}] {name} step {i}: launches {moved} != {want}")
+                check(all(np.isfinite(float(v)) for v in metrics.values())
+                      and float(metrics["nan_grads"]) == 0,
+                      f"[{label}] {name} step {i}: non-finite metrics")
+        out = {"loss_rel_err": loss_err, "grad_rel_l2": grad_err, "grad_worst": worst,
+               "plain_twice_loss_rel_err": floor[0], "plain_twice_grad_rel_l2": floor[1],
+               "launches_per_remat_step": {k: v for k, v in expected.items() if v}}
+        for name, trainer in trainers.items():
+            p50 = float(np.median(host[name]))
+            busy = profile_step(trainer, raw, p50, top=8, label=f"{label} {name}")
+            out[name] = {"host_ms_p50": p50, "busy_ms": busy}
+            for b, batch in batches.items():
+                peak, own = step_peak_gib(trainer, batch)
+                out[name][f"peak_gib_b{b}"], out[name][f"step_peak_gib_b{b}"] = peak, own
+            print(f"[{label}] {name}: host p50 {p50:.3f} ms over {REMAT_TIMED} steps taken in "
+                  f"turn, busy {busy} ms (profiled step); peak memory a step " + ", ".join(
+                      f"B={b} {out[name][f'peak_gib_b{b}']:.3f} GiB "
+                      f"({out[name][f'step_peak_gib_b{b}']:.3f} over what was held before)"
+                      for b in batches), flush=True)
+        print(f"[{label}] launches a remat step {out['launches_per_remat_step']}", flush=True)
+        stats["bf16" if bf16 else "float32"] = out
+        del trainers, got
+    return counts(), stats
 
 
 # the kernels of csrc/ by their function names, with their template arguments
@@ -1957,31 +2109,41 @@ def profile_step(trainer, batch, step_ms: float, top: int = 15,
 @contextlib.contextmanager
 def relu_branches(masks: list, replay: bool):
     """Within the block every ReLU (``torch.relu``, which ``F.relu`` and
-    ``nn.ReLU`` call) records its branch, ``x > 0``, into ``masks`` in call
-    order; with ``replay`` it takes the recorded branch instead of its own,
-    ``x * mask``, and counts the inputs where the two differ. A gradient
-    jumps where a ReLU's input crosses 0: two steps whose pre-activations
-    differ by rounding can take different branches at an input within
-    rounding of 0 and then differ there by far more than rounding. Yields
-    ``[flips, calls]``."""
-    orig, tally = torch.relu, [0, 0]
+    ``nn.ReLU`` call) and every leaky ReLU (``F.leaky_relu``: HiFi-GAN and
+    the discriminators) records its branch, ``x > 0``, into ``masks`` in
+    call order; with ``replay`` it takes the recorded branch instead of its
+    own (``x * mask``; ``x`` or ``x`` times the slope) and counts the inputs
+    where the two differ. A gradient jumps where such an input crosses 0:
+    two steps whose pre-activations differ by rounding can take different
+    branches at an input within rounding of 0 and then differ there by far
+    more than rounding. Yields ``[flips, calls]``."""
+    orig, orig_leaky, tally = torch.relu, F.leaky_relu, [0, 0]
+
+    def branch(x):
+        mask = masks[tally[1]].to(x.device)
+        tally[0] += int(((x > 0) != mask).sum())
+        tally[1] += 1
+        return mask
 
     def relu(x):
         if not replay:
             masks.append(x.detach() > 0)
             return orig(x)
-        mask = masks[tally[1]].to(x.device)
-        tally[0] += int(((x > 0) != mask).sum())
-        tally[1] += 1
-        return x * mask.to(x.dtype)
+        return x * branch(x).to(x.dtype)
 
-    torch.relu = relu
+    def leaky_relu(x, negative_slope=0.01, inplace=False):
+        if not replay:
+            masks.append(x.detach() > 0)
+            return orig_leaky(x, negative_slope, inplace)
+        return torch.where(branch(x), x, x * negative_slope)
+
+    torch.relu, F.leaky_relu = relu, leaky_relu
     try:
         yield tally
     finally:
-        torch.relu = orig
+        torch.relu, F.leaky_relu = orig, orig_leaky
     check(not replay or tally[1] == len(masks),
-          f"relu_branches: {tally[1]} ReLU calls replayed {len(masks)} recorded ones")
+          f"relu_branches: {tally[1]} calls replayed {len(masks)} recorded ones")
 
 
 def compare_step_with_cpu(label: str, make_twin, state: dict, sub,
@@ -2420,21 +2582,18 @@ def run_path(smi: str, tmp: str) -> tuple[dict, dict]:
           f"saves {[round(v, 3) for v in first.save_s]} s, resume load "
           f"{stats['ckpt_load_s']:.3f} s; corpus {stats['corpus_mel_mb']:.1f} MB of mel "
           f"written in {corpus_s:.1f} s; {smi}", flush=True)
-    # the profiled step: the timed batch at the median padded length,
-    # against its own host-clock time in the run
+    # the timed batch at the median padded length: its first two rows step on
+    # the card and on the CPU
     mid = sorted(timed, key=lambda st: st["shape"][1])[len(timed) // 2]
     raw = {k: v.pin_memory() if isinstance(v, torch.Tensor) else v
            for k, v in mid["raw"].items()}
     b, t = mid["shape"]
-    print(f"[run] profiled batch: the timed step at the median padded length, B={b} x "
-          f"T={t} ({mid['frames']} real frames; {plan_text('diffnet_block', b, t, 1)} "
-          f"for K1, {plan_text('diffnet_block_bwd', b, t, 1)} for K5), "
-          f"{mid['host_ms']:.3f} ms host clock and {mid['event_ms']:.3f} ms CUDA events "
-          f"in the run", flush=True)
-    busy_ms = profile_step(trainer, raw, mid["host_ms"], label=f"run B={b} x T={t}")
-    stats.update(profiled_batch=[b, t], profiled_real_frames=mid["frames"],
-                 profiled_host_ms=mid["host_ms"], profiled_busy_ms=busy_ms,
-                 profiled_busy_share=None if busy_ms is None else busy_ms / mid["host_ms"])
+    print(f"[run] the timed step at the median padded length, B={b} x T={t} "
+          f"({mid['frames']} real frames; {plan_text('diffnet_block', b, t, 1)} for K1, "
+          f"{plan_text('diffnet_block_bwd', b, t, 1)} for K5): {mid['host_ms']:.3f} ms host "
+          f"clock and {mid['event_ms']:.3f} ms CUDA events in the run", flush=True)
+    stats.update(median_batch=[b, t], median_real_frames=mid["frames"],
+                 median_host_ms=mid["host_ms"])
     keys = resumed.task.effective_batch_keys()
     check("spk_embed" in keys, f"run: the step's keys {keys} lack spk_embed")
     compare_step_with_cpu("run", lambda dev: Trainer(resumed.task, resumed.hp, dev,
@@ -2448,9 +2607,9 @@ def run_path(smi: str, tmp: str) -> tuple[dict, dict]:
 
 # the loader in process (ds_workers=0), as the family paths load: the run
 # path drives the spawned workers
-RUN_BF16_HP = ("max_updates=30,val_check_interval=30,num_sanity_val_steps=0,"
-               "eval_max_batches=4,tb_log_interval=10,ds_workers=0")
-RUN_BF16_STEPS, RUN_BF16_RESUME_TO, RUN_BF16_VALID = 30, 35, 4
+RUN_BF16_HP = ("max_updates=16,val_check_interval=16,num_sanity_val_steps=0,"
+               "eval_max_batches=4,tb_log_interval=8,ds_workers=0")
+RUN_BF16_STEPS, RUN_BF16_RESUME_TO, RUN_BF16_VALID = 16, 20, 4
 EXPECTED_PER_BF16_STEP = dict(NO_LAUNCH, diffnet_block_bf16=RUN_LAYERS,
                               diffnet_block_bwd_bf16=RUN_LAYERS)
 
@@ -2641,7 +2800,7 @@ CSV_ROWS = [
      "the old man read the evening paper in his garden", "[6,6]", "[6,6]"),
     (2.5, 210.0, "the cat sat on the mat", "the dog sat on the mats", "[2,2]", "[2,2]"),
 ]
-CSV_ROUNDS = 5            # timed passes over the four requests
+CSV_ROUNDS = 3            # timed passes over the four requests
 # run --infer's result writers: spawned ones each boot this script's
 # imports, and waiting for 2 of them took 9.6-11.7 s of the phase's 14-16 s
 # --infer on the H100; 1 writes in this process (the pool's spawned
@@ -2958,7 +3117,7 @@ def infer_path(smi: str, tmp: str, work: str, data_dir: str) -> tuple[dict, dict
     """The two inference entry points on the run path's checkpoint and
     corpus, with a HiFi-GAN V1 vocoder checkpoint of seeded weights: ``run
     --infer`` over the 8 test utterances, then the CSV region-edit API
-    over CSV_ROWS, timed, profiled and one request re-run on the CPU.
+    over CSV_ROWS, timed, and one request re-run on the CPU.
     Returns the launches of each and the statistics, and the frame counts
     K1 ran at."""
     voc_dir = os.path.join(tmp, "hifigan")
@@ -3058,17 +3217,8 @@ def infer_path(smi: str, tmp: str, work: str, data_dir: str) -> tuple[dict, dict
           flush=True)
     spec = wav2spec(rows[0]["wav_fn_orig"], **spec_kw)
     inp = dict(rows[0], mel=spec["mel"], wav=spec["wav"])
-    events, busy_ms = profiled(lambda: inf.infer_once(inp))
-    kernels = device_ops(events)
-    n_ops = sum(e.count for e in kernels)
-    print(f"[profile] CSV edit {rows[0]['item_name']} ({edits[0]['frames']} frames): "
-          f"{n_ops} device operations, busy {busy_ms:.3f} ms", flush=True)
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
-        print(f"[profile] {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d}x "
-              f"{e.key[:90]}", flush=True)
     cpu = compare_edit_with_cpu(hp, inf, inp)
-    stats.update(csv_edits=edits, csv_timing=timing, csv_profile_busy_ms=busy_ms,
-                 csv_profile_device_ops=n_ops, csv_cpu=cpu, card=smi)
+    stats.update(csv_edits=edits, csv_timing=timing, csv_cpu=cpu, card=smi)
     frames = lengths + [e["frames"] for e in edits]
     return infer_launches, csv_launches, stats, frames
 
@@ -3203,43 +3353,6 @@ def fresh_noise(reqs: list, seed: int) -> None:
         r.gen = request_generator(seed, r.item, "cuda")
 
 
-def serve_profile(server, chunk: dict, seed: int, smi: str) -> dict:
-    """One diff chunk re-run on the card: its host time (median of 3), and
-    from ``torch.profiler`` its device busy time and operations, K1's share
-    and HiFi-GAN's (the vocoder profiled alone on a chunk-shaped mel)."""
-    reqs, args = chunk["reqs"], (chunk["s_b"], chunk["t_b"], chunk["b"])
-
-    def run():
-        fresh_noise(reqs, seed)
-        BatchedEditServer.run_diff_chunk(server, reqs, *args)
-    host = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        run()
-        host.append((time.perf_counter() - t0) * 1e3)
-    events, busy = profiled(run)
-    kernels = device_ops(events)
-    k1 = sum(e.self_device_time_total for e in kernels if "diffnet_block" in e.key) / 1e3
-    mel = torch.zeros(chunk["b"], chunk["t_b"], 80, device="cuda") - 4.0
-    voc = profiled(lambda: server.infer.vocoder.spec2wav_batch_dev(mel))[1]
-    out = dict(shape=[chunk["b"], chunk["t_b"]], s_b=chunk["s_b"],
-               host_ms=float(np.median(host)), busy_ms=busy,
-               device_ops=sum(e.count for e in kernels), k1_ms=k1, hifigan_ms=voc)
-    if busy == 0:
-        print(f"[serve] profiled diff chunk: the profiler saw no device time, busy not "
-              f"measured; host {out['host_ms']:.3f} ms", flush=True)
-        return out
-    print(f"[serve] profiled diff chunk B={chunk['b']} x T={chunk['t_b']} (S={chunk['s_b']}, "
-          f"{chunk['n']} real rows): host {out['host_ms']:.3f} ms (median of 3), device busy "
-          f"{busy:.3f} ms ({busy / out['host_ms']:.3f} of it) in {out['device_ops']} "
-          f"operations; K1 {k1:.3f} ms ({k1 / busy:.3f}), HiFi-GAN alone on the chunk's shape "
-          f"{voc:.3f} ms ({voc / busy:.3f}); {smi}", flush=True)
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
-        print(f"[profile] {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d}x "
-              f"{e.key[:90]}", flush=True)
-    return out
-
-
 def serve_cpu_rerun(hp: dict, server, chunk: dict, results: dict, seed: int) -> dict:
     """One diff chunk again on the card, bit-identical to its first run,
     recording its pitch bins; then on the CPU (plain versions, the card's
@@ -3276,20 +3389,36 @@ def serve_cpu_rerun(hp: dict, server, chunk: dict, results: dict, seed: int) -> 
     return out
 
 
-def serve_cli(argv_hp: list, rows: list, out_dir: str, extra: list) -> dict:
-    """``python -m speech_editing_tpu_torch.infer.serve`` in a subprocess
-    over ``rows`` as JSONL; returns its numbers, read from its stderr."""
+def start_serve_cli(argv_hp: list, rows: list, out_dir: str, extra: list) -> tuple:
+    """``python -m speech_editing_tpu_torch.infer.serve`` started in a
+    subprocess over ``rows`` as JSONL, its output into files beside
+    ``out_dir``; :func:`finish_serve_cli` waits for it. It is killed should
+    this process exit first."""
     jsonl = out_dir + ".jsonl"
     with open(jsonl, "w") as f:
         f.writelines(json.dumps(r) + "\n" for r in rows)
     cmd = [sys.executable, "-m", "speech_editing_tpu_torch.infer.serve", *argv_hp,
            "--jsonl", jsonl, "--out-dir", out_dir, "--workers", "2", "--max-wait-ms", "100",
            "--max-batch", str(SERVE_BATCH), *extra]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
-                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    with open(out_dir + ".out", "w") as out, open(out_dir + ".err", "w") as err:
+        proc = subprocess.Popen(cmd, stdout=out, stderr=err, text=True,
+                                cwd=os.path.dirname(os.path.abspath(__file__)))
+    atexit.register(lambda: proc.poll() is None and (proc.kill(), proc.wait()))
+    return proc, out_dir + ".err", time.perf_counter()
+
+
+def finish_serve_cli(started: tuple) -> dict:
+    """Waits for a :func:`start_serve_cli` process; returns its numbers, read
+    from its stderr, and its wall time from its start."""
+    proc, err_fn, t0 = started
+    try:
+        proc.wait(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
     wall = time.perf_counter() - t0
-    err = proc.stderr
+    with open(err_fn) as f:
+        err = f.read()
     check(proc.returncode == 0, f"serve CLI exited {proc.returncode}:\n{err[-3000:]}")
     served = [ln for ln in err.splitlines() if ln.startswith("| served ")]
     tail = [ln for ln in err.splitlines() if " chunks, fill " in ln]
@@ -3315,14 +3444,19 @@ def read_wavs(out_dir: str, names: list) -> dict:
     return waves
 
 
-def serve_path(smi: str, tmp: str, work: str, data_dir: str) -> tuple[dict, dict]:
+def serve_path(smi: str, tmp: str, work: str, data_dir: str) -> tuple[dict, dict, dict]:
     """The batch server and the serve CLI at the shipped widths on the run
     path's checkpoint and the infer path's HiFi-GAN V1: 32 requests in batch
     mode (warmed first), checked and timed; one request alone, at another
-    row and at its exact-fit bucket; a diff chunk re-run on the CPU; a
-    profiled B=16 x T=512 diff chunk; the CLI online with --warmup and
-    --fast-io; the same requests on int8 weights. Returns the
-    batch run's launches and the statistics."""
+    row and at its exact-fit bucket; a diff chunk re-run on the CPU; the
+    same requests on int8 weights; beside all of these the CLI online with
+    --warmup and --fast-io over the same requests and CampNet's online CLI
+    for the in-place phase (its seeded checkpoint written here), two
+    processes started first and waited for in the in-place phase. Returns
+    the batch run's launches, the statistics (the CLI's added when
+    ``finish_serve`` runs) and CampNet's ``inplace_setup`` dict with its
+    CLI's process under ``cli`` and ``finish_serve``, which waits for the
+    serve CLI and checks it."""
     voc_dir = os.path.join(tmp, "hifigan")
     argv_hp = ["--config", "egs/spec_denoiser.yaml", "--exp_name", work, "-hp",
                f"binary_data_dir={data_dir},{RUN_HP},vocoder_ckpt={voc_dir}"]
@@ -3337,6 +3471,17 @@ def serve_path(smi: str, tmp: str, work: str, data_dir: str) -> tuple[dict, dict
     inputs = [load_request(r, hp) for r in rows]
     names = [r["item_name"] for r in rows]
     audio_in = sum(len(i["wav"]) for i in inputs) / SR
+
+    # the two online CLIs, warmed: this path's through --fast-io and
+    # CampNet's over every eighth request, started together in processes of
+    # their own (each one's start-up, model load and warmup take 20-35 s);
+    # this phase's batch mode and checks run beside them, so its timings and
+    # the CLIs' latencies are taken in each other's company
+    campnet = inplace_setup("campnet", CampNetInfer, "egs/campnet.yaml", tmp, data_dir, 0)
+    clis = {"serve": start_serve_cli(argv_hp, rows, os.path.join(d, "out"),
+                                     ["--warmup", "--fast-io"]),
+            "campnet": start_serve_cli(campnet["argv_hp"], serve_row_specs(d)[::8],
+                                       os.path.join(campnet["work"], "online"), ["--warmup"])}
 
     # batch mode, warmed
     inf = SpecDenoiserInfer(hp, "cuda")
@@ -3383,12 +3528,13 @@ def serve_path(smi: str, tmp: str, work: str, data_dir: str) -> tuple[dict, dict
           f"host front end {stats['prepare_s']:.3f} s, {len(rec.of('dur'))} dur chunks "
           f"{dur_s:.3f} s, {len(diff)} diff chunks {diff_s:.3f} s (fill {stats['fill']:.3f}; "
           f"frame buckets {frame_buckets}, token buckets {token_buckets}, {len(full)} full); "
-          f"peak memory {peak:.3f} GiB; launches {launches}; no shape after warmup; {smi}",
-          flush=True)
+          f"peak memory {peak:.3f} GiB; launches {launches}; no shape after warmup (beside "
+          f"the two online CLIs' processes); {smi}", flush=True)
     for c in diff:
         print(f"[serve] diff chunk S={c['s_b']} T={c['t_b']}: {c['n']}/{c['b']} rows, "
               f"{c['s'] * 1e3:.3f} ms host, launches {c['launches']['diffnet_block']} K1",
               flush=True)
+
 
     # one request alone, at another row, and at its exact-fit bucket
     alone_name = names[SERVE_ALONE]
@@ -3418,34 +3564,6 @@ def serve_path(smi: str, tmp: str, work: str, data_dir: str) -> tuple[dict, dict
 
     cpu_chunk = next(c for c in diff if c["t_b"] == SERVE_CPU_T)
     stats["cpu"] = serve_cpu_rerun(hp, server, cpu_chunk, by_name, seed)
-    stats["profile"] = serve_profile(server, next(c for c in full if c["t_b"] == 512), seed, smi)
-
-    # online: the CLI, warmed, writing through --fast-io (one subprocess: a
-    # second, unwarmed run without the flag cost 17-19 s, mostly start-up;
-    # half the requests saved nothing: 33.8 s against 32.9)
-    online = serve_cli(argv_hp, rows, os.path.join(d, "out"), ["--warmup", "--fast-io"])
-    check(online["served"] == len(rows),
-          f"serve CLI served {online['served']} of {len(rows)}")
-    check(online["shapes"] == online["warmup_shapes"],
-          f"serve CLI: {online['shapes']} program shapes run, {online['warmup_shapes']} warmed")
-    waves = read_wavs(os.path.join(d, "out"), names)
-    ref_fn = os.path.join(d, "ref.wav")
-    for name in names:
-        save_wav(by_name[name]["wav_out"], ref_fn, SR)
-        ref = wavfile.read(ref_fn)[1]
-        same = ref.shape == waves[name].shape
-        check(same and np.array_equal(waves[name], ref),
-              f"serve CLI {name}.wav: the samples differ from batch mode's ("
-              + (f"{int(np.sum(waves[name] != ref))} of {ref.size}" if same else
-                 f"{ref.shape} against {waves[name].shape}") + ")")
-    print(f"[serve] online CLI (--warmup, --fast-io, --workers 2, --max-wait-ms 100): "
-          f"{online['served']} requests in {online['wall_s']:.1f} s (process start and model "
-          f"load included), latency p50 {online['p50_ms']:.0f} ms / p99 "
-          f"{online['p99_ms']:.0f} ms, {online['chunks']} chunks, fill {online['fill']:.3f}; "
-          f"warmup {online['warmup_shapes']} shapes in {online['warmup_s']:.1f} s, none added "
-          f"by the traffic; every wav 16-bit and bit-identical to batch mode's; {smi}",
-          flush=True)
-    stats.update(online=online)
 
     # int8 weights
     inf8 = SpecDenoiserInfer(dict(hp, serve_quant_int8=True), "cuda")
@@ -3468,7 +3586,40 @@ def serve_path(smi: str, tmp: str, work: str, data_dir: str) -> tuple[dict, dict
           f"{len(same)} of {len(inputs)} requests keep the float run's length, their mel_out "
           f"within {diff8:.3e} of it; batch mode {wall8:.3f} s, "
           f"{len(inputs) / wall8:.3f} requests/s; {smi}", flush=True)
-    return launches, dict(stats, card=smi)
+
+    def finish_online() -> None:
+        """Waits for the serve CLI started above (called after the in-place
+        phase, which runs beside it) and holds it to batch mode."""
+        # the CLI started above (one subprocess: a second, unwarmed run
+        # without --fast-io cost 17-19 s, mostly start-up; half the requests
+        # saved nothing: 33.8 s against 32.9)
+        online = finish_serve_cli(clis["serve"])
+        check(online["served"] == len(rows),
+              f"serve CLI served {online['served']} of {len(rows)}")
+        check(online["shapes"] == online["warmup_shapes"],
+              f"serve CLI: {online['shapes']} program shapes run, "
+              f"{online['warmup_shapes']} warmed")
+        waves = read_wavs(os.path.join(d, "out"), names)
+        ref_fn = os.path.join(d, "ref.wav")
+        for name in names:
+            save_wav(by_name[name]["wav_out"], ref_fn, SR)
+            ref = wavfile.read(ref_fn)[1]
+            same = ref.shape == waves[name].shape
+            check(same and np.array_equal(waves[name], ref),
+                  f"serve CLI {name}.wav: the samples differ from batch mode's ("
+                  + (f"{int(np.sum(waves[name] != ref))} of {ref.size}" if same else
+                     f"{ref.shape} against {waves[name].shape}") + ")")
+        print(f"[serve] online CLI (--warmup, --fast-io, --workers 2, --max-wait-ms 100): "
+              f"{online['served']} requests in {online['wall_s']:.1f} s (process start and model "
+              f"load included), latency p50 {online['p50_ms']:.0f} ms / p99 "
+              f"{online['p99_ms']:.0f} ms, {online['chunks']} chunks, fill {online['fill']:.3f}; "
+              f"warmup {online['warmup_shapes']} shapes in {online['warmup_s']:.1f} s, none added "
+              f"by the traffic; every wav 16-bit and bit-identical to batch mode's (beside "
+              f"CampNet's CLI, the serve phase and the in-place phase); {smi}", flush=True)
+        stats.update(online=online)
+
+    stats.update(card=smi)
+    return launches, stats, dict(campnet, cli=clis["campnet"], finish_serve=finish_online)
 
 
 # -- in-place path ---------------------------------------------------------------
@@ -3480,8 +3631,6 @@ INPLACE = (("campnet", CampNetInfer, "egs/campnet.yaml"), ("a3t", A3TInfer, "egs
 CAMPNET_K3 = 9
 INPLACE_CPU_T = 128       # the frame bucket of the chunk re-run on the CPU
 INPLACE_CPU_TOL = 1e-3    # card vs CPU mel_out of that chunk
-INPLACE_PROFILE_T = 512   # the frame bucket of the profiled chunk
-INPLACE_PROFILED = ("campnet",)   # the family whose chunk runs a kernel of the port (K3)
 INPLACE_INT8 = "editspeech"   # the family served on int8 weights (LSTM, conv and linear layouts)
 
 
@@ -3546,40 +3695,6 @@ def check_inplace_results(family: str, inputs: list, results: list, rec: ChunkRe
               f"{family} {inp['item_name']}: result shape or values")
         check(keep.any() and not keep.all() and np.array_equal(res["mel_out"][keep], mel[keep]),
               f"{family} {inp['item_name']}: frames outside the edit differ from the source")
-
-
-def inplace_profile(family: str, server, chunk: dict, smi: str) -> dict:
-    """One chunk re-run on the card: its host time (median of 3), and from
-    ``torch.profiler`` its device busy time and operations, K3's share and
-    HiFi-GAN's (profiled alone on a chunk-shaped mel)."""
-    reqs, args = chunk["reqs"], (chunk["s_b"], chunk["t_b"], chunk["b"])
-    run = lambda: BatchedInPlaceEditServer.run_fwd_chunk(server, reqs, *args)
-    host = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        run()
-        host.append((time.perf_counter() - t0) * 1e3)
-    events, busy = profiled(run)
-    kernels = device_ops(events)
-    k3 = sum(e.self_device_time_total for e in kernels if "attention_fwd" in e.key) / 1e3
-    mel = torch.zeros(chunk["b"], chunk["t_b"], 80, device="cuda") - 4.0
-    voc = profiled(lambda: server.infer.vocoder.spec2wav_batch_dev(mel))[1]
-    out = dict(shape=[chunk["b"], chunk["t_b"]], s_b=chunk["s_b"], rows=chunk["n"],
-               host_ms=float(np.median(host)), busy_ms=busy,
-               device_ops=sum(e.count for e in kernels), k3_ms=k3, hifigan_ms=voc)
-    if busy == 0:
-        print(f"[inplace] {family}: profiled chunk: the profiler saw no device time, busy not "
-              f"measured; host {out['host_ms']:.3f} ms", flush=True)
-        return out
-    print(f"[inplace] {family}: profiled chunk B={chunk['b']} x T={chunk['t_b']} "
-          f"(S={chunk['s_b']}, {chunk['n']} real rows): host {out['host_ms']:.3f} ms (median of "
-          f"3), device busy {busy:.3f} ms ({busy / out['host_ms']:.3f} of it) in "
-          f"{out['device_ops']} operations; K3 {k3:.3f} ms ({k3 / busy:.3f}), HiFi-GAN alone on "
-          f"the chunk's shape {voc:.3f} ms ({voc / busy:.3f}); {smi}", flush=True)
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
-        print(f"[profile] {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d}x "
-              f"{e.key[:90]}", flush=True)
-    return out
 
 
 def inplace_cpu_rerun(family: str, cls, hp: dict, server, chunk: dict, results: dict) -> dict:
@@ -3661,15 +3776,9 @@ def csv_spec_kw(hp: dict) -> dict:
                 num_mels=hp["audio_num_mel_bins"], fmin=hp["fmin"], fmax=hp["fmax"])
 
 
-def inplace_family(family: str, cls, config: str, smi: str, tmp: str, data_dir: str,
-                   seed: int) -> tuple[dict, dict]:
-    """One in-place family at its shipped widths: a seeded port checkpoint,
-    the CSV edit API, batch mode over the serve path's 32 requests (warmed;
-    checked, timed), one request alone, at another row and at its exact-fit
-    bucket with max_batch 1 against the per-item driver (bit for bit), a
-    profiled B=16 x T=512 chunk (INPLACE_PROFILED), a 128-frame chunk re-run
-    on the CPU.
-    Returns the batch run's launches and the statistics."""
+def inplace_setup(family: str, cls, config: str, tmp: str, data_dir: str, seed: int) -> dict:
+    """An in-place family's work dir with a seeded port checkpoint
+    (``write_inplace_checkpoint``), its command line's arguments and hp."""
     voc_dir = os.path.join(tmp, "hifigan")
     work = os.path.join(tmp, "inplace", family)
     argv_hp = ["--config", config, "--exp_name", work, "-hp",
@@ -3677,7 +3786,19 @@ def inplace_family(family: str, cls, config: str, smi: str, tmp: str, data_dir: 
     hp = set_hparams(arg_parser().parse_args(argv_hp + ["--infer"]), print_hparams=False)
     check(cls.__name__.lower().startswith(family) and family in hp["task_cls"].lower(),
           f"{config}: task_cls {hp['task_cls']}")
-    n_params = write_inplace_checkpoint(cls, hp, work, seed)
+    return dict(config=config, work=work, argv_hp=argv_hp, hp=hp,
+                params=write_inplace_checkpoint(cls, hp, work, seed))
+
+
+def inplace_family(family: str, cls, setup: dict, smi: str, tmp: str) -> tuple[dict, dict]:
+    """One in-place family at its shipped widths from ``inplace_setup``: the
+    CSV edit API, batch mode over the serve path's 32 requests (warmed;
+    checked, timed), one request alone, at another row and at its exact-fit
+    bucket with max_batch 1 against the per-item driver (bit for bit), a
+    128-frame chunk re-run on the CPU; CampNet's online CLI, started in the
+    serve phase (``setup["cli"]``), waited for and held to batch mode.
+    Returns the batch run's launches and the statistics."""
+    config, work, hp, n_params = setup["config"], setup["work"], setup["hp"], setup["params"]
     csv_rows = [dict(item_name=f"edit{i}", text=text, edited_text=edited,
                      wav_fn_orig=os.path.join(tmp, "csv", f"edit{i}.wav"),
                      edited_region=edited_region, region=region,
@@ -3753,15 +3874,11 @@ def inplace_family(family: str, cls, config: str, smi: str, tmp: str, data_dir: 
     print(f"[inplace] {family} {alone_name} ({len(item['mel'])} frames): alone, in its 16-row "
           f"chunk and at row 1 bit-identical; at its exact-fit bucket with max_batch 1 the "
           f"server's mel and wav equal the per-item driver's bit for bit", flush=True)
-    if family in INPLACE_PROFILED:
-        stats["profile"] = inplace_profile(
-            family, server, next(c for c in chunks if c["t_b"] == INPLACE_PROFILE_T
-                                 and c["n"] == c["b"]), smi)
     stats["cpu"] = inplace_cpu_rerun(family, cls, hp, server,
                                      next(c for c in chunks if c["t_b"] == INPLACE_CPU_T),
                                      by_name)
     if family == "campnet":    # every eighth request
-        online = serve_cli(argv_hp, rows[::8], os.path.join(work, "online"), ["--warmup"])
+        online = finish_serve_cli(setup["cli"])
         check(online["served"] == len(rows[::8]) and online["shapes"] == online["warmup_shapes"],
               f"{family} serve CLI: served {online['served']}, {online['shapes']} shapes run, "
               f"{online['warmup_shapes']} warmed")
@@ -3776,8 +3893,9 @@ def inplace_family(family: str, cls, config: str, smi: str, tmp: str, data_dir: 
               f"model load included), latency p50 {online['p50_ms']:.0f} ms / p99 "
               f"{online['p99_ms']:.0f} ms, {online['chunks']} chunks, fill "
               f"{online['fill']:.3f}; warmup {online['warmup_shapes']} shapes in "
-              f"{online['warmup_s']:.1f} s, none added by the traffic; every wav the batch "
-              f"mode's, bit for bit; {smi}", flush=True)
+              f"{online['warmup_s']:.1f} s, none added by the traffic (started in the "
+              f"serve phase, beside its CLI); every wav the batch mode's, bit for bit; {smi}",
+              flush=True)
         stats["online"] = online
     if family == INPLACE_INT8:
         inf8 = cls(dict(hp, serve_quant_int8=True), "cuda")
@@ -3814,16 +3932,22 @@ def inplace_family(family: str, cls, config: str, smi: str, tmp: str, data_dir: 
     return launches, dict(stats, card=smi)
 
 
-def inplace_path(smi: str, tmp: str, data_dir: str) -> tuple[dict, dict]:
+def inplace_path(smi: str, tmp: str, data_dir: str, campnet: dict) -> tuple[dict, dict]:
     """The three in-place families in turn (``inplace_family``), after the
     serve path, on its requests, the infer path's CSV requests and HiFi-GAN
-    V1 and the run path's phone set. Returns the launches of the three batch
-    runs summed and each family's statistics."""
+    V1 and the run path's phone set, beside the two online CLIs the serve
+    path started: ``campnet`` is its ``inplace_setup`` of CampNet with that
+    CLI, and ``campnet["finish_serve"]`` checks the serve CLI at the end.
+    Returns the launches of the three batch runs summed and each family's
+    statistics."""
     t0 = time.perf_counter()
     total, stats = {k: 0 for k in COUNTERS}, {}
     for i, (family, cls, config) in enumerate(INPLACE):
-        launches, stats[family] = inplace_family(family, cls, config, smi, tmp, data_dir, i)
+        setup = campnet if family == "campnet" else inplace_setup(family, cls, config, tmp,
+                                                                  data_dir, i)
+        launches, stats[family] = inplace_family(family, cls, setup, smi, tmp)
         total = {k: total[k] + launches[k] for k in COUNTERS}
+    campnet["finish_serve"]()
     stats["seconds"] = time.perf_counter() - t0
     print(f"[inplace] three families in {stats['seconds']:.1f} s; launches {total}", flush=True)
     return total, stats
@@ -3892,13 +4016,12 @@ def family_train(family: str, smi: str, tmp: str, data_dir: str,
     checkpoint, then ``--infer`` on the test split from that checkpoint.
     Every step's, validation batch's and item's launches are checked, and
     every metric is finite; the timed steps (after RUN_WARMUP) and peak
-    memory are printed, StutterSpeech's profiled median step (EditSpeech's
-    under bf16); StutterSpeech and CampNet step
+    memory are printed; StutterSpeech and CampNet step
     once on the card and on the CPU. With ``bf16``, under ``-hp
     use_bf16=true``: FAMILY_BF16_STEPS steps, one validation batch and a
     checkpoint of float32 masters, no ``--infer``; CampNet steps on the card
-    and on the CPU at the BF16_* bars, and EditSpeech's profile (the only
-    one of the bf16 pass) must show cuDNN's recurrence. Returns the launches
+    and on the CPU at the BF16_* bars, and an EditSpeech step's host
+    operations must show cuDNN's recurrence. Returns the launches
     and statistics."""
     q = lambda xs, p: float(np.percentile(xs, p))
     root = os.path.join(tmp, "family_bf16" if bf16 else "family")
@@ -3978,17 +4101,8 @@ def family_train(family: str, smi: str, tmp: str, data_dir: str,
     raw = {k: v.pin_memory() if isinstance(v, torch.Tensor) else v
            for k, v in mid["raw"].items()}
     b, t = mid["shape"]
-    events: list = []
-    # profiled: in float32 StutterSpeech (K1/K5), in bf16 EditSpeech alone
-    # (its cuDNN recurrence is checked)
-    if family in (("editspeech",) if bf16 else ("stutter_speech",)):
-        busy_ms = profile_step(trainer, raw, mid["host_ms"], top=8,
-                               label=f"{label} B={b} x T={t}", keep=events)
-        stats.update(profiled_batch=[b, t], profiled_host_ms=mid["host_ms"],
-                     profiled_busy_ms=busy_ms,
-                     profiled_busy_share=None if busy_ms is None else busy_ms / mid["host_ms"])
     if bf16 and family == "editspeech":
-        stats["recurrence"] = check_cudnn_recurrence(events)
+        stats["recurrence"] = check_cudnn_recurrence(trainer, raw)
     if family in (FAMILY_BF16_CPU_STEP if bf16 else FAMILY_CPU_STEP):
         keys = trainer.task.effective_batch_keys()
         compare_step_with_cpu(label, lambda dev: Trainer(trainer.task, trainer.hp, dev,
@@ -4051,12 +4165,17 @@ def family_train_path(smi: str, tmp: str, bf16: bool = False) -> tuple[dict, dic
     return total, stats
 
 
-def check_cudnn_recurrence(events: list) -> dict:
-    """EditSpeech's bf16 step runs its LSTMs through cuDNN's recurrence
-    (``aten::_cudnn_rnn``, a few launches a layer), not PyTorch's per-time-
-    step cell (``aten::_thnn_fused_lstm_cell``, launches a frame): the
-    operation counts from a profiled step."""
-    host = {e.key: e.count for e in host_ops(events)}
+def check_cudnn_recurrence(trainer, raw: dict) -> dict:
+    """EditSpeech's bf16 step on ``raw`` runs its LSTMs through cuDNN's
+    recurrence (``aten::_cudnn_rnn``, a few launches a layer), not
+    PyTorch's per-time-step cell (``aten::_thnn_fused_lstm_cell``, launches
+    a frame): the host operations of one step, which the profiler records
+    without its device activity."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        trainer.step(raw)
+        torch.cuda.synchronize()
+    host = {e.key: e.count for e in host_ops(prof.key_averages())}
     cudnn = sum(n for k, n in host.items() if "_cudnn_rnn" in k)
     cells = sum(n for k, n in host.items() if "lstm_cell" in k)
     print(f"[family] editspeech bf16 recurrence: {cudnn} aten::_cudnn_rnn calls (forward and "
@@ -4327,16 +4446,21 @@ def compare_gan_step_with_cpu(task, hp: dict, state: dict, sub: dict) -> dict:
     within STEP_MOMENT_TOL in relative L2 a tensor, the parameters within
     STEP_PARAM_TOL, but where the step's first moment is within rounding of
     zero (under 1e-2 of its tensor's rms on the CPU), where Adam's
-    direction, a near sign, may differ by up to 2 lr."""
+    direction, a near sign, may differ by up to 2 lr. The CPU's leaky ReLUs
+    take the card's branches (``relu_branches``), so both differentiate the
+    same function."""
+    masks: list = []
+
     def run(dev: str) -> dict:
         twin = Trainer(task, hp, dev)
         twin.train_step.load_state_dict(copy.deepcopy(state))
         t0 = time.perf_counter()
-        metrics = twin.train_step(twin.to_device(sub))
+        with relu_branches(masks, replay=dev == "cpu") as tally:
+            metrics = twin.train_step(twin.to_device(sub))
         secs = time.perf_counter() - t0
         step = twin.train_step
         out = {"secs": secs, "metrics": {k: float(v) for k, v in metrics.items()},
-               "lr": step.gen_opt.param_groups[0]["lr"]}
+               "lr": step.gen_opt.param_groups[0]["lr"], "flips": tally[0]}
         for net, opt, prefix in ((twin.model, step.gen_opt, ""),
                                  (twin.disc, step.disc_opt, "disc.")):
             for name, p in net.named_parameters():
@@ -4348,7 +4472,7 @@ def compare_gan_step_with_cpu(task, hp: dict, state: dict, sub: dict) -> dict:
     gpu, cpu = run("cuda"), run("cpu")
     loss_err = max(abs(gpu["metrics"][k] - v) / max(abs(v), 1e-12)
                    for k, v in cpu["metrics"].items())
-    names = [k for k in cpu if k not in ("secs", "metrics", "lr")]
+    names = [k for k in cpu if k not in ("secs", "metrics", "lr", "flips")]
     moment = max((float((gpu[n][i] - cpu[n][i]).norm() / cpu[n][i].norm().clamp(min=1e-30)), n)
                  for n in names for i in (1, 2))
     worst_param, flips, total = (0.0, ""), 0, 0
@@ -4367,11 +4491,13 @@ def compare_gan_step_with_cpu(task, hp: dict, state: dict, sub: dict) -> dict:
           f"relative L2 ({moment[1]}; tol {STEP_MOMENT_TOL}); parameters {worst_param[0]:.3e} "
           f"(tol {STEP_PARAM_TOL}) but for {flips} of {total} elements whose first moment is "
           f"within rounding of 0, within 2 lr; total_loss {gpu['metrics']['total_loss']:.6f} vs "
-          f"{cpu['metrics']['total_loss']:.6f}", flush=True)
+          f"{cpu['metrics']['total_loss']:.6f}; leaky ReLU inputs on the other side of 0 on the "
+          f"CPU, given the card's branch: {cpu['flips']} of {sum(m.numel() for m in masks)}",
+          flush=True)
     check(loss_err <= STEP_LOSS_RTOL, f"[gan] B=2 step: loss error {loss_err}")
     check(moment[0] <= STEP_MOMENT_TOL, f"[gan] B=2 step: moment error {moment}")
     return {"loss_rel_err": loss_err, "moment_rel_l2": moment[0], "param_err": worst_param[0],
-            "sign_flips": flips, "cpu_s": cpu["secs"]}
+            "sign_flips": flips, "leaky_relu_flips": cpu["flips"], "cpu_s": cpu["secs"]}
 
 
 def gan_path(smi: str, tmp: str) -> tuple[dict, dict]:
@@ -4702,10 +4828,9 @@ TTS_HP = (f"max_updates={TTS_STEPS},val_check_interval={TTS_STEPS},num_sanity_va
           f"test_save_workers=1,ds_workers=0")
 TTS_TEXT = " ".join(SERVE_WORDS[:9])
 TTS_CPU_T = 192           # frames of the B=2 step run on the card and the CPU
-# the configs profiled and stepped on the CPU: FastSpeech's FFT path covers
+# the configs stepped on the CPU: FastSpeech's FFT path covers
 # FastSpeech2-orig's
 TTS_DEEP = ("fs", "diffspeech")
-TTS_PROFILED = ("diffspeech",)   # of TTS_DEEP, the one profiled
 TTS_FRAME_KEYS = ("mels", "mel2ph", "f0", "uv", "cwt_spec")
 # the prediction: launches a step, a validation batch, a --infer item (one
 # a batch) and a synthesised sentence; FastSpeech's 4 + 4 FFT layers, K3 in
@@ -4766,8 +4891,8 @@ def tts_config(name: str, smi: str, tmp: str, data_dir: str) -> tuple[dict, dict
     validation batch, a checkpoint; ``--infer`` of the test split) and one
     sentence through ``tts_infer``; every step's, validation batch's, item's
     and the sentence's launches checked against TTS_LAUNCHES, every metric
-    and output finite; host and event p50/p75, peak memory, a profiled
-    median step, a B=2 step on the card and on the CPU. Returns the launches
+    and output finite; host and event p50/p75, peak memory, a B=2 step on
+    the card and on the CPU. Returns the launches
     and the statistics."""
     q = lambda xs, p: float(np.percentile(xs, p))
     work = os.path.join(tmp, "tts", name)
@@ -4828,20 +4953,11 @@ def tts_config(name: str, smi: str, tmp: str, data_dir: str) -> tuple[dict, dict
     print(f"[tts] {name} last step: " + " ".join(f"{k}={v:.5f}" for k, v in sorted(m.items())),
           flush=True)
     mid = sorted(timed, key=lambda st: st["shape"][1])[len(timed) // 2]
-    raw = {k: v.pin_memory() if isinstance(v, torch.Tensor) else v
-           for k, v in mid["raw"].items()}
-    b, t = mid["shape"]
     stage_s, t1 = {"run": train_s}, time.perf_counter()
-    stats.update(profiled_batch=[b, t], profiled_host_ms=mid["host_ms"],
+    stats.update(median_batch=mid["shape"], median_host_ms=mid["host_ms"],
                  median_lengths=[int(n) for n in mid["raw"]["mel_lengths"]],
                  median_tokens=[int(n) for n in (mid["raw"]["txt_tokens"] > 0).sum(1)])
     if name in TTS_DEEP:
-        if name in TTS_PROFILED:
-            busy_ms = profile_step(trainer, raw, mid["host_ms"], top=6,
-                                   label=f"tts {name} B={b} x T={t}")
-            stage_s["profile"], t1 = time.perf_counter() - t1, time.perf_counter()
-            stats.update(profiled_busy_ms=busy_ms, profiled_busy_share=None if busy_ms is None
-                         else busy_ms / mid["host_ms"])
         # the CPU's step: two utterances of the shortest batch, their first
         # TTS_CPU_T frames (the step's cost on the CPU grows with the frames)
         short = min(rec.steps, key=lambda st: st["shape"][1])["raw"]
@@ -4908,12 +5024,12 @@ def check_tts_kernels(gen, fs: dict, ds: dict) -> dict:
     and K5 without a mask at dilation 1 at DiffSpeech's median batch (its
     rows padded from their own lengths) against their plain versions, K1
     timed beside its plain version. Returns the readings by kernel."""
-    b, t = fs["profiled_batch"]
+    b, t = fs["median_batch"]
     lengths = fs["median_lengths"]
     fwd = check_attention_at(gen, b, t, 1e-4, lengths, "FastSpeech's decoder self-attention")
     bwd = check_attention_bwd_at(gen, b, t, lengths,
                                  "FastSpeech's decoder self-attention in training")
-    b, t = ds["profiled_batch"]
+    b, t = ds["median_batch"]
     x, cond, step, _, w = block_inputs(gen, b, t)
     call = lambda fn, **kw: fn(x, cond, step, None, *w, dilation=1, **kw)
     got, ref = call(diffnet_block, return_h=True), call(diffnet_block_plain, return_h=True)
@@ -4929,15 +5045,13 @@ def check_tts_kernels(gen, fs: dict, ds: dict) -> dict:
           f"x T={t}: with h err {err:.3e} (tol 1e-4), diffnet_block_bwd err {err_b:.3e} (tol "
           f"{BWD_TOL}); without h (the reverse process's form) {k1_ms:.4f} ms events, plain "
           f"{plain_ms:.4f} ms", flush=True)
-    fs_shape = dict(b=fs["profiled_batch"][0], t=fs["profiled_batch"][1])
+    fs_shape = dict(b=fs["median_batch"][0], t=fs["median_batch"][1])
     return {"flash_mha": dict(tts_max_abs_err=fwd["max_err"], tts_ms=fwd["ms"],
                               tts_device_ms=fwd["device_ms"], tts_sdpa_ms=fwd["library_ms"],
-                              tts_sdpa_device_ms=fwd["library_device_ms"],
                               tts_plain_ms=fwd["plain_ms"], tts_bound_ms=fwd["bound_ms"],
                               tts_shape=fs_shape),
             "flash_mha_bwd": dict(tts_max_abs_err=bwd["max_err"], tts_ms=bwd["ms"],
                                   tts_device_ms=bwd["device_ms"], tts_sdpa_ms=bwd["library_ms"],
-                                  tts_sdpa_device_ms=bwd["library_device_ms"],
                                   tts_plain_ms=bwd["plain_ms"], tts_bound_ms=bwd["bound_ms"],
                                   tts_shape=fs_shape),
             "diffnet_block": dict(tts_max_abs_err=err, tts_ms=k1_ms, tts_plain_ms=plain_ms,
@@ -4986,9 +5100,6 @@ PS_HP = (f"max_updates={PS_STEPS},val_check_interval={PS_STEPS},num_sanity_val_s
          f"eval_max_batches=1,tb_log_interval={PS_STEPS},test_num={PS_SPLITS['test']},"
          "test_save_workers=1,ds_workers=0,num_valid_plots=0")
 PS_CPU_T = 192            # frames of the B=2 step run on the card and the CPU
-# profiled (5-7 s each, 27,000-41,000 host operations a step): the widest
-# model's step and the GAN step
-PS_PROFILED = ("ps_flow",)
 PS_FRAME_KEYS = ("mels", "mel2word", "pitch")
 # the prediction: 16 K3 a forward (the phone encoder's 4 layers, the word
 # encoder's 4 twice, ph2word_encoder's 4) and 16 K4 a step's backward; the
@@ -5003,7 +5114,7 @@ def ps_config(name: str, smi: str, tmp: str, data_dir: str) -> tuple[dict, dict]
     every step's, validation batch's and test batch's launches checked
     against PS_LAUNCHES, every metric and output finite, the checkpoint
     float32 and loaded bit for bit by ``--infer``; host and event p50/p75,
-    peak memory, a profiled median step; PortaSpeech-flow's B=2 step on the
+    peak memory; PortaSpeech-flow's B=2 step on the
     card and on the CPU. Returns the launches and the statistics."""
     q = lambda xs, p: float(np.percentile(xs, p))
     work = os.path.join(tmp, "ps", name)
@@ -5071,17 +5182,8 @@ def ps_config(name: str, smi: str, tmp: str, data_dir: str) -> tuple[dict, dict]
     print(f"[ps] {name} last step: " + " ".join(f"{k}={v:.5f}" for k, v in sorted(m.items())),
           flush=True)
     mid = sorted(timed, key=lambda st: st["shape"][1])[len(timed) // 2]
-    raw = {k: v.pin_memory() if isinstance(v, torch.Tensor) else v
-           for k, v in mid["raw"].items()}
-    b, t = mid["shape"]
     stage_s, t1 = {"run": train_s}, time.perf_counter()
-    if name in PS_PROFILED:
-        busy_ms = profile_step(trainer, raw, mid["host_ms"], top=6,
-                               label=f"ps {name} B={b} x T={t}")
-        stage_s["profile"], t1 = time.perf_counter() - t1, time.perf_counter()
-        stats.update(profiled_busy_ms=busy_ms,
-                     profiled_busy_share=None if busy_ms is None else busy_ms / mid["host_ms"])
-    stats.update(profiled_batch=[b, t], profiled_host_ms=mid["host_ms"],
+    stats.update(median_batch=mid["shape"], median_host_ms=mid["host_ms"],
                  median_tokens=[int(n) for n in (mid["raw"]["txt_tokens"] > 0).sum(1)],
                  median_words=[int(n) for n in (mid["raw"]["word_tokens"] > 0).sum(1)],
                  median_shapes=dict(ph=list(mid["raw"]["txt_tokens"].shape),
@@ -5150,7 +5252,6 @@ def check_ps_kernels(gen, ps: dict) -> dict:
             out[name].update({f"{prefix}_max_abs_err": r["max_err"], f"{prefix}_ms": r["ms"],
                               f"{prefix}_device_ms": r["device_ms"],
                               f"{prefix}_sdpa_ms": r["library_ms"],
-                              f"{prefix}_sdpa_device_ms": r["library_device_ms"],
                               f"{prefix}_plain_ms": r["plain_ms"],
                               f"{prefix}_bound_ms": r["bound_ms"],
                               f"{prefix}_shape": dict(b=b, s=s)})
@@ -5184,9 +5285,7 @@ def ps_path(smi: str, tmp: str, gen) -> tuple[dict, dict, dict]:
 def ps_only(gen) -> None:
     """``--ps``: the PortaSpeech phase alone, with a HiFi-GAN V1 of seeded
     weights for ``--infer``."""
-    smi = subprocess.run(["nvidia-smi", "--id=0", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True).stdout.strip()
+    smi = card_smi()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_ps_")
     try:
         write_vocoder(os.path.join(tmp, "hifigan"))
@@ -5440,9 +5539,7 @@ def reference_path(smi: str, tmp: str, gen, data_native: dict) -> tuple[dict, di
 def reference_only(gen) -> None:
     """``--reference``: the data phase (its binarize is the one counted
     through the native library) and the reference phase alone."""
-    smi = subprocess.run(["nvidia-smi", "--id=0", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True).stdout.strip()
+    smi = card_smi()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_reference_")
     try:
         _, data_stats = data_path(smi, tmp)
@@ -5466,9 +5563,7 @@ def dsp_ab(gen) -> None:
     native library's calls; every arm's mels equal."""
     from speech_editing_tpu_torch.data.binarizer import BaseBinarizer
 
-    smi = subprocess.run(["nvidia-smi", "--id=0", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True).stdout.strip()
+    smi = card_smi()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_dsp_")
     try:
         raw, processed, ckpt = write_data_corpus(tmp)
@@ -5646,9 +5741,7 @@ def multi_path(smi: str, tmp: str, data_dir: str) -> tuple[dict, dict]:
 def multi_only(gen) -> None:
     """``--multi``: the multi phase alone, over a small corpus of the run
     path's kind (the NCCL rank's run reads it)."""
-    smi = subprocess.run(["nvidia-smi", "--id=0", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True).stdout.strip()
+    smi = card_smi()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_multi_")
     try:
         data_dir = os.path.join(tmp, "data")
@@ -5659,6 +5752,14 @@ def multi_only(gen) -> None:
         print(json.dumps({"multi": stats, "launches": launches}, default=str))
     finally:
         shutil.rmtree(tmp)
+
+
+def remat_only(gen) -> None:
+    """``--remat``: the remat phase alone."""
+    t0 = time.perf_counter()
+    launches, stats = remat_path(card_smi())
+    print(f"[phase] remat: {time.perf_counter() - t0:.1f} s", flush=True)
+    print(json.dumps({"remat": stats, "launches": launches}, default=str))
 
 
 def check_block_serving(gen) -> tuple[float, list]:
@@ -5685,11 +5786,14 @@ _PHASE_T0 = [time.perf_counter()]
 
 
 def phase_done(name: str) -> None:
-    """Records and prints the seconds since the last phase ended."""
+    """Records and prints the seconds since the last phase ended, and how
+    many of them ``torch.profiler``'s windows took."""
     now = time.perf_counter()
     PHASE_S[name] = now - _PHASE_T0[0]
     _PHASE_T0[0] = now
-    print(f"[phase] {name}: {PHASE_S[name]:.1f} s", flush=True)
+    print(f"[phase] {name}: {PHASE_S[name]:.1f} s ({PROFILER_S[0]:.1f} s of it in the "
+          f"profiler's windows)", flush=True)
+    PROFILER_S[0] = 0.0
 
 
 # the timing-only modes: the kernels they build and the function that times them
@@ -5699,6 +5803,8 @@ TIMING_MODES = {"--time-attention": (("flash_attention", "flash_attention_bwd"),
                 "--multi": (("diffnet_block", "diffnet_block_bwd", "flash_attention",
                              "flash_attention_bwd"), multi_only),
                 "--ps": (("flash_attention", "flash_attention_bwd"), ps_only),
+                "--remat": (("diffnet_block", "diffnet_block_bwd", "flash_attention",
+                             "flash_attention_bwd"), remat_only),
                 "--reference": (build.SOURCES, reference_only),
                 "--dsp-ab": ((), dsp_ab)}
 
@@ -5709,9 +5815,7 @@ def main() -> None:
         fail(f"usage: python3 chip_smoke.py [{' | '.join(TIMING_MODES)}]; got {sys.argv[1:]}")
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke run needs one GPU")
-    smi = subprocess.run(["nvidia-smi", "--id=0", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True).stdout.strip()
+    smi = card_smi()
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
     print(f"[device] {kind} x{count}; torch {torch.__version__}, CUDA {torch.version.cuda}",
           flush=True)
@@ -5760,6 +5864,8 @@ def main() -> None:
     phase_done("train")
     train_bf16_launches, train_bf16 = train_path(bf16=True)
     phase_done("train bf16")
+    remat_launches, remat_stats = remat_path(smi)
+    phase_done("remat")
     tmp = tempfile.mkdtemp(prefix="chip_smoke_run_")
     try:
         run_launches, run_stats = run_path(smi, tmp)
@@ -5770,9 +5876,9 @@ def main() -> None:
         infer_launches, csv_launches, infer_stats, infer_frames = infer_path(
             smi, tmp, work, data_dir)
         phase_done("infer")
-        serve_launches, serve_stats = serve_path(smi, tmp, work, data_dir)
+        serve_launches, serve_stats, campnet = serve_path(smi, tmp, work, data_dir)
         phase_done("serve")
-        inplace_launches, inplace_stats = inplace_path(smi, tmp, data_dir)
+        inplace_launches, inplace_stats = inplace_path(smi, tmp, data_dir, campnet)
         phase_done("inplace")
         family_launches, family_stats = family_train_path(smi, tmp)
         phase_done("family train")
@@ -5821,6 +5927,7 @@ def main() -> None:
         k["launches_by_path"] = {"edit": edit_launches[k["name"]],
                                  "train": train_launches[k["name"]],
                                  "train_bf16": train_bf16_launches[k["name"]],
+                                 "remat": remat_launches[k["name"]],
                                  "run": run_launches[k["name"]],
                                  "run_bf16": run_bf16_launches[k["name"]],
                                  "infer": infer_launches[k["name"]],
@@ -5843,6 +5950,7 @@ def main() -> None:
             "library_ms")
     check(inplace_launches["flash_mha"] > 0, "flash_mha was not launched on the in-place path")
     print(json.dumps({"edit_rtf": rtf, "train_step": train, "train_step_bf16": train_bf16,
+                      "remat": remat_stats,
                       "run": run_stats,
                       "run_bf16": run_bf16_stats, "infer": infer_stats, "serve": serve_stats,
                       "inplace": inplace_stats, "family_train": family_stats,
@@ -5854,17 +5962,14 @@ def main() -> None:
     print(smi)
     extra = ("warm_ms", "warm_plain_ms", "host_us", "train_ms", "train_plain_ms",
              "train_bound_ms", "train_device_ms", "train_ops_per_call", "train_host_us",
-             "device_ms", "ops_per_call", "library_device_ms", "old_bound_ms", "cufft_ms",
-             "cufft_device_ms", "cufft_ops_per_call", "shapes", "infer_max_abs_err",
-             "serve_max_abs_err", "campnet_shapes", "f32_ms", "autograd_err", "gflop",
-             "mbytes", "widths_max_abs_err", "cublas_ms", "cublas_device_ms",
-             "cublas_ops_per_call", "train_gflop", "train_mbytes", "train_bound_by",
-             "train_cublas_ms", "train_cublas_device_ms", "train_cublas_ops_per_call",
+             "device_ms", "ops_per_call", "old_bound_ms", "cufft_ms", "shapes",
+             "infer_max_abs_err", "serve_max_abs_err", "campnet_shapes", "f32_ms",
+             "autograd_err", "gflop", "mbytes", "widths_max_abs_err", "cublas_ms",
+             "train_gflop", "train_mbytes", "train_bound_by", "train_cublas_ms",
              "switches_max_abs_err", "nomask_ms", "masked_ms", "tts_max_abs_err", "tts_ms",
-             "tts_device_ms", "tts_sdpa_ms", "tts_sdpa_device_ms", "tts_plain_ms",
-             "tts_bound_ms", "tts_shape", "ps_max_abs_err", "ps_ms", "ps_device_ms",
-             "ps_sdpa_ms", "ps_sdpa_device_ms", "ps_plain_ms", "ps_bound_ms", "ps_shape",
-             "ps_word_ms", "ps_word_device_ms", "ps_word_sdpa_ms", "ps_word_sdpa_device_ms",
+             "tts_device_ms", "tts_sdpa_ms", "tts_plain_ms", "tts_bound_ms", "tts_shape",
+             "ps_max_abs_err", "ps_ms", "ps_device_ms", "ps_sdpa_ms", "ps_plain_ms",
+             "ps_bound_ms", "ps_shape", "ps_word_ms", "ps_word_device_ms", "ps_word_sdpa_ms",
              "ps_word_plain_ms", "ps_word_bound_ms", "ps_word_shape")
     print(json.dumps({"kernels": [{key: k[key] for key in keys + extra if key in k}
                                   for k in kernels]}))

@@ -33,7 +33,8 @@ class DiffSpeech(nn.Module):
         self.hp, self.out_dims = hp, out_dims
         self.fs = FastSpeech(vocab_size, hp, decoder=False, masked=False)
         self.denoise_fn = DiffNet(out_dims, hp["hidden_size"], hp["residual_layers"],
-                                  hp["residual_channels"], hp["dilation_cycle_length"])
+                                  hp["residual_channels"], hp["dilation_cycle_length"],
+                                  remat=bool(hp.get("remat_diffnet", False)))
         self.num_timesteps = hp["timesteps"]
         spec_min = np.asarray(hp.get("spec_min") or [-6.0] * out_dims, np.float32)
         spec_max = np.asarray(hp.get("spec_max") or [1.5] * out_dims, np.float32)

@@ -62,7 +62,7 @@ def build_encoder(vocab_size: int, hp: Any) -> nn.Module:
     enc_type = hp.get("encoder_type", "fft")
     if enc_type == "fft":
         return FastSpeechEncoder(vocab_size, h, hp["enc_layers"], hp["enc_ffn_kernel_size"],
-                                 hp["num_heads"])
+                                 hp["num_heads"], remat=bool(hp.get("remat_fft", False)))
     if enc_type == "conv":
         return TextConvEncoder(vocab_size, h, h, tuple(hp["enc_dilations"]),
                                hp["enc_kernel_size"], norm_type=hp.get("enc_dec_norm", "ln"),
@@ -85,7 +85,8 @@ def build_decoder(hp: Any) -> nn.Module:
     h = hp["hidden_size"]
     dec_type = hp.get("decoder_type", "fft")
     if dec_type == "fft":
-        return FastSpeechDecoder(h, hp["dec_layers"], hp["dec_ffn_kernel_size"], hp["num_heads"])
+        return FastSpeechDecoder(h, hp["dec_layers"], hp["dec_ffn_kernel_size"], hp["num_heads"],
+                                 remat=bool(hp.get("remat_fft", False)))
     if dec_type == "conv":
         return ConvBlocks(h, h, tuple(hp["dec_dilations"]), hp["dec_kernel_size"],
                           norm_type=hp.get("enc_dec_norm", "ln"),

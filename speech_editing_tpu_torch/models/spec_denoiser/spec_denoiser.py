@@ -43,7 +43,8 @@ class GaussianDiffusion(nn.Module):
         self.fs = FastSpeech(vocab_size, hp)
         self.mel_encoder = MelEncoder(out_dims, hp["hidden_size"])
         self.denoise_fn = DiffNet(out_dims, hp["hidden_size"], hp["residual_layers"],
-                                  hp["residual_channels"], hp["dilation_cycle_length"])
+                                  hp["residual_channels"], hp["dilation_cycle_length"],
+                                  remat=bool(hp.get("remat_diffnet", False)))
         self.num_timesteps = hp["timesteps"]
         self._sched: dict = {}
 

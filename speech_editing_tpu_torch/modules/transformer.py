@@ -15,6 +15,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from speech_editing_tpu_torch.ops.flash_attention import NEG_INF, flash_mha, flash_mha_train
 from speech_editing_tpu_torch.ops.seq_ops import make_positions
@@ -155,17 +157,34 @@ class _Op(nn.Module):
         self.op = op
 
 
+def _recomputed(layer: nn.Module, x: torch.Tensor, padding_mask: torch.Tensor,
+                nonpad: torch.Tensor) -> torch.Tensor:
+    """``layer(x, padding_mask) * nonpad`` keeping none of the layer's
+    activations for the backward, which runs the layer again (the JAX
+    package's ``nn.remat(body, prevent_cse=False)``): K3 twice and K4 once.
+    The rerun takes the parameters the layer holds now, captured here:
+    under ``use_bf16`` those are the bf16 copies that ``functional_call``
+    swapped in, which it has swapped out again by the time the backward
+    runs. The layer draws no random numbers, so no RNG state is kept."""
+    params = dict(layer.named_parameters())
+    run = lambda x, params: functional_call(layer, params, (x, padding_mask)) * nonpad
+    return checkpoint(run, x, params, use_reentrant=False, preserve_rng_state=False)
+
+
 class FFTBlocks(nn.Module):
     """``EncSALayer``s over [B, T, H], the input re-masked after each, and a
     last LayerNorm (``use_last_norm``); with ``use_pos_embed``, sinusoidal
     positions over the frames that are not padding are added first, scaled
     by the learned ``pos_embed_alpha``. ``padding_mask`` [B, T] (True at
-    padding) defaults to the frames whose features are all zero."""
+    padding) defaults to the frames whose features are all zero. With
+    ``remat`` (``remat_fft``) each layer is recomputed in the backward
+    (:func:`_recomputed`)."""
 
     def __init__(self, hidden_size: int, num_layers: int, ffn_kernel_size: int = 9,
-                 num_heads: int = 2, use_pos_embed: bool = True, use_last_norm: bool = True):
+                 num_heads: int = 2, use_pos_embed: bool = True, use_last_norm: bool = True,
+                 remat: bool = False):
         super().__init__()
-        self.hidden_size, self.use_pos_embed = hidden_size, use_pos_embed
+        self.hidden_size, self.use_pos_embed, self.remat = hidden_size, use_pos_embed, remat
         if use_pos_embed:
             self.pos_embed_alpha = nn.Parameter(torch.ones(1))
         self.layers = nn.ModuleList(
@@ -181,8 +200,10 @@ class FFTBlocks(nn.Module):
             positions = sinusoidal_positional_embedding((~padding_mask).long(), self.hidden_size)
             x = x + self.pos_embed_alpha * positions.to(x.dtype)
         x = x * nonpad
+        remat = self.remat and torch.is_grad_enabled()
         for layer in self.layers:
-            x = layer.op(x, padding_mask) * nonpad
+            x = (_recomputed(layer.op, x, padding_mask, nonpad) if remat
+                 else layer.op(x, padding_mask) * nonpad)
         return x if self.layer_norm is None else self.layer_norm(x) * nonpad
 
 
@@ -190,8 +211,10 @@ class FastSpeechEncoder(FFTBlocks):
     """Scaled token embedding + positions + EncSALayers + last LayerNorm."""
 
     def __init__(self, vocab_size: int, hidden_size: int = 256,
-                 num_layers: int = 4, kernel_size: int = 9, num_heads: int = 2):
-        super().__init__(hidden_size, num_layers, kernel_size, num_heads, use_pos_embed=False)
+                 num_layers: int = 4, kernel_size: int = 9, num_heads: int = 2,
+                 remat: bool = False):
+        super().__init__(hidden_size, num_layers, kernel_size, num_heads, use_pos_embed=False,
+                         remat=remat)
         self.embed_tokens = TokenEmbedding(vocab_size, hidden_size)
         nn.init.normal_(self.embed_tokens.weight, std=hidden_size ** -0.5)
 

@@ -3,7 +3,9 @@ the Glow-TTS gated conv stack of the stutter predictor's decoder.
 
 DiffNet: spec ``[B, T, M]`` -> ``[B, T, M]``. Every gated residual block
 runs through kernel K1 (``ops/cuda/diffnet_block.py``), and, when autograd
-records, its backward through kernel K5; on the card a block outside the
+records, its backward through kernel K5; with ``remat`` (``remat_diffnet``)
+a block keeps no pre-activation for the backward, which launches K1 again
+to recompute it. On the card a block outside the
 kernels' envelope (``diffnet_block_takes``: the widths compiled, float32 or
 bf16) raises, and runs with ``--device cpu``. Parameter names follow the
 reference torch DiffNet (``residual_layers.{i}.dilated_conv`` and so on).
@@ -84,10 +86,11 @@ def diffusion_step_embedding(t: torch.Tensor, dim: int) -> torch.Tensor:
 
 
 class DiffNetResidualBlock(nn.Module):
-    def __init__(self, encoder_hidden: int, residual_channels: int, dilation: int):
+    def __init__(self, encoder_hidden: int, residual_channels: int, dilation: int,
+                 remat: bool = False):
         super().__init__()
         c = residual_channels
-        self.dilation = dilation
+        self.dilation, self.remat = dilation, remat
         self.dilated_conv = nn.Conv1d(c, 2 * c, 3, padding=dilation, dilation=dilation)
         self.diffusion_projection = nn.Linear(c, c)
         self.conditioner_projection = nn.Conv1d(encoder_hidden, 2 * c, 1)
@@ -107,24 +110,27 @@ class DiffNetResidualBlock(nn.Module):
     def forward(self, x, cond, step_emb, nonpadding=None, weights=None):
         """x [B,T,C]; cond [B,T,H]; step_emb [B,C]; nonpadding [B,T] or None;
         ``weights`` from :meth:`kernel_weights` (computed here if None).
-        With grad enabled the block is K1 + K5 (``diffnet_block_train``);
-        gradients reach the conv weights through ``kernel_weights``."""
+        With grad enabled the block is K1 + K5 (``diffnet_block_train``,
+        which under ``remat`` launches K1 again in the backward); gradients
+        reach the conv weights through ``kernel_weights``."""
         step = self.diffusion_projection(step_emb)
         w = self.kernel_weights() if weights is None else weights
-        block = diffnet_block_train if torch.is_grad_enabled() else diffnet_block
-        return block(x, cond, step, nonpadding, *w, dilation=self.dilation)
+        if not torch.is_grad_enabled():
+            return diffnet_block(x, cond, step, nonpadding, *w, dilation=self.dilation)
+        return diffnet_block_train(x, cond, step, nonpadding, *w, dilation=self.dilation,
+                                   remat=self.remat)
 
 
 class DiffNet(nn.Module):
     def __init__(self, in_dims: int = 80, encoder_hidden: int = 192,
                  residual_layers: int = 20, residual_channels: int = 256,
-                 dilation_cycle_length: int = 1):
+                 dilation_cycle_length: int = 1, remat: bool = False):
         super().__init__()
         c = residual_channels
         self.input_projection = nn.Conv1d(in_dims, c, 1)
         self.mlp = nn.Sequential(nn.Linear(c, 4 * c), Mish(), nn.Linear(4 * c, c))
         self.residual_layers = nn.ModuleList(
-            DiffNetResidualBlock(encoder_hidden, c, 2 ** (i % dilation_cycle_length))
+            DiffNetResidualBlock(encoder_hidden, c, 2 ** (i % dilation_cycle_length), remat)
             for i in range(residual_layers))
         self.skip_projection = nn.Conv1d(c, c, 1)
         self.output_projection = nn.Conv1d(c, in_dims, 1)

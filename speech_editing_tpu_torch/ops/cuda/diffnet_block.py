@@ -8,7 +8,9 @@ step`` before the conv) and any dilation, so the default masked path of the
 denoiser runs through them. K1 writes the pre-activation ``h`` only when a
 gradient is needed. :class:`DiffNetBlockFunction` ties the two together as
 ``_vjp_fwd``/``_vjp_bwd`` do; its weight, bias, cond and step gradients are
-plain products, as the JAX package leaves them to XLA. Both kernels take
+plain products, as the JAX package leaves them to XLA.
+:class:`DiffNetBlockRematFunction` (``remat_diffnet``) keeps no ``h``: its
+backward launches K1 again to write it. Both kernels take
 float32, their products on the tensor cores as 3xTF32 (float32 accuracy,
 ``csrc/tf32x3.cuh``), or bfloat16, with f32 accumulation and the Pallas
 kernels' roundings (Hopper's wgmma, weights by TMA multicast over a
@@ -316,12 +318,33 @@ def diffnet_block_bwd(h, dxout, dskip, mask, wd, wo, dilation: int = 1):
 diffnet_block_bwd.launches = diffnet_block_bwd.launches_bf16 = 0
 
 
+def _block_grads(x, cond, step, mask, h, wd, wc, wo, dilation, dxout, dskip):
+    """The block's gradients from its saved inputs and ``h``: K5 for dx, dh
+    and g, then the weight, bias, cond and step gradients of ``_vjp_bwd``
+    as plain products (f32 accumulation, each cast to its weight's or
+    input's dtype: a no-op in float32)."""
+    d = dilation
+    dxout, dskip = dxout.contiguous(), dskip.contiguous()
+    dx, dh, g = diffnet_block_bwd(h, dxout, dskip, mask, wd, wo, d)
+    b, t, c = x.shape
+    dh2 = dh.reshape(b * t, 2 * c)
+    do = torch.cat([dxout.float() * RSQRT2, dskip.float()], dim=-1)
+    do = do.to(g.dtype).reshape(b * t, 2 * c)
+    dwd = _mm(_conv_input(x, step, mask, d).reshape(b * t, 3 * c).t(), dh2)
+    dwc = _mm(cond.reshape(b * t, -1).t(), dh2)
+    dwo = _mm(g.reshape(b * t, c).t(), do)
+    dbias = dh2.float().sum(0).to(wd.dtype)     # bd and bc both add into h
+    dcond = _mm(dh, wc.t()).to(cond.dtype)
+    # step reaches the loss only through y: dx = dy * mask + dx' / sqrt(2)
+    dstep = (dx.float() - dxout.float() * RSQRT2).sum(1).to(step.dtype)
+    return (dx, dcond, dstep, None, dwd.to(wd.dtype), dbias, dwc.to(wc.dtype), dbias,
+            dwo.to(wo.dtype), do.float().sum(0).to(wo.dtype), None)
+
+
 class DiffNetBlockFunction(torch.autograd.Function):
-    """K1 forward (saving ``h``) and K5 backward, with the weight, bias,
-    cond and step gradients of ``_vjp_bwd`` as plain products: f32
-    accumulation, each cast to its weight's or input's dtype (a no-op in
-    float32). On CPU tensors both halves run their plain versions, so the
-    CPU tests exercise the same decomposition."""
+    """K1 forward (saving ``h``) and K5 backward (:func:`_block_grads`). On
+    CPU tensors both halves run their plain versions, so the CPU tests
+    exercise the same decomposition."""
 
     @staticmethod
     def forward(ctx, x, cond, step, mask, wd, bd, wc, bc, wo, bo, dilation):
@@ -334,26 +357,36 @@ class DiffNetBlockFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dxout, dskip):
         x, cond, step, mask, h, wd, wc, wo = ctx.saved_tensors
-        d = ctx.dilation
-        dxout, dskip = dxout.contiguous(), dskip.contiguous()
-        dx, dh, g = diffnet_block_bwd(h, dxout, dskip, mask, wd, wo, d)
-        b, t, c = x.shape
-        dh2 = dh.reshape(b * t, 2 * c)
-        do = torch.cat([dxout.float() * RSQRT2, dskip.float()], dim=-1)
-        do = do.to(g.dtype).reshape(b * t, 2 * c)
-        dwd = _mm(_conv_input(x, step, mask, d).reshape(b * t, 3 * c).t(), dh2)
-        dwc = _mm(cond.reshape(b * t, -1).t(), dh2)
-        dwo = _mm(g.reshape(b * t, c).t(), do)
-        dbias = dh2.float().sum(0).to(wd.dtype)     # bd and bc both add into h
-        dcond = _mm(dh, wc.t()).to(cond.dtype)
-        # step reaches the loss only through y: dx = dy * mask + dx' / sqrt(2)
-        dstep = (dx.float() - dxout.float() * RSQRT2).sum(1).to(step.dtype)
-        return (dx, dcond, dstep, None, dwd.to(wd.dtype), dbias, dwc.to(wc.dtype), dbias,
-                dwo.to(wo.dtype), do.float().sum(0).to(wo.dtype), None)
+        return _block_grads(x, cond, step, mask, h, wd, wc, wo, ctx.dilation, dxout, dskip)
+
+
+class DiffNetBlockRematFunction(torch.autograd.Function):
+    """The block under ``remat_diffnet`` (the JAX package's ``nn.remat`` of
+    the block): K1 forward saving its inputs and weights but not ``h``
+    [B, T, 2C]; the backward launches K1 again, with ``h``, then K5 as
+    :class:`DiffNetBlockFunction` does. Gradients equal that Function's:
+    the recomputed ``h`` is the forward's, bit for bit, since K1 (and its
+    plain version) is deterministic."""
+
+    @staticmethod
+    def forward(ctx, x, cond, step, mask, wd, bd, wc, bc, wo, bo, dilation):
+        xout, skip = diffnet_block(x, cond, step, mask, wd, bd, wc, bc, wo, bo, dilation)
+        ctx.save_for_backward(x, cond, step, mask, wd, bd, wc, bc, wo, bo)
+        ctx.dilation = dilation
+        return xout, skip
+
+    @staticmethod
+    def backward(ctx, dxout, dskip):
+        x, cond, step, mask, wd, bd, wc, bc, wo, bo = ctx.saved_tensors
+        h = diffnet_block(x, cond, step, mask, wd, bd, wc, bc, wo, bo, ctx.dilation,
+                          return_h=True)[2]
+        return _block_grads(x, cond, step, mask, h, wd, wc, wo, ctx.dilation, dxout, dskip)
 
 
 def diffnet_block_train(x, cond, step, mask, wd, bd, wc, bc, wo, bo,
-                        dilation: int = 1):
-    """:func:`diffnet_block` with a gradient: K1 forward, K5 backward."""
-    return DiffNetBlockFunction.apply(x, cond, step, mask, wd, bd, wc, bc, wo,
-                                      bo, dilation)
+                        dilation: int = 1, remat: bool = False):
+    """:func:`diffnet_block` with a gradient: K1 forward, K5 backward; with
+    ``remat`` the forward keeps no ``h`` and the backward recomputes it
+    with K1 (:class:`DiffNetBlockRematFunction`)."""
+    fn = DiffNetBlockRematFunction if remat else DiffNetBlockFunction
+    return fn.apply(x, cond, step, mask, wd, bd, wc, bc, wo, bo, dilation)

@@ -58,18 +58,9 @@ from speech_editing_tpu_torch.utils.convert_jax_params import params_from_jax
 from tests.test_torch_bf16 import EXACT, SIL, VOCAB, _np, _port_step, _rel_l2, _shipped_hp
 from tests.test_torch_stutter import random_params
 from tests.test_torch_train import _batch
+from tests.test_torch_threads import one_thread  # noqa: F401  (autouse fixture)
 
 ACCUM, UPDATES = 2, 2
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """One intra-op thread: the suite runs several workers on the host's
-    cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _micro(i):

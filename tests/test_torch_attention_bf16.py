@@ -28,6 +28,7 @@ from speech_editing_tpu_torch.ops.flash_attention import (attention_bwd_plain,
                                                           attention_plain, flash_mha,
                                                           flash_mha_takes,
                                                           flash_mha_train)
+from tests.test_torch_threads import one_thread  # noqa: F401  (autouse fixture)
 
 BF = torch.bfloat16
 B, T, H, D = 2, 100, 2, 96

@@ -30,6 +30,7 @@ import torch
 
 from speech_editing_tpu_torch.ops.flash_attention import (attention_bwd_plain,
                                                           attention_lse_plain, attention_plain)
+from tests.test_torch_threads import one_thread  # noqa: F401  (autouse fixture)
 
 LANE = np.arange(32)
 G, T4 = LANE >> 2, LANE & 3      # lane = 4 g + t

@@ -43,6 +43,7 @@ from tests.helpers import TINY_HP
 from tests.test_torch_stutter import random_params
 from tests.test_torch_train import _batch
 from tests.test_torch_train_kernels import _block_inputs
+from tests.test_torch_threads import one_thread  # noqa: F401  (autouse fixture)
 
 BF = torch.bfloat16
 EXACT = {"xla_allow_excess_precision": False}

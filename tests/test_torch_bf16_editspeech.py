@@ -5,7 +5,7 @@ its losses and every gradient through ``bf16_loss`` against
 its gates in f32 and rounds its outputs, flax's cell rounds after every
 operation: the LSTMs' gradients are held at the bar measured here (0.021
 at worst teacher-forced; the card runs cuDNN's bf16 recurrence, which
-``chip_smoke.py`` profiles). Harness and the reasons for the bars:
+``chip_smoke.py`` checks). Harness and the reasons for the bars:
 ``test_torch_bf16_families.py``.
 """
 

@@ -60,20 +60,11 @@ from tests.test_torch_stutter import random_params
 from tests.test_torch_train import HP as FLAGSHIP_HP
 from tests.test_torch_train import SIL, _jax_batch, _torch_batch
 from tests.test_torch_train import _batch as train_batch
+from tests.test_torch_threads import one_thread  # noqa: F401  (autouse fixture)
 
 EXACT = {"xla_allow_excess_precision": False}
 
 
-@pytest.fixture(autouse=True)
-def one_thread():
-    """One intra-op thread for torch: the suite runs several workers on the
-    host's cores, where each one's steps on as many threads as cores
-    oversubscribe them (a Trainer step here: 0.1-3 s alone, 9-42 s in the
-    suite). The family files import this fixture."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 LOSS_RTOL, TOTAL_RTOL = 1e-2, 2e-3
 FAMILY_HP = dict(TINY_HP, vocab_size=VOCAB, binary_data_dir="", lstm_hidden=32)
 
@@ -99,6 +90,12 @@ FAMILIES = {
     "flagship": Family(JSpecDenoiser, SpecDenoiserTask,
                        dict(FLAGSHIP_HP, vocab_size=VOCAB, binary_data_dir=""),
                        (train_batch, 1), "diffusion"),
+    # the flagship under both activation-recomputation switches
+    # (``test_torch_remat.py``)
+    "flagship_remat": Family(JSpecDenoiser, SpecDenoiserTask,
+                             dict(FLAGSHIP_HP, vocab_size=VOCAB, binary_data_dir="",
+                                  remat_diffnet=True, remat_fft=True),
+                             (train_batch, 1), "diffusion"),
     "campnet": Family(JCampNet, CampNetTask, FAMILY_HP, (family_batch, 1)),
     "a3t": Family(JA3T, A3TTask, FAMILY_HP, (family_batch, 1), exact=False),
     "editspeech": Family(JEditSpeech, EditSpeechTask, FAMILY_HP, (family_batch, 1), "coin"),

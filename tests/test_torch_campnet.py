@@ -29,6 +29,7 @@ from speech_editing_tpu_torch.modules.transformer import (DecSALayer, MultiheadA
 from speech_editing_tpu_torch.utils import convert_jax_params as cjp
 from speech_editing_tpu_torch.utils.init import init_like_flax
 from tests.helpers import TINY_HP, perturb_biases
+from tests.test_torch_threads import one_thread  # noqa: F401  (autouse fixture)
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 B, T, S, V, H = 3, 40, 9, 12, 32

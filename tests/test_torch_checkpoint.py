@@ -24,6 +24,7 @@ from speech_editing_tpu_torch.training.checkpoint import (get_all_ckpts,
 from speech_editing_tpu_torch.training.tasks.spec_denoiser import make_loss_fn
 from speech_editing_tpu_torch.training.train_state import TrainStep
 from tests.test_torch_train import HP, SIL, _batch, _jax, _jax_batch, _port_model, _torch_batch
+from tests.test_torch_threads import one_thread  # noqa: F401  (autouse fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = dict(atol=1e-4, rtol=1e-4)

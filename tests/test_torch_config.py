@@ -12,6 +12,7 @@ import yaml
 
 from speech_editing_tpu.config import hparams as jh
 from speech_editing_tpu_torch.config import hparams as th
+from tests.test_torch_threads import one_thread  # noqa: F401  (autouse fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = sorted(os.path.relpath(p, REPO) for p in glob.glob(os.path.join(REPO, "egs", "*.yaml")))

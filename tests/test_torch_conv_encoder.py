@@ -29,6 +29,7 @@ from tests.test_torch_model import VOCAB, _randomize
 from tests.test_torch_train import GRAD_TOL, SIL, _jax_batch, _jax_draws, _torch_batch
 from tests.test_torch_train import HP as TRAIN_HP
 from tests.test_torch_train import _batch as _train_batch
+from tests.test_torch_threads import one_thread  # noqa: F401  (autouse fixture)
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 HP = dict(TRAIN_HP, encoder_type="conv", enc_dilations=[1, 2], enc_kernel_size=5,

@@ -41,6 +41,7 @@ from tests.test_torch_edit import VHP1
 from tests.test_torch_tts_fs import HP as TTS_HP
 from tests.test_torch_tts_fs import VOCAB as TTS_VOCAB
 from tests.test_torch_tts_fs import jax_batch, torch_batch, tts_batch
+from tests.test_torch_threads import one_thread  # noqa: F401  (autouse fixture)
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 EDIT_VOCAB = 40

@@ -44,6 +44,7 @@ from tests.test_torch_stutter import HP as STUTTER_HP
 from tests.test_torch_stutter import VOCAB as STUTTER_VOCAB
 from tests.test_torch_stutter import _batch as stutter_batch
 from tests.test_torch_train import _jax_batch, _torch_batch
+from tests.test_torch_threads import one_thread  # noqa: F401  (autouse fixture)
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 V = 12

@@ -28,6 +28,7 @@ from speech_editing_tpu_torch.data.indexed_dataset import (IndexedDataset,
 from speech_editing_tpu_torch.utils.audio.pitch import norm_interp_f0
 from speech_editing_tpu_torch.utils.text import text_encoder as tt
 from tests.helpers import TINY_HP, synth_corpus_items, write_synth_corpus
+from tests.test_torch_threads import one_thread  # noqa: F401  (autouse fixture)
 
 
 def assert_same(got, ref, where=""):

@@ -30,6 +30,7 @@ import torch
 from speech_editing_tpu_torch.ops.cuda.diffnet_block import (_MIN_GRID, _plain_bf16,
                                                              _tile_plan_bf16,
                                                              diffnet_block_bwd_plain)
+from tests.test_torch_threads import one_thread  # noqa: F401  (autouse fixture)
 
 BF = torch.bfloat16
 BF16_TOL = 2.0 ** -6       # chip_smoke.py's bar: two bf16 ulps of the largest element
@@ -37,16 +38,6 @@ BK, ROWS = 64, 64          # k rows of a ring stage; time rows of a tile
 RSQRT2 = 1.0 / math.sqrt(2.0)
 LANE = np.arange(32)
 G, T4 = LANE >> 2, LANE & 3
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """One intra-op thread: the replays are many small products, which
-    all cores' OpenMP threads spinning make several times slower."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 # -- weight tiles: TMA boxes in, wgmma descriptors out ---------------------------

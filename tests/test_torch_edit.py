@@ -26,6 +26,7 @@ from speech_editing_tpu_torch.models.vocoder.hifigan import HifiGanGenerator
 from speech_editing_tpu_torch.ops.mel import mel_spectrogram
 from speech_editing_tpu_torch.utils.convert_jax_params import (
     params_from_jax, vocoder_params_from_jax)
+from tests.test_torch_threads import one_thread  # noqa: F401  (autouse fixture)
 
 VHP = {"upsample_rates": [4, 4], "upsample_kernel_sizes": [8, 8],
        "upsample_initial_channel": 16, "resblock": "2",

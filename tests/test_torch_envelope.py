@@ -23,6 +23,7 @@ from speech_editing_tpu_torch.ops.flash_attention import (flash_mha, flash_mha_b
                                                           flash_mha_takes)
 from speech_editing_tpu_torch.ops.mel import MelConfig
 from speech_editing_tpu_torch.ops.mel import mel_spectrogram as mel_plain
+from tests.test_torch_threads import one_thread  # noqa: F401  (autouse fixture)
 
 
 class LaunchReached(Exception):

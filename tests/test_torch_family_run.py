@@ -34,6 +34,7 @@ from speech_editing_tpu_torch.training.checkpoint import save_checkpoint
 from speech_editing_tpu_torch.training.trainer import Trainer
 from speech_editing_tpu_torch.utils.init import init_like_flax
 from tests.helpers import TINY_HP, VOCAB, synth_corpus_items
+from tests.test_torch_threads import one_thread  # noqa: F401  (autouse fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

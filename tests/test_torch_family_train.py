@@ -37,6 +37,7 @@ from tests.test_torch_model import VOCAB
 from tests.test_torch_stutter import random_params
 from tests.test_torch_train import GRAD_TOL, SIL, _jax_batch, _torch_batch
 from tests.test_torch_train import _batch as _train_batch
+from tests.test_torch_threads import one_thread  # noqa: F401  (autouse fixture)
 
 HP = dict(TINY_HP, vocab_size=VOCAB, binary_data_dir="", lstm_hidden=32)
 

@@ -24,6 +24,7 @@ from speech_editing_tpu_torch.training.tasks.hifigan import HifiGanTask
 from speech_editing_tpu_torch.training.trainer import Trainer
 from tests.helpers import TINY_VOC_HP, write_voc_corpus
 from tests.test_torch_data import assert_same
+from tests.test_torch_threads import one_thread  # noqa: F401  (autouse fixture)
 
 REPO = __file__.rsplit("/tests/", 1)[0]
 TINY = dict({k: v for k, v in TINY_VOC_HP.items() if k != "vocab_size"},
@@ -31,16 +32,6 @@ TINY = dict({k: v for k, v in TINY_VOC_HP.items() if k != "vocab_size"},
             max_tokens=None, num_sanity_val_steps=1, eval_max_batches=1, tb_log_interval=1,
             val_check_interval=2, test_num=2, ds_workers=0, test_save_workers=1,
             vocoder="GriffinLim", save_gt=False)
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """One intra-op thread: the suite runs several workers on the host's
-    cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -32,6 +32,7 @@ from speech_editing_tpu_torch.infer import gradio_app
 from tests.helpers import TINY_HP, perturb_biases
 from tests.test_torch_infer_edit import _jax_durations
 from tests.test_torch_infer_frontend import EDITS, harmonic_wav, phone_list
+from tests.test_torch_threads import one_thread  # noqa: F401  (autouse fixture)
 
 IN_SR = 44100
 

@@ -38,22 +38,13 @@ from speech_editing_tpu_torch.training.trainer import Trainer
 from speech_editing_tpu_torch.utils.convert_jax_params import (discriminator_params_from_jax,
                                                                vocoder_params_from_jax)
 from tests.helpers import TINY_VOC_HP
+from tests.test_torch_threads import one_thread  # noqa: F401  (autouse fixture)
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 HP = dict(TINY_VOC_HP, disc_periods=(2, 3), msd_scales=2, use_ms_stft=True,
           binary_data_dir="")
 B, FRAMES = 2, TINY_VOC_HP["max_samples"] // TINY_VOC_HP["hop_size"]
 N = FRAMES * TINY_VOC_HP["hop_size"]
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """One intra-op thread: the suite runs several workers on the host's
-    cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _random_tree(shapes, seed):

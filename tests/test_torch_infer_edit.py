@@ -12,6 +12,7 @@ checkpoint (or a plain ``{"gen", "disc"}`` tree) with a PyYAML-written
 ``config.yaml`` at 1e-4 of flax's ``apply``.
 """
 
+import functools
 import json
 import os
 import pickle
@@ -42,6 +43,7 @@ from speech_editing_tpu_torch.utils.audio.dsp import wav2spec
 from speech_editing_tpu_torch.utils.audio.io import load_wav, save_wav
 from tests.helpers import TINY_HP, perturb_biases
 from tests.test_torch_infer_frontend import EDITS, harmonic_wav, phone_list, write_textgrid
+from tests.test_torch_threads import one_thread  # noqa: F401  (autouse fixture)
 
 SR, HOP = 22050, 256
 TOL = dict(atol=1e-3, rtol=1e-3)
@@ -155,12 +157,20 @@ def test_request_noise_depends_only_on_seed_and_request(env):
     assert not torch.equal(draws[0], draws[1]) and not torch.equal(draws[0], draws[2])
 
 
-def _save_jax_vocoder(ckpt_dir, as_gan_state: bool):
+@functools.lru_cache(maxsize=1)
+def _jax_vocoder():
+    """(mel, a JAX HiFi-GAN's parameters with perturbed biases, its output
+    on mel): one init and one apply, shared by the checkpoints saved below."""
     mel = (np.random.RandomState(1).randn(1, 23, 80) * 0.5 - 2).astype(np.float32)
     gen = JHifiGan(hp=VHP)
     params = jax.tree.map(np.asarray, jax.jit(gen.init)(jax.random.PRNGKey(3),
                                                         jnp.asarray(mel))["params"])
     params = perturb_biases(params, seed=2)
+    return mel, params, np.asarray(jax.jit(gen.apply)({"params": params}, jnp.asarray(mel)))
+
+
+def _save_jax_vocoder(ckpt_dir, as_gan_state: bool):
+    mel, params, ref = _jax_vocoder()
     if as_gan_state:
         state = GanTrainState(step=np.int32(5), gen_params=params, gen_opt=None,
                               disc_params={"w": np.zeros(3, np.float32)}, disc_opt=None)
@@ -169,7 +179,6 @@ def _save_jax_vocoder(ckpt_dir, as_gan_state: bool):
     j_save_checkpoint(ckpt_dir, state, 5)
     with open(os.path.join(ckpt_dir, "config.yaml"), "w") as f:
         yaml.safe_dump(dict(VHP, task_cls="HifiGanTask", lr=2e-4), f, sort_keys=True)
-    ref = np.asarray(jax.jit(gen.apply)({"params": params}, jnp.asarray(mel)))
     return mel, ref
 
 

@@ -31,6 +31,7 @@ from speech_editing_tpu_torch.utils.audio import pitch as ppitch
 from speech_editing_tpu_torch.utils.text import processors as pproc
 from speech_editing_tpu_torch.utils.text.text_encoder import TokenTextEncoder as PEncoder
 from speech_editing_tpu_torch.utils.text.text_encoder import is_sil_phoneme
+from tests.test_torch_threads import one_thread  # noqa: F401  (autouse fixture)
 
 SR, HOP = 22050, 256
 TEXTS = ["this is a test sentence", "Hello, World! It's 1,250 dollars; $3 at 4.5%.",

@@ -32,6 +32,7 @@ from speech_editing_tpu_torch.utils.audio.io import load_wav
 from speech_editing_tpu_torch.utils.init import init_like_flax
 from speech_editing_tpu_torch.utils.multiprocess import ResultSaverPool
 from tests.helpers import TINY_HP, VOCAB, write_synth_corpus
+from tests.test_torch_threads import one_thread  # noqa: F401  (autouse fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PHONES = ["|", ",", "sil"] + [f"P{i}" for i in range(VOCAB - 6)]

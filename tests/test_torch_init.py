@@ -35,6 +35,7 @@ from tests.test_torch_model import HP as FFT_HP
 from tests.test_torch_model import VOCAB
 from tests.test_torch_stutter import HP as STUTTER_HP
 from tests.test_torch_stutter import _batch
+from tests.test_torch_threads import one_thread  # noqa: F401  (autouse fixture)
 
 WIDE = dict(hidden_size=64, residual_channels=64)   # enough values a tensor to compare spreads
 

@@ -45,6 +45,7 @@ from tests.test_serving import INPLACE_FAMILIES, REQ_A, REQ_B, REQ_C, _make_requ
 from tests.test_serving import inplace_env  # noqa: F401  (a fixture)
 from tests.test_torch_infer_frontend import write_textgrid
 from tests.test_torch_serving import write_vocoder
+from tests.test_torch_threads import one_thread  # noqa: F401  (autouse fixture)
 
 FAMILIES = [name for _, name in INPLACE_FAMILIES]
 TASKS = dict((name, task) for task, name in INPLACE_FAMILIES)

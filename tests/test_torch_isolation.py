@@ -20,6 +20,7 @@ which import neither the repository's tests nor gradio."""
 import os
 import subprocess
 import sys
+from tests.test_torch_threads import one_thread  # noqa: F401  (autouse fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

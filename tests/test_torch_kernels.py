@@ -25,6 +25,7 @@ from speech_editing_tpu_torch.ops.cuda.mel_kernel import mel_spectrogram
 from speech_editing_tpu_torch.ops.flash_attention import attention_plain, flash_mha
 from speech_editing_tpu_torch.ops.mel import MelConfig
 from speech_editing_tpu_torch.utils.convert_jax_params import _linear
+from tests.test_torch_threads import one_thread  # noqa: F401  (autouse fixture)
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 

@@ -25,6 +25,7 @@ from speech_editing_tpu.ops.pallas.mel_kernel import mel_spectrogram_pallas
 from speech_editing_tpu_torch.ops.cuda.mel_kernel import N_FFT, mel_bands, mel_tables
 from speech_editing_tpu_torch.ops.mel import MelConfig, mel_bases
 from speech_editing_tpu_torch.ops.mel import mel_spectrogram as mel_plain
+from tests.test_torch_threads import one_thread  # noqa: F401  (autouse fixture)
 
 # csrc/mel_kernel.cu's geometry
 F = 4                  # frames per CTA

@@ -22,6 +22,7 @@ from speech_editing_tpu_torch.models.spec_denoiser.spec_denoiser import Gaussian
 from speech_editing_tpu_torch.modules.wavenet import DiffNet
 from speech_editing_tpu_torch.utils.convert_jax_params import (
     diffnet_params_from_jax, params_from_jax)
+from tests.test_torch_threads import one_thread  # noqa: F401  (autouse fixture)
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 VOCAB = 30

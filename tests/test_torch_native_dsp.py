@@ -17,6 +17,7 @@ from speech_editing_tpu_torch.data.binarizer import BaseBinarizer
 from speech_editing_tpu_torch.utils.audio import dsp as tdsp
 from speech_editing_tpu_torch.utils.audio import native
 from speech_editing_tpu_torch.utils.audio.pitch import autocorr_pitch, extract_pitch
+from tests.test_torch_threads import one_thread  # noqa: F401  (autouse fixture)
 
 SR = 22050
 

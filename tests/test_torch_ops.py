@@ -20,6 +20,7 @@ from speech_editing_tpu_torch.ops import pitch as tpitch
 from speech_editing_tpu_torch.ops import seq_ops as tseq
 from speech_editing_tpu_torch.utils.audio import dsp as tdsp
 from speech_editing_tpu_torch.utils.audio import pitch as tapitch
+from tests.test_torch_threads import one_thread  # noqa: F401  (autouse fixture)
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 

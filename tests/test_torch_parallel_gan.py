@@ -11,24 +11,13 @@ which ``test_torch_parallel_mesh.py`` holds the port to)."""
 import os
 
 import numpy as np
-import pytest
-import torch
 
 from tests import torch_parallel_workers as workers
 from tests.helpers import write_voc_corpus
 from tests.test_torch_gan_trainer import TINY_HP as GAN_HP
+from tests.test_torch_threads import one_thread  # noqa: F401  (autouse fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """One intra-op thread: the suite runs several workers on the host's
-    cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def test_two_rank_run_matches_one_process_hifigan(tmp_path):

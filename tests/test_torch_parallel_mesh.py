@@ -24,18 +24,9 @@ from speech_editing_tpu_torch.parallel.dryrun import spawn_ranks
 from speech_editing_tpu_torch.utils.convert_jax_params import params_from_jax
 from tests import torch_parallel_workers as workers
 from tests.test_torch_train import HP, SIL, VOCAB, _jax, _jax_batch, _jax_draws
+from tests.test_torch_threads import one_thread  # noqa: F401  (autouse fixture)
 
 REPO = __file__.rsplit("/tests/", 1)[0]
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """One intra-op thread: the suite runs several workers on the host's
-    cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _leaves(rs, b):

@@ -8,21 +8,10 @@ The batches have four rows, so no padding row enters the means."""
 
 import os
 
-import pytest
-import torch
 
 from tests import torch_parallel_workers as workers
 from tests.test_torch_ps_tasks import REPO, TINY, corpus  # noqa: F401
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """One intra-op thread: the suite runs several workers on the host's
-    cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+from tests.test_torch_threads import one_thread  # noqa: F401  (autouse fixture)
 
 
 def test_two_rank_ps_adv_step_matches_one_process(corpus, tmp_path):

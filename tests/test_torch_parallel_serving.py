@@ -25,18 +25,9 @@ from speech_editing_tpu_torch.utils.convert_jax_params import (params_from_jax,
 from tests import torch_parallel_workers as workers
 from tests.helpers import TINY_HP, VOCAB, synth_batch
 from tests.test_torch_model import _randomize
+from tests.test_torch_threads import one_thread  # noqa: F401  (autouse fixture)
 
 HP = dict(TINY_HP, use_spk_embed=False)
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """One intra-op thread: the suite runs several workers on the host's
-    cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def test_dp_serving_matches_one_process_and_jax():

@@ -24,18 +24,9 @@ from speech_editing_tpu_torch.utils.convert_jax_params import params_from_jax
 from tests import torch_parallel_workers as workers
 from tests.test_torch_train import (HP, SIL, VOCAB, _adam, _batch, _jax, _jax_draws,
                                     _jax_train_step, _port_model, _train_step)
+from tests.test_torch_threads import one_thread  # noqa: F401  (autouse fixture)
 
 MIN_SIZE = 256      # the JAX dry run's: at these widths most kernels split
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """One intra-op thread: the suite runs several workers on the host's
-    cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 SHAPES = [("dense/kernel", (64, 64)), ("dense/bias", (64,)), ("conv/kernel", (3, 32, 64)),

@@ -28,15 +28,7 @@ from tests import torch_parallel_workers as workers
 from tests.helpers import TINY_HP
 from tests.test_torch_train import (HP, SIL, VOCAB, _adam, _batch, _jax, _jax_draws,
                                     _jax_train_step, _port_model)
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """One intra-op thread: the suite runs several workers on the host's
-    cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+from tests.test_torch_threads import one_thread  # noqa: F401  (autouse fixture)
 
 
 def test_dp_steps_match_jax():

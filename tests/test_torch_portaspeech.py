@@ -34,6 +34,7 @@ from speech_editing_tpu_torch.modules.multi_window_disc import _pad_same
 from speech_editing_tpu_torch.ops import seq_ops as tseq
 from speech_editing_tpu_torch.utils import convert_jax_params as cjp
 from tests.helpers import TINY_HP
+from tests.test_torch_threads import one_thread  # noqa: F401  (autouse fixture)
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 VOCAB, WORDS = 12, 30
@@ -47,16 +48,6 @@ PS_HP = dict(TINY_HP, vocab_size=VOCAB, binary_data_dir="", use_spk_embed=True,
              lambda_kl=1.0, kl_min=0.0, kl_start_steps=100, noise_scale=0.8,
              post_glow_hidden=16, post_glow_n_blocks=2, sigmoid_scale=False,
              word_dict_size=WORDS, frames_multiple=4, max_frames=64, posterior_start_steps=0)
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """One intra-op thread: the suite runs several workers on the host's
-    cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 class Tracked(dict):

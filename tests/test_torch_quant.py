@@ -38,6 +38,7 @@ from tests.helpers import TINY_HP, perturb_biases
 from tests.test_serving import REQ_A, REQ_B, REQ_C, _make_request
 from tests.test_torch_infer_edit import VHP, _save_jax_vocoder
 from tests.test_torch_serving import KW, jax_chunk_noise, serve_env
+from tests.test_torch_threads import one_thread  # noqa: F401  (autouse fixture)
 
 MIN_SIZE = 512      # small enough to quantize the tiny attention kernels [32, 2, 16]
 

@@ -14,6 +14,7 @@ import torch.nn.functional as F
 import chip_smoke
 from speech_editing_tpu_torch.config.flagship import FLAGSHIP_HP
 from speech_editing_tpu_torch.training.trainer import Trainer
+from tests.test_torch_threads import one_thread  # noqa: F401  (autouse fixture)
 
 TORCH_RELU = torch.relu
 RELUS = {"torch.relu": lambda x: torch.relu(x), "F.relu": F.relu,
@@ -43,17 +44,6 @@ def test_replay_takes_the_recorded_branch(style):
     assert flips == 1
     torch.testing.assert_close(replayed, ref, rtol=0, atol=0)
     assert torch.relu is TORCH_RELU
-
-
-@pytest.fixture
-def one_thread():
-    """One intra-op thread for the test: the suite runs several workers on
-    the host's cores, and each one's full-width steps on as many threads as
-    cores oversubscribed them (610 s for this test there, 52 s alone)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def test_flagship_step_gradients_hold_under_rounding_with_replay(one_thread):

@@ -28,6 +28,7 @@ from speech_editing_tpu_torch.utils.convert_jax_params import params_from_jax
 from tests.test_torch_model import VOCAB
 from tests.test_torch_stutter import random_params
 from tests.test_torch_train import HP, SIL, _batch, _jax_batch, _jax_draws
+from tests.test_torch_threads import one_thread  # noqa: F401  (autouse fixture)
 
 # warmup over 4 updates, so that the resumed update (the third) runs at
 # lr / 2 where a restart would run at 0

@@ -30,6 +30,7 @@ from speech_editing_tpu_torch.config.hparams import dump_yaml
 from speech_editing_tpu_torch.run import run
 from speech_editing_tpu_torch.training.checkpoint import get_all_ckpts
 from tests.helpers import TINY_HP, VOCAB, write_synth_corpus
+from tests.test_torch_threads import one_thread  # noqa: F401  (autouse fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PHONES = ["|", ",", "sil"] + [f"P{i}" for i in range(VOCAB - 6)]

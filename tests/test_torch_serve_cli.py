@@ -23,6 +23,7 @@ from speech_editing_tpu_torch.infer.spec_denoiser import SpecDenoiserInfer
 from speech_editing_tpu_torch.utils.audio.io import save_wav
 from tests.test_serving import REQ_A, REQ_C, _make_request
 from tests.test_torch_serving import serve_env, write_vocoder
+from tests.test_torch_threads import one_thread  # noqa: F401  (autouse fixture)
 
 SR = 22050
 

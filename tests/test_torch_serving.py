@@ -42,6 +42,7 @@ from speech_editing_tpu_torch.utils.audio.io import save_wav
 from speech_editing_tpu_torch.utils.init import init_like_flax
 from tests.helpers import make_spec_denoiser_serve_env
 from tests.test_serving import REQ_A, REQ_B, REQ_C, _make_request
+from tests.test_torch_threads import one_thread  # noqa: F401  (autouse fixture)
 
 TOL = dict(atol=1e-3, rtol=1e-3)
 KW = dict(max_batch=4, frame_buckets=(64, 128), token_buckets=(32, 64))

@@ -13,6 +13,7 @@ import speech_editing_tpu.infer.online as jonline
 import speech_editing_tpu.infer.serving as jserving
 import speech_editing_tpu_torch.infer.online as ponline
 import speech_editing_tpu_torch.infer.serving as pserving
+from tests.test_torch_threads import one_thread  # noqa: F401  (autouse fixture)
 
 BUCKET_SETS = [((128, 256, 512), 1), ((100, 200), 16), ((128,), 1),
                ((128, 256, 512, 1024, 1536), 4), ((32, 64, 128, 256), 1)]

@@ -61,6 +61,7 @@ from tests.test_torch_conv_encoder import HP as CONV_HP
 from tests.test_torch_model import VOCAB, _randomize
 from tests.test_torch_train import GRAD_TOL, SIL, _jax_batch, _jax_draws, _torch_batch
 from tests.test_torch_train import _batch as _train_batch
+from tests.test_torch_threads import one_thread  # noqa: F401  (autouse fixture)
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 HP = dict(CONV_HP, vocab_size=VOCAB, binary_data_dir="", stutter_block_size=16)

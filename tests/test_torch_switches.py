@@ -40,6 +40,7 @@ from tests.test_torch_stutter import HP as STUTTER_HP
 from tests.test_torch_stutter import _JStutterTask, random_params
 from tests.test_torch_stutter import _batch as stutter_batch
 from tests.test_torch_train import HP, SIL, _batch, _jax_batch, _torch_batch
+from tests.test_torch_threads import one_thread  # noqa: F401  (autouse fixture)
 
 SWITCHES = {"use_masked_cond": dict(use_masked_cond=False),
             "ref_pad_compat": dict(ref_pad_compat=True),
@@ -47,16 +48,6 @@ SWITCHES = {"use_masked_cond": dict(use_masked_cond=False),
             "timesteps_4": dict(timesteps=4)}
 LOSS_TOL = dict(rtol=1e-4, atol=1e-6)
 EDIT_TOL = dict(atol=1e-3, rtol=1e-3)
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """One intra-op thread: the suite runs several workers on the host's
-    cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 class _Shapes:

@@ -23,6 +23,7 @@ import torch
 
 from speech_editing_tpu_torch.ops.cuda.diffnet_block import (_MIN_GRID, _check_aligned,
                                                              _tile_plan)
+from tests.test_torch_threads import one_thread  # noqa: F401  (autouse fixture)
 
 C, H = 256, 192      # the flagship DiffNet widths the kernels are compiled for
 CHUNK = 32           # steps of K a chunk sums before joining the float32 sum

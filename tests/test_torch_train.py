@@ -33,6 +33,7 @@ from speech_editing_tpu_torch.training.trainer import Trainer
 from speech_editing_tpu_torch.utils.convert_jax_params import params_from_jax
 from tests.test_torch_model import HP as MODEL_HP
 from tests.test_torch_model import VOCAB, _randomize
+from tests.test_torch_threads import one_thread  # noqa: F401  (autouse fixture)
 
 HP = dict(MODEL_HP, lambda_ph_dur=0.1, lambda_word_dur=1.0, lambda_sent_dur=0.5,
           lambda_uv=1.0, lambda_f0=1.0, mel_losses="l1:0.5|ssim:0.5",

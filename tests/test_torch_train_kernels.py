@@ -30,6 +30,7 @@ from speech_editing_tpu_torch.ops.flash_attention import (attention_bwd_plain,
                                                           flash_mha_bwd,
                                                           flash_mha_train)
 from speech_editing_tpu_torch.utils.convert_jax_params import _linear
+from tests.test_torch_threads import one_thread  # noqa: F401  (autouse fixture)
 
 PALLAS_TOL = dict(atol=5e-4, rtol=5e-4)   # tests/test_pallas_diffnet.py's bar
 TOL = dict(atol=1e-4, rtol=1e-4)
