@@ -1,0 +1,26 @@
+"""The benchmark's own tests (``python -m pytest benchmark/tests``). ``card``
+marks a test that needs a CUDA card; the ``card`` fixture skips it where
+there is none, deciding when the test runs, not when the module is
+imported."""
+
+import os
+import sys
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+if ROOT not in sys.path:
+    sys.path.insert(0, ROOT)
+
+
+def pytest_configure(config):
+    config.addinivalue_line("markers", "card: needs a CUDA card (skips without one)")
+
+
+@pytest.fixture
+def card():
+    import torch
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return "cuda"
